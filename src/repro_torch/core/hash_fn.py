@@ -1,0 +1,136 @@
+"""The SiDA hash function: a 2-layer LSTM with SparseMax attention
+(port of `repro/core/hash_fn.py`).
+
+compress FC (d_model -> d_h), two LSTM layers, self-attention over the LSTM
+outputs with SparseMax weights, a residual from the current token, then one
+linear head per MoE layer -> expert logits [B, S, L_moe, E]. The SparseMax
+goes through `kernels.ops.sparsemax`: the hand-written kernel for CUDA
+tensors, the sort-based plain version for CPU tensors. The draft head of
+speculative decode comes with that slice (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init, top_k
+
+Carry = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _init_lstm_layer(gen, d_in: int, d_h: int, device) -> dict:
+    b = torch.zeros((4 * d_h,), dtype=torch.float32, device=device)
+    b[d_h:2 * d_h] = 1.0   # forget-gate bias
+    return {
+        "wx": dense_init(gen, d_in, 4 * d_h, torch.float32, device),
+        "wh": dense_init(gen, d_h, 4 * d_h, torch.float32, device),
+        "b": b,
+    }
+
+
+def _lstm_layer(p: dict, x: torch.Tensor, carry: Optional[Carry] = None):
+    """x: [B, S, d_in] -> ([B, S, d_h], final (h, c)); gates in i, f, g, o
+    order. `carry` resumes from a previous call's final (h, c)."""
+    B, S, _ = x.shape
+    d_h = p["wh"].shape[0]
+    xg = x @ p["wx"] + p["b"]
+    if carry is None:
+        h0 = torch.zeros((B, d_h), dtype=x.dtype, device=x.device)
+        carry = (h0, h0)
+    h, c = carry
+    hs = []
+    for t in range(S):
+        g = torch.addmm(xg[:, t], h, p["wh"])
+        i, f, gg, o = g.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1), (h, c)
+
+
+def init_hash_fn(
+    gen: torch.Generator, d_model: int, n_moe_layers: int, num_experts: int,
+    d_h: int = 256, device: DeviceLike = None,
+) -> dict:
+    """Random predictor weights from `gen`, on `device` (CUDA unless asked
+    otherwise)."""
+    device = resolve_device(device)
+    return {
+        "compress": dense_init(gen, d_model, d_h, torch.float32, device),
+        "lstm1": _init_lstm_layer(gen, d_h, d_h, device),
+        "lstm2": _init_lstm_layer(gen, d_h, d_h, device),
+        "attn_q": dense_init(gen, d_h, d_h, torch.float32, device),
+        "heads": dense_init(gen, d_h, n_moe_layers * num_experts, torch.float32, device),
+    }
+
+
+def _sparse_attention(params: dict, h: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    """q = h @ attn_q, k = v = h; SparseMax weights; residual to h."""
+    q = h @ params["attn_q"]
+    scores = torch.einsum("bqd,bkd->bqk", q, h) / math.sqrt(h.shape[-1])
+    if causal:
+        S = scores.shape[-1]
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=h.device))
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    w = ops.sparsemax(scores.contiguous())
+    return torch.einsum("bqk,bkd->bqd", w, h) + h
+
+
+def hash_fn_apply(params: dict, emb: torch.Tensor, num_experts: int,
+                  causal: bool = False) -> torch.Tensor:
+    """emb: [B, S, d_model] token embeddings -> logits [B, S, L_moe, E].
+
+    causal=True masks the SparseMax attention to the past (the decode-time
+    predictor's training form); the default is the paper's full-batch
+    look-ahead."""
+    L = params["heads"].shape[-1] // num_experts
+    x = torch.tanh(emb.float() @ params["compress"])
+    h, _ = _lstm_layer(params["lstm1"], x)
+    h, _ = _lstm_layer(params["lstm2"], h)
+    z = _sparse_attention(params, h, causal)
+    logits = z @ params["heads"]
+    return logits.reshape(*emb.shape[:2], L, num_experts)
+
+
+# Prompts at or below this length take the one-shot O(S^2) build.
+HASH_SEG_LEN = 1024
+
+
+def _hash_segment(params: dict, emb_seg: torch.Tensor, c1: Carry, c2: Carry):
+    """One segment of the long-prompt predictor: LSTMs resume from the
+    previous segment's carries, SparseMax sees this segment only."""
+    x = torch.tanh(emb_seg.float() @ params["compress"])
+    h, c1 = _lstm_layer(params["lstm1"], x, c1)
+    h, c2 = _lstm_layer(params["lstm2"], h, c2)
+    return _sparse_attention(params, h), c1, c2
+
+
+def hash_fn_apply_segmented(
+    params: dict, emb: torch.Tensor, num_experts: int, seg_len: int = HASH_SEG_LEN
+) -> torch.Tensor:
+    """Long-prompt variant of `hash_fn_apply`: the LSTM carries thread across
+    segments (exact over the whole sequence) and the SparseMax attention is
+    restricted to each `seg_len` segment. Identical to `hash_fn_apply` for
+    S <= seg_len."""
+    L = params["heads"].shape[-1] // num_experts
+    B, S, _ = emb.shape
+    d_h = params["attn_q"].shape[0]
+    zeros = torch.zeros((B, d_h), dtype=torch.float32, device=emb.device)
+    c1, c2 = (zeros, zeros), (zeros, zeros)
+    outs = []
+    for s0 in range(0, S, seg_len):
+        z, c1, c2 = _hash_segment(params, emb[:, s0:s0 + seg_len], c1, c2)
+        outs.append(z @ params["heads"])
+    return torch.cat(outs, dim=1).reshape(B, S, L, num_experts)
+
+
+def predict_topk(logits: torch.Tensor, k: int):
+    """logits [B,S,L,E] -> (ids [L,B,S,k] int32, α [L,B,S,k] fp32); α is the
+    softmax over the predicted top-k logits."""
+    vals, ids = top_k(logits, k)
+    alpha = torch.softmax(vals, dim=-1)
+    return ids.movedim(2, 0).to(torch.int32), alpha.movedim(2, 0).float()

@@ -1,0 +1,265 @@
+// Slot-stacked expert FFN GEMMs for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/expert_gemm.py::expert_ffn (body _ffn_kernel),
+// the TPU kernel that tiles xe [E, C, d] -> act(xe @ w_in) @ w_out through
+// VMEM with the output block accumulating across F tiles.
+//
+// What bounds it on the H100: at the serving shapes (E = 4 slots, C = 640,
+// d = 768, F = 3072, bf16) the two products are 24 GFLOP against 46 MB of
+// operands, ~500 FLOP/byte, so the tensor cores bound it, not HBM.
+//
+// Design. A block has no 16 MB of fast memory to hold the [C, F] hidden
+// tile the TPU kernel keeps in VMEM, so the FFN runs as two launches of one
+// GEMM kernel: the up-projection with the activation (and the GLU gate
+// product) fused into its epilogue writes h once in the working dtype —
+// the same rounding point as the TPU kernel's h.astype(x.dtype) — and the
+// down-projection reads it back. bf16 runs on the tensor cores through
+// mma.sync m16n8k16 with fp32 accumulation over the whole contraction; fp32
+// runs a SIMT tile with fmaf, so fp32 results stay IEEE (no TF32).
+// The capacity axis M is masked per row, so any C works (the Pallas kernel
+// asserted C % bc == 0); N and K must be multiples of 64.
+// Simple first: no cp.async pipeline, wgmma or TMA yet.
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+enum Epilogue : int { kStore = 0, kAct = 1, kGlu = 2 };
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores via mma.sync.m16n8k16 (fp32 accumulate)
+// ---------------------------------------------------------------------------
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int LDS = BK + 8;  // padded smem row (80 bytes: 16B aligned, conflict-free)
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B tile [BK, BN] (n contiguous in HBM) -> smem transposed [BN][LDS] so the
+// mma B fragment (two consecutive k at one n) is one 32-bit load.
+__device__ __forceinline__ void load_b_tile_t(bf16* sB, const bf16* B, int k0, int n0,
+                                              int N, int tid) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int idx = tid + j * 128;
+    const int r = idx >> 3, c = (idx & 7) * 8;
+    uint4 v = *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * N + n0 + c);
+    const bf16* pv = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sB[(c + i) * LDS + r] = pv[i];
+  }
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(128)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                 const bf16* __restrict__ B2, bf16* __restrict__ C,
+                 int M, int N, int K, int act) {
+  constexpr bool GLU = EPI == kGlu;
+  __shared__ __align__(16) bf16 sA[BM * LDS];
+  __shared__ __align__(16) bf16 sB[BN * LDS];
+  __shared__ __align__(16) bf16 sB2[GLU ? BN * LDS : 8];
+
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  A += (size_t)e * M * K;
+  B += (size_t)e * K * N;
+  if (GLU) B2 += (size_t)e * K * N;
+  C += (size_t)e * M * N;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int g = lane >> 2, t4 = (lane & 3) * 2;
+
+  float acc[2][4][4], accg[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = accg[mi][ni][r] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {  // A tile [BM, BK], ragged rows -> zeros
+      const int idx = tid + j * 128;
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M) v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + c);
+      *reinterpret_cast<uint4*>(&sA[r * LDS + c]) = v;
+    }
+    load_b_tile_t(sB, B, k0, n0, N, tid);
+    if (GLU) load_b_tile_t(sB2, B2, k0, n0, N, tid);
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const bf16* p = &sA[(wm + mi * 16 + g) * LDS + kk + t4];
+        af[mi][0] = ld32(p);
+        af[mi][1] = ld32(p + 8 * LDS);
+        af[mi][2] = ld32(p + 8);
+        af[mi][3] = ld32(p + 8 * LDS + 8);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int off = (wn + ni * 8 + g) * LDS + kk + t4;
+        const uint32_t b0 = ld32(&sB[off]), b1 = ld32(&sB[off + 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
+        if (GLU) {
+          const uint32_t g0 = ld32(&sB2[off]), g1 = ld32(&sB2[off + 8]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(accg[mi][ni], af[mi], g0, g1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + mi * 16 + g + half * 8;
+        if (row >= M) continue;
+        const int col = n0 + wn + ni * 8 + t4;
+        float v0 = acc[mi][ni][half * 2], v1 = acc[mi][ni][half * 2 + 1];
+        if (EPI == kAct) {
+          v0 = rt::activate(v0, act);
+          v1 = rt::activate(v1, act);
+        } else if (EPI == kGlu) {
+          v0 *= rt::activate(accg[mi][ni][half * 2], act);
+          v1 *= rt::activate(accg[mi][ni][half * 2 + 1], act);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * N + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: SIMT tile, 4x4 outputs per thread (IEEE fp32, no TF32)
+// ---------------------------------------------------------------------------
+constexpr int FBK = 16;
+
+template <int EPI>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ B2, float* __restrict__ C,
+                int M, int N, int K, int act) {
+  constexpr bool GLU = EPI == kGlu;
+  __shared__ float sA[FBK][BM + 4];  // transposed [k][m]
+  __shared__ float sB[FBK][BN];
+  __shared__ float sB2[GLU ? FBK : 1][BN];
+
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  A += (size_t)e * M * K;
+  B += (size_t)e * K * N;
+  if (GLU) B2 += (size_t)e * K * N;
+  C += (size_t)e * M * N;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  float acc[4][4], accg[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = accg[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int idx = tid + j * 256;
+      const int r = idx >> 4, c = idx & 15;
+      sA[c][r] = (m0 + r < M) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
+      const int rb = idx >> 6, cb = idx & 63;
+      sB[rb][cb] = B[(size_t)(k0 + rb) * N + n0 + cb];
+      if (GLU) sB2[rb][cb] = B2[(size_t)(k0 + rb) * N + n0 + cb];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      float a[4], b[4], b2[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sA[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b[j] = sB[k][tx + 16 * j];
+        if (GLU) b2[j] = sB2[k][tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          if (GLU) accg[i][j] = fmaf(a[i], b2[j], accg[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v = acc[i][j];
+      if (EPI == kAct) v = rt::activate(v, act);
+      else if (EPI == kGlu) v *= rt::activate(accg[i][j], act);
+      C[(size_t)row * N + n0 + tx + 16 * j] = v;
+    }
+  }
+}
+
+template <typename Kern, typename T>
+void launch(Kern k, int threads, const void* a, const void* b, const void* b2, void* c,
+            int E, int M, int N, int K, int act, cudaStream_t s) {
+  dim3 grid(N / BN, (M + BM - 1) / BM, E);
+  k<<<grid, threads, 0, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                             static_cast<const T*>(b2), static_cast<T*>(c), M, N, K, act);
+}
+
+}  // namespace
+
+// C[e] = epilogue(A[e] @ B[e] [, A[e] @ B2[e]]) for e < E.
+// A [E, M, K], B/B2 [E, K, N], C [E, M, N], all contiguous.
+// Requires N % 64 == 0 and K % 64 == 0 (checked by the Python wrapper).
+extern "C" int rt_expert_gemm(const void* a, const void* b, const void* b2, void* c,
+                              int E, int M, int N, int K, int dtype, int epilogue,
+                              int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M > 0 && E > 0) {
+    if (dtype == rt::kBF16) {
+      if (epilogue == kStore)
+        launch<decltype(&gemm_bf16_kernel<kStore>), bf16>(gemm_bf16_kernel<kStore>, 128, a, b, b2, c, E, M, N, K, act, s);
+      else if (epilogue == kAct)
+        launch<decltype(&gemm_bf16_kernel<kAct>), bf16>(gemm_bf16_kernel<kAct>, 128, a, b, b2, c, E, M, N, K, act, s);
+      else
+        launch<decltype(&gemm_bf16_kernel<kGlu>), bf16>(gemm_bf16_kernel<kGlu>, 128, a, b, b2, c, E, M, N, K, act, s);
+    } else {
+      if (epilogue == kStore)
+        launch<decltype(&gemm_f32_kernel<kStore>), float>(gemm_f32_kernel<kStore>, 256, a, b, b2, c, E, M, N, K, act, s);
+      else if (epilogue == kAct)
+        launch<decltype(&gemm_f32_kernel<kAct>), float>(gemm_f32_kernel<kAct>, 256, a, b, b2, c, E, M, N, K, act, s);
+      else
+        launch<decltype(&gemm_f32_kernel<kGlu>), float>(gemm_f32_kernel<kGlu>, 256, a, b, b2, c, E, M, N, K, act, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

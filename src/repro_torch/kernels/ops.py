@@ -1,0 +1,74 @@
+"""Dispatch layer over the port's kernels (port of `repro/kernels/ops.py`).
+
+A CPU tensor goes to the plain version in `kernels.ref`; a CUDA tensor goes
+to the hand-written kernel, which launches or raises — nothing falls back
+from the card to a library call or to the plain version. Each wrapper counts
+its kernel launches (`launches()`, `reset_launches()`), so a run can show
+that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.expert_gemm import expert_ffn_cuda
+from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+from repro_torch.kernels.sparsemax import sparsemax_cuda
+
+KERNELS = ("expert_ffn", "sparsemax", "flash_prefill")
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()   # the hash and inference threads both launch
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for name in KERNELS:
+            _LAUNCHES[name] = 0
+
+
+def launches() -> Dict[str, int]:
+    with _count_lock:
+        return dict(_LAUNCHES)
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        _LAUNCHES[name] += 1
+
+
+def _on_card(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
+
+
+def expert_ffn(xe, w_in, w_gate: Optional[torch.Tensor], w_out, act: str = "silu"):
+    """xe [E, C, d] -> [E, C, d] through each slot's (G)LU FFN."""
+    if _on_card(xe, "expert_ffn"):
+        out = expert_ffn_cuda(xe, w_in, w_gate, w_out, act=act)
+        _count("expert_ffn")
+        return out
+    return ref.expert_ffn_ref(xe, w_in, w_gate, w_out, act=act)
+
+
+def sparsemax(z: torch.Tensor) -> torch.Tensor:
+    """z [..., L] -> simplex projection along the last axis."""
+    if _on_card(z, "sparsemax"):
+        out = sparsemax_cuda(z)
+        _count("sparsemax")
+        return out
+    return ref.sparsemax_ref(z)
+
+
+def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = True):
+    """q [B, S, H, D], k/v [B, S, K, D] -> [B, S, H, D] in q's dtype."""
+    if _on_card(q, "flash_prefill"):
+        out = flash_prefill_cuda(q, k, v, window=window, cap=cap, causal=causal)
+        _count("flash_prefill")
+        return out
+    return ref.flash_prefill_ref(q, k, v, window=window, cap=cap, causal=causal).to(q.dtype)

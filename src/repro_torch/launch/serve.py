@@ -1,0 +1,89 @@
+"""Serving launcher, batch mode: the SiDA engine on a Switch config.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch switch-base-8 \\
+        --full --engine sida --slots 4 --batches 8 --batch 8 --seq 256
+
+Port of `repro/launch/serve.py`'s batch mode for `--engine sida`, with the
+same workload (`np.random.default_rng(0)` tokens), the same hash width
+(d_h 64) and the same summary lines. Trains nothing: random weights from
+seeded `torch.Generator`s (0 for the model, 1 for the hash function). Runs
+on CUDA unless `--device cpu`. The baselines (ROADMAP A8), the request
+server (A13) and the other serving flags come with later slices.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.core.engine import SiDAEngine
+from repro_torch.core.hash_fn import init_hash_fn
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_params, n_moe_layers
+
+
+def build_engine(cfg, params, slots: int, eviction: str = "fifo", device=None) -> SiDAEngine:
+    hp = init_hash_fn(
+        torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
+        cfg.moe.num_experts, d_h=64, device="cpu",
+    )
+    return SiDAEngine(cfg, params, hp, slots_per_layer=slots, eviction=eviction, device=device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="switch-base-8",
+                    help="architecture config name (configs/)")
+    ap.add_argument("--engine", default="sida", choices=["sida"],
+                    help="batch engine (the baselines are not ported yet)")
+    ap.add_argument("--batches", type=int, default=8,
+                    help="batch-mode workload: number of batches")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch-mode workload: sequences per batch")
+    ap.add_argument("--seq", type=int, default=32,
+                    help="workload sequence length")
+    ap.add_argument("--full", action="store_true",
+                    help="full-size config (default: reduced() laptop size)")
+    ap.add_argument("--slots", type=int, default=2,
+                    help="device expert slots per MoE layer (the memory budget)")
+    ap.add_argument("--eviction", default="fifo", choices=["fifo", "lru", "alpha"],
+                    help="slot replacement: fifo | lru | alpha (α-mass)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; pass cpu to run on the CPU)")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    # weights are made on the host; the engine keeps the experts there and
+    # moves the rest to `device`
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+    rng = np.random.default_rng(0)
+    batches = [
+        rng.integers(0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int32)
+        for _ in range(args.batches)
+    ]
+    srv = build_engine(cfg, params, args.slots, args.eviction, device)
+    del params   # the engine holds what it serves: host masters + device params
+    metrics = srv.serve(batches)
+    print(f"engine={args.engine} slots={args.slots}")
+    for k, v in metrics.summary().items():
+        print(f"  {k:20s} {v:.4f}")
+    print(f"  device_mem_mb        {srv.device_memory_bytes()/1e6:.2f}")
+    for k, v in srv.memory_saving().items():
+        print(f"  {k:20s} {v:.4f}")
+    st = srv.store.stats
+    print(f"  loads={st.loads} hits={st.hits} evictions={st.evictions} "
+          f"h2d_mb={st.bytes_h2d/1e6:.2f} sync_upload_s={st.prepare_time:.4f}")
+    srv.close()
+
+
+if __name__ == "__main__":
+    main()

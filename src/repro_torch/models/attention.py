@@ -1,0 +1,138 @@
+"""GQA attention, full-sequence (prefill) path, single device.
+
+Port of the batch-serving half of `repro/models/attention.py`. On CUDA,
+`attend_full` runs the whole sequence through the hand-written
+`flash_prefill` kernel; on the CPU it keeps the reference's plain
+`_attend_chunk` with `Q_CHUNK` query chunking and sliding-window banding.
+Decode attention and the mesh-sharded paths come with the decode slice
+(ROADMAP A10) and expert parallelism (A14).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init, init_rmsnorm, rmsnorm, softcap
+
+NEG_INF = -1e30
+Q_CHUNK = 1024  # query chunking for long prefill on the CPU path
+
+
+def init_attention(gen, cfg: ModelConfig, device) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    dtype = getattr(torch, cfg.dtype)
+    p = {
+        "wq": dense_init(gen, d, nq * hd, dtype, device),
+        "wk": dense_init(gen, d, nkv * hd, dtype, device),
+        "wv": dense_init(gen, d, nkv * hd, dtype, device),
+        "wo": dense_init(gen, nq * hd, d, dtype, device),
+    }
+    if cfg.attn.qkv_bias:
+        p["bq"] = torch.zeros((nq * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((nkv * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((nkv * hd,), dtype=dtype, device=device)
+    if cfg.attn.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, device)
+        p["k_norm"] = init_rmsnorm(hd, dtype, device)
+    return p
+
+
+def _project_q(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.hd)
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    return q
+
+
+def _project_kv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.hd)
+    if "k_norm" in p:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
+def _attend_chunk(
+    q: torch.Tensor,      # [B, Tq, H, D] (rope applied)
+    k: torch.Tensor,      # [B, S, K, D]
+    v: torch.Tensor,      # [B, S, K, D]
+    q_pos: torch.Tensor,  # [Tq]
+    k_pos: torch.Tensor,  # [S]
+    window: int,
+    cap: float,
+    causal: bool,
+) -> torch.Tensor:
+    B, Tq, H, D = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Tq, K, H // K, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / math.sqrt(D)
+    if cap:
+        logits = softcap(logits, cap)
+    mask = torch.ones((Tq, k_pos.shape[0]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)   # bf16 rounding point
+    return out.reshape(B, Tq, H, D)
+
+
+def attend_full(
+    params: dict,
+    x: torch.Tensor,        # [B, S, d]
+    cfg: ModelConfig,
+    layer: int,
+    causal: bool = True,
+    return_kv: bool = False,
+):
+    B, S, _ = x.shape
+    window = cfg.layer_window(layer) if causal else 0
+    q = _project_q(params, x, cfg)
+    k, v = _project_kv(params, x, cfg)
+    positions = torch.arange(S, device=x.device)
+    q = apply_rope(q, positions, cfg.attn.rope_theta)
+    k = apply_rope(k, positions, cfg.attn.rope_theta)
+
+    cap = cfg.attn.logit_softcap
+    if x.device.type == "cuda":
+        out = ops.flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
+    elif S <= Q_CHUNK:
+        out = _attend_chunk(q, k, v, positions, positions, window, cap, causal)
+    else:
+        nchunk = math.ceil(S / Q_CHUNK)
+        qp = F.pad(q, (0, 0, 0, 0, 0, nchunk * Q_CHUNK - S))
+        # windowed layers slice K/V to the band a chunk can reach
+        span = window + Q_CHUNK
+        banded = bool(window) and causal and S > span
+        outs = []
+        for i in range(nchunk):
+            qi = qp[:, i * Q_CHUNK:(i + 1) * Q_CHUNK]
+            pi = i * Q_CHUNK + torch.arange(Q_CHUNK, device=x.device)
+            if banded:
+                start = min(max(i * Q_CHUNK + Q_CHUNK - span, 0), S - span)
+                kp = start + torch.arange(span, device=x.device)
+                outs.append(_attend_chunk(
+                    qi, k[:, start:start + span], v[:, start:start + span],
+                    pi, kp, window, cap, causal,
+                ))
+            else:
+                outs.append(_attend_chunk(qi, k, v, pi, positions, window, cap, causal))
+        out = torch.cat(outs, dim=1)[:, :S]
+    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]
+    if return_kv:
+        return y, (k, v)
+    return y

@@ -1,0 +1,205 @@
+"""Mixture-of-Experts layer, single device (port of `repro/models/moe.py`).
+
+Top-k routing with per-block capacity, or SiDA's `routing_override` (ids and
+weights from the hash table, translated to slot ids), and two dispatch
+strategies with the reference's `auto` rule: "einsum" (one-hot dispatch /
+combine products) and "gather" (index tables, scatter-add combine). The
+per-block cumsum decides which assignments overflow capacity and drop, in
+the reference's order, and overflowing assignments land in an explicit
+overflow column / pad row that is sliced off (JAX drops them with
+`mode="drop"`; torch would raise on an out-of-range index).
+
+The expert compute always goes through `kernels.ops.expert_ffn`: the
+hand-written kernel for CUDA tensors, the plain version for CPU tensors.
+Shared experts, int8/int4 slot stacks and expert-parallel dispatch come in
+later slices (ROADMAP A15, A11, A14).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init, normal, top_k
+
+
+def init_moe(gen, cfg: ModelConfig, device) -> dict:
+    m = cfg.moe
+    if m.num_shared_experts:
+        raise NotImplementedError("shared experts are ported with the other families (ROADMAP A15)")
+    d = cfg.d_model
+    dtype = getattr(torch, cfg.dtype)
+    return {
+        "router": dense_init(gen, d, m.num_experts, torch.float32, device, scale=0.02),
+        "w_in": _stack_init(gen, m.num_experts, d, m.d_expert, dtype, device),
+        # allocated for non-gated configs too, as the reference does
+        "w_gate": _stack_init(gen, m.num_experts, d, m.d_expert, dtype, device),
+        "w_out": _stack_init(gen, m.num_experts, m.d_expert, d, dtype, device),
+    }
+
+
+def _stack_init(gen, e, d_in, d_out, dtype, device):
+    return normal(gen, (e, d_in, d_out), 1.0 / math.sqrt(d_in), dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def router_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[T, E] -> (ids [T, k], weights [T, k]); weights renormalised softmax."""
+    gates = torch.softmax(logits.float(), dim=-1)
+    w, ids = top_k(gates, k)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return ids, w
+
+
+def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * P_e."""
+    gates = torch.softmax(logits.float(), dim=-1)
+    me = gates.mean(dim=0)
+    ce = F.one_hot(ids[..., 0], num_experts).float().mean(dim=0)
+    return num_experts * (me * ce).sum()
+
+
+def router_z_loss(logits: torch.Tensor) -> torch.Tensor:
+    return torch.logsumexp(logits.float(), dim=-1).square().mean()
+
+
+# ---------------------------------------------------------------------------
+# capacity
+# ---------------------------------------------------------------------------
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int, num_experts: int) -> int:
+    m = cfg.moe
+    c = int(m.capacity_factor * n_tokens * m.top_k / num_experts)
+    return max(8, min(n_tokens, c))
+
+
+def _block_tokens(T: int, target: int = 4096) -> int:
+    """Largest divisor of T that is <= target (per-block capacity)."""
+    if T <= target:
+        return T
+    for blk in range(target, 0, -1):
+        if T % blk == 0:
+            return blk
+    return T
+
+
+# ---------------------------------------------------------------------------
+# MoE layer forward
+# ---------------------------------------------------------------------------
+
+
+def moe_layer(
+    params: dict,
+    x: torch.Tensor,                 # [B, S, d]
+    cfg: ModelConfig,
+    routing_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # ids/w [B,S,k]
+    dispatch: str = "auto",
+):
+    """Returns (y [B,S,d], aux) with aux = dict(router_logits, aux_loss, z_loss)."""
+    m = cfg.moe
+    if m.num_shared_experts:
+        raise NotImplementedError("shared experts are ported with the other families (ROADMAP A15)")
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if routing_override is not None:
+        ids, w = routing_override
+        ids = ids.reshape(T, -1)[:, : m.top_k].long()
+        w = w.reshape(T, -1)[:, : m.top_k].float()
+        router_logits, aux_loss, z_loss = None, zero, zero
+    else:
+        router_logits = xt.float() @ params["router"]
+        ids, w = router_topk(router_logits, m.top_k)
+        aux_loss = load_balance_loss(router_logits, ids, m.num_experts)
+        z_loss = router_z_loss(router_logits)
+
+    y = _dispatch_combine(params, xt, ids, w, cfg, dispatch)
+    aux = {
+        "router_logits": (
+            router_logits.reshape(B, S, m.num_experts) if router_logits is not None else None
+        ),
+        "aux_loss": aux_loss,
+        "z_loss": z_loss,
+    }
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def _dispatch_combine(params, xt, ids, w, cfg, dispatch):
+    """Token-blocked dispatch -> expert compute -> combine (see module doc).
+
+    E is the slot count of the weight stack, not `num_experts`: SiDA serving
+    passes slot pools with S_slots << num_experts and slot-translated ids."""
+    T, d = xt.shape
+    E, K = params["w_in"].shape[0], ids.shape[-1]
+    blk = _block_tokens(T)
+    n = T // blk
+    C = _capacity(cfg, blk, E)
+    if dispatch == "auto":
+        dispatch = "einsum" if blk * E * C <= (1 << 24) else "gather"
+
+    ids_b = ids.reshape(n, blk, K)
+    w_b = w.reshape(n, blk, K)
+    x_b = xt.reshape(n, blk, d)
+
+    # position of each (token, k) assignment in its expert's per-block
+    # capacity buffer: cumsum over the block in token-major order
+    flat_oh = F.one_hot(ids_b, E).reshape(n, blk * K, E)
+    pos = (flat_oh.cumsum(dim=1) - 1).reshape(n, blk, K, E)
+    pos = torch.gather(pos, -1, ids_b[..., None])[..., 0]           # [n,blk,K]
+    keep = pos < C
+    w_b = w_b * keep
+
+    if dispatch == "gather":
+        rows = torch.arange(n, device=xt.device)[:, None, None]
+        tok_idx = torch.arange(blk, device=xt.device)[None, :, None].expand(n, blk, K)
+        slot = torch.where(keep, ids_b * C + pos, torch.full_like(pos, E * C))
+        # table[n, e, c] = which token sits in slot (e, c); column E*C takes
+        # the overflow, empty slots point at the zero pad row `blk`
+        table = torch.full((n, E * C + 1), blk, dtype=torch.long, device=xt.device)
+        table.scatter_(1, slot.reshape(n, -1), tok_idx.reshape(n, -1))
+        table = table[:, : E * C].reshape(n, E, C)
+        x_pad = torch.cat([x_b, x_b.new_zeros((n, 1, d))], dim=1)
+        xe = x_pad[rows, table]                                      # [n,E,C,d]
+        ye = apply_expert_stack_blocked(params, xe, cfg)
+        gate = torch.zeros((n, E * C + 1), dtype=torch.float32, device=xt.device)
+        gate.scatter_add_(1, slot.reshape(n, -1), w_b.float().reshape(n, -1))
+        gate = gate[:, : E * C].reshape(n, E, C)
+        contrib = (ye.float() * gate[..., None]).reshape(n, E * C, d)
+        y = torch.zeros((n, blk + 1, d), dtype=torch.float32, device=xt.device)
+        y.scatter_add_(1, table.reshape(n, E * C, 1).expand(n, E * C, d), contrib)
+        return y[:, :blk].reshape(T, d)
+
+    # einsum dispatch (exact oracle; fine for small blk·E·C)
+    oh = (
+        F.one_hot(ids_b, E).to(xt.dtype)[..., None]
+        * F.one_hot(torch.where(keep, pos, torch.full_like(pos, C)), C + 1).to(xt.dtype)[..., None, :C]
+    )                                                                # [n,blk,K,E,C]
+    xe = torch.einsum("nbd,nbec->necd", x_b, oh.sum(2))
+    ye = apply_expert_stack_blocked(params, xe, cfg)
+    comb = torch.einsum("nbkec,nbk->nbec", oh, w_b.to(xt.dtype))
+    y = torch.einsum("necd,nbec->nbd", ye, comb).float()
+    return y.reshape(T, d)
+
+
+def apply_expert_stack_blocked(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """xe: [n, E, C, d] -> [n, E, C, d] through each slot's (G)LU FFN, as
+    one [E, n·C, d] call of `ops.expert_ffn` (the reference's Pallas-path
+    reshape)."""
+    if "w_in_scale" in p or "w_in_q4" in p:
+        raise NotImplementedError("int8/int4 resident slots are ported in ROADMAP A11")
+    n, E, C, d = xe.shape
+    x2 = xe.transpose(0, 1).reshape(E, n * C, d).contiguous()
+    out = ops.expert_ffn(
+        x2, p["w_in"], p["w_gate"] if cfg.glu else None, p["w_out"], act=cfg.act,
+    )
+    return out.reshape(E, n, C, d).transpose(0, 1)

@@ -1,0 +1,188 @@
+"""Config-driven transformer, attention + MoE block kinds (port of the
+full-sequence half of `repro/models/transformer.py`).
+
+Layers are grouped into repeating periods (Switch's dense/MoE pair) and each
+sublayer's params are stacked over the groups, as in the reference; its
+`lax.scan` over the stacked groups becomes a Python loop over the leading
+group axis. Recurrent / hybrid blocks and encoder-decoder stacks are ported
+with the other families (ROADMAP A15); `decode_step` and caches with the
+decode slice (A10).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import attend_full, init_attention
+from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
+from repro_torch.models.moe import init_moe, moe_layer
+from repro_torch.tree import tree_map, tree_stack
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.block_kind != "attn":
+        raise NotImplementedError(
+            f"block_kind {cfg.block_kind!r} is ported with the other families (ROADMAP A15)"
+        )
+    if cfg.enc_dec:
+        raise NotImplementedError("encoder-decoder stacks are ported with the other families (ROADMAP A15)")
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def period(cfg: ModelConfig) -> int:
+    p = _lcm(1, len(cfg.attn.layer_pattern))
+    if cfg.moe.enabled:
+        p = _lcm(p, cfg.moe.moe_every)
+    return p
+
+
+def sub_kind(cfg: ModelConfig, sub: int) -> Dict[str, Any]:
+    """Static description of sublayer `sub` within a period group."""
+    is_moe = cfg.moe.enabled and (sub % cfg.moe.moe_every == cfg.moe.moe_every - 1)
+    return {"kind": "attn", "moe": is_moe, "window": cfg.layer_window(sub)}
+
+
+def n_moe_layers(cfg: ModelConfig) -> int:
+    if not cfg.moe.enabled:
+        return 0
+    return cfg.n_layers // cfg.moe.moe_every
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_sublayer(gen, cfg: ModelConfig, sub: int, device) -> dict:
+    dtype = getattr(torch, cfg.dtype)
+    d = cfg.d_model
+    p: dict = {"ln1": init_rmsnorm(d, dtype, device), "attn": init_attention(gen, cfg, device)}
+    p["ln2"] = init_rmsnorm(d, dtype, device)
+    if sub_kind(cfg, sub)["moe"]:
+        p["moe"] = init_moe(gen, cfg, device)
+    elif cfg.d_ff:
+        p["mlp"] = init_ffn(gen, d, cfg.d_ff, cfg.glu, dtype, device)
+    if cfg.post_norm:
+        p["ln1_post"] = init_rmsnorm(d, dtype, device)
+        p["ln2_post"] = init_rmsnorm(d, dtype, device)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = None) -> dict:
+    """Random weights from `gen`, placed on `device` (CUDA unless asked
+    otherwise). They are drawn on the generator's device, so a CPU generator
+    gives the same weights for any target device."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    per = period(cfg)
+    assert cfg.n_layers % per == 0, (cfg.name, cfg.n_layers, per)
+    groups = [
+        {f"sub{s}": _init_sublayer(gen, cfg, s, device) for s in range(per)}
+        for _ in range(cfg.n_layers // per)
+    ]
+    params = {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device),
+        "blocks": tree_stack(groups),
+        "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device).T.contiguous()
+    return params
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv):
+    aux: dict = {}
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    if collect_kv:
+        # rope-applied K/V, what a decode cache holds at positions 0..S-1
+        a, aux["kv"] = attend_full(bp["attn"], h, cfg, sub, return_kv=True)
+    else:
+        a = attend_full(bp["attn"], h, cfg, sub)
+    if cfg.post_norm:
+        a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
+    x = x + a
+    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if sub_kind(cfg, sub)["moe"]:
+        y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override)
+        aux.update(moe_aux)
+    elif "mlp" in bp:
+        y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
+    else:
+        y = torch.zeros_like(h)
+    if cfg.post_norm:
+        y = rmsnorm(bp["ln2_post"], y, cfg.norm_eps)
+    return x + y, aux
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    logits = x @ (params["embed"].T if cfg.tie_embeddings else params["head"])
+    logits = softcap(logits, cfg.final_logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # padded vocab columns are unreachable (see ModelConfig.padded_vocab)
+        mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    return logits
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                 # [B, S] int
+    routing_override=None,                # (ids [L_moe,B,S,k], w [L_moe,B,S,k]) or None
+    collect_router_logits: bool = False,
+    collect_kv: bool = False,
+) -> Dict[str, Any]:
+    """Full forward. Returns dict(logits, aux_loss, z_loss, router_logits?,
+    kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]."""
+    _check_supported(cfg)
+    per = period(cfg)
+    moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
+    x = embed_tokens(params, cfg, tokens)
+    n_groups = cfg.n_layers // per
+    aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    router_logits, kvs = [], []
+    for g in range(n_groups):
+        gp = tree_map(lambda t: t[g], params["blocks"])
+        kv_g = {}
+        for s in range(per):
+            ro = None
+            if routing_override is not None and s in moe_subs:
+                li = g * len(moe_subs) + moe_subs.index(s)
+                ro = (routing_override[0][li], routing_override[1][li])
+            x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ro, collect_kv)
+            if "kv" in aux:
+                kv_g[f"sub{s}"] = aux.pop("kv")
+            if s in moe_subs:
+                aux_loss = aux_loss + aux["aux_loss"]
+                z_loss = z_loss + aux["z_loss"]
+                router_logits.append(aux["router_logits"])
+        kvs.append(kv_g)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    out: Dict[str, Any] = {
+        "logits": unembed(params, cfg, x), "aux_loss": aux_loss, "z_loss": z_loss,
+    }
+    if collect_router_logits:
+        out["router_logits"] = torch.stack(router_logits)    # [L_moe, B, S, E]
+    if collect_kv:
+        out["kv"] = tree_stack(kvs)
+    return out

@@ -1,0 +1,197 @@
+"""Port kernels: the plain torch versions against the JAX oracles
+(`repro.kernels.ref`) and the Pallas kernels run in interpret mode on the
+CPU, and — on a machine with a GPU — each hand-written CUDA kernel against
+its plain version. The GPU cases import no JAX, so they also run where JAX
+is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.expert_gemm import expert_ffn_cuda
+from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+from repro_torch.kernels.sparsemax import sparsemax_cuda
+
+torch.set_num_threads(2)
+
+F32_TOL, BF16_TOL, SPARSEMAX_TOL = 1e-4, 5e-2, 1e-5
+
+
+def _np(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(a: np.ndarray, dtype: str) -> torch.Tensor:
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """(jnp, repro.kernels.ops, repro.kernels.ref) — the JAX side."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+
+    return jnp, jops, jref
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32), atol=tol, rtol=tol
+    )
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# expert_ffn
+# ---------------------------------------------------------------------------
+
+
+def _ffn_inputs(E, C, d, F, glu, seed=0):
+    return (
+        _np((E, C, d), seed), _np((E, d, F), seed + 1, 0.05),
+        _np((E, d, F), seed + 2, 0.05) if glu else None, _np((E, F, d), seed + 3, 0.05),
+    )
+
+
+@pytest.mark.parametrize("E,C,d,F,glu,act,dtype,pallas", [
+    (2, 128, 128, 128, True, "silu", "float32", True),
+    (3, 64, 128, 256, False, "gelu", "float32", True),
+    (2, 128, 128, 128, False, "relu", "bfloat16", True),
+    (4, 200, 128, 192, False, "gelu", "float32", False),   # ragged C (Pallas needs C % bc)
+    (3, 77, 64, 128, True, "gelu", "bfloat16", False),
+])
+def test_expert_ffn_plain_matches_jax(jx, E, C, d, F, glu, act, dtype, pallas):
+    jnp, jops, jref = jx
+    arrs = _ffn_inputs(E, C, d, F, glu)
+    j = [None if a is None else jnp.asarray(a).astype(dtype) for a in arrs]
+    t = [None if a is None else _t(a, dtype) for a in arrs]
+    got = ref.expert_ffn_ref(*t, act=act)
+    assert got.dtype == getattr(torch, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    _close(got.float(), jref.expert_ffn_ref(*j, act=act), tol)
+    if pallas:
+        _close(got.float(), jops.expert_ffn(*j, act=act), tol)
+    _close(ops.expert_ffn(*t, act=act).float(), got.float(), 0.0)   # CPU dispatch = plain
+
+
+# ---------------------------------------------------------------------------
+# sparsemax
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (37, 33), (256, 128), (300, 7), (2, 5, 17)])
+def test_sparsemax_plain_matches_jax(jx, shape):
+    jnp, jops, jref = jx
+    z = _np(shape, 3, 3.0)
+    got = ref.sparsemax_ref(torch.from_numpy(z))
+    _close(got, jref.sparsemax_ref(jnp.asarray(z)), SPARSEMAX_TOL)
+    _close(got, jops.sparsemax(jnp.asarray(z)), SPARSEMAX_TOL)
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert (got >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# flash_prefill
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,H,K,D,window,cap,causal,pallas", [
+    (2, 256, 4, 2, 64, 0, 0.0, True, True),
+    (1, 128, 6, 3, 64, 32, 30.0, True, True),
+    (1, 128, 4, 4, 32, 0, 0.0, False, True),
+    (2, 77, 4, 2, 32, 16, 0.0, True, False),    # ragged S (Pallas needs S % bq)
+    (1, 100, 4, 1, 64, 0, 50.0, False, False),
+])
+def test_flash_prefill_plain_matches_jax(jx, B, S, H, K, D, window, cap, causal, pallas):
+    jnp, jops, jref = jx
+    q, k, v = _np((B, S, H, D), 4), _np((B, S, K, D), 5), _np((B, S, K, D), 6)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    got = ref.flash_prefill_ref(*map(torch.from_numpy, (q, k, v)), window, cap, causal)
+    _close(got, jref.flash_prefill_ref(jq, jk, jv, window, cap, causal), F32_TOL)
+    if pallas:
+        want = jops.flash_prefill(jq, jk, jv, window=window, cap=cap, causal=causal,
+                                  bq=64, bs=64)
+        _close(got, want, F32_TOL)
+
+
+def test_flash_prefill_plain_bf16_matches_jax(jx):
+    jnp, _, jref = jx
+    arrs = _np((1, 96, 4, 32), 7), _np((1, 96, 2, 32), 8), _np((1, 96, 2, 32), 9)
+    got = ops.flash_prefill(*[_t(a, "bfloat16") for a in arrs], window=24)
+    assert got.dtype == torch.bfloat16
+    want = jref.flash_prefill_ref(*[jnp.asarray(a).astype("bfloat16") for a in arrs], window=24)
+    _close(got.float(), want, BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: a CUDA-less tensor never reaches a kernel; the kernels refuse CPU
+# ---------------------------------------------------------------------------
+
+
+def test_kernels_refuse_cpu_and_other_devices():
+    x = torch.zeros(2, 8, 64)
+    w = torch.zeros(2, 64, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_ffn_cuda(x, w, None, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        sparsemax_cuda(torch.zeros(4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill_cuda(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="device meta"):
+        ops.sparsemax(torch.zeros(4, 8, device="meta"))
+    before = ops.launches()
+    ops.sparsemax(torch.zeros(4, 8))
+    assert ops.launches() == before     # the plain version counts no launch
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (skip without a GPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,F,glu,act", [
+    (4, 640, 768, 3072, False, "gelu"), (3, 77, 128, 512, True, "silu"), (2, 1, 64, 128, False, "relu"),
+])
+def test_expert_ffn_kernel_matches_plain(cuda, E, C, d, F, glu, act, dtype):
+    t = [None if a is None else _t(a, dtype).to(cuda) for a in _ffn_inputs(E, C, d, F, glu)]
+    got = ops.expert_ffn(*t, act=act)
+    torch.cuda.synchronize()
+    want = ref.expert_ffn_ref(*t, act=act)
+    _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 256, 256), (37, 33), (5, 1), (300, 1024)])
+def test_sparsemax_kernel_matches_plain(cuda, shape):
+    z = torch.from_numpy(_np(shape, 10, 3.0)).to(cuda)
+    _close(ops.sparsemax(z).cpu(), ref.sparsemax_ref(z).cpu(), SPARSEMAX_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,D,window,cap,causal", [
+    (8, 256, 12, 12, 64, 0, 0.0, True), (2, 77, 4, 2, 32, 0, 0.0, True),
+    (1, 300, 6, 3, 128, 64, 30.0, True), (1, 129, 4, 2, 64, 17, 0.0, False),
+])
+def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, K, D, window, cap, causal, dtype):
+    q, k, v = (_t(_np(s, i), dtype).to(cuda)
+               for i, s in enumerate([(B, S, H, D), (B, S, K, D), (B, S, K, D)]))
+    got = ops.flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
+    assert got.dtype == q.dtype
+    want = ref.flash_prefill_ref(q, k, v, window, cap, causal)
+    # bf16: the kernel keeps fp32 probabilities and rounds the output once
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
