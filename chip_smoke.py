@@ -6,17 +6,26 @@
 1. Device: the card's name and power limit, then the build of every kernel
    in `src/repro_torch/csrc` (nvcc, one process per source) and its time.
 2. Kernels vs plain: each hand-written kernel at the shapes the served
-   switch-base-8 run gives it, in bf16 and fp32, against its plain PyTorch
-   version — max abs error and tolerance, kernel / plain / library ms
-   (CUDA events, warm L2, back to back) and the least time the H100 could
-   take (989 TFLOP/s bf16 or 67 TFLOP/s fp32, 3.35 TB/s).
-3. Main path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
+   switch-base-8 batch and decode runs give it, in bf16 and fp32, against
+   its plain PyTorch version — max abs error and tolerance, kernel / plain /
+   library ms (CUDA events, warm L2, back to back) and the least time the
+   H100 could take (989 TFLOP/s bf16 or 67 TFLOP/s fp32, 3.35 TB/s).
+3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
-   store traffic, and every kernel's launch count in that run (0 fails).
+   store traffic, and the launch count of each kernel of that path (0 fails).
 4. Card vs CPU: full width, 2 layers, fp32, one batch through the port on
    the card and on the CPU with the same weights: hash ids agree (>= 0.999),
    and the same table gives logits within tolerance.
+5. Decode path: `SiDADecodeEngine.generate` on the same model, 8 lanes,
+   64 steps over a 512-slot ring cache, (a) on 4 bf16 slots and (b) on 8
+   int8-resident slots per MoE layer (about the same device bytes);
+   tok/s, ms/step, loads, bytes, each kernel's launches in the run (0 fails
+   for the kernels of that path), a per-step stage split and the profiled
+   device idle share.
+6. Decode card vs CPU: full width, 2 layers, fp32, 40 steps over a 32-slot
+   ring (it wraps), fp and int8 slots: greedy tokens identical, and one
+   fixed table's decode_step logits within tolerance.
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}. Imports nothing of
@@ -69,6 +78,23 @@ def nb(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def report(failed, name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd, lib_label=""):
+    """Print one kernel-vs-plain case; append it to `failed` if it disagrees.
+    Returns the case's record for the kernels' JSON line."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(err <= tol) and bool(torch.isfinite(got.float()).all())
+    lib = "null" if lib_ms is None else f"{lib_ms:.4f}{lib_label}"
+    print(f"  {name:20s} {str(dtype).replace('torch.', ''):8s} {shape} max_abs_err={err:.3e} "
+          f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms={lib} bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
+    if not ok:
+        failed.append(f"{name} {dtype} {shape}")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=lib_ms)
+
+
 def check_kernels(cfg, batch: int, seq: int, slots: int):
     """Phase 2: every kernel vs its plain version at the main path's shapes.
     Returns {kernel: record of the bf16 / main-path case}."""
@@ -88,17 +114,6 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
         return (torch.randn(shape, generator=gen) * scale).to(dtype=dtype, device=dev)
 
     records, failed = {}, []
-
-    def report(name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd):
-        err = (got.float() - want.float()).abs().max().item()
-        ok = bool(err <= tol) and bool(torch.isfinite(got.float()).all())
-        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"  {name:14s} {str(dtype).replace('torch.', ''):8s} {shape} max_abs_err={err:.3e} "
-              f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={lib} bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
-        if not ok:
-            failed.append(f"{name} {dtype} {shape}")
-        return err
 
     # --- expert_ffn: [E=slots, C, d] through the slot stack (non-gated GELU)
     d, Fh = cfg.d_model, cfg.moe.d_expert
@@ -121,10 +136,10 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
         k_ms = time_ms(lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act))
         p_ms = time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act))
         l_ms = time_ms(lib)
-        err = report("expert_ffn", dtype, (slots, C, d, Fh), got, want, tol, k_ms, p_ms, l_ms, bnd)
+        rec = report(failed, "expert_ffn", dtype, (slots, C, d, Fh), got, want, tol, k_ms, p_ms,
+                     l_ms, bnd)
         if dtype == torch.bfloat16:
-            records["expert_ffn"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                         bound_ms=bnd[0], bound_by=bnd[1], library_ms=l_ms)
+            records["expert_ffn"] = rec
 
     # --- sparsemax: the predictor's scores [B, S, S] (fp32 only on the path)
     z = rnd((batch, seq, seq), 3.0, torch.float32)
@@ -133,9 +148,8 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
     want = ref.sparsemax_ref(z)
     bnd = bound_ms(nb(z, got), 4 * z.numel(), H100_F32_FLOPS)
     k_ms, p_ms = time_ms(lambda: sparsemax_cuda(z)), time_ms(lambda: ref.sparsemax_ref(z))
-    err = report("sparsemax", torch.float32, tuple(z.shape), got, want, 1e-5, k_ms, p_ms, None, bnd)
-    records["sparsemax"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    records["sparsemax"] = report(failed, "sparsemax", torch.float32, tuple(z.shape), got, want,
+                                  1e-5, k_ms, p_ms, None, bnd)
 
     # --- flash_prefill: [B, S, H, D] causal (the path), plus window + softcap
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -160,33 +174,44 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
                 l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
             k_ms = time_ms(lambda: flash_prefill_cuda(q, k, v, window=window, cap=cap))
             p_ms = time_ms(lambda: ref.flash_prefill_ref(q, k, v, window, cap, True))
-            err = report(f"flash_prefill{'/w' + str(window) + 'c' + str(int(cap)) if window else ''}",
+            rec = report(failed,
+                         f"flash_prefill{'/w' + str(window) + 'c' + str(int(cap)) if window else ''}",
                          dtype, tuple(q.shape), got, want, tol, k_ms, p_ms, l_ms, bnd)
             if dtype == torch.bfloat16 and not window:
-                records["flash_prefill"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                                bound_ms=bnd[0], bound_by=bnd[1], library_ms=l_ms)
+                records["flash_prefill"] = rec
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
     return records
 
 
-def main_path(cfg, batches, slots: int):
+def seeded_model(cfg):
+    """The served weights: model from seed 0, hash predictor (d_h 64) from
+    seed 1, both made on the host, as `repro_torch.launch.serve` makes them."""
+    import torch
+
+    from repro_torch.core.hash_fn import init_hash_fn
+    from repro_torch.models.transformer import init_params, n_moe_layers
+
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    hp = init_hash_fn(torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
+                      cfg.moe.num_experts, d_h=64, device="cpu")
+    return params, hp
+
+
+BATCH_KERNELS = ("expert_ffn", "sparsemax", "flash_prefill")
+
+
+def main_path(cfg, params, hp, batches, slots: int):
     """Phase 3: the threaded SiDA serve at full width; returns launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.core.engine import SiDAEngine
-    from repro_torch.core.hash_fn import init_hash_fn
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import init_params, n_moe_layers
 
     t0 = time.perf_counter()
-    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    hp = init_hash_fn(torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
-                      cfg.moe.num_experts, d_h=64, device="cpu")
     eng = SiDAEngine(cfg, params, hp, slots_per_layer=slots, device="cuda")
-    del params
-    print(f"  setup_s={time.perf_counter() - t0:.2f} (seeded init on the host, engine build)")
+    print(f"  setup_s={time.perf_counter() - t0:.2f} (engine build: host masters, device params)")
     eng.serve(batches[:1], threaded=False)        # warm-up: cuBLAS handles, first uploads
     eng.store.stats.reset()
     torch.cuda.synchronize()
@@ -215,9 +240,9 @@ def main_path(cfg, batches, slots: int):
     print(f"  store loads={st.loads} hits={st.hits} evictions={st.evictions} "
           f"dropped={st.dropped} bytes_h2d={st.bytes_h2d} sync_upload_s={st.prepare_time:.4f}")
     print(f"  launches {json.dumps(counts)}")
-    idle = [k for k, v in counts.items() if v == 0]
+    idle = [k for k in BATCH_KERNELS if counts[k] == 0]
     if idle:
-        raise SystemExit(f"chip_smoke: kernels never launched on the main path: {idle}")
+        raise SystemExit(f"chip_smoke: kernels never launched on the batch path: {idle}")
     seq = eng.serve(batches, threaded=False)
     print(f"  sequential ablation (hash, prepare, forward in turn): "
           f"throughput_tok_s={seq.throughput:.1f} mean_latency_s={seq.mean_latency:.5f} "
@@ -259,7 +284,10 @@ def breakdown(eng, batches):
     print("  per-batch stage means (sequential): " + " ".join(
         f"{k}_ms={1e3 * float(np.mean(v)):.3f}" for k, v in stages.items()))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: with host ops recorded too, each op's row carries
+    # the device time of its kernels and the kernels have rows of their own,
+    # so the sum would count device time twice
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.serve(batches, threaded=True)
         wall = time.perf_counter() - t0
@@ -311,6 +339,288 @@ def card_vs_cpu(cfg, tokens, slots: int):
         raise SystemExit("chip_smoke: card and CPU disagree on the whole path")
 
 
+def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots: int):
+    """Phase 2, decode shapes: flash_decode over the ring cache, expert_ffn_q
+    and expert_ffn on the decode step's [slots, 8, d] capacity buffer,
+    sparsemax on the predictor's [lanes, 128] ring scores with masked
+    entries. Returns {kernel: record of the path's bf16 case}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.decode_engine import HISTORY
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.sparsemax import sparsemax_cuda
+    from repro_torch.models.moe import _capacity
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(321)
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype=dtype, device=dev)
+
+    records, failed = {}, []
+
+    # --- flash_decode: one token per lane over the ring cache
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def ring(pos, S):
+        p = torch.tensor(pos, dtype=torch.int32)
+        s_idx = torch.arange(S, dtype=torch.int32)[None, :]
+        sp = p[:, None] - ((p[:, None] - s_idx) % S)
+        sp = torch.where(sp >= 0, sp, torch.full_like(sp, -1))
+        return sp.to(dev).contiguous(), p.to(dev)
+
+    wrapped = [cache_len + 89 * i for i in range(lanes)]      # every lane past the wrap
+    cases = [  # name, dtype, H, K, S, positions, window, cap, tol
+        ("flash_decode", torch.bfloat16, H, K, cache_len, wrapped, 0, 0.0, 2e-2),
+        ("flash_decode", torch.float32, H, K, cache_len, wrapped, 0, 0.0, 1e-4),
+        ("flash_decode/early", torch.bfloat16, H, K, cache_len, list(range(0, 8 * lanes, 8)),
+         0, 0.0, 2e-2),
+        ("flash_decode/w128c50", torch.bfloat16, H, K, cache_len, wrapped, 128, 50.0, 2e-2),
+        ("flash_decode/G4", torch.bfloat16, H, H // 4, cache_len, wrapped, 0, 0.0, 2e-2),
+        ("flash_decode/invalid", torch.float32, H, K, 300, [-1] + wrapped[1:], 0, 0.0, 1e-4),
+    ]
+    for name, dtype, h, kh, S, pos, window, cap, tol in cases:
+        q = rnd((lanes, h, D), 1.0, dtype)
+        k = rnd((lanes, S, kh, D), 1.0, dtype)
+        v = rnd((lanes, S, kh, D), 1.0, dtype)
+        sp, p = ring(pos, S)
+        got = flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap)
+        torch.cuda.synchronize()
+        want = ref.flash_decode_ref(q, k, v, sp, p, window=window, cap=cap)
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        bnd = bound_ms(nb(q, k, v, sp, p, got), 4 * lanes * h * S * D, peak)
+        k_ms = time_ms(lambda: flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap))
+        p_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, sp, p, window=window, cap=cap))
+        l_ms = None
+        if name == "flash_decode" and kh == h:
+            qt = q[:, :, None, :]
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            valid = ((sp >= 0) & (sp <= p[:, None]))[:, None, None, :]
+            l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid))
+        rec = report(failed, name, dtype, (lanes, h, D, S, kh), got, want, tol, k_ms, p_ms, l_ms, bnd,
+                     " (SDPA, boolean mask)" if l_ms is not None else "")
+        if name == "flash_decode" and dtype == torch.bfloat16:
+            records["flash_decode"] = rec
+
+    # --- expert_ffn_q / expert_ffn: the decode step's capacity buffer
+    d, Fh = cfg.d_model, cfg.moe.d_expert
+
+    def quantize(w):   # per-output-channel symmetric int8, as ExpertStore makes it
+        s = torch.clamp(w.float().abs().amax(dim=-2, keepdim=True), min=1e-8) / 127.0
+        return torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8), s
+
+    ffn_cases = [(slots, lanes), (int8_slots, lanes)]
+    for E, T in ffn_cases:
+        C = _capacity(cfg, T, E)
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+            xe = rnd((E, C, d), 1.0, dtype)
+            wi_q, wi_s = quantize(rnd((E, d, Fh), d ** -0.5, torch.float32))
+            wo_q, wo_s = quantize(rnd((E, Fh, d), Fh ** -0.5, torch.float32))
+            args = (xe, wi_q, wi_s, None, None, wo_q, wo_s)
+            got = expert_ffn_q_cuda(*args, act=cfg.act)
+            torch.cuda.synchronize()
+            want = ref.expert_ffn_q_ref(*args, act=cfg.act)
+            wi_f = ref.dequantize_ref(wi_q, wi_s).to(dtype)      # dequantised ahead of time
+            wo_f = ref.dequantize_ref(wo_q, wo_s).to(dtype)
+
+            def lib():
+                return torch.bmm(F.gelu(torch.bmm(xe, wi_f), approximate="tanh"), wo_f)
+
+            peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+            bnd = bound_ms(nb(xe, wi_q, wi_s, wo_q, wo_s, got), 2 * 2 * E * C * d * Fh, peak)
+            k_ms = time_ms(lambda: expert_ffn_q_cuda(*args, act=cfg.act))
+            p_ms = time_ms(lambda: ref.expert_ffn_q_ref(*args, act=cfg.act))
+            rec = report(failed, "expert_ffn_q", dtype, (E, C, d, Fh), got, want, tol, k_ms, p_ms,
+                         time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)")
+            if dtype == torch.bfloat16 and E == int8_slots:
+                records["expert_ffn_q"] = rec
+            if dtype == torch.bfloat16 and E == slots:
+                wi, wo = wi_f, wo_f      # the same weights in bf16: expert_ffn at decode
+                got = expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+                torch.cuda.synchronize()
+                want = ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)
+                bnd = bound_ms(nb(xe, wi, wo, got), 2 * 2 * E * C * d * Fh, peak)
+                report(failed, "expert_ffn/decode", dtype, (E, C, d, Fh), got, want, tol,
+                       time_ms(lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)),
+                       time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)),
+                       time_ms(lambda: torch.bmm(F.gelu(torch.bmm(xe, wi), approximate="tanh"),
+                                                 wo)),
+                       bnd, " (bmm+gelu+bmm)")
+
+    # --- sparsemax: the predictor's ring scores, invalid slots at -1e30
+    z = rnd((lanes, HISTORY), 3.0, torch.float32)
+    filled = torch.tensor([1, 2, 5, 17, 64, 100, 127, 128][:lanes], device=dev)
+    z = torch.where(torch.arange(HISTORY, device=dev)[None, :] < filled[:, None], z,
+                    torch.full_like(z, -1e30)).contiguous()
+    got = sparsemax_cuda(z)
+    torch.cuda.synchronize()
+    want = ref.sparsemax_ref(z)
+    report(failed, "sparsemax/ring", torch.float32, tuple(z.shape), got, want, 1e-5,
+           time_ms(lambda: sparsemax_cuda(z)), time_ms(lambda: ref.sparsemax_ref(z)), None,
+           bound_ms(nb(z, got), 4 * z.numel(), H100_F32_FLOPS))
+    if failed:
+        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
+    return records
+
+
+DECODE_KERNELS = {"bf16": ("flash_decode", "expert_ffn", "sparsemax"),
+                  "int8": ("flash_decode", "expert_ffn_q", "sparsemax")}
+
+
+def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, slots: int,
+                int8_slots: int):
+    """Phase 5: SiDADecodeEngine.generate at full width, on bf16 slots and on
+    int8-resident slots; returns {"bf16" | "int8": launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.offload import nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    start = np.random.default_rng(0).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
+    out_counts = {}
+    for name, n_slots, kw in (("bf16", slots, {}), ("int8", int8_slots, {"quantized_slots": True})):
+        t0 = time.perf_counter()
+        eng = SiDADecodeEngine(cfg, params, hp, slots_per_layer=n_slots, device="cuda", **kw)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        toks, m = eng.generate(start, steps=steps, cache_len=cache_len)
+        counts = ops.launches()
+        st = eng.store.stats
+        dev_bytes = sum(nbytes(x) for x in tree_leaves(eng.store.serve_params))
+        print(f"  ({name}) slots={n_slots} lanes={lanes} steps={steps} cache_len={cache_len} "
+              f"setup_s={setup:.2f}")
+        print(f"    tok_s={m.tok_s:.1f} ms_per_step={1e3 * m.wall_s / m.steps:.3f} "
+              f"wall_s={m.wall_s:.4f} tokens={m.tokens}")
+        print(f"    loads first_step={m.loads_per_step[0]} last_step={m.loads_per_step[-1]} "
+              f"total={st.loads} hits={st.hits} evictions={st.evictions} bytes_h2d={st.bytes_h2d}")
+        print(f"    device_memory_bytes={dev_bytes} expert_device_bytes={eng.store.device_bytes()} "
+              f"expert_slot_bytes={eng.store.expert_slot_bytes()}")
+        print(f"    launches {json.dumps(counts)}")
+        if toks.shape != (lanes, steps) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"chip_smoke: decode ({name}) emitted out-of-vocab tokens")
+        idle = [k for k in DECODE_KERNELS[name] if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on the {name} decode path: {idle}")
+        t0 = time.perf_counter()
+        decode_stages(eng, start, 16, cache_len)
+        t1 = time.perf_counter()
+        decode_profile(eng, start, 16, cache_len)
+        print(f"    (stage split {t1 - t0:.1f} s, profile {time.perf_counter() - t1:.1f} s)")
+        out_counts[name] = counts
+        eng.close()
+        del eng
+    return out_counts
+
+
+def decode_stages(eng, start, steps: int, cache_len: int):
+    """Phase 5, per-step split: the generate loop with a synchronize after
+    each stage, host clock around each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import DecodeMetrics, TableBuffer, hash_state_init
+    from repro_torch.models.transformer import init_cache
+
+    B = len(start)
+    stages = {"predict_ids_d2h": [], "prepare": [], "translate": [], "step_token_d2h": []}
+    with torch.inference_mode():
+        cache = init_cache(eng.cfg, B, cache_len, device=eng.device)
+        hstate = hash_state_init(eng.hash_params, B)
+        tokens = torch.as_tensor(start, dtype=torch.int32, device=eng.device)
+        tbuf, m = TableBuffer(eng.L, B, 1, eng.k), DecodeMetrics()
+        torch.cuda.synchronize()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            ids, alpha, hstate = eng._predict_step(tokens, hstate)
+            table = tbuf.fill(i, ids, alpha)                 # ends in the ids' copy to host
+            t1 = time.perf_counter()
+            trans = eng._route_table(table, m)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            slot_ids, w = eng.store.translate_device(ids[:, :, None, :], alpha[:, :, None, :], trans)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            tokens, cache = eng._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :])
+            tokens.cpu()
+            t4 = time.perf_counter()
+            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                stages[k].append(v)
+    print(f"    per-step stage means over {steps} steps (synchronised): " + " ".join(
+        f"{k}_ms={1e3 * float(np.mean(v)):.3f}" for k, v in stages.items()))
+
+
+def decode_profile(eng, start, steps: int, cache_len: int):
+    """Phase 5, device busy share over one generate (torch.profiler, device
+    activity only, as phase 3b)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(start, steps=steps, cache_len=cache_len)
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    busy_s = sum(r[0] for r in rows) / 1e6
+    if busy_s <= 0:
+        print("    device busy share: not measured (the profiler recorded no device time)")
+        return
+    print(f"    profiled generate ({steps} steps): wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+          f"device_idle_share={max(0.0, 1 - busy_s / wall):.3f}")
+    for dev_us, key, count in sorted(rows, reverse=True)[:6]:
+        print(f"      {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+
+
+def decode_card_vs_cpu(cfg, lanes: int, slots: int, int8_slots: int):
+    """Phase 6: greedy decode on the card and on the CPU, same weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.models.transformer import decode_step, init_cache, n_moe_layers
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params, hp = seeded_model(cfg2)
+    start = np.random.default_rng(0).integers(0, cfg2.vocab_size, (lanes,)).astype(np.int32)
+    L, steps, cache_len = n_moe_layers(cfg2), 40, 32
+    for name, n_slots, kw in (("fp", slots, {}), ("int8", int8_slots, {"quantized_slots": True})):
+        eng = {dev: SiDADecodeEngine(cfg2, params, hp, slots_per_layer=n_slots, device=dev, **kw)
+               for dev in ("cuda", "cpu")}
+        out = {dev: e.generate(start, steps=steps, cache_len=cache_len)[0] for dev, e in eng.items()}
+        same = float((out["cuda"] == out["cpu"]).mean())
+        # one fixed table, the same slots on both: decode_step logits from a fresh cache
+        rng = np.random.default_rng(7)
+        ids = rng.integers(0, n_slots, (L, lanes, 1)).astype(np.int32)
+        w = np.ones((L, lanes, 1), np.float32)
+        logits = {}
+        with torch.inference_mode():
+            for dev, e in eng.items():
+                cache = init_cache(cfg2, lanes, cache_len, device=dev)
+                lg, _ = decode_step(e.store.serve_params, cache, torch.as_tensor(start, device=dev),
+                                    cfg2, routing_override=(torch.as_tensor(ids, device=dev),
+                                                            torch.as_tensor(w, device=dev)))
+                logits[dev] = lg.float().cpu().numpy()[:, :cfg2.vocab_size]
+        err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+        scale = float(np.abs(logits["cpu"]).max())
+        tol = 1e-3 * max(1.0, scale)
+        print(f"  ({name} slots={n_slots}) fp32 n_layers=2 lanes={lanes} steps={steps} "
+              f"cache_len={cache_len}: greedy tokens identical={same:.6f} (need 1.0); "
+              f"decode_step logits max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3f}")
+        if same < 1.0 or not err <= tol or not np.isfinite(logits["cuda"]).all():
+            raise SystemExit(f"chip_smoke: card and CPU disagree on the {name} decode path")
+
+
 def main() -> int:
     import torch
 
@@ -335,17 +645,35 @@ def main() -> int:
 
     cfg = get_config("switch-base-8")
     slots, batch, seq, n_batches = 4, 8, 256, 8
-    print("== phase 2: kernels vs plain (switch-base-8 serving shapes)")
+    int8_slots, lanes, steps, cache_len = 8, 8, 64, 512
+    for line in build.build_log().splitlines():
+        if line.startswith("== "):
+            print(f"  nvcc {line[3:]}")
+    print(f"== phase 2: kernels vs plain (switch-base-8 serving and decode shapes) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
     records = check_kernels(cfg, batch, seq, slots)
+    records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots))
 
-    print("== phase 3: main path (SiDAEngine, switch-base-8 full width and depth, bf16)")
+    print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    t0 = time.perf_counter()
+    params, hp = seeded_model(cfg)
+    print(f"  seeded init on the host: {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
                for _ in range(n_batches)]
-    counts = main_path(cfg, batches, slots)
+    counts = main_path(cfg, params, hp, batches, slots)
 
-    print("== phase 4: card vs CPU on the whole path")
+    print(f"== phase 4: card vs CPU on the whole batch path [{time.perf_counter() - t_start:.1f} s]")
     card_vs_cpu(cfg, batches[0], slots)
+
+    print(f"== phase 5: decode path (SiDADecodeEngine, switch-base-8 full width and depth, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    dcounts = decode_path(cfg, params, hp, lanes, steps, cache_len, slots, int8_slots)
+    del params
+
+    print(f"== phase 6: decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
+    decode_card_vs_cpu(cfg, lanes, slots, int8_slots)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -355,12 +683,22 @@ def main() -> int:
                       "src/repro/kernels/sparsemax.py:43"),
         "flash_prefill": ("cuda", "src/repro_torch/csrc/flash_prefill.cu",
                           "src/repro/kernels/flash_prefill.py:82"),
+        "flash_decode": ("cuda", "src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:80"),
+        "expert_ffn_q": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
+                         "src/repro/kernels/expert_gemm.py:98"),
     }
+    # each kernel's launches on the path that runs it: the batch serve for
+    # the batch kernels, the bf16 decode for flash_decode, the int8 decode
+    # for expert_ffn_q
+    launches = {k: counts[k] for k in BATCH_KERNELS}
+    launches["flash_decode"] = dcounts["bf16"]["flash_decode"]
+    launches["expert_ffn_q"] = dcounts["int8"]["expert_ffn_q"]
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = records[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,266 @@
+"""Autoregressive decode serving with incremental hash prediction (port of
+the synchronous path of `repro/core/decode_engine.py`).
+
+Per decode step:
+  1. `hash_fn_step` advances the predictor's LSTM state on the previous
+     token's embedding and emits expert ids + α for every MoE layer —
+     before the model runs, keeping the look-ahead property;
+  2. the ExpertStore loads any missing experts (consecutive tokens reuse
+     experts heavily, so steady-state steps are mostly cache hits);
+  3. `translate_device` turns the still-resident prediction into slot ids
+     and renormalised weights on the device;
+  4. `decode_step` runs with that routing override (routers offloaded) over
+     the ring K/V cache.
+
+The SparseMax attention over LSTM outputs is kept exactly, over a ring of
+the last `HISTORY` outputs; it goes through `kernels.ops.sparsemax`, the
+hand-written kernel on the card. Speculative decode (ROADMAP A10-spec),
+paged K/V (A12), the async prefetch pipeline (A9), expert-parallel shards
+(A14) and the int4 warm tier (A11-int4) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hash_table import HashTable
+from repro_torch.core.offload import ExpertStore
+from repro_torch.device import DeviceLike
+from repro_torch.kernels import ops
+from repro_torch.models.layers import top_k
+from repro_torch.models.transformer import decode_step, init_cache, n_moe_layers
+from repro_torch.tree import tree_map
+
+HISTORY = 128  # SparseMax attention ring length
+
+
+# ---------------------------------------------------------------------------
+# incremental hash function
+# ---------------------------------------------------------------------------
+
+
+def hash_state_init(params: dict, batch: int) -> dict:
+    """Zero predictor state on the params' device."""
+    d_h = params["attn_q"].shape[0]
+    dev = params["attn_q"].device
+    z = lambda: torch.zeros((batch, d_h), dtype=torch.float32, device=dev)
+    return {
+        "h1": z(), "c1": z(), "h2": z(), "c2": z(),
+        "ring": torch.zeros((batch, HISTORY, d_h), dtype=torch.float32, device=dev),
+        # per-lane step counter, as the reference keeps it
+        "t": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def _lstm_cell(p, x, h, c):
+    g = x @ p["wx"] + h @ p["wh"] + p["b"]
+    i, f, gg, o = g.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c
+
+
+def hash_fn_step(params: dict, emb_tok: torch.Tensor, state: dict, num_experts: int):
+    """One-token advance. emb_tok: [B, d_model] -> (logits [B, L, E], new
+    state). The state passed in is left as it was."""
+    E = num_experts
+    L = params["heads"].shape[-1] // E
+    x = torch.tanh(emb_tok.float() @ params["compress"])
+    h1, c1 = _lstm_cell(params["lstm1"], x, state["h1"], state["c1"])
+    h2, c2 = _lstm_cell(params["lstm2"], h1, state["h2"], state["c2"])
+    t = state["t"]                                          # [B] per-lane step
+    bidx = torch.arange(h2.shape[0], device=h2.device)
+    ring = state["ring"].index_put((bidx, (t % HISTORY).long()), h2)
+    # sparse attention of the current query over the ring (the full-sequence
+    # predictor's math while t < HISTORY)
+    q = h2 @ params["attn_q"]
+    scores = torch.einsum("bd,bkd->bk", q, ring) / math.sqrt(h2.shape[-1])
+    valid = torch.arange(HISTORY, device=h2.device)[None, :] <= t[:, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    w = ops.sparsemax(scores.contiguous())
+    a = torch.einsum("bk,bkd->bd", w, ring)
+    z = a + h2
+    logits = z @ params["heads"]
+    new_state = {"h1": h1, "c1": c1, "h2": h2, "c2": c2, "ring": ring, "t": t + 1}
+    return logits.reshape(-1, L, E), new_state
+
+
+# ---------------------------------------------------------------------------
+# decode engine
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DecodeMetrics:
+    """Decode accounting, as the reference keeps it. On the synchronous path
+    every verified position is emitted, so `tokens == proposed` and the
+    acceptance rate is 1.0; `stall_s` stays 0 (no prefetch fences)."""
+
+    steps: int = 0
+    tokens: int = 0
+    proposed: int = 0
+    wall_s: float = 0.0
+    stall_s: float = 0.0
+    loads_per_step: List[int] = field(default_factory=list)
+    accepted_per_step: List[float] = field(default_factory=list)
+
+    @property
+    def tok_s(self) -> float:
+        return self.tokens / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.tokens / self.proposed if self.proposed else 0.0
+
+    @property
+    def mean_accepted(self) -> float:
+        xs = self.accepted_per_step
+        return float(np.mean(xs)) if xs else 0.0
+
+
+class TableBuffer:
+    """Reusable host backing store for the per-step decode HashTables: one
+    persistent pair of [L, B, S, k] arrays that each step's prediction is
+    copied into, so the only per-step host work is that copy."""
+
+    def __init__(self, L: int, B: int, S: int, k: int):
+        self.ids = np.zeros((L, B, S, k), np.int32)
+        self.weights = np.zeros((L, B, S, k), np.float32)
+        self.table = HashTable(0, self.ids, self.weights)
+
+    def fill(self, batch_index: int, ids_dev: torch.Tensor, alpha_dev: torch.Tensor) -> HashTable:
+        """ids int32 / alpha fp32 tensors [L, B, k] (one position a lane).
+        Both come to the host in one copy: alpha's bits ride as int32."""
+        self.table.batch_index = batch_index
+        both = torch.stack([ids_dev, alpha_dev.view(torch.int32)]).cpu().numpy()
+        np.copyto(self.ids[:, :, 0, :], both[0])
+        np.copyto(self.weights[:, :, 0, :], both[1].view(np.float32))
+        return self.table
+
+
+class SiDADecodeEngine:
+    """Token-by-token generation under an expert memory budget.
+
+    Runs on CUDA unless `device` names another device; without a GPU the
+    default raises instead of falling back to the CPU."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: dict,
+        hash_params: dict,
+        slots_per_layer: int,
+        serve_top_k: Optional[int] = None,
+        host_quant: str = "none",
+        eviction: str = "fifo",
+        prefetch_depth: Optional[int] = None,
+        prefetcher=None,
+        quantized_slots: Optional[bool] = None,
+        scale_granularity: Optional[str] = None,
+        tier=None,
+        spec_mode: Optional[str] = None,   # "off" | "draft"; None => cfg.spec
+        spec_k: Optional[int] = None,
+        sharded=None,
+        device: DeviceLike = None,
+    ):
+        mode = spec_mode if spec_mode is not None else cfg.spec.mode
+        if mode not in ("off", "draft"):
+            raise ValueError(f"unknown spec_mode {mode!r}")
+        if mode == "draft" and (spec_k if spec_k is not None else cfg.spec.k) > 1:
+            raise NotImplementedError("speculative decode is ported in ROADMAP A10-spec")
+        # the reference's precedence: explicit depth > cfg.prefetch > off
+        depth = prefetch_depth if prefetch_depth is not None else (
+            cfg.prefetch.depth if cfg.prefetch.enabled else 0
+        )
+        if prefetcher is not None or depth > 0:
+            raise NotImplementedError("the async prefetch pipeline is ported in ROADMAP A9")
+        if sharded is not None:
+            raise NotImplementedError("expert-parallel shards are ported in ROADMAP A14")
+        if tier is not None and tier.enabled:
+            raise NotImplementedError("the int4 warm tier is ported in ROADMAP A11-int4")
+        self.cfg = cfg
+        self.k = serve_top_k or cfg.moe.top_k
+        self.store = ExpertStore(
+            cfg, params, slots_per_layer, eviction=eviction, device=device,
+            host_quant=host_quant, quantized_slots=quantized_slots,
+            scale_granularity=scale_granularity,
+        )
+        self.device = self.store.device
+        self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
+        self.embed_table = self.store.serve_params["embed"]
+        self.L = n_moe_layers(cfg)
+        self.E = cfg.moe.num_experts
+
+    # ------------------------------------------------------------------
+    def _predict_step(self, tokens: torch.Tensor, hstate: dict):
+        """(ids [L, B, k] int32, α [L, B, k] fp32, new state), on the device."""
+        emb = self.embed_table[tokens.long()]
+        logits, hstate = hash_fn_step(self.hash_params, emb, hstate, self.E)
+        vals, ids = top_k(logits, self.k)                  # [B, L, k]
+        alpha = torch.softmax(vals, dim=-1)
+        return (ids.movedim(1, 0).to(torch.int32).contiguous(),
+                alpha.movedim(1, 0).float().contiguous(), hstate)
+
+    def _step(self, cache: dict, tokens: torch.Tensor, slot_ids, w):
+        logits, cache = decode_step(
+            self.store.serve_params, cache, tokens, self.cfg, routing_override=(slot_ids, w),
+        )
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    def _route_table(self, table: HashTable, m: DecodeMetrics) -> np.ndarray:
+        """Synchronous prepare for one decode table; its loads are attributed
+        to the current step in `m`."""
+        loads_before = self.store.stats.loads
+        trans = self.store.prepare(table)
+        m.loads_per_step.append(self.store.stats.loads - loads_before)
+        return trans
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompt_last_tokens: np.ndarray,
+        steps: int,
+        cache_len: int = 256,
+        paged=None,
+    ) -> Tuple[np.ndarray, DecodeMetrics]:
+        """Greedy-decode `steps` tokens for a batch, starting from the given
+        current tokens with a fresh ring cache of `cache_len` slots. Each
+        step: predict, copy ids/α to the host (the one D2H of the
+        prediction), prepare the slots, translate on the device, run the
+        step, copy the token to the host."""
+        if paged is not None:
+            raise NotImplementedError("paged K/V decode is ported in ROADMAP A12")
+        B = prompt_last_tokens.shape[0]
+        cache = init_cache(self.cfg, B, cache_len, device=self.device)
+        hstate = hash_state_init(self.hash_params, B)
+        tokens = torch.as_tensor(np.asarray(prompt_last_tokens), dtype=torch.int32,
+                                 device=self.device)
+        out = np.zeros((B, steps), np.int32)
+        m = DecodeMetrics()
+        tbuf = TableBuffer(self.L, B, 1, self.k)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            ids, alpha, hstate = self._predict_step(tokens, hstate)
+            table = tbuf.fill(i, ids, alpha)
+            trans = self._route_table(table, m)
+            # translation runs on the device straight off the still-resident
+            # prediction (no per-step host slot gather or override upload)
+            slot_ids, w = self.store.translate_device(ids[:, :, None, :], alpha[:, :, None, :],
+                                                      trans)
+            tokens, cache = self._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :])
+            out[:, i] = tokens.cpu().numpy()   # forces the step; slots consumed
+            m.steps += 1
+            m.tokens += B                      # every position emitted == accepted
+            m.proposed += B
+            m.accepted_per_step.append(1.0)
+        m.wall_s = time.perf_counter() - t0
+        return out, m
+
+    def close(self) -> None:
+        """Nothing to join: the synchronous store starts no thread."""

@@ -76,12 +76,19 @@ class SiDAEngine:
         serve_top_k: Optional[int] = None,
         eviction: str = "fifo",
         device: DeviceLike = None,
+        host_quant: str = "none",                   # "none" | "int8" host masters
+        quantized_slots: Optional[bool] = None,     # int8-resident slots
+        scale_granularity: Optional[str] = None,    # "channel" | "tensor"
     ):
         if cfg.prefetch.enabled:
             raise NotImplementedError("the async prefetch pipeline is ported in ROADMAP A9")
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
-        self.store = ExpertStore(cfg, params, slots_per_layer, eviction=eviction, device=device)
+        self.store = ExpertStore(
+            cfg, params, slots_per_layer, eviction=eviction, device=device,
+            host_quant=host_quant, quantized_slots=quantized_slots,
+            scale_granularity=scale_granularity,
+        )
         self.device = self.store.device
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
         self.embed_table = self.store.serve_params["embed"]

@@ -1,17 +1,23 @@
 """Expert offloading: host-resident expert store + device slot cache
-(port of the plain case of `repro/core/offload.py`).
+(port of the synchronous, one-shard case of `repro/core/offload.py`).
 
-The full expert stacks live in host memory as CPU tensors. On the device
-each MoE layer owns a fixed pool of `S` slots, `[G, S, ...]`. `prepare`
-loads exactly the experts a hash table predicts, evicting under the slot
-budget by the chosen policy, and returns the expert -> slot translation
-table that the routing override addresses. Routers never reach the device.
+The full expert stacks live in host memory as CPU tensors, in the model
+dtype or, with `host_quant="int8"`, as symmetric int8 with fp32 scale planes
+(`quantize_expert`, bit-identical to the reference's numpy). On the device
+each MoE layer owns a fixed pool of `S` slots, `[G, S, ...]`: fp slots
+(int8 host rows are dequantised on the device as they land), or with
+`quantized_slots` int8 pools plus `w_*_scale` planes `[G, S, 1, d_out]`
+that the int8 expert FFN reads as they are. `prepare` loads exactly the
+experts a hash table predicts, evicting under the slot budget by the chosen
+policy, and returns the expert -> slot translation table that the routing
+override addresses; `translate` (host) and `translate_device` (decode) turn
+it into slot ids and renormalised weights. Routers never reach the device.
 
-The plain case only: fp slots, one shard, no tiers, no replicas and no
-prefetcher. int8/int4 residency (ROADMAP A11), the async prefetch pipeline
-(A9) and expert-parallel shards (A14) come in later slices. The slot
-bookkeeping is the reference's, so the same table stream gives the same
-resident sets, evictions, hits and translations.
+One shard, no int4 tier, no replicas and no prefetcher: the int4 warm tier
+(ROADMAP A11-int4), the async prefetch pipeline (A9) and expert-parallel
+shards (A14) come in later slices. The slot bookkeeping is the reference's,
+so the same table stream gives the same resident sets, evictions, hits,
+translations and byte counts.
 """
 from __future__ import annotations
 
@@ -149,6 +155,47 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def quantize_expert(
+    w: np.ndarray, granularity: str = "channel"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric int8 quantisation. w: [..., d_in, d_out].
+
+    granularity="channel": one scale per output channel (absmax over d_in).
+    granularity="tensor": one scale per expert tensor (absmax over both
+    trailing axes). Either way the scale is returned as a [..., 1, d_out]
+    per-channel plane. The reference's numpy, so the masters are
+    bit-identical to its."""
+    if granularity == "tensor":
+        absmax = np.abs(w).max(axis=(-2, -1), keepdims=True).astype(np.float32)
+        absmax = np.broadcast_to(
+            absmax, w.shape[:-2] + (1, w.shape[-1])
+        ).copy()
+    else:
+        if granularity != "channel":
+            raise ValueError(f"unknown scale granularity {granularity!r}")
+        absmax = np.abs(w).max(axis=-2, keepdims=True).astype(np.float32)
+    scale = np.maximum(absmax, 1e-8) / 127.0
+    q = np.clip(np.round(w.astype(np.float32) / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def expert_format_bytes(shapes: List[Tuple[int, int]], fmt: str, group: int = 64) -> int:
+    """Per-expert device bytes per MoE layer for one residency format, scale
+    planes included. `shapes` lists the (d_in, d_out) of each expert tensor
+    (w_in, w_gate, w_out)."""
+    tot = 0
+    for k, n in shapes:
+        if fmt == "int8":
+            tot += k * n + 4 * n                    # int8 rows + [1, n] f32 scale
+        elif fmt == "int4":
+            g = min(group, k)
+            g = g if k % g == 0 else k              # repro offload._group_of
+            tot += ((k + 1) // 2) * n + 4 * (k // g) * n
+        else:
+            raise ValueError(f"unknown residency format {fmt!r}")
+    return tot
+
+
 class ExpertStore:
     """Host store + device slot cache for every MoE layer of a model.
 
@@ -162,13 +209,25 @@ class ExpertStore:
         slots_per_layer: int,
         eviction: str = "fifo",        # "fifo" | "lru" | "alpha"
         device: DeviceLike = None,
+        host_quant: str = "none",      # "none" | "int8" (host masters)
+        quantized_slots: Optional[bool] = None,    # None => cfg.quant
+        scale_granularity: Optional[str] = None,   # None => cfg.quant
     ):
         if not cfg.moe.enabled:
             raise ValueError("ExpertStore requires an MoE config")
         if eviction not in EVICTION_POLICIES:
             raise ValueError(f"unknown eviction policy {eviction!r}")
-        if cfg.quant.quantized_slots or cfg.quant.tier.enabled:
-            raise NotImplementedError("int8/int4 resident slots are ported in ROADMAP A11")
+        if host_quant not in ("none", "int8"):
+            raise ValueError(f"unknown host_quant {host_quant!r}")
+        if cfg.quant.tier.enabled:
+            raise NotImplementedError("the int4 warm tier is ported in ROADMAP A11-int4")
+        self.quantized_slots = (
+            cfg.quant.quantized_slots if quantized_slots is None else quantized_slots
+        )
+        self.scale_granularity = scale_granularity or cfg.quant.scale_granularity
+        if self.quantized_slots:
+            host_quant = "int8"  # int8 residency requires the int8 host tier
+        self.quant = host_quant
         self.device = resolve_device(device)
         self.cfg = cfg
         self.per = period(cfg)
@@ -183,16 +242,38 @@ class ExpertStore:
         # split params: experts -> host masters, routers dropped, the rest
         # (and empty slot pools) on the device
         self.host: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.host_scale: Dict[str, Dict[str, torch.Tensor]] = {}
         serve_params = tree_map(lambda x: x, params)   # fresh dicts, same leaves
         for s in self.moe_subs:
             moe_p = serve_params["blocks"][f"sub{s}"]["moe"]
             self.host[f"sub{s}"] = {}
+            self.host_scale[f"sub{s}"] = {}
             for t in EXPERT_TENSORS:
                 full = moe_p[t]
-                self.host[f"sub{s}"][t] = full.detach().to("cpu")
-                moe_p[t] = torch.zeros(
-                    (full.shape[0], self.S, *full.shape[2:]), dtype=full.dtype, device=self.device,
-                )
+                if self.quant == "int8":
+                    # fp32 numpy of the master: abs-max and division give the
+                    # reference's bits for fp32 and bf16 weights alike
+                    q, scale = quantize_expert(
+                        full.detach().to("cpu", torch.float32).numpy(), self.scale_granularity
+                    )
+                    self.host[f"sub{s}"][t] = torch.from_numpy(q)
+                    self.host_scale[f"sub{s}"][t] = torch.from_numpy(scale)
+                else:
+                    self.host[f"sub{s}"][t] = full.detach().to("cpu")
+                G = full.shape[0]
+                if self.quantized_slots:
+                    # the residency format is the transfer format: int8 rows
+                    # and their scale plane land as they are
+                    moe_p[t] = torch.zeros(
+                        (G, self.S, *full.shape[2:]), dtype=torch.int8, device=self.device,
+                    )
+                    moe_p[t + "_scale"] = torch.zeros(
+                        (G, self.S, 1, full.shape[-1]), dtype=torch.float32, device=self.device,
+                    )
+                else:
+                    moe_p[t] = torch.zeros(
+                        (G, self.S, *full.shape[2:]), dtype=full.dtype, device=self.device,
+                    )
             moe_p.pop("router", None)  # routers never participate in the forward
         self.serve_params = tree_map(lambda x: x.to(self.device), serve_params)
 
@@ -215,22 +296,34 @@ class ExpertStore:
 
     # ------------------------------------------------------------------
     def device_bytes(self) -> int:
-        """Bytes of expert slot pools resident on the device (the paper's metric)."""
-        return sum(
-            nbytes(self.serve_params["blocks"][f"sub{s}"]["moe"][t])
-            for s in self.moe_subs for t in EXPERT_TENSORS
-        )
-
-    def expert_slot_bytes(self) -> int:
-        """Device bytes one expert slot costs per MoE layer."""
+        """Bytes of expert slot pools resident on the device (the paper's
+        metric), scale planes included when the slots are int8."""
         tot = 0
         for s in self.moe_subs:
+            moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
             for t in EXPERT_TENSORS:
-                arr = self.serve_params["blocks"][f"sub{s}"]["moe"][t]
-                tot += nbytes(arr) // (arr.shape[0] * arr.shape[1])
+                for key in (t, t + "_scale"):
+                    if key in moe_p:
+                        tot += nbytes(moe_p[key])
+        return tot
+
+    def expert_slot_bytes(self) -> int:
+        """Device bytes one expert slot costs per MoE layer in the residency
+        format (fp, or int8 + scale planes) — the denominator of the
+        capacity-at-equal-bytes comparison."""
+        tot = 0
+        for s in self.moe_subs:
+            moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
+            for t in EXPERT_TENSORS:
+                for key in (t, t + "_scale"):
+                    if key in moe_p:
+                        arr = moe_p[key]
+                        tot += nbytes(arr) // (arr.shape[0] * arr.shape[1])
         return tot // len(self.moe_subs)
 
     def full_expert_bytes(self) -> int:
+        """Bytes of the host masters, as the reference counts them: int8
+        masters without their scale planes."""
         return sum(nbytes(a) for sub in self.host.values() for a in sub.values())
 
     # ------------------------------------------------------------------
@@ -287,6 +380,11 @@ class ExpertStore:
     def commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
         """Batched host -> device writes for sub-slot `s` (one per tensor).
 
+        Three formats, as the reference: int8 rows and scale planes landing
+        as they are (quantized slots); int8 rows + scales uploaded and
+        dequantised on the device into fp slots (`host_quant="int8"`, half
+        the H2D bytes of bf16); fp rows.
+
         The pools are written in place (`index_copy_`). That is safe here:
         prepare and the forward that reads the slots run on one thread and
         one stream, so the copy is ordered before every later read. An async
@@ -298,11 +396,25 @@ class ExpertStore:
         es = torch.tensor([i[2] for i in items], dtype=torch.long)
         rows = (gs * self.S + sl).to(self.device)
         moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
+
+        def write(key: str, vals: torch.Tensor) -> None:
+            pool = moe_p[key]
+            pool.view(-1, *pool.shape[2:]).index_copy_(0, rows, vals)
+
         for t in EXPERT_TENSORS:
             w_host = self.host[f"sub{s}"][t][gs, es]              # [n, d, f]
-            self.stats.bytes_h2d += nbytes(w_host)
-            pool = moe_p[t]
-            pool.view(-1, *pool.shape[2:]).index_copy_(0, rows, w_host.to(self.device))
+            if self.quant == "int8":
+                scale = self.host_scale[f"sub{s}"][t][gs, es]     # [n, 1, f]
+                self.stats.bytes_h2d += nbytes(w_host) + nbytes(scale)
+                q, sc = w_host.to(self.device), scale.to(self.device)
+                if self.quantized_slots:
+                    write(t, q)
+                    write(t + "_scale", sc)
+                else:   # the reference's _pool_set_q: dequantise at slot write
+                    write(t, (q.float() * sc).to(moe_p[t].dtype))
+            else:
+                self.stats.bytes_h2d += nbytes(w_host)
+                write(t, w_host.to(self.device))
 
     def trans_row(self, l: int) -> np.ndarray:
         g, s = self.layer_to_gs(l)
@@ -386,3 +498,19 @@ class ExpertStore:
         scale = np.where(surv > 0, orig / np.maximum(surv, 1e-12), 1.0)
         w = w * scale
         return np.maximum(slots, 0).astype(np.int32), w.astype(np.float32)
+
+    def translate_device(self, ids: torch.Tensor, w: torch.Tensor, trans: np.ndarray):
+        """`translate` on the device, for the decode loop: the predictor's
+        still-resident ids / α [L, B, S, k] plus the host-planned table
+        [L, E] -> (slot_ids int32, weights fp32) on ids' device, with the
+        same miss zeroing and renormalisation. One shard, no replicas: each
+        expert has one candidate slot (the reference's R = 1)."""
+        L = ids.shape[0]
+        cand = torch.from_numpy(trans).to(ids.device)
+        slots = torch.gather(cand, 1, ids.reshape(L, -1).long()).reshape(ids.shape)
+        wz = w.float()
+        masked = wz * (slots >= 0)
+        orig = wz.sum(dim=-1, keepdim=True)
+        surv = masked.sum(dim=-1, keepdim=True)
+        scale = torch.where(surv > 0, orig / torch.clamp(surv, min=1e-12), torch.ones_like(surv))
+        return torch.clamp(slots, min=0).to(torch.int32), masked * scale

@@ -1,12 +1,18 @@
-// Slot-stacked expert FFN GEMMs for Hopper (sm_90a).
+// Slot-stacked expert FFN GEMMs for Hopper (sm_90a), over fp or int8 weights.
 //
 // Replaces: src/repro/kernels/expert_gemm.py::expert_ffn (body _ffn_kernel),
 // the TPU kernel that tiles xe [E, C, d] -> act(xe @ w_in) @ w_out through
-// VMEM with the output block accumulating across F tiles.
+// VMEM with the output block accumulating across F tiles; and
+// expert_gemm.py::expert_ffn_q (body _ffn_kernel_q), the same FFN over
+// int8-resident weights whose tiles widen in VMEM, with the per-output-
+// channel f32 scale applied to the f32 product before the activation and
+// after the down-projection.
 //
-// What bounds it on the H100: at the serving shapes (E = 4 slots, C = 640,
-// d = 768, F = 3072, bf16) the two products are 24 GFLOP against 46 MB of
-// operands, ~500 FLOP/byte, so the tensor cores bound it, not HBM.
+// What bounds it on the H100: at the batch serving shapes (E = 4 slots,
+// C = 640, d = 768, F = 3072, bf16) the two products are 24 GFLOP against
+// 46 MB of operands, ~500 FLOP/byte, so the tensor cores bound it, not HBM.
+// At decode (C = 8 rows a slot) the same weights do 0.3 GFLOP: HBM bytes
+// bound it, and int8 weights halve them (18.9 MB instead of 37.7 MB).
 //
 // Design. A block has no 16 MB of fast memory to hold the [C, F] hidden
 // tile the TPU kernel keeps in VMEM, so the FFN runs as two launches of one
@@ -16,10 +22,17 @@
 // down-projection reads it back. bf16 runs on the tensor cores through
 // mma.sync m16n8k16 with fp32 accumulation over the whole contraction; fp32
 // runs a SIMT tile with fmaf, so fp32 results stay IEEE (no TF32).
+// int8 weights (Q) stream from HBM as int8 and widen to the compute type as
+// they are staged into shared memory — exact, |q| <= 127 fits bf16's
+// mantissa — and the epilogue multiplies the fp32 product by the column's
+// scale, as _ffn_kernel_q does (x @ (q·s) == (x @ q)·s for a per-output-
+// channel s).
 // The capacity axis M is masked per row, so any C works (the Pallas kernel
 // asserted C % bc == 0); N and K must be multiples of 64.
 // Simple first: no cp.async pipeline, wgmma or TMA yet.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -61,12 +74,29 @@ __device__ __forceinline__ void load_b_tile_t(bf16* sB, const bf16* B, int k0, i
   }
 }
 
-template <int EPI>
+// int8 B tile [BK, BN]: one 16-byte load a thread, widened to bf16 (exact)
+// as it is stored transposed like the bf16 tile.
+__device__ __forceinline__ void load_b_tile_t(bf16* sB, const int8_t* B, int k0, int n0,
+                                              int N, int tid) {
+  const int r = tid >> 2, c = (tid & 3) * 16;
+  const uint4 v = *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * N + n0 + c);
+  const int8_t* pv = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sB[(c + i) * LDS + r] = __float2bfloat16_rn((float)pv[i]);
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(int8_t x) { return (float)x; }
+
+// WT: the weights' element type (bf16, or int8 with per-column scales sc/sc2)
+template <int EPI, typename WT>
 __global__ void __launch_bounds__(128)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 const bf16* __restrict__ B2, bf16* __restrict__ C,
+gemm_bf16_kernel(const bf16* __restrict__ A, const WT* __restrict__ B,
+                 const WT* __restrict__ B2, const float* __restrict__ sc,
+                 const float* __restrict__ sc2, bf16* __restrict__ C,
                  int M, int N, int K, int act) {
   constexpr bool GLU = EPI == kGlu;
+  constexpr bool Q = std::is_same<WT, int8_t>::value;
   __shared__ __align__(16) bf16 sA[BM * LDS];
   __shared__ __align__(16) bf16 sB[BN * LDS];
   __shared__ __align__(16) bf16 sB2[GLU ? BN * LDS : 8];
@@ -76,6 +106,10 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   A += (size_t)e * M * K;
   B += (size_t)e * K * N;
   if (GLU) B2 += (size_t)e * K * N;
+  if (Q) {
+    sc += (size_t)e * N;
+    if (GLU) sc2 += (size_t)e * N;
+  }
   C += (size_t)e * M * N;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -140,12 +174,21 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
         if (row >= M) continue;
         const int col = n0 + wn + ni * 8 + t4;
         float v0 = acc[mi][ni][half * 2], v1 = acc[mi][ni][half * 2 + 1];
+        float g0 = accg[mi][ni][half * 2], g1 = accg[mi][ni][half * 2 + 1];
+        if (Q) {
+          v0 *= sc[col];
+          v1 *= sc[col + 1];
+          if (GLU) {
+            g0 *= sc2[col];
+            g1 *= sc2[col + 1];
+          }
+        }
         if (EPI == kAct) {
           v0 = rt::activate(v0, act);
           v1 = rt::activate(v1, act);
         } else if (EPI == kGlu) {
-          v0 *= rt::activate(accg[mi][ni][half * 2], act);
-          v1 *= rt::activate(accg[mi][ni][half * 2 + 1], act);
+          v0 *= rt::activate(g0, act);
+          v1 *= rt::activate(g1, act);
         }
         *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * N + col) =
             __floats2bfloat162_rn(v0, v1);
@@ -157,12 +200,14 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 // ---------------------------------------------------------------------------
 constexpr int FBK = 16;
 
-template <int EPI>
+template <int EPI, typename WT>
 __global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ B2, float* __restrict__ C,
+gemm_f32_kernel(const float* __restrict__ A, const WT* __restrict__ B,
+                const WT* __restrict__ B2, const float* __restrict__ sc,
+                const float* __restrict__ sc2, float* __restrict__ C,
                 int M, int N, int K, int act) {
   constexpr bool GLU = EPI == kGlu;
+  constexpr bool Q = std::is_same<WT, int8_t>::value;
   __shared__ float sA[FBK][BM + 4];  // transposed [k][m]
   __shared__ float sB[FBK][BN];
   __shared__ float sB2[GLU ? FBK : 1][BN];
@@ -172,6 +217,10 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   A += (size_t)e * M * K;
   B += (size_t)e * K * N;
   if (GLU) B2 += (size_t)e * K * N;
+  if (Q) {
+    sc += (size_t)e * N;
+    if (GLU) sc2 += (size_t)e * N;
+  }
   C += (size_t)e * M * N;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
@@ -188,8 +237,8 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
       const int r = idx >> 4, c = idx & 15;
       sA[c][r] = (m0 + r < M) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
       const int rb = idx >> 6, cb = idx & 63;
-      sB[rb][cb] = B[(size_t)(k0 + rb) * N + n0 + cb];
-      if (GLU) sB2[rb][cb] = B2[(size_t)(k0 + rb) * N + n0 + cb];
+      sB[rb][cb] = widen(B[(size_t)(k0 + rb) * N + n0 + cb]);
+      if (GLU) sB2[rb][cb] = widen(B2[(size_t)(k0 + rb) * N + n0 + cb]);
     }
     __syncthreads();
 #pragma unroll
@@ -219,47 +268,66 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      float v = acc[i][j];
+      const int col = n0 + tx + 16 * j;
+      float v = acc[i][j], g = accg[i][j];
+      if (Q) {
+        v *= sc[col];
+        if (GLU) g *= sc2[col];
+      }
       if (EPI == kAct) v = rt::activate(v, act);
-      else if (EPI == kGlu) v *= rt::activate(accg[i][j], act);
-      C[(size_t)row * N + n0 + tx + 16 * j] = v;
+      else if (EPI == kGlu) v *= rt::activate(g, act);
+      C[(size_t)row * N + col] = v;
     }
   }
 }
 
-template <typename Kern, typename T>
-void launch(Kern k, int threads, const void* a, const void* b, const void* b2, void* c,
-            int E, int M, int N, int K, int act, cudaStream_t s) {
-  dim3 grid(N / BN, (M + BM - 1) / BM, E);
-  k<<<grid, threads, 0, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
-                             static_cast<const T*>(b2), static_cast<T*>(c), M, N, K, act);
+template <int EPI, bool Q>
+void launch(const void* a, const void* b, const void* b2, const float* sc, const float* sc2,
+            void* c, int E, int M, int N, int K, int dtype, int act, cudaStream_t s) {
+  using WB = typename std::conditional<Q, int8_t, bf16>::type;
+  using WF = typename std::conditional<Q, int8_t, float>::type;
+  const dim3 grid(N / BN, (M + BM - 1) / BM, E);
+  if (dtype == rt::kBF16)
+    gemm_bf16_kernel<EPI, WB><<<grid, 128, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<const WB*>(b), static_cast<const WB*>(b2),
+        sc, sc2, static_cast<bf16*>(c), M, N, K, act);
+  else
+    gemm_f32_kernel<EPI, WF><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const WF*>(b), static_cast<const WF*>(b2),
+        sc, sc2, static_cast<float*>(c), M, N, K, act);
+}
+
+template <bool Q>
+int gemm(const void* a, const void* b, const void* b2, const float* sc, const float* sc2,
+         void* c, int E, int M, int N, int K, int dtype, int epilogue, int act,
+         cudaStream_t s) {
+  if (M > 0 && E > 0) {
+    if (epilogue == kStore) launch<kStore, Q>(a, b, b2, sc, sc2, c, E, M, N, K, dtype, act, s);
+    else if (epilogue == kAct) launch<kAct, Q>(a, b, b2, sc, sc2, c, E, M, N, K, dtype, act, s);
+    else launch<kGlu, Q>(a, b, b2, sc, sc2, c, E, M, N, K, dtype, act, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C[e] = epilogue(A[e] @ B[e] [, A[e] @ B2[e]]) for e < E.
-// A [E, M, K], B/B2 [E, K, N], C [E, M, N], all contiguous.
+// A [E, M, K], B/B2 [E, K, N], C [E, M, N], all contiguous and of one dtype.
 // Requires N % 64 == 0 and K % 64 == 0 (checked by the Python wrapper).
 extern "C" int rt_expert_gemm(const void* a, const void* b, const void* b2, void* c,
                               int E, int M, int N, int K, int dtype, int epilogue,
                               int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M > 0 && E > 0) {
-    if (dtype == rt::kBF16) {
-      if (epilogue == kStore)
-        launch<decltype(&gemm_bf16_kernel<kStore>), bf16>(gemm_bf16_kernel<kStore>, 128, a, b, b2, c, E, M, N, K, act, s);
-      else if (epilogue == kAct)
-        launch<decltype(&gemm_bf16_kernel<kAct>), bf16>(gemm_bf16_kernel<kAct>, 128, a, b, b2, c, E, M, N, K, act, s);
-      else
-        launch<decltype(&gemm_bf16_kernel<kGlu>), bf16>(gemm_bf16_kernel<kGlu>, 128, a, b, b2, c, E, M, N, K, act, s);
-    } else {
-      if (epilogue == kStore)
-        launch<decltype(&gemm_f32_kernel<kStore>), float>(gemm_f32_kernel<kStore>, 256, a, b, b2, c, E, M, N, K, act, s);
-      else if (epilogue == kAct)
-        launch<decltype(&gemm_f32_kernel<kAct>), float>(gemm_f32_kernel<kAct>, 256, a, b, b2, c, E, M, N, K, act, s);
-      else
-        launch<decltype(&gemm_f32_kernel<kGlu>), float>(gemm_f32_kernel<kGlu>, 256, a, b, b2, c, E, M, N, K, act, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return gemm<false>(a, b, b2, nullptr, nullptr, c, E, M, N, K, dtype, epilogue, act,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same over int8 weights: C[e] = epilogue((A[e] @ Bq[e]) * bs[e] [, ...]).
+// Bq/B2q [E, K, N] int8, bs/b2s [E, N] fp32 per-output-channel scales; A and
+// C in the working dtype. Same shape rules as rt_expert_gemm.
+extern "C" int rt_expert_gemm_q(const void* a, const void* bq, const void* bs,
+                                const void* b2q, const void* b2s, void* c, int E, int M,
+                                int N, int K, int dtype, int epilogue, int act,
+                                void* stream) {
+  return gemm<true>(a, bq, b2q, static_cast<const float*>(bs), static_cast<const float*>(b2s),
+                    c, E, M, N, K, dtype, epilogue, act, static_cast<cudaStream_t>(stream));
 }

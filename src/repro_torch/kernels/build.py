@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -35,10 +36,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # a, b, b2, c, E, M, N, K, dtype, epilogue, act, stream
     "rt_expert_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, bq, bs, b2q, b2s, c, E, M, N, K, dtype, epilogue, act, stream
+    "rt_expert_gemm_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # z, out, rows, L, stream
     "rt_sparsemax": (_P, _P, _I, _I, _P),
     # q, k, v, o, B, S, H, KH, D, window, cap, causal, dtype, stream
     "rt_flash_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, slot_pos, pos, o, B, S, H, KH, D, window, cap, dtype, stream
+    "rt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -81,6 +86,7 @@ def build() -> Path:
     work = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
     try:
         procs = []
+        t0 = time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
             obj = work / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
@@ -90,7 +96,8 @@ def build() -> Path:
         log, failed = [], []
         for src, _, proc in procs:
             out, _ = proc.communicate()
-            log.append(f"== {src.name}\n{out}")
+            # all compile at once, so this is when each one had finished
+            log.append(f"== {src.name} (done {time.perf_counter() - t0:.1f} s after the start)\n{out}")
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:
@@ -113,6 +120,11 @@ def build() -> Path:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return lib_path
+
+
+def build_log() -> str:
+    """The compiler's report of the current build (built on first use)."""
+    return (build().parent / "build.log").read_text()
 
 
 def library() -> ctypes.CDLL:

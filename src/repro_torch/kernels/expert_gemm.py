@@ -1,10 +1,13 @@
-"""Launch wrapper for the hand-written expert FFN kernel (`csrc/expert_ffn.cu`).
+"""Launch wrappers for the hand-written expert FFN kernels (`csrc/expert_ffn.cu`).
 
 Port of `repro/kernels/expert_gemm.py::expert_ffn`: xe [E, C, d] ->
 act(xe @ w_in) @ w_out per slot (or act(xe @ w_gate) * (xe @ w_in) when
 gated). Two launches of one GEMM kernel: the up-projection with the
 activation fused writes h [E, C, F] once in the working dtype, then the
-down-projection. Callers go through `repro_torch.kernels.ops.expert_ffn`.
+down-projection. `expert_ffn_q` (port of `expert_gemm.py::expert_ffn_q`) is
+the same over int8-resident weights with per-output-channel fp32 scales,
+which the kernel applies to the fp32 product. Callers go through
+`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -19,14 +22,27 @@ _STORE, _ACT, _GLU = 0, 1, 2   # epilogue codes of rt_expert_gemm
 TILE = 64                      # d and F must be multiples of the kernel's N/K tiles
 
 
-def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor) -> None:
-    if t.device != ref.device or t.dtype != ref.dtype:
-        raise ValueError(f"expert_ffn: {name} is {t.dtype} on {t.device}, "
-                         f"expected {ref.dtype} on {ref.device}")
+def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor,
+           dtype: Optional[torch.dtype] = None, fn: str = "expert_ffn") -> None:
+    dtype = ref.dtype if dtype is None else dtype
+    if t.device != ref.device or t.dtype != dtype:
+        raise ValueError(f"{fn}: {name} is {t.dtype} on {t.device}, "
+                         f"expected {dtype} on {ref.device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"expert_ffn: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"expert_ffn: {name} must be contiguous and 16-byte aligned")
+        raise ValueError(f"{fn}: {name} must be contiguous and 16-byte aligned")
+
+
+def _check_x(fn: str, xe: torch.Tensor, act: str) -> None:
+    if xe.device.type != "cuda":
+        raise ValueError(f"{fn}_cuda needs CUDA tensors, got {xe.device}")
+    if xe.dtype not in build.DTYPE_CODES:
+        raise ValueError(f"{fn}: dtype {xe.dtype} not supported (float32, bfloat16)")
+    if act not in ACT_CODES:
+        raise ValueError(f"{fn}: unknown activation {act!r}")
+    if xe.dim() != 3:
+        raise ValueError(f"{fn}: xe [E, C, d] expected")
 
 
 def expert_ffn_cuda(
@@ -36,14 +52,9 @@ def expert_ffn_cuda(
     w_out: torch.Tensor,              # [E, F, d]
     act: str = "silu",
 ) -> torch.Tensor:
-    if xe.device.type != "cuda":
-        raise ValueError(f"expert_ffn_cuda needs CUDA tensors, got {xe.device}")
-    if xe.dtype not in build.DTYPE_CODES:
-        raise ValueError(f"expert_ffn: dtype {xe.dtype} not supported (float32, bfloat16)")
-    if act not in ACT_CODES:
-        raise ValueError(f"expert_ffn: unknown activation {act!r}")
-    if xe.dim() != 3 or w_in.dim() != 3:
-        raise ValueError("expert_ffn: xe [E, C, d] and w_in [E, d, F] expected")
+    _check_x("expert_ffn", xe, act)
+    if w_in.dim() != 3:
+        raise ValueError("expert_ffn: w_in [E, d, F] expected")
     E, C, d = xe.shape
     F = w_in.shape[-1]
     if d % TILE or F % TILE:
@@ -68,6 +79,59 @@ def expert_ffn_cuda(
         ))
         build.check("expert_ffn down", lib.rt_expert_gemm(
             h.data_ptr(), w_out.data_ptr(), None, y.data_ptr(),
+            E, C, d, F, dt, _STORE, ACT_CODES[act], stream,
+        ))
+    return y
+
+
+def expert_ffn_q_cuda(
+    xe: torch.Tensor,                       # [E, C, d] bf16 / fp32
+    w_in_q: torch.Tensor,                   # [E, d, F] int8
+    w_in_scale: torch.Tensor,               # [E, 1, F] or [E, F] fp32
+    w_gate_q: Optional[torch.Tensor],       # [E, d, F] int8 or None (non-gated)
+    w_gate_scale: Optional[torch.Tensor],   # [E, 1, F] or [E, F] fp32, or None
+    w_out_q: torch.Tensor,                  # [E, F, d] int8
+    w_out_scale: torch.Tensor,              # [E, 1, d] or [E, d] fp32
+    act: str = "silu",
+) -> torch.Tensor:
+    """Returns [E, C, d] in xe's dtype; h is rounded to xe's dtype between
+    the two products, as `_ffn_kernel_q` rounds it."""
+    _check_x("expert_ffn_q", xe, act)
+    if w_in_q.dim() != 3:
+        raise ValueError("expert_ffn_q: w_in_q [E, d, F] expected")
+    E, C, d = xe.shape
+    F = w_in_q.shape[-1]
+    if d % TILE or F % TILE:
+        raise ValueError(f"expert_ffn_q: d={d} and F={F} must be multiples of {TILE}")
+    gated = w_gate_q is not None
+    if gated != (w_gate_scale is not None):
+        raise ValueError("expert_ffn_q: w_gate_q and w_gate_scale go together")
+    _check("xe", xe, (E, C, d), xe, fn="expert_ffn_q")
+    _check("w_in_q", w_in_q, (E, d, F), xe, torch.int8, "expert_ffn_q")
+    _check("w_out_q", w_out_q, (E, F, d), xe, torch.int8, "expert_ffn_q")
+    w_in_scale = w_in_scale.reshape(E, F)
+    w_out_scale = w_out_scale.reshape(E, d)
+    _check("w_in_scale", w_in_scale, (E, F), xe, torch.float32, "expert_ffn_q")
+    _check("w_out_scale", w_out_scale, (E, d), xe, torch.float32, "expert_ffn_q")
+    if gated:
+        w_gate_scale = w_gate_scale.reshape(E, F)
+        _check("w_gate_q", w_gate_q, (E, d, F), xe, torch.int8, "expert_ffn_q")
+        _check("w_gate_scale", w_gate_scale, (E, F), xe, torch.float32, "expert_ffn_q")
+
+    lib = build.library()
+    dt = build.DTYPE_CODES[xe.dtype]
+    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    y = torch.empty((E, C, d), dtype=xe.dtype, device=xe.device)
+    with torch.cuda.device(xe.device):
+        stream = build.stream_handle(xe)
+        build.check("expert_ffn_q up", lib.rt_expert_gemm_q(
+            xe.data_ptr(), w_in_q.data_ptr(), w_in_scale.data_ptr(),
+            w_gate_q.data_ptr() if gated else None,
+            w_gate_scale.data_ptr() if gated else None, h.data_ptr(),
+            E, C, F, d, dt, _GLU if gated else _ACT, ACT_CODES[act], stream,
+        ))
+        build.check("expert_ffn_q down", lib.rt_expert_gemm_q(
+            h.data_ptr(), w_out_q.data_ptr(), w_out_scale.data_ptr(), None, None, y.data_ptr(),
             E, C, d, F, dt, _STORE, ACT_CODES[act], stream,
         ))
     return y

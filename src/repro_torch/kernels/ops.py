@@ -14,11 +14,12 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.expert_gemm import expert_ffn_cuda
+from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
 
-KERNELS = ("expert_ffn", "sparsemax", "flash_prefill")
+KERNELS = ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode", "expert_ffn_q")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _count_lock = threading.Lock()   # the hash and inference threads both launch
 
@@ -56,6 +57,20 @@ def expert_ffn(xe, w_in, w_gate: Optional[torch.Tensor], w_out, act: str = "silu
     return ref.expert_ffn_ref(xe, w_in, w_gate, w_out, act=act)
 
 
+def expert_ffn_q(xe, w_in_q, w_in_scale, w_gate_q: Optional[torch.Tensor],
+                 w_gate_scale: Optional[torch.Tensor], w_out_q, w_out_scale,
+                 act: str = "silu"):
+    """xe [E, C, d] -> [E, C, d] through each slot's FFN over int8 weights
+    with per-output-channel fp32 scales."""
+    if _on_card(xe, "expert_ffn_q"):
+        out = expert_ffn_q_cuda(xe, w_in_q, w_in_scale, w_gate_q, w_gate_scale,
+                                w_out_q, w_out_scale, act=act)
+        _count("expert_ffn_q")
+        return out
+    return ref.expert_ffn_q_ref(xe, w_in_q, w_in_scale, w_gate_q, w_gate_scale,
+                                w_out_q, w_out_scale, act=act)
+
+
 def sparsemax(z: torch.Tensor) -> torch.Tensor:
     """z [..., L] -> simplex projection along the last axis."""
     if _on_card(z, "sparsemax"):
@@ -72,3 +87,13 @@ def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = Tru
         _count("flash_prefill")
         return out
     return ref.flash_prefill_ref(q, k, v, window=window, cap=cap, causal=causal).to(q.dtype)
+
+
+def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0):
+    """q [B, H, D] over a ring cache k/v [B, S, K, D] whose slots hold the
+    global positions `slot_pos` [B, S] (-1 invalid) -> [B, H, D] in q's dtype."""
+    if _on_card(q, "flash_decode"):
+        out = flash_decode_cuda(q, k, v, slot_pos, pos, window=window, cap=cap)
+        _count("flash_decode")
+        return out
+    return ref.flash_decode_ref(q, k, v, slot_pos, pos, window=window, cap=cap).to(q.dtype)

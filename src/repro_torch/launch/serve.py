@@ -7,8 +7,10 @@ Port of `repro/launch/serve.py`'s batch mode for `--engine sida`, with the
 same workload (`np.random.default_rng(0)` tokens), the same hash width
 (d_h 64) and the same summary lines. Trains nothing: random weights from
 seeded `torch.Generator`s (0 for the model, 1 for the hash function). Runs
-on CUDA unless `--device cpu`. The baselines (ROADMAP A8), the request
-server (A13) and the other serving flags come with later slices.
+on CUDA unless `--device cpu`. `--host-quant int8` keeps int8 host masters
+(dequantised at slot write), `--quantized-slots` keeps the slots int8 and
+runs the int8 expert FFN. The baselines (ROADMAP A8), the request server
+(A13) and the other serving flags come with later slices.
 """
 from __future__ import annotations
 
@@ -24,12 +26,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params, n_moe_layers
 
 
-def build_engine(cfg, params, slots: int, eviction: str = "fifo", device=None) -> SiDAEngine:
+def build_engine(cfg, params, slots: int, eviction: str = "fifo", device=None,
+                 host_quant: str = "none", quantized_slots: bool = False,
+                 scale_granularity: str = "channel") -> SiDAEngine:
     hp = init_hash_fn(
         torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
         cfg.moe.num_experts, d_h=64, device="cpu",
     )
-    return SiDAEngine(cfg, params, hp, slots_per_layer=slots, eviction=eviction, device=device)
+    return SiDAEngine(
+        cfg, params, hp, slots_per_layer=slots, eviction=eviction, device=device,
+        host_quant=host_quant, quantized_slots=quantized_slots,
+        scale_granularity=scale_granularity,
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +58,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device expert slots per MoE layer (the memory budget)")
     ap.add_argument("--eviction", default="fifo", choices=["fifo", "lru", "alpha"],
                     help="slot replacement: fifo | lru | alpha (α-mass)")
+    # the JAX CLI's flags, with its choices and defaults (serving/config.py)
+    ap.add_argument("--host-quant", default="none", choices=["none", "int8"],
+                    help="host expert tier format (int8 halves H2D bytes; dequantised "
+                         "at slot write unless --quantized-slots)")
+    ap.add_argument("--quantized-slots", action="store_true",
+                    help="int8 device-resident slots + fused-dequant expert FFN (2-4x "
+                         "resident experts per slot byte; implies --host-quant int8)")
+    ap.add_argument("--scale-granularity", default="channel", choices=["channel", "tensor"],
+                    help="int8 scale granularity per expert tensor")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
     return ap
@@ -70,7 +87,9 @@ def main(argv=None):
         rng.integers(0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int32)
         for _ in range(args.batches)
     ]
-    srv = build_engine(cfg, params, args.slots, args.eviction, device)
+    srv = build_engine(cfg, params, args.slots, args.eviction, device,
+                       host_quant=args.host_quant, quantized_slots=args.quantized_slots,
+                       scale_granularity=args.scale_granularity)
     del params   # the engine holds what it serves: host masters + device params
     metrics = srv.serve(batches)
     print(f"engine={args.engine} slots={args.slots}")

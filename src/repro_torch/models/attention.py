@@ -1,11 +1,13 @@
-"""GQA attention, full-sequence (prefill) path, single device.
+"""GQA attention, single device: the full-sequence (prefill) path and the
+one-token decode path over a ring K/V cache.
 
-Port of the batch-serving half of `repro/models/attention.py`. On CUDA,
-`attend_full` runs the whole sequence through the hand-written
-`flash_prefill` kernel; on the CPU it keeps the reference's plain
-`_attend_chunk` with `Q_CHUNK` query chunking and sliding-window banding.
-Decode attention and the mesh-sharded paths come with the decode slice
-(ROADMAP A10) and expert parallelism (A14).
+Port of `repro/models/attention.py` without the mesh. On CUDA, `attend_full`
+runs the whole sequence through the hand-written `flash_prefill` kernel and
+`decode_attention` the token through `flash_decode`; on the CPU they keep the
+reference's plain `_attend_chunk` (with `Q_CHUNK` query chunking and
+sliding-window banding) and `decode_attention_local`. The mesh-sharded
+paths come with expert parallelism (ROADMAP A14), cross-attention with the
+encoder-decoder families (A15) and paged K/V with A12.
 """
 from __future__ import annotations
 
@@ -136,3 +138,84 @@ def attend_full(
     if return_kv:
         return y, (k, v)
     return y
+
+
+# ---------------------------------------------------------------------------
+# decode attention — one token vs a ring K/V cache
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_local(
+    q: torch.Tensor,          # [B, H, D] (rope applied)
+    k: torch.Tensor,          # [B, S, K, D]
+    v: torch.Tensor,          # [B, S, K, D]
+    slot_pos: torch.Tensor,   # [B, S] global position held by each slot (-1 invalid)
+    pos: torch.Tensor,        # [B] current decode position
+    window: int,
+    cap: float,
+):
+    """Plain path: partial (out·l, l, m), the reference's safe-softmax form."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, D)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) / math.sqrt(D)
+    if cap:
+        logits = softcap(logits, cap)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    if window:
+        valid &= slot_pos > (pos[:, None] - window)
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
+    m = logits.max(dim=-1).values                       # [B,K,G]
+    e = torch.exp(logits - m[..., None])
+    l = e.sum(dim=-1)                                   # [B,K,G]
+    o = torch.einsum("bkgs,bskd->bkgd", e, v.float())
+    return o.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
+
+
+def decode_attention(q, k, v, slot_pos, pos, window: int, cap: float) -> torch.Tensor:
+    """[B, H, D] attention of one token over the cache, in q's dtype: the
+    `flash_decode` kernel on CUDA, the plain path elsewhere."""
+    if q.device.type == "cuda":
+        return ops.flash_decode(q, k, v, slot_pos, pos, window=window, cap=cap)
+    o, l, _ = decode_attention_local(q, k, v, slot_pos, pos, window, cap)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def attend_decode(
+    params: dict,
+    x_tok: torch.Tensor,      # [B, d] current-token activations
+    cache_k: torch.Tensor,    # [B, Sc, K, D]
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,        # [B] int32 decode position
+    cfg: ModelConfig,
+    layer: int,
+):
+    """One self-attention decode step. Returns (y [B, d], cache_k, cache_v).
+
+    The new token's K/V go to ring slot `pos % Sc`. Unlike the reference,
+    which returns updated copies, the port writes them into `cache_k` /
+    `cache_v` in place (`index_put_`) and returns the same tensors: the
+    decode loop owns its cache, and a copy of every layer's K/V per token
+    would move the whole cache each step. The speculative slice (ROADMAP
+    A10-spec) needs the pre-step cache for its rollback
+    (`transformer.verify_step`), so it will have to snapshot what it
+    overwrites."""
+    B = x_tok.shape[0]
+    Sc = cache_k.shape[1]
+    window = cfg.layer_window(layer)
+    q = _project_q(params, x_tok[:, None, :], cfg)                  # [B, 1, H, D]
+    q = apply_rope(q, pos[:, None], cfg.attn.rope_theta)[:, 0]
+    k_new, v_new = _project_kv(params, x_tok[:, None, :], cfg)
+    k_new = apply_rope(k_new, pos[:, None], cfg.attn.rope_theta)
+    slot = (pos % Sc).long()
+    bidx = torch.arange(B, device=x_tok.device)
+    cache_k.index_put_((bidx, slot), k_new[:, 0].to(cache_k.dtype))
+    cache_v.index_put_((bidx, slot), v_new[:, 0].to(cache_v.dtype))
+    # global position held by each slot s: largest p <= pos with p % Sc == s
+    s_idx = torch.arange(Sc, dtype=pos.dtype, device=pos.device)[None, :]
+    slot_pos = pos[:, None] - ((pos[:, None] - s_idx) % Sc)
+    slot_pos = torch.where(slot_pos >= 0, slot_pos, torch.full_like(slot_pos, -1))
+    o = decode_attention(q, cache_k, cache_v, slot_pos, pos, window, cfg.attn.logit_softcap)
+    y = o.reshape(B, cfg.n_heads * cfg.hd).to(x_tok.dtype) @ params["wo"]
+    return y, cache_k, cache_v

@@ -9,10 +9,12 @@ the reference's order, and overflowing assignments land in an explicit
 overflow column / pad row that is sliced off (JAX drops them with
 `mode="drop"`; torch would raise on an out-of-range index).
 
-The expert compute always goes through `kernels.ops.expert_ffn`: the
-hand-written kernel for CUDA tensors, the plain version for CPU tensors.
-Shared experts, int8/int4 slot stacks and expert-parallel dispatch come in
-later slices (ROADMAP A15, A11, A14).
+The expert compute always goes through `kernels.ops`: `expert_ffn` over fp
+slot stacks, `expert_ffn_q` over int8-resident ones (the hand-written
+kernels for CUDA tensors, the plain versions for CPU tensors). `moe_decode`
+is the one-token-per-lane form the decode step calls. Shared experts, int4
+slot stacks and expert-parallel dispatch come in later slices (ROADMAP A15,
+A11-int4, A14).
 """
 from __future__ import annotations
 
@@ -191,15 +193,48 @@ def _dispatch_combine(params, xt, ids, w, cfg, dispatch):
     return y.reshape(T, d)
 
 
+def expert_params_quantized(p: dict) -> bool:
+    """True when the expert stack is int8-resident: the store publishes
+    `w_*_scale` planes beside the int8 pools."""
+    return "w_in_scale" in p
+
+
 def apply_expert_stack_blocked(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """xe: [n, E, C, d] -> [n, E, C, d] through each slot's (G)LU FFN, as
-    one [E, n·C, d] call of `ops.expert_ffn` (the reference's Pallas-path
-    reshape)."""
-    if "w_in_scale" in p or "w_in_q4" in p:
-        raise NotImplementedError("int8/int4 resident slots are ported in ROADMAP A11")
+    one [E, n·C, d] call of `ops.expert_ffn`, or of `ops.expert_ffn_q` when
+    the slots are int8 (the reference's Pallas-path reshape). On the CPU the
+    int8 call is the reference's jnp path: dequantise to x's dtype, then the
+    plain FFN."""
+    if "w_in_q4" in p:
+        raise NotImplementedError("int4 warm-tier slots are ported in ROADMAP A11-int4")
     n, E, C, d = xe.shape
     x2 = xe.transpose(0, 1).reshape(E, n * C, d).contiguous()
-    out = ops.expert_ffn(
-        x2, p["w_in"], p["w_gate"] if cfg.glu else None, p["w_out"], act=cfg.act,
-    )
+    if expert_params_quantized(p):
+        out = ops.expert_ffn_q(
+            x2, p["w_in"], p["w_in_scale"],
+            p["w_gate"] if cfg.glu else None, p["w_gate_scale"] if cfg.glu else None,
+            p["w_out"], p["w_out_scale"], act=cfg.act,
+        )
+    else:
+        out = ops.expert_ffn(
+            x2, p["w_in"], p["w_gate"] if cfg.glu else None, p["w_out"], act=cfg.act,
+        )
     return out.reshape(E, n, C, d).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# decode-path MoE (single token per sequence)
+# ---------------------------------------------------------------------------
+
+
+def moe_decode(
+    params: dict,
+    x: torch.Tensor,                 # [B, d]
+    cfg: ModelConfig,
+    routing_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # ids/w [B,k]
+) -> torch.Tensor:
+    ro = None
+    if routing_override is not None:
+        ro = (routing_override[0][:, None], routing_override[1][:, None])
+    y, _ = moe_layer(params, x[:, None, :], cfg, routing_override=ro)
+    return y[:, 0]

@@ -1,12 +1,13 @@
-"""Config-driven transformer, attention + MoE block kinds (port of the
-full-sequence half of `repro/models/transformer.py`).
+"""Config-driven transformer, attention + MoE block kinds (port of
+`repro/models/transformer.py`: the full-sequence forward, the ring K/V
+cache and the one-token `decode_step`).
 
 Layers are grouped into repeating periods (Switch's dense/MoE pair) and each
 sublayer's params are stacked over the groups, as in the reference; its
 `lax.scan` over the stacked groups becomes a Python loop over the leading
-group axis. Recurrent / hybrid blocks and encoder-decoder stacks are ported
-with the other families (ROADMAP A15); `decode_step` and caches with the
-decode slice (A10).
+group axis of the params and of the cache. Recurrent / hybrid blocks and
+encoder-decoder stacks are ported with the other families (ROADMAP A15),
+paged K/V with A12 and the speculative `verify_step` with A10-spec.
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import attend_full, init_attention
+from repro_torch.models.attention import attend_decode, attend_full, init_attention
 from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
-from repro_torch.models.moe import init_moe, moe_layer
+from repro_torch.models.moe import init_moe, moe_decode, moe_layer
 from repro_torch.tree import tree_map, tree_stack
 
 
@@ -186,3 +187,85 @@ def forward(
     if collect_kv:
         out["kv"] = tree_stack(kvs)
     return out
+
+
+# ---------------------------------------------------------------------------
+# cache + decode
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg: ModelConfig, sub: int, seq_budget: int) -> int:
+    w = sub_kind(cfg, sub).get("window", 0)
+    return min(seq_budget, w) if w else seq_budget
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike = None) -> dict:
+    """Zeros ring cache on `device` (CUDA unless asked otherwise). Layout:
+    {"pos": [B] int32, "sub{s}": {"k", "v": [G, B, Sc, K, D]}}."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    per = period(cfg)
+    n_groups = cfg.n_layers // per
+    dtype = getattr(torch, cfg.dtype)
+    K, D = cfg.n_kv_heads, cfg.hd
+    cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    for s in range(per):
+        Sc = cache_len(cfg, s, seq_budget)
+        cache[f"sub{s}"] = {
+            "k": torch.zeros((n_groups, batch, Sc, K, D), dtype=dtype, device=device),
+            "v": torch.zeros((n_groups, batch, Sc, K, D), dtype=dtype, device=device),
+        }
+    return cache
+
+
+def _apply_sublayer_decode(bp, k, v, x, pos, cfg, sub, routing_override):
+    """One sublayer for one token; k/v [B, Sc, K, D] are written in place."""
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    a, _, _ = attend_decode(bp["attn"], h, k, v, pos, cfg, sub)
+    if cfg.post_norm:
+        a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
+    x = x + a
+    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if sub_kind(cfg, sub)["moe"]:
+        y = moe_decode(bp["moe"], h, cfg, routing_override=routing_override)
+    elif "mlp" in bp:
+        y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
+    else:
+        y = torch.zeros_like(h)
+    if cfg.post_norm:
+        y = rmsnorm(bp["ln2_post"], y, cfg.norm_eps)
+    return x + y
+
+
+def decode_step(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,      # [B] int
+    cfg: ModelConfig,
+    routing_override=None,     # (ids [L_moe,B,k], w [L_moe,B,k]) or None
+):
+    """One serve step: next-token logits [B, V] and the cache. The K/V
+    tensors are updated in place (see `attention.attend_decode`); the
+    returned dict holds them and the advanced `pos`."""
+    _check_supported(cfg)
+    if "page_table" in cache:
+        raise NotImplementedError("paged K/V caches are ported in ROADMAP A12")
+    per = period(cfg)
+    moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
+    pos = cache["pos"]
+    x = embed_tokens(params, cfg, tokens)
+    for g in range(cfg.n_layers // per):
+        gp = tree_map(lambda t: t[g], params["blocks"])
+        for s in range(per):
+            ro = None
+            if routing_override is not None and s in moe_subs:
+                li = g * len(moe_subs) + moe_subs.index(s)
+                ro = (routing_override[0][li], routing_override[1][li])
+            entry = cache[f"sub{s}"]
+            x = _apply_sublayer_decode(gp[f"sub{s}"], entry["k"][g], entry["v"][g], x, pos,
+                                       cfg, s, ro)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params, cfg, x)
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return logits, new_cache

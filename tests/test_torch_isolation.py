@@ -44,7 +44,9 @@ def test_port_sources_import_no_jax_and_no_repro():
 def test_importing_the_port_loads_no_jax():
     mods = [
         "repro_torch", "repro_torch.checkpoint", "repro_torch.core.engine",
+        "repro_torch.core.decode_engine", "repro_torch.core.offload",
         "repro_torch.launch.serve", "repro_torch.kernels.ops",
+        "repro_torch.kernels.flash_decode", "repro_torch.kernels.expert_gemm",
     ]
     code = (
         "import sys\n"
@@ -56,11 +58,19 @@ def test_importing_the_port_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
 
 
+def test_port_sources_cover_the_decode_slice():
+    names = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for mod in ("core/decode_engine.py", "kernels/flash_decode.py", "kernels/expert_gemm.py",
+                "core/offload.py", "models/attention.py"):
+        assert mod in names, mod
+
+
 def test_default_device_is_cuda_and_never_falls_back_to_cpu(monkeypatch):
+    from repro_torch.core.decode_engine import SiDADecodeEngine
     from repro_torch.core.engine import SiDAEngine
     from repro_torch.core.hash_fn import init_hash_fn
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import init_cache, init_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("switch-base-8").reduced()
@@ -75,7 +85,14 @@ def test_default_device_is_cuda_and_never_falls_back_to_cpu(monkeypatch):
         SiDAEngine(cfg, params, hp, slots_per_layer=2)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["--batches", "1", "--batch", "1", "--seq", "4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SiDADecodeEngine(cfg, params, hp, slots_per_layer=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["--batches", "1", "--batch", "1", "--seq", "4", "--quantized-slots"])
     assert SiDAEngine(cfg, params, hp, slots_per_layer=2, device="cpu").device.type == "cpu"
+    assert SiDADecodeEngine(cfg, params, hp, slots_per_layer=2, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", [f"switch-base-{e}" for e in (8, 64, 128, 256)])

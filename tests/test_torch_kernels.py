@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.expert_gemm import expert_ffn_cuda
+from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
 
@@ -149,6 +150,13 @@ def test_kernels_refuse_cpu_and_other_devices():
         sparsemax_cuda(torch.zeros(4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         flash_prefill_cuda(torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_cuda(torch.zeros(1, 2, 32), torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32),
+                          torch.zeros(1, 8, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    wq = torch.zeros(2, 64, 64, dtype=torch.int8)
+    sq = torch.ones(2, 1, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_ffn_q_cuda(x, wq, sq, None, None, wq, sq)
     with pytest.raises(ValueError, match="device meta"):
         ops.sparsemax(torch.zeros(4, 8, device="meta"))
     before = ops.launches()
@@ -194,4 +202,64 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, K, D, window, cap, ca
     assert got.dtype == q.dtype
     want = ref.flash_prefill_ref(q, k, v, window, cap, causal)
     # bf16: the kernel keeps fp32 probabilities and rounds the output once
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+def _quantized(arr: np.ndarray):
+    """Per-output-channel symmetric int8 of a [E, d_in, d_out] stack."""
+    scale = np.maximum(np.abs(arr).max(axis=-2, keepdims=True), 1e-8) / 127.0
+    q = np.clip(np.round(arr / scale), -127, 127).astype(np.int8)
+    return torch.from_numpy(q), torch.from_numpy(scale.astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,F,glu,act", [
+    (4, 8, 768, 3072, False, "gelu"), (8, 8, 768, 3072, False, "gelu"),
+    (4, 640, 768, 3072, False, "gelu"), (3, 77, 128, 512, True, "silu"), (2, 1, 64, 128, False, "relu"),
+])
+def test_expert_ffn_q_kernel_matches_plain(cuda, E, C, d, F, glu, act, dtype):
+    xe, wi, wg, wo = _ffn_inputs(E, C, d, F, glu)
+    qs = [_quantized(a) if a is not None else (None, None) for a in (wi, wg, wo)]
+    args = [_t(xe, dtype).to(cuda)]
+    for q, s in qs:
+        args += [None, None] if q is None else [q.to(cuda), s.to(cuda)]
+    got = ops.expert_ffn_q(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == getattr(torch, dtype)
+    want = ref.expert_ffn_q_ref(*args, act=act)
+    # bf16: the plain version rounds q·s to bf16 before the product, the
+    # kernel scales the fp32 product (tolerances of tests/test_quantized.py)
+    _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+def _decode_inputs(B, S, H, K, D, pos, wrap, dtype, cuda, seed=20):
+    q, k, v = (_t(_np(s, seed + i), dtype).to(cuda)
+               for i, s in enumerate([(B, H, D), (B, S, K, D), (B, S, K, D)]))
+    p = torch.tensor(pos, dtype=torch.int32)
+    s_idx = torch.arange(S, dtype=torch.int32)[None, :]
+    if wrap:   # ring slots: the largest position <= pos that maps to each slot
+        sp = p[:, None] - ((p[:, None] - s_idx) % S)
+    else:      # linear slots, filled up to pos
+        sp = s_idx.expand(B, S).clone()
+    sp = torch.where(sp >= 0, sp, torch.full_like(sp, -1)).contiguous()
+    return q, k, v, sp.to(cuda), p.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,D,pos,wrap,window,cap", [
+    (8, 512, 12, 12, 64, [63] * 8, True, 0, 0.0),                 # the decode path's shape
+    (8, 512, 12, 12, 64, [700, 5, 511, 512, 1023, 0, 64, 300], True, 0, 0.0),   # ring wrap
+    (2, 100, 8, 2, 64, [150, 37], True, 24, 30.0),                # G = 4, window + cap, ragged S
+    (3, 77, 6, 2, 128, [76, 10, 200], False, 0, 0.0),             # G = 3, D = 128
+    (2, 33, 8, 1, 32, [5, 32], True, 0, 0.0),                     # G = 8, D = 32
+    (2, 40, 4, 4, 64, [-1, 3], False, 0, 0.0),                    # lane 0: every slot invalid
+])
+def test_flash_decode_kernel_matches_plain(cuda, B, S, H, K, D, pos, wrap, window, cap, dtype):
+    q, k, v, sp, p = _decode_inputs(B, S, H, K, D, pos, wrap, dtype, cuda)
+    got = ops.flash_decode(q, k, v, sp, p, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, H, D)
+    want = ref.flash_decode_ref(q, k, v, sp, p, window, cap)
     _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
