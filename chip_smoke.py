@@ -19,13 +19,17 @@
    and the same table gives logits within tolerance.
 5. Decode path: `SiDADecodeEngine.generate` on the same model, 8 lanes,
    64 steps over a 512-slot ring cache, (a) on 4 bf16 slots and (b) on 8
-   int8-resident slots per MoE layer (about the same device bytes);
-   tok/s, ms/step, loads, bytes, each kernel's launches in the run (0 fails
-   for the kernels of that path), a per-step stage split and the profiled
-   device idle share.
+   int8-resident slots per MoE layer (about the same device bytes), and
+   (c) on hot int8 / warm int4 slots (a 4-slot int8 budget split 0.5: 2 hot,
+   3 warm) over a paged K/V pool (page 16, 256 pages, 512 addressable
+   positions); tok/s, ms/step, loads, tier moves, bytes, pages, each
+   kernel's launches in the run (0 fails for the kernels of that path), a
+   per-step stage split and the profiled device idle share.
 6. Decode card vs CPU: full width, 2 layers, fp32, 40 steps over a 32-slot
-   ring (it wraps), fp and int8 slots: greedy tokens identical, and one
-   fixed table's decode_step logits within tolerance.
+   ring (it wraps), fp and int8 slots, then (c) tiered slots over a paged
+   pool (page 8, 48 pages): greedy tokens identical (and for (c) the same
+   loads and tier moves), and one fixed table's decode_step logits within
+   tolerance.
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}. Imports nothing of
@@ -466,14 +470,145 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
     return records
 
 
+def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: int, c_warm: int):
+    """Phase 2, tiered and paged decode shapes: expert_ffn_q4 on phase 5c's
+    warm block [warm, c_warm, d] and on a batch shape, and flash_decode_paged
+    over a full table that holds the keys of flash_decode's ring case, plus
+    spilled entries with window, softcap and a lane with no valid key.
+    Returns {kernel: record of the path's bf16 case}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.offload import quantize_expert_q4
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_gemm import expert_ffn_q4_cuda
+    from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(432)
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype=dtype, device=dev)
+
+    records, failed = {}, []
+
+    # --- expert_ffn_q4: int4 weights, group 64, as the tiered store makes them
+    d, Fh = cfg.d_model, cfg.moe.d_expert
+
+    def quantize4(w):
+        q, sc = quantize_expert_q4(w.numpy(), 64)
+        return torch.from_numpy(q).to(dev), torch.from_numpy(sc).to(dev)
+
+    for E, C in ((warm, c_warm), (4, 640)):
+        wi_q, wi_s = quantize4(torch.randn((E, d, Fh), generator=gen) * d ** -0.5)
+        wo_q, wo_s = quantize4(torch.randn((E, Fh, d), generator=gen) * Fh ** -0.5)
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+            xe = rnd((E, C, d), 1.0, dtype)
+            args = (xe, wi_q, wi_s, None, None, wo_q, wo_s)
+            got = expert_ffn_q4_cuda(*args, act=cfg.act)
+            torch.cuda.synchronize()
+            want = ref.expert_ffn_q4_ref(*args, act=cfg.act)
+            wi_f = ref.dequantize_q4_ref(wi_q, wi_s, d).to(dtype)     # dequantised ahead of time
+            wo_f = ref.dequantize_q4_ref(wo_q, wo_s, Fh).to(dtype)
+            peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+            bnd = bound_ms(nb(xe, wi_q, wi_s, wo_q, wo_s, got), 2 * 2 * E * C * d * Fh, peak)
+            rec = report(failed, "expert_ffn_q4", dtype, (E, C, d, Fh), got, want, tol,
+                         time_ms(lambda: expert_ffn_q4_cuda(*args, act=cfg.act)),
+                         time_ms(lambda: ref.expert_ffn_q4_ref(*args, act=cfg.act)),
+                         time_ms(lambda: torch.bmm(F.gelu(torch.bmm(xe, wi_f), approximate="tanh"),
+                                                   wo_f)),
+                         bnd, " (bmm+gelu+bmm, pre-dequantised)")
+            if dtype == torch.bfloat16 and E == warm:
+                records["expert_ffn_q4"] = rec
+
+    # --- flash_decode_paged: lane b's entry i is pool page b·Mp + i, so the
+    # pool holds the [lanes, cache_len] ring case's keys, all valid at the
+    # last position
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Mp = cache_len // page
+    for name, dtype, window, cap, tol in (
+        ("flash_decode_paged", torch.bfloat16, 0, 0.0, 2e-2),
+        ("flash_decode_paged", torch.float32, 0, 0.0, 1e-4),
+        ("flash_decode_paged/spilled-w128c50", torch.bfloat16, 128, 50.0, 2e-2),
+        ("flash_decode_paged/spilled-w128c50", torch.float32, 128, 50.0, 1e-4),
+    ):
+        q = rnd((lanes, H, D), 1.0, dtype)
+        k = rnd((lanes, cache_len, K, D), 1.0, dtype)
+        v = rnd((lanes, cache_len, K, D), 1.0, dtype)
+        kp = torch.cat([k.reshape(lanes * Mp, page, K, D),
+                        rnd((1, page, K, D), 1.0, dtype)]).contiguous()   # + the trash page
+        vp = torch.cat([v.reshape(lanes * Mp, page, K, D),
+                        rnd((1, page, K, D), 1.0, dtype)]).contiguous()
+        table = np.arange(lanes * Mp, dtype=np.int32).reshape(lanes, Mp)
+        pos = np.full((lanes,), cache_len - 1, np.int32)
+        if window:
+            table[1, ::3] = -1                           # spilled entries
+            table[2, Mp // 2:] = -1                      # unallocated tail
+            pos[2] = cache_len // 2 + 5                  # past its allocated pages
+            table[3, :] = -1                             # no valid key at all
+        pt = torch.from_numpy(table).to(dev)
+        p = torch.from_numpy(pos).to(dev)
+        got = flash_decode_paged_cuda(q, kp, vp, pt, p, window=window, cap=cap)
+        torch.cuda.synchronize()
+        want = ref.flash_decode_paged_ref(q, kp, vp, pt, p, window=window, cap=cap)
+        # bytes: the K/V rows of every live page, plus the trash page once if
+        # a lane has none; operations: a lane with none averages V over all
+        # Mp entries, each naming the trash page
+        lo = np.where(window > 0, pos - window + 1, 0)
+        first = np.arange(Mp)[None, :] * page
+        live = (table >= 0) & (first <= pos[:, None]) & (first + page - 1 >= lo[:, None])
+        empty = int((live.sum(1) == 0).sum())
+        kv_bytes = 2 * (int(live.sum()) + min(empty, 1)) * page * K * D * kp.element_size()
+        op_keys = (int(live.sum()) + Mp * empty) * page
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        bnd = bound_ms(kv_bytes + nb(q, pt, p, got), 4 * H * D * op_keys, peak)
+        k_ms = time_ms(lambda: flash_decode_paged_cuda(q, kp, vp, pt, p, window=window, cap=cap))
+        p_ms = time_ms(lambda: ref.flash_decode_paged_ref(q, kp, vp, pt, p, window=window,
+                                                           cap=cap))
+        rec = report(failed, name, dtype, (lanes, H, D, Mp, page), got, want, tol, k_ms, p_ms,
+                     None, bnd)
+        if not window:
+            sp = torch.arange(cache_len, dtype=torch.int32, device=dev).expand(lanes, -1)
+            sp = sp.contiguous()
+            ring = flash_decode_cuda(q, k, v, sp, p)
+            err = (ring.float() - got.float()).abs().max().item()
+            print(f"    (no PyTorch call reads through a page table, so library_ms is null; "
+                  f"the port's flash_decode on the same keys pre-gathered into a ring: "
+                  f"{time_ms(lambda: flash_decode_cuda(q, k, v, sp, p)):.4f} ms, "
+                  f"max_abs_diff to paged {err:.3e})")
+            if err > tol:
+                failed.append(f"{name} {dtype}: paged and ring kernels disagree")
+        if name == "flash_decode_paged" and dtype == torch.bfloat16:
+            records["flash_decode_paged"] = rec
+    if failed:
+        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
+    return records
+
+
 DECODE_KERNELS = {"bf16": ("flash_decode", "expert_ffn", "sparsemax"),
-                  "int8": ("flash_decode", "expert_ffn_q", "sparsemax")}
+                  "int8": ("flash_decode", "expert_ffn_q", "sparsemax"),
+                  "tiered-paged": ("flash_decode_paged", "expert_ffn_q", "expert_ffn_q4",
+                                   "sparsemax")}
 
 
-def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, slots: int,
-                int8_slots: int):
-    """Phase 5: SiDADecodeEngine.generate at full width, on bf16 slots and on
-    int8-resident slots; returns {"bf16" | "int8": launch counts}."""
+def decode_runs(cfg, slots: int, int8_slots: int, tier_slots: int, cache_len: int):
+    """Phase 5's three runs: (name, engine kwargs, generate kwargs)."""
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.residency import PagedKVConfig
+
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    paged = PagedKVConfig(page_size=16, kv_pages=256, max_seq=cache_len)
+    return (("bf16", dict(slots_per_layer=slots), {}),
+            ("int8", dict(slots_per_layer=int8_slots, quantized_slots=True), {}),
+            ("tiered-paged", dict(slots_per_layer=tier_slots, quantized_slots=True, tier=tier),
+             dict(paged=paged)))
+
+
+def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, tiers):
+    """Phase 5: SiDADecodeEngine.generate at full width on each run of
+    `decode_runs`; returns {run name: launch counts}. `tiers` is the (S8, S4)
+    phase 2 timed the tiered kernels at, which the tiered store must have."""
     import numpy as np
     import torch
 
@@ -484,34 +619,43 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, slots: 
 
     start = np.random.default_rng(0).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
     out_counts = {}
-    for name, n_slots, kw in (("bf16", slots, {}), ("int8", int8_slots, {"quantized_slots": True})):
+    for name, kw, gen_kw in runs:
         t0 = time.perf_counter()
-        eng = SiDADecodeEngine(cfg, params, hp, slots_per_layer=n_slots, device="cuda", **kw)
+        eng = SiDADecodeEngine(cfg, params, hp, device="cuda", **kw)
         setup = time.perf_counter() - t0
         torch.cuda.synchronize()
         ops.reset_launches()
-        toks, m = eng.generate(start, steps=steps, cache_len=cache_len)
+        toks, m = eng.generate(start, steps=steps, cache_len=cache_len, **gen_kw)
         counts = ops.launches()
         st = eng.store.stats
         dev_bytes = sum(nbytes(x) for x in tree_leaves(eng.store.serve_params))
-        print(f"  ({name}) slots={n_slots} lanes={lanes} steps={steps} cache_len={cache_len} "
-              f"setup_s={setup:.2f}")
+        print(f"  ({name}) slots={kw['slots_per_layer']} (S8={eng.store.S8} S4={eng.store.S4}) "
+              f"lanes={lanes} steps={steps} cache_len={cache_len} setup_s={setup:.2f}")
         print(f"    tok_s={m.tok_s:.1f} ms_per_step={1e3 * m.wall_s / m.steps:.3f} "
               f"wall_s={m.wall_s:.4f} tokens={m.tokens}")
         print(f"    loads first_step={m.loads_per_step[0]} last_step={m.loads_per_step[-1]} "
-              f"total={st.loads} hits={st.hits} evictions={st.evictions} bytes_h2d={st.bytes_h2d}")
+              f"total={st.loads} hits={st.hits} evictions={st.evictions} "
+              f"promotions={st.promotions} demotions={st.demotions} bytes_h2d={st.bytes_h2d}")
         print(f"    device_memory_bytes={dev_bytes} expert_device_bytes={eng.store.device_bytes()} "
               f"expert_slot_bytes={eng.store.expert_slot_bytes()}")
+        if eng.kv_pool is not None:
+            pool = eng.kv_pool
+            print(f"    kv pages allocated={pool.stats.allocs} resident={pool.resident_pages()} "
+                  f"spills={pool.stats.spills} page_ins={pool.stats.page_ins} "
+                  f"kv_pool_bytes={pool.kv_pool_bytes()} kv_capacity_bytes={pool.capacity_bytes()}")
         print(f"    launches {json.dumps(counts)}")
+        if "tier" in kw and (eng.store.S8, eng.store.S4) != tiers:
+            raise SystemExit(f"chip_smoke: the tiered store has (S8, S4) = "
+                             f"{(eng.store.S8, eng.store.S4)}, phase 2 checked {tiers}")
         if toks.shape != (lanes, steps) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise SystemExit(f"chip_smoke: decode ({name}) emitted out-of-vocab tokens")
         idle = [k for k in DECODE_KERNELS[name] if counts[k] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels never launched on the {name} decode path: {idle}")
         t0 = time.perf_counter()
-        decode_stages(eng, start, 16, cache_len)
+        decode_stages(eng, start, 16, cache_len, gen_kw.get("paged"))
         t1 = time.perf_counter()
-        decode_profile(eng, start, 16, cache_len)
+        decode_profile(eng, start, 16, cache_len, gen_kw)
         print(f"    (stage split {t1 - t0:.1f} s, profile {time.perf_counter() - t1:.1f} s)")
         out_counts[name] = counts
         eng.close()
@@ -519,24 +663,28 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, slots: 
     return out_counts
 
 
-def decode_stages(eng, start, steps: int, cache_len: int):
+def decode_stages(eng, start, steps: int, cache_len: int, paged=None):
     """Phase 5, per-step split: the generate loop with a synchronize after
     each stage, host clock around each."""
     import numpy as np
     import torch
 
     from repro_torch.core.decode_engine import DecodeMetrics, TableBuffer, hash_state_init
-    from repro_torch.models.transformer import init_cache
 
     B = len(start)
-    stages = {"predict_ids_d2h": [], "prepare": [], "translate": [], "step_token_d2h": []}
+    stages = {"page_tick": [], "predict_ids_d2h": [], "prepare": [], "translate": [],
+              "step_token_d2h": []}
     with torch.inference_mode():
-        cache = init_cache(eng.cfg, B, cache_len, device=eng.device)
+        cache, pool = eng._make_cache(B, cache_len, paged)
         hstate = hash_state_init(eng.hash_params, B)
         tokens = torch.as_tensor(start, dtype=torch.int32, device=eng.device)
         tbuf, m = TableBuffer(eng.L, B, 1, eng.k), DecodeMetrics()
         torch.cuda.synchronize()
         for i in range(steps):
+            tp = time.perf_counter()
+            if pool is not None:
+                cache = eng._page_tick(pool, cache, np.full((B,), i + 1, np.int64))
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             ids, alpha, hstate = eng._predict_step(tokens, hstate)
             table = tbuf.fill(i, ids, alpha)                 # ends in the ids' copy to host
@@ -550,20 +698,24 @@ def decode_stages(eng, start, steps: int, cache_len: int):
             tokens, cache = eng._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :])
             tokens.cpu()
             t4 = time.perf_counter()
-            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            if pool is not None:
+                pool.unpin_all()
+            for k, v in zip(stages, (t0 - tp, t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 stages[k].append(v)
+    if pool is None:
+        del stages["page_tick"]
     print(f"    per-step stage means over {steps} steps (synchronised): " + " ".join(
         f"{k}_ms={1e3 * float(np.mean(v)):.3f}" for k, v in stages.items()))
 
 
-def decode_profile(eng, start, steps: int, cache_len: int):
+def decode_profile(eng, start, steps: int, cache_len: int, gen_kw):
     """Phase 5, device busy share over one generate (torch.profiler, device
     activity only, as phase 3b)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(start, steps=steps, cache_len=cache_len)
+        eng.generate(start, steps=steps, cache_len=cache_len, **gen_kw)
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
@@ -621,6 +773,64 @@ def decode_card_vs_cpu(cfg, lanes: int, slots: int, int8_slots: int):
             raise SystemExit(f"chip_smoke: card and CPU disagree on the {name} decode path")
 
 
+def tiered_paged_card_vs_cpu(cfg, lanes: int, tier_slots: int):
+    """Phase 6c: greedy decode on tiered slots over a paged pool, on the card
+    and on the CPU, same weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.residency import KVPagePool, PagedKVConfig
+    from repro_torch.models.transformer import decode_step, n_moe_layers
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params, hp = seeded_model(cfg2)
+    start = np.random.default_rng(0).integers(0, cfg2.vocab_size, (lanes,)).astype(np.int32)
+    L, steps = n_moe_layers(cfg2), 40
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    paged = PagedKVConfig(page_size=8, kv_pages=48)
+    where = {"card": "cuda", "cpu": "cpu"}
+    eng = {k: SiDADecodeEngine(cfg2, params, hp, slots_per_layer=tier_slots, device=dev,
+                               quantized_slots=True, tier=tier) for k, dev in where.items()}
+    out, loads = {}, {}
+    for k, e in eng.items():
+        out[k], m = e.generate(start, steps=steps, paged=paged)
+        st = e.store.stats
+        loads[k] = (m.loads_per_step, st.loads, st.promotions, st.demotions, st.evictions)
+    same = float((out["card"] == out["cpu"]).mean())
+    st = eng["card"].store
+    # one fixed table over both tiers' slots: paged decode_step logits from a fresh pool
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, st.S8 + st.S4, (L, lanes, 1)).astype(np.int32)
+    w = np.ones((L, lanes, 1), np.float32)
+    logits = {}
+    with torch.inference_mode():
+        for k, e in eng.items():
+            dev = where[k]
+            pool = KVPagePool(cfg2, paged, lanes, device=dev)
+            cache = pool.init_cache()
+            for b in range(lanes):
+                cache = pool.ensure(cache, b, 1)
+            cache["page_table"] = pool.device_table()
+            lg, _ = decode_step(e.store.serve_params, cache, torch.as_tensor(start, device=dev),
+                                cfg2, routing_override=(torch.as_tensor(ids, device=dev),
+                                                        torch.as_tensor(w, device=dev)))
+            logits[k] = lg.float().cpu().numpy()[:, :cfg2.vocab_size]
+    err = float(np.abs(logits["card"] - logits["cpu"]).max())
+    scale = float(np.abs(logits["cpu"]).max())
+    tol = 1e-3 * max(1.0, scale)
+    c = loads["card"]
+    print(f"  (tiered-paged slots={tier_slots}: S8={st.S8} S4={st.S4}) fp32 n_layers=2 "
+          f"lanes={lanes} steps={steps} page=8 kv_pages=48: greedy tokens identical={same:.6f} "
+          f"(need 1.0); loads={c[1]} promotions={c[2]} demotions={c[3]} evictions={c[4]} "
+          f"identical on card and CPU={loads['card'] == loads['cpu']}; decode_step logits "
+          f"max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3f}")
+    if (same < 1.0 or loads["card"] != loads["cpu"] or not err <= tol
+            or not np.isfinite(logits["card"]).all()):
+        raise SystemExit("chip_smoke: card and CPU disagree on the tiered paged decode path")
+
+
 def main() -> int:
     import torch
 
@@ -631,7 +841,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.base import get_config
+    from repro_torch.core.offload import tier_geometry
     from repro_torch.kernels import build
+    from repro_torch.models.moe import _capacity
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -646,6 +858,7 @@ def main() -> int:
     cfg = get_config("switch-base-8")
     slots, batch, seq, n_batches = 4, 8, 256, 8
     int8_slots, lanes, steps, cache_len = 8, 8, 64, 512
+    tier_slots = 4          # int8-slot budget of 5c: 2 hot int8 + 3 warm int4 slots
     for line in build.build_log().splitlines():
         if line.startswith("== "):
             print(f"  nvcc {line[3:]}")
@@ -653,6 +866,14 @@ def main() -> int:
           f"[{time.perf_counter() - t_start:.1f} s]")
     records = check_kernels(cfg, batch, seq, slots)
     records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots))
+    runs = decode_runs(cfg, slots, int8_slots, tier_slots, cache_len)
+    # 5c's warm block: the store's split of its int8 budget, at the capacity
+    # the decode step gives each of its slots (phase 5c checks the store's)
+    d, Fh = cfg.d_model, cfg.moe.d_expert
+    hot, warm = tier_geometry(runs[2][1]["tier"], tier_slots, cfg.moe.num_experts,
+                              [(d, Fh), (d, Fh), (Fh, d)])
+    records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
+                                            warm, _capacity(cfg, lanes, hot + warm)))
 
     print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -669,11 +890,12 @@ def main() -> int:
 
     print(f"== phase 5: decode path (SiDADecodeEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
-    dcounts = decode_path(cfg, params, hp, lanes, steps, cache_len, slots, int8_slots)
+    dcounts = decode_path(cfg, params, hp, lanes, steps, cache_len, runs, (hot, warm))
     del params
 
     print(f"== phase 6: decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
     decode_card_vs_cpu(cfg, lanes, slots, int8_slots)
+    tiered_paged_card_vs_cpu(cfg, lanes, tier_slots)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -687,13 +909,20 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:80"),
         "expert_ffn_q": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
                          "src/repro/kernels/expert_gemm.py:98"),
+        "expert_ffn_q4": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
+                          "src/repro/kernels/expert_gemm.py:211"),
+        "flash_decode_paged": ("cuda", "src/repro_torch/csrc/flash_decode.cu",
+                               "src/repro/kernels/flash_decode.py:180"),
     }
     # each kernel's launches on the path that runs it: the batch serve for
     # the batch kernels, the bf16 decode for flash_decode, the int8 decode
-    # for expert_ffn_q
+    # for expert_ffn_q, the tiered paged decode for expert_ffn_q4 and
+    # flash_decode_paged
     launches = {k: counts[k] for k in BATCH_KERNELS}
     launches["flash_decode"] = dcounts["bf16"]["flash_decode"]
     launches["expert_ffn_q"] = dcounts["int8"]["expert_ffn_q"]
+    for k in ("expert_ffn_q4", "flash_decode_paged"):
+        launches[k] = dcounts["tiered-paged"][k]
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = records[name]

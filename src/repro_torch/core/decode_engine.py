@@ -10,13 +10,17 @@ Per decode step:
   3. `translate_device` turns the still-resident prediction into slot ids
      and renormalised weights on the device;
   4. `decode_step` runs with that routing override (routers offloaded) over
-     the ring K/V cache.
+     the ring K/V cache, or with `generate(paged=...)` over a shared K/V
+     page pool whose pages a `KVPagePool` allocates, spills and pages back
+     in before each step.
 
-The SparseMax attention over LSTM outputs is kept exactly, over a ring of
-the last `HISTORY` outputs; it goes through `kernels.ops.sparsemax`, the
-hand-written kernel on the card. Speculative decode (ROADMAP A10-spec),
-paged K/V (A12), the async prefetch pipeline (A9), expert-parallel shards
-(A14) and the int4 warm tier (A11-int4) are not ported yet and raise.
+The store may split its slots into hot int8 and warm int4 tiers
+(`tier=TierConfig(int4_slots=True)` with `quantized_slots=True`). The
+SparseMax attention over LSTM outputs is kept exactly, over a ring of the
+last `HISTORY` outputs; it goes through `kernels.ops.sparsemax`, the
+hand-written kernel on the card. Speculative decode (ROADMAP A10-spec), the
+async prefetch pipeline (A9) and expert-parallel shards (A14) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hash_table import HashTable
 from repro_torch.core.offload import ExpertStore
+from repro_torch.core.residency import KVPagePool
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
 from repro_torch.models.layers import top_k
@@ -182,20 +187,19 @@ class SiDADecodeEngine:
             raise NotImplementedError("the async prefetch pipeline is ported in ROADMAP A9")
         if sharded is not None:
             raise NotImplementedError("expert-parallel shards are ported in ROADMAP A14")
-        if tier is not None and tier.enabled:
-            raise NotImplementedError("the int4 warm tier is ported in ROADMAP A11-int4")
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
         self.store = ExpertStore(
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
-            scale_granularity=scale_granularity,
+            scale_granularity=scale_granularity, tier=tier,
         )
         self.device = self.store.device
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
         self.embed_table = self.store.serve_params["embed"]
         self.L = n_moe_layers(cfg)
         self.E = cfg.moe.num_experts
+        self.kv_pool: Optional[KVPagePool] = None   # the last paged generate's pool
 
     # ------------------------------------------------------------------
     def _predict_step(self, tokens: torch.Tensor, hstate: dict):
@@ -221,23 +225,41 @@ class SiDADecodeEngine:
         m.loads_per_step.append(self.store.stats.loads - loads_before)
         return trans
 
+    def _make_cache(self, B: int, cache_len: int, paged):
+        """A ring cache, or with a `residency.PagedKVConfig` a paged cache and
+        the `KVPagePool` that keeps its table (α-mass page eviction)."""
+        if paged is None:
+            return init_cache(self.cfg, B, cache_len, device=self.device), None
+        pool = KVPagePool(self.cfg, paged, B, eviction="alpha", device=self.device)
+        return pool.init_cache(), pool
+
+    @staticmethod
+    def _page_tick(pool: KVPagePool, cache: dict, upto: np.ndarray) -> dict:
+        """Before a step: make each lane's positions resident up to `upto[b]`
+        (allocating, or paging spilled in-span pages back in), pinning them
+        so one lane's allocation cannot evict a page another lane reads;
+        then install the table. The caller unpins after the step."""
+        for b in range(upto.shape[0]):
+            cache = pool.ensure(cache, b, int(upto[b]), pin=True)
+        cache["page_table"] = pool.device_table()
+        return cache
+
     @torch.inference_mode()
     def generate(
         self,
         prompt_last_tokens: np.ndarray,
         steps: int,
         cache_len: int = 256,
-        paged=None,
+        paged=None,   # residency.PagedKVConfig => K/V in a shared page pool
     ) -> Tuple[np.ndarray, DecodeMetrics]:
         """Greedy-decode `steps` tokens for a batch, starting from the given
-        current tokens with a fresh ring cache of `cache_len` slots. Each
-        step: predict, copy ids/α to the host (the one D2H of the
-        prediction), prepare the slots, translate on the device, run the
-        step, copy the token to the host."""
-        if paged is not None:
-            raise NotImplementedError("paged K/V decode is ported in ROADMAP A12")
+        current tokens with a fresh ring cache of `cache_len` slots, or a
+        fresh paged cache. Each step: make the pages resident (paged),
+        predict, copy ids/α to the host (the one D2H of the prediction),
+        prepare the slots, translate on the device, run the step, copy the
+        token to the host."""
         B = prompt_last_tokens.shape[0]
-        cache = init_cache(self.cfg, B, cache_len, device=self.device)
+        cache, pool = self._make_cache(B, cache_len, paged)
         hstate = hash_state_init(self.hash_params, B)
         tokens = torch.as_tensor(np.asarray(prompt_last_tokens), dtype=torch.int32,
                                  device=self.device)
@@ -246,6 +268,8 @@ class SiDADecodeEngine:
         tbuf = TableBuffer(self.L, B, 1, self.k)
         t0 = time.perf_counter()
         for i in range(steps):
+            if pool is not None:
+                cache = self._page_tick(pool, cache, np.full((B,), i + 1, np.int64))
             ids, alpha, hstate = self._predict_step(tokens, hstate)
             table = tbuf.fill(i, ids, alpha)
             trans = self._route_table(table, m)
@@ -255,11 +279,14 @@ class SiDADecodeEngine:
                                                       trans)
             tokens, cache = self._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :])
             out[:, i] = tokens.cpu().numpy()   # forces the step; slots consumed
+            if pool is not None:
+                pool.unpin_all()               # pinned by _page_tick
             m.steps += 1
             m.tokens += B                      # every position emitted == accepted
             m.proposed += B
             m.accepted_per_step.append(1.0)
         m.wall_s = time.perf_counter() - t0
+        self.kv_pool = pool
         return out, m
 
     def close(self) -> None:

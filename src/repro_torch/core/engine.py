@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TierConfig
 from repro_torch.core.hash_fn import (
     HASH_SEG_LEN,
     hash_fn_apply,
@@ -79,6 +79,7 @@ class SiDAEngine:
         host_quant: str = "none",                   # "none" | "int8" host masters
         quantized_slots: Optional[bool] = None,     # int8-resident slots
         scale_granularity: Optional[str] = None,    # "channel" | "tensor"
+        tier: Optional[TierConfig] = None,          # hot int8 / warm int4 slots
     ):
         if cfg.prefetch.enabled:
             raise NotImplementedError("the async prefetch pipeline is ported in ROADMAP A9")
@@ -87,7 +88,7 @@ class SiDAEngine:
         self.store = ExpertStore(
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
-            scale_granularity=scale_granularity,
+            scale_granularity=scale_granularity, tier=tier,
         )
         self.device = self.store.device
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)

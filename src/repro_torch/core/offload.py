@@ -13,11 +13,20 @@ policy, and returns the expert -> slot translation table that the routing
 override addresses; `translate` (host) and `translate_device` (decode) turn
 it into slot ids and renormalised weights. Routers never reach the device.
 
-One shard, no int4 tier, no replicas and no prefetcher: the int4 warm tier
-(ROADMAP A11-int4), the async prefetch pipeline (A9) and expert-parallel
-shards (A14) come in later slices. The slot bookkeeping is the reference's,
-so the same table stream gives the same resident sets, evictions, hits,
-translations and byte counts.
+With a `TierConfig` (`int4_slots`) and int8-resident slots the pool splits
+into a hot tier of `S8` int8 slots and a warm tier of `S4` nibble-packed
+int4 slots (`w_*_q4` pools plus per-group `w_*_q4_scale` planes), addressed
+as one slot space `[0, S8 + S4)`, hot first. A decayed α-mass EMA ranks tier
+moves: a hot-tier miss demotes its victim into a warm slot instead of
+evicting it, a warm hit promotes into a free hot slot or swaps with the
+coldest hot resident past `promote_margin`, and a hot tier whose residents
+are all protected overflows into the warm tier. Every move re-uploads the
+host master of the target format; nothing is transcoded on the device.
+
+One shard, no replicas and no prefetcher: the async prefetch pipeline
+(ROADMAP A9) and expert-parallel shards (A14) come in later slices. The
+slot bookkeeping is the reference's, so the same table stream gives the same
+resident sets, tier moves, evictions, hits, translations and byte counts.
 """
 from __future__ import annotations
 
@@ -30,13 +39,16 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TierConfig
 from repro_torch.core.hash_table import HashTable
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import n_moe_layers, period, sub_kind
 from repro_torch.tree import tree_map
 
 EXPERT_TENSORS = ("w_in", "w_gate", "w_out")
+# per-table decay of the α-mass EMA that ranks tier moves (the reference's
+# ShardedStoreConfig.alpha_decay default; the port has no EP config yet)
+ALPHA_DECAY = 0.9
 
 
 class EvictionPolicy:
@@ -56,6 +68,10 @@ class EvictionPolicy:
     def touch(self, e: int, weight: float = 0.0) -> None:
         pass
 
+    def forget(self, e: int) -> None:
+        """Drop `e` from the books without counting an eviction (a tier
+        move, or a K/V page released)."""
+
     def pick_victim(self, protected) -> Optional[int]:
         raise NotImplementedError
 
@@ -70,6 +86,12 @@ class FIFOPolicy(EvictionPolicy):
 
     def admit(self, e: int, weight: float = 0.0) -> None:
         self.order.append(e)
+
+    def forget(self, e: int) -> None:
+        try:
+            self.order.remove(e)
+        except ValueError:
+            pass
 
     def pick_victim(self, protected) -> Optional[int]:
         for _ in range(len(self.order)):
@@ -97,6 +119,9 @@ class LRUPolicy(EvictionPolicy):
         if e in self.order:
             self.order.move_to_end(e)
 
+    def forget(self, e: int) -> None:
+        self.order.pop(e, None)
+
     def pick_victim(self, protected) -> Optional[int]:
         for victim in self.order:
             if victim not in protected:
@@ -122,6 +147,9 @@ class AlphaMassPolicy(EvictionPolicy):
         if e in self.score:
             self.score[e] = self.decay * self.score[e] + weight
 
+    def forget(self, e: int) -> None:
+        self.score.pop(e, None)
+
     def pick_victim(self, protected) -> Optional[int]:
         best, best_s = None, None
         for e, sc in self.score.items():
@@ -145,10 +173,13 @@ class TransferStats:
     hits: int = 0
     dropped: int = 0               # planned loads dropped (every victim protected)
     prepare_time: float = 0.0      # synchronous upload time inside the forward path
+    promotions: int = 0            # warm (int4) -> hot (int8) tier moves
+    demotions: int = 0             # hot (int8) -> warm (int4) tier moves
 
     def reset(self):
         self.bytes_h2d = self.loads = self.evictions = self.hits = self.dropped = 0
         self.prepare_time = 0.0
+        self.promotions = self.demotions = 0
 
 
 def nbytes(t: torch.Tensor) -> int:
@@ -179,6 +210,55 @@ def quantize_expert(
     return q, scale
 
 
+def pack_nibbles(q: np.ndarray) -> np.ndarray:
+    """int4 values (int8 storage, [-8, 7]) [..., K, N] -> nibble-packed
+    uint8 [..., ceil(K/2), N]. Byte i holds contraction rows 2i (low
+    nibble) and 2i+1 (high nibble), two's complement; an odd K pads one
+    zero row. The kernel and `kernels.ref.unpack_int4_ref` read this."""
+    K = q.shape[-2]
+    if K % 2:
+        pad = [(0, 0)] * (q.ndim - 2) + [(0, 1), (0, 0)]
+        q = np.pad(q, pad)
+    u = (q.astype(np.int16) & 0xF).astype(np.uint8)
+    return (u[..., 1::2, :] << 4) | u[..., 0::2, :]
+
+
+def unpack_nibbles(p: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of `pack_nibbles`: uint8 [..., ceil(k/2), n] -> int8 [..., k, n]."""
+    lo = (p & 0xF).astype(np.int8)
+    hi = (p >> 4).astype(np.int8)
+    v = np.stack([lo, hi], axis=-2)
+    v = v.reshape(p.shape[:-2] + (-1, p.shape[-1]))[..., :k, :]
+    return np.where(v >= 8, v - 16, v).astype(np.int8)
+
+
+def _group_of(k: int, group: int) -> int:
+    """Effective int4 scale group along a contraction axis of length `k`:
+    `group` when it divides `k`, else the whole axis (one group)."""
+    g = min(group, k)
+    return g if k % g == 0 else k
+
+
+def quantize_expert_q4(w: np.ndarray, group: int = 64) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric int4 quantisation with per-group scales. w: [..., d_in, d_out].
+
+    Each (group of `group` contraction rows, output channel) pair gets one
+    f32 scale = absmax / 7 and values round to [-7, 7]. Returns
+    (packed [..., ceil(d_in/2), d_out] uint8, scale [..., d_in/group, d_out]
+    f32). The reference's numpy, so the masters are bit-identical to its."""
+    k = w.shape[-2]
+    g = _group_of(k, group)
+    ng = k // g
+    wg = w.astype(np.float32).reshape(w.shape[:-2] + (ng, g, w.shape[-1]))
+    absmax = np.abs(wg).max(axis=-2, keepdims=True)
+    scale = np.maximum(absmax, 1e-8) / 7.0
+    q = np.clip(np.round(wg / scale), -7, 7).astype(np.int8)
+    q = q.reshape(w.shape)
+    return pack_nibbles(q), scale[..., 0, :].reshape(
+        w.shape[:-2] + (ng, w.shape[-1])
+    ).astype(np.float32)
+
+
 def expert_format_bytes(shapes: List[Tuple[int, int]], fmt: str, group: int = 64) -> int:
     """Per-expert device bytes per MoE layer for one residency format, scale
     planes included. `shapes` lists the (d_in, d_out) of each expert tensor
@@ -188,12 +268,26 @@ def expert_format_bytes(shapes: List[Tuple[int, int]], fmt: str, group: int = 64
         if fmt == "int8":
             tot += k * n + 4 * n                    # int8 rows + [1, n] f32 scale
         elif fmt == "int4":
-            g = min(group, k)
-            g = g if k % g == 0 else k              # repro offload._group_of
+            g = _group_of(k, group)
             tot += ((k + 1) // 2) * n + 4 * (k // g) * n
         else:
             raise ValueError(f"unknown residency format {fmt!r}")
     return tot
+
+
+def tier_geometry(tier, slots_per_layer: int, E: int,
+                  shapes: List[Tuple[int, int]]) -> Tuple[int, int]:
+    """(S8, S4): hot int8 and warm int4 slots per MoE layer for a budget of
+    `slots_per_layer` int8 slots, the warm share bought at the per-tier bytes
+    of `expert_format_bytes`. S8 + S4 caps at E: more slots than experts
+    would shrink the per-slot dispatch capacity for no residency gain."""
+    if tier.warm_slots is not None:
+        S8 = min(max(slots_per_layer, 1), E)
+        return int(S8), int(min(tier.warm_slots, E - S8))
+    b8 = expert_format_bytes(shapes, "int8")
+    b4 = expert_format_bytes(shapes, "int4", tier.group_size)
+    S8 = min(max(1, int(round(slots_per_layer * tier.tier_split))), E)
+    return int(S8), int(min(max(0, ((slots_per_layer - S8) * b8) // b4), E - S8))
 
 
 class ExpertStore:
@@ -212,6 +306,7 @@ class ExpertStore:
         host_quant: str = "none",      # "none" | "int8" (host masters)
         quantized_slots: Optional[bool] = None,    # None => cfg.quant
         scale_granularity: Optional[str] = None,   # None => cfg.quant
+        tier: Optional[TierConfig] = None,         # None => cfg.quant.tier
     ):
         if not cfg.moe.enabled:
             raise ValueError("ExpertStore requires an MoE config")
@@ -219,8 +314,6 @@ class ExpertStore:
             raise ValueError(f"unknown eviction policy {eviction!r}")
         if host_quant not in ("none", "int8"):
             raise ValueError(f"unknown host_quant {host_quant!r}")
-        if cfg.quant.tier.enabled:
-            raise NotImplementedError("the int4 warm tier is ported in ROADMAP A11-int4")
         self.quantized_slots = (
             cfg.quant.quantized_slots if quantized_slots is None else quantized_slots
         )
@@ -239,54 +332,96 @@ class ExpertStore:
         self.eviction = eviction
         self.stats = TransferStats()
 
+        # hot int8 / warm int4 tiers: `slots_per_layer` stays the budget in
+        # int8-slot bytes (`tier_geometry`)
+        self.tier = cfg.quant.tier if tier is None else tier
+        self.tiered = bool(self.tier is not None and self.tier.enabled)
+        moe_p0 = params["blocks"][f"sub{self.moe_subs[0]}"]["moe"]
+        self._expert_shapes = [tuple(moe_p0[t].shape[2:]) for t in EXPERT_TENSORS]
+        self.S8, self.S4 = self.S, 0
+        if self.tiered:
+            if not self.quantized_slots:
+                raise ValueError("the int4 warm tier layers on int8-resident slots "
+                                 "(--int4-slots requires --quantized-slots)")
+            self.S8, self.S4 = tier_geometry(self.tier, slots_per_layer, self.E,
+                                             self._expert_shapes)
+            self.S = self.S8 + self.S4
+            # no warm slots: behave exactly as the untiered quantized store
+            self.tiered = self.S4 > 0
+
         # split params: experts -> host masters, routers dropped, the rest
         # (and empty slot pools) on the device
         self.host: Dict[str, Dict[str, torch.Tensor]] = {}
         self.host_scale: Dict[str, Dict[str, torch.Tensor]] = {}
+        # int4 host masters (tiered stores): quantised from the same f32
+        # originals as the int8 masters, so a tier move re-uploads a master
+        # and never transcodes int8 <-> int4
+        self.host4: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.host4_scale: Dict[str, Dict[str, torch.Tensor]] = {}
         serve_params = tree_map(lambda x: x, params)   # fresh dicts, same leaves
         for s in self.moe_subs:
             moe_p = serve_params["blocks"][f"sub{s}"]["moe"]
-            self.host[f"sub{s}"] = {}
-            self.host_scale[f"sub{s}"] = {}
+            for d in (self.host, self.host_scale, self.host4, self.host4_scale):
+                d[f"sub{s}"] = {}
             for t in EXPERT_TENSORS:
                 full = moe_p[t]
+                # fp32 numpy of the master: abs-max and division give the
+                # reference's bits for fp32 and bf16 weights alike
+                w = full.detach().to("cpu", torch.float32).numpy() if (
+                    self.quant == "int8" or self.tiered) else None
                 if self.quant == "int8":
-                    # fp32 numpy of the master: abs-max and division give the
-                    # reference's bits for fp32 and bf16 weights alike
-                    q, scale = quantize_expert(
-                        full.detach().to("cpu", torch.float32).numpy(), self.scale_granularity
-                    )
+                    q, scale = quantize_expert(w, self.scale_granularity)
                     self.host[f"sub{s}"][t] = torch.from_numpy(q)
                     self.host_scale[f"sub{s}"][t] = torch.from_numpy(scale)
                 else:
                     self.host[f"sub{s}"][t] = full.detach().to("cpu")
-                G = full.shape[0]
+                G, k_in, n_out = full.shape[0], full.shape[2], full.shape[3]
                 if self.quantized_slots:
                     # the residency format is the transfer format: int8 rows
                     # and their scale plane land as they are
                     moe_p[t] = torch.zeros(
-                        (G, self.S, *full.shape[2:]), dtype=torch.int8, device=self.device,
+                        (G, self.S8, k_in, n_out), dtype=torch.int8, device=self.device,
                     )
                     moe_p[t + "_scale"] = torch.zeros(
-                        (G, self.S, 1, full.shape[-1]), dtype=torch.float32, device=self.device,
+                        (G, self.S8, 1, n_out), dtype=torch.float32, device=self.device,
                     )
                 else:
                     moe_p[t] = torch.zeros(
-                        (G, self.S, *full.shape[2:]), dtype=full.dtype, device=self.device,
+                        (G, self.S8, k_in, n_out), dtype=full.dtype, device=self.device,
+                    )
+                if self.tiered:
+                    # warm pools, addressed by (global slot - S8)
+                    q4, s4 = quantize_expert_q4(w, self.tier.group_size)
+                    self.host4[f"sub{s}"][t] = torch.from_numpy(q4)
+                    self.host4_scale[f"sub{s}"][t] = torch.from_numpy(s4)
+                    moe_p[t + "_q4"] = torch.zeros(
+                        (G, self.S4, (k_in + 1) // 2, n_out), dtype=torch.uint8, device=self.device,
+                    )
+                    moe_p[t + "_q4_scale"] = torch.zeros(
+                        (G, self.S4, k_in // _group_of(k_in, self.tier.group_size), n_out),
+                        dtype=torch.float32, device=self.device,
                     )
             moe_p.pop("router", None)  # routers never participate in the forward
         self.serve_params = tree_map(lambda x: x.to(self.device), serve_params)
 
+        # per (group, sub): expert -> global slot, and each tier's policy and
+        # free list (hot slots [0, S8), warm slots [S8, S8 + S4))
         self.resident: Dict[Tuple[int, int], Dict[int, int]] = {}
         self.policy: Dict[Tuple[int, int], EvictionPolicy] = {}
         self.free: Dict[Tuple[int, int], List[int]] = {}
+        self.policy4: Dict[Tuple[int, int], EvictionPolicy] = {}
+        self.free4: Dict[Tuple[int, int], List[int]] = {}
         self.pinned: Dict[Tuple[int, int], Set[int]] = {}
+        self.alpha_ema: Dict[Tuple[int, int], np.ndarray] = {}   # decayed α mass per expert
         for g in range(self.n_groups):
             for s in self.moe_subs:
                 self.resident[(g, s)] = {}
                 self.policy[(g, s)] = EVICTION_POLICIES[eviction]()
-                self.free[(g, s)] = list(range(self.S))
+                self.free[(g, s)] = list(range(self.S8))
+                self.policy4[(g, s)] = EVICTION_POLICIES[eviction]()
+                self.free4[(g, s)] = list(range(self.S8, self.S8 + self.S4))
                 self.pinned[(g, s)] = set()
+                self.alpha_ema[(g, s)] = np.zeros((self.E,), np.float64)
         self._lock = threading.RLock()
 
     # -- layer indexing: moe layer l = g * len(moe_subs) + j ----------------
@@ -295,22 +430,37 @@ class ExpertStore:
         return l // len(self.moe_subs), self.moe_subs[j]
 
     # ------------------------------------------------------------------
+    def slot_tier(self, slot: int) -> str:
+        """'hot' (int8 pool) or 'warm' (int4 pool) for a global slot id."""
+        return "warm" if (self.S4 and slot >= self.S8) else "hot"
+
     def device_bytes(self) -> int:
         """Bytes of expert slot pools resident on the device (the paper's
-        metric), scale planes included when the slots are int8."""
+        metric), scale planes included when the slots are int8, and the warm
+        int4 pools with their group scale planes when tiered."""
         tot = 0
         for s in self.moe_subs:
             moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
             for t in EXPERT_TENSORS:
-                for key in (t, t + "_scale"):
+                for key in (t, t + "_scale", t + "_q4", t + "_q4_scale"):
                     if key in moe_p:
                         tot += nbytes(moe_p[key])
         return tot
 
+    def tier_slot_bytes(self) -> Dict[str, int]:
+        """Device bytes one expert costs per MoE layer in each tier, scale
+        planes included (`expert_format_bytes`)."""
+        group = self.tier.group_size if self.tier is not None else 64
+        return {
+            "hot": expert_format_bytes(self._expert_shapes, "int8"),
+            "warm": expert_format_bytes(self._expert_shapes, "int4", group),
+        }
+
     def expert_slot_bytes(self) -> int:
-        """Device bytes one expert slot costs per MoE layer in the residency
-        format (fp, or int8 + scale planes) — the denominator of the
-        capacity-at-equal-bytes comparison."""
+        """Device bytes one hot expert slot costs per MoE layer in the
+        residency format (fp, or int8 + scale planes) — the denominator of
+        the capacity-at-equal-bytes comparison. A warm slot costs
+        `tier_slot_bytes()["warm"]`."""
         tot = 0
         for s in self.moe_subs:
             moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
@@ -344,38 +494,142 @@ class ExpertStore:
 
     def plan_layer(
         self, l: int, needed: np.ndarray, mass: Optional[np.ndarray] = None,
+        extra_protected: Optional[Set[int]] = None,
     ) -> List[Tuple[int, int, int]]:
         """Cache bookkeeping for one layer; returns pending (g, slot, e) loads.
 
         `mass` ([E], optional) is the α mass the table routes to each expert,
-        fed to the eviction policy."""
+        fed to the eviction policy and, when tiered, to the α EMA that ranks
+        tier moves. `extra_protected` experts survive eviction and, like
+        pinned ones, never move between tiers (a translation in flight may
+        point at their slot)."""
         g, s = self.layer_to_gs(l)
         res = self.resident[(g, s)]
         policy = self.policy[(g, s)]
         free = self.free[(g, s)]
         protected = {int(e) for e in needed} | self.pinned[(g, s)]
+        move_blocked = set(self.pinned[(g, s)])
+        if extra_protected:
+            protected |= extra_protected
+            move_blocked |= extra_protected
+        if mass is not None and self.tiered:
+            # one full table pass decays the EMA by ALPHA_DECAY overall
+            ema = self.alpha_ema[(g, s)]
+            ema *= ALPHA_DECAY ** (1.0 / max(self.L, 1))
+            ema += mass
         pending: List[Tuple[int, int, int]] = []
         for e in needed:
             e = int(e)
             w = float(mass[e]) if mass is not None else 0.0
             if e in res:
                 self.stats.hits += 1
-                policy.touch(e, w)
+                if (self.tiered and res[e] >= self.S8 and e not in move_blocked
+                        and self._promote(g, s, e, w, protected | move_blocked, pending)):
+                    continue
+                self._touch(g, s, e, res[e], w)
                 continue
             if free:
                 slot = free.pop()
             else:
                 victim = policy.pick_victim(protected)
                 if victim is None:
-                    self.stats.dropped += 1  # everything resident is protected
+                    # hot tier full of protected residents: load into a warm
+                    # slot instead of dropping (combined capacity S8 + S4)
+                    wslot = self._take_warm_slot(g, s, protected) if self.tiered else None
+                    if wslot is None:
+                        self.stats.dropped += 1  # everything resident is protected
+                        continue
+                    res[e] = wslot
+                    self.policy4[(g, s)].admit(e, w)
+                    pending.append((g, wslot, e))
+                    self.stats.loads += 1
                     continue
                 slot = res.pop(victim)
-                self.stats.evictions += 1
+                wslot = None
+                if self.tiered and victim not in move_blocked:
+                    # demote instead of evict: the victim stays resident in a
+                    # warm slot, re-uploaded from its int4 host master
+                    wslot = self._take_warm_slot(g, s, protected)
+                if wslot is not None:
+                    res[victim] = wslot
+                    self.policy4[(g, s)].admit(victim, float(self.alpha_ema[(g, s)][victim]))
+                    pending.append((g, wslot, victim))
+                    self.stats.demotions += 1
+                    self.stats.loads += 1
+                else:
+                    self.stats.evictions += 1
             res[e] = slot
             policy.admit(e, w)
             pending.append((g, slot, e))
             self.stats.loads += 1
         return pending
+
+    def _touch(self, g: int, s: int, e: int, slot: int, w: float) -> None:
+        """Route a reference to the policy of the tier holding `slot`."""
+        (self.policy4 if self.slot_tier(slot) == "warm" else self.policy)[(g, s)].touch(e, w)
+
+    def _take_warm_slot(self, g: int, s: int, protected: Set[int]) -> Optional[int]:
+        """A warm slot: a free one, else the warm policy's victim evicted to
+        the host. None when every warm resident is protected."""
+        free4 = self.free4[(g, s)]
+        if free4:
+            return free4.pop()
+        v4 = self.policy4[(g, s)].pick_victim(protected)
+        if v4 is None:
+            return None
+        self.stats.evictions += 1
+        return self.resident[(g, s)].pop(v4)
+
+    def _peek_hot_victim(self, g: int, s: int, excluded: Set[int]) -> Optional[int]:
+        """The hot resident with the least decayed α mass outside
+        `excluded`, without touching the policy's books."""
+        ema = self.alpha_ema[(g, s)]
+        best = None
+        for e2, slot in self.resident[(g, s)].items():
+            if slot >= self.S8 or e2 in excluded:
+                continue
+            if best is None or ema[e2] < ema[best]:
+                best = e2
+        return best
+
+    def _promote(self, g: int, s: int, e: int, w: float, excluded: Set[int],
+                 pending: List[Tuple[int, int, int]]) -> bool:
+        """Move warm-resident `e` into the hot tier: into a free hot slot,
+        else by swapping with the coldest movable hot resident when e's
+        decayed α mass beats it by `tier.promote_margin` (hysteresis). The
+        moved experts are re-uploaded from their host masters. Returns True
+        iff a move happened."""
+        res = self.resident[(g, s)]
+        ema = self.alpha_ema[(g, s)]
+        wslot = res[e]
+        free = self.free[(g, s)]
+        if free:
+            hot_slot = free.pop()
+            self.free4[(g, s)].append(wslot)
+            self.policy4[(g, s)].forget(e)
+            res[e] = hot_slot
+            self.policy[(g, s)].admit(e, w)
+            pending.append((g, hot_slot, e))
+            self.stats.promotions += 1
+            self.stats.loads += 1
+            return True
+        v = self._peek_hot_victim(g, s, excluded)
+        if v is None or float(ema[e]) <= 0.0:
+            return False
+        if float(ema[e]) < self.tier.promote_margin * float(ema[v]):
+            return False
+        hot_slot = res[v]
+        res[e], res[v] = hot_slot, wslot
+        self.policy[(g, s)].forget(v)
+        self.policy4[(g, s)].forget(e)
+        self.policy[(g, s)].admit(e, w)
+        self.policy4[(g, s)].admit(v, float(ema[v]))
+        pending.append((g, hot_slot, e))
+        pending.append((g, wslot, v))
+        self.stats.promotions += 1
+        self.stats.demotions += 1
+        self.stats.loads += 2
+        return True
 
     def commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
         """Batched host -> device writes for sub-slot `s` (one per tensor).
@@ -383,18 +637,20 @@ class ExpertStore:
         Three formats, as the reference: int8 rows and scale planes landing
         as they are (quantized slots); int8 rows + scales uploaded and
         dequantised on the device into fp slots (`host_quant="int8"`, half
-        the H2D bytes of bf16); fp rows.
+        the H2D bytes of bf16); fp rows. Loads into warm slots land the
+        int4 masters (`_commit_warm`).
 
         The pools are written in place (`index_copy_`). That is safe here:
         prepare and the forward that reads the slots run on one thread and
         one stream, so the copy is ordered before every later read. An async
         prefetcher (ROADMAP A9) will need copy-on-write or events instead."""
+        if self.S4:
+            self._commit_warm(s, [i for i in items if i[1] >= self.S8])
+            items = [i for i in items if i[1] < self.S8]
         if not items:
             return
-        gs = torch.tensor([i[0] for i in items], dtype=torch.long)
-        sl = torch.tensor([i[1] for i in items], dtype=torch.long)
-        es = torch.tensor([i[2] for i in items], dtype=torch.long)
-        rows = (gs * self.S + sl).to(self.device)
+        gs, sl, es = (torch.tensor(col, dtype=torch.long) for col in zip(*items))
+        rows = (gs * self.S8 + sl).to(self.device)
         moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
 
         def write(key: str, vals: torch.Tensor) -> None:
@@ -415,6 +671,26 @@ class ExpertStore:
             else:
                 self.stats.bytes_h2d += nbytes(w_host)
                 write(t, w_host.to(self.device))
+
+    def _commit_warm(self, s: int, items: List[Tuple[int, int, int]]) -> None:
+        """Writes into the warm pools: the nibble-packed int4 masters and
+        their group scale planes land as they are. One plan can fill a warm
+        slot twice (a demoted expert evicted again by a later demotion):
+        every upload is counted, and the last one is what lands."""
+        if not items:
+            return
+        moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
+        for t in EXPERT_TENSORS:
+            for host in (self.host4, self.host4_scale):
+                self.stats.bytes_h2d += len(items) * nbytes(host[f"sub{s}"][t][0, 0])
+        last = list({(g, slot): (g, slot, e) for g, slot, e in items}.values())
+        gs, sl, es = (torch.tensor(col, dtype=torch.long) for col in zip(*last))
+        rows = (gs * self.S4 + sl - self.S8).to(self.device)
+        for t in EXPERT_TENSORS:
+            for key, host in ((t + "_q4", self.host4), (t + "_q4_scale", self.host4_scale)):
+                vals = host[f"sub{s}"][t][gs, es]
+                pool = moe_p[key]
+                pool.view(-1, *pool.shape[2:]).index_copy_(0, rows, vals.to(self.device))
 
     def trans_row(self, l: int) -> np.ndarray:
         g, s = self.layer_to_gs(l)
@@ -446,7 +722,8 @@ class ExpertStore:
         for l in range(self.L):
             needed = table.active_experts(l)
             mass = None
-            if len(needed) > self.S or self.eviction == "alpha":
+            # tiered stores take the mass too: the α EMA ranks tier moves
+            if len(needed) > self.S or self.eviction == "alpha" or self.tiered:
                 mass = table.activation_mass(l, self.E)
             if len(needed) > self.S:
                 # tighter budget than the active set: keep the highest-α-mass

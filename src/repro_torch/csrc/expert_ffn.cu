@@ -1,4 +1,5 @@
-// Slot-stacked expert FFN GEMMs for Hopper (sm_90a), over fp or int8 weights.
+// Slot-stacked expert FFN GEMMs for Hopper (sm_90a), over fp, int8 or int4
+// weights.
 //
 // Replaces: src/repro/kernels/expert_gemm.py::expert_ffn (body _ffn_kernel),
 // the TPU kernel that tiles xe [E, C, d] -> act(xe @ w_in) @ w_out through
@@ -6,13 +7,18 @@
 // expert_gemm.py::expert_ffn_q (body _ffn_kernel_q), the same FFN over
 // int8-resident weights whose tiles widen in VMEM, with the per-output-
 // channel f32 scale applied to the f32 product before the activation and
-// after the down-projection.
+// after the down-projection; and expert_gemm.py::expert_ffn_q4 (body
+// _ffn_kernel_q4), the FFN over nibble-packed int4 warm-tier weights with
+// one f32 scale per group of contraction rows per output channel, which the
+// TPU kernel applies to per-group partial products in its f32 epilogue.
 //
 // What bounds it on the H100: at the batch serving shapes (E = 4 slots,
 // C = 640, d = 768, F = 3072, bf16) the two products are 24 GFLOP against
 // 46 MB of operands, ~500 FLOP/byte, so the tensor cores bound it, not HBM.
 // At decode (C = 8 rows a slot) the same weights do 0.3 GFLOP: HBM bytes
-// bound it, and int8 weights halve them (18.9 MB instead of 37.7 MB).
+// bound it, and int8 weights halve them (18.9 MB instead of 37.7 MB);
+// int4 weights halve them again (3 warm slots: 8.0 MB with the scale
+// planes, 2.4 us at 3.35 TB/s).
 //
 // Design. A block has no 16 MB of fast memory to hold the [C, F] hidden
 // tile the TPU kernel keeps in VMEM, so the FFN runs as two launches of one
@@ -27,18 +33,37 @@
 // mantissa — and the epilogue multiplies the fp32 product by the column's
 // scale, as _ffn_kernel_q does (x @ (q·s) == (x @ q)·s for a per-output-
 // channel s).
+// int4 weights (Q4) stream as packed bytes (one byte = contraction rows 2i
+// and 2i+1 of a column, low nibble first, two's complement) and are
+// dequantised as they are staged: each value becomes q·s[k / group, n] in
+// fp32 and is rounded to the compute type before the product. Per-group
+// scales do not commute with the whole contraction, so unlike the int8 path
+// they cannot wait for the epilogue; dequantising at staging (instead of
+// the TPU kernel's per-group partial sums) keeps one accumulator and takes
+// any group size, the whole axis included, and it rounds the weights where
+// the plain version rounds them, so the two differ only in summation order.
 // The capacity axis M is masked per row, so any C works (the Pallas kernel
 // asserted C % bc == 0); N and K must be multiples of 64.
 // Simple first: no cp.async pipeline, wgmma or TMA yet.
 #include "common.cuh"
-
-#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 enum Epilogue : int { kStore = 0, kAct = 1, kGlu = 2 };
+// weight formats: the working dtype, int8 with per-column scales applied in
+// the epilogue, or nibble-packed int4 with group scales applied at staging
+enum WFmt : int { kFp = 0, kInt8 = 1, kInt4 = 2 };
+
+// value of row k, column n of a packed int4 matrix [K/2, N], dequantised
+__device__ __forceinline__ float q4_at(const uint8_t* B, const float* sc, int gs, int k, int n,
+                                       int N) {
+  const int byte = B[(size_t)(k >> 1) * N + n];
+  int v = (k & 1) ? (byte >> 4) : (byte & 0xF);
+  v = v >= 8 ? v - 16 : v;
+  return (float)v * sc[(size_t)(k / gs) * N + n];
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores via mma.sync.m16n8k16 (fp32 accumulate)
@@ -85,18 +110,50 @@ __device__ __forceinline__ void load_b_tile_t(bf16* sB, const int8_t* B, int k0,
   for (int i = 0; i < 16; ++i) sB[(c + i) * LDS + r] = __float2bfloat16_rn((float)pv[i]);
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(int8_t x) { return (float)x; }
+// packed int4 B tile [BK, BN]: 8 bytes (16 values of two rows) a thread,
+// dequantised with the rows' group scales and stored transposed like the
+// bf16 tile. The rounding to bf16 is the plain version's.
+__device__ __forceinline__ void load_b_tile_q4(bf16* sB, const uint8_t* B, const float* sc,
+                                               int gs, int k0, int n0, int N, int tid) {
+  const int pr = tid >> 3, c = (tid & 7) * 8;          // packed row 0..15, 8 columns
+  const uint2 v = *reinterpret_cast<const uint2*>(B + (size_t)(k0 / 2 + pr) * N + n0 + c);
+  const uint8_t* pv = reinterpret_cast<const uint8_t*>(&v);
+  const int r = 2 * pr;
+  const float* s0 = sc + (size_t)((k0 + r) / gs) * N + n0 + c;
+  const float* s1 = sc + (size_t)((k0 + r + 1) / gs) * N + n0 + c;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int lo = pv[i] & 0xF, hi = pv[i] >> 4;
+    sB[(c + i) * LDS + r] = __float2bfloat16_rn((float)(lo >= 8 ? lo - 16 : lo) * s0[i]);
+    sB[(c + i) * LDS + r + 1] = __float2bfloat16_rn((float)(hi >= 8 ? hi - 16 : hi) * s1[i]);
+  }
+}
 
-// WT: the weights' element type (bf16, or int8 with per-column scales sc/sc2)
-template <int EPI, typename WT>
+template <int FMT> struct WType;
+template <> struct WType<kFp> { using bf = bf16; using f32 = float; };
+template <> struct WType<kInt8> { using bf = int8_t; using f32 = int8_t; };
+template <> struct WType<kInt4> { using bf = uint8_t; using f32 = uint8_t; };
+
+// offsets of slot e's weights, [K, N] (fp, int8) or [K/2, N] packed (int4),
+// and of its scales, [N] per column (int8) or [K/gs, N] per group (int4)
+template <int FMT>
+__device__ __forceinline__ size_t weight_offset(int e, int N, int K) {
+  return (size_t)e * (FMT == kInt4 ? K / 2 : K) * N;
+}
+template <int FMT>
+__device__ __forceinline__ size_t scale_offset(int e, int N, int K, int gs) {
+  return FMT == kInt8 ? (size_t)e * N : FMT == kInt4 ? (size_t)e * (K / gs) * N : 0;
+}
+
+// FMT: the weights' format (WFmt); sc/sc2 their scales, gs the int4 group
+template <int EPI, int FMT>
 __global__ void __launch_bounds__(128)
-gemm_bf16_kernel(const bf16* __restrict__ A, const WT* __restrict__ B,
-                 const WT* __restrict__ B2, const float* __restrict__ sc,
+gemm_bf16_kernel(const bf16* __restrict__ A, const typename WType<FMT>::bf* __restrict__ B,
+                 const typename WType<FMT>::bf* __restrict__ B2, const float* __restrict__ sc,
                  const float* __restrict__ sc2, bf16* __restrict__ C,
-                 int M, int N, int K, int act) {
+                 int M, int N, int K, int gs, int act) {
   constexpr bool GLU = EPI == kGlu;
-  constexpr bool Q = std::is_same<WT, int8_t>::value;
+  constexpr bool Q = FMT == kInt8;
   __shared__ __align__(16) bf16 sA[BM * LDS];
   __shared__ __align__(16) bf16 sB[BN * LDS];
   __shared__ __align__(16) bf16 sB2[GLU ? BN * LDS : 8];
@@ -104,11 +161,11 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const WT* __restrict__ B,
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   A += (size_t)e * M * K;
-  B += (size_t)e * K * N;
-  if (GLU) B2 += (size_t)e * K * N;
-  if (Q) {
-    sc += (size_t)e * N;
-    if (GLU) sc2 += (size_t)e * N;
+  B += weight_offset<FMT>(e, N, K);
+  if (GLU) B2 += weight_offset<FMT>(e, N, K);
+  if (FMT != kFp) {
+    sc += scale_offset<FMT>(e, N, K, gs);
+    if (GLU) sc2 += scale_offset<FMT>(e, N, K, gs);
   }
   C += (size_t)e * M * N;
 
@@ -133,8 +190,13 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const WT* __restrict__ B,
       if (m0 + r < M) v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + c);
       *reinterpret_cast<uint4*>(&sA[r * LDS + c]) = v;
     }
-    load_b_tile_t(sB, B, k0, n0, N, tid);
-    if (GLU) load_b_tile_t(sB2, B2, k0, n0, N, tid);
+    if constexpr (FMT == kInt4) {
+      load_b_tile_q4(sB, B, sc, gs, k0, n0, N, tid);
+      if (GLU) load_b_tile_q4(sB2, B2, sc2, gs, k0, n0, N, tid);
+    } else {
+      load_b_tile_t(sB, B, k0, n0, N, tid);
+      if (GLU) load_b_tile_t(sB2, B2, k0, n0, N, tid);
+    }
     __syncthreads();
 
 #pragma unroll
@@ -200,14 +262,17 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const WT* __restrict__ B,
 // ---------------------------------------------------------------------------
 constexpr int FBK = 16;
 
-template <int EPI, typename WT>
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(int8_t x) { return (float)x; }
+
+template <int EPI, int FMT>
 __global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ A, const WT* __restrict__ B,
-                const WT* __restrict__ B2, const float* __restrict__ sc,
+gemm_f32_kernel(const float* __restrict__ A, const typename WType<FMT>::f32* __restrict__ B,
+                const typename WType<FMT>::f32* __restrict__ B2, const float* __restrict__ sc,
                 const float* __restrict__ sc2, float* __restrict__ C,
-                int M, int N, int K, int act) {
+                int M, int N, int K, int gs, int act) {
   constexpr bool GLU = EPI == kGlu;
-  constexpr bool Q = std::is_same<WT, int8_t>::value;
+  constexpr bool Q = FMT == kInt8;
   __shared__ float sA[FBK][BM + 4];  // transposed [k][m]
   __shared__ float sB[FBK][BN];
   __shared__ float sB2[GLU ? FBK : 1][BN];
@@ -215,11 +280,11 @@ gemm_f32_kernel(const float* __restrict__ A, const WT* __restrict__ B,
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   A += (size_t)e * M * K;
-  B += (size_t)e * K * N;
-  if (GLU) B2 += (size_t)e * K * N;
-  if (Q) {
-    sc += (size_t)e * N;
-    if (GLU) sc2 += (size_t)e * N;
+  B += weight_offset<FMT>(e, N, K);
+  if (GLU) B2 += weight_offset<FMT>(e, N, K);
+  if (FMT != kFp) {
+    sc += scale_offset<FMT>(e, N, K, gs);
+    if (GLU) sc2 += scale_offset<FMT>(e, N, K, gs);
   }
   C += (size_t)e * M * N;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -237,8 +302,13 @@ gemm_f32_kernel(const float* __restrict__ A, const WT* __restrict__ B,
       const int r = idx >> 4, c = idx & 15;
       sA[c][r] = (m0 + r < M) ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
       const int rb = idx >> 6, cb = idx & 63;
-      sB[rb][cb] = widen(B[(size_t)(k0 + rb) * N + n0 + cb]);
-      if (GLU) sB2[rb][cb] = widen(B2[(size_t)(k0 + rb) * N + n0 + cb]);
+      if constexpr (FMT == kInt4) {
+        sB[rb][cb] = q4_at(B, sc, gs, k0 + rb, n0 + cb, N);
+        if (GLU) sB2[rb][cb] = q4_at(B2, sc2, gs, k0 + rb, n0 + cb, N);
+      } else {
+        sB[rb][cb] = widen(B[(size_t)(k0 + rb) * N + n0 + cb]);
+        if (GLU) sB2[rb][cb] = widen(B2[(size_t)(k0 + rb) * N + n0 + cb]);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -281,30 +351,30 @@ gemm_f32_kernel(const float* __restrict__ A, const WT* __restrict__ B,
   }
 }
 
-template <int EPI, bool Q>
+template <int EPI, int FMT>
 void launch(const void* a, const void* b, const void* b2, const float* sc, const float* sc2,
-            void* c, int E, int M, int N, int K, int dtype, int act, cudaStream_t s) {
-  using WB = typename std::conditional<Q, int8_t, bf16>::type;
-  using WF = typename std::conditional<Q, int8_t, float>::type;
+            void* c, int E, int M, int N, int K, int gs, int dtype, int act, cudaStream_t s) {
+  using WB = typename WType<FMT>::bf;
+  using WF = typename WType<FMT>::f32;
   const dim3 grid(N / BN, (M + BM - 1) / BM, E);
   if (dtype == rt::kBF16)
-    gemm_bf16_kernel<EPI, WB><<<grid, 128, 0, s>>>(
+    gemm_bf16_kernel<EPI, FMT><<<grid, 128, 0, s>>>(
         static_cast<const bf16*>(a), static_cast<const WB*>(b), static_cast<const WB*>(b2),
-        sc, sc2, static_cast<bf16*>(c), M, N, K, act);
+        sc, sc2, static_cast<bf16*>(c), M, N, K, gs, act);
   else
-    gemm_f32_kernel<EPI, WF><<<grid, 256, 0, s>>>(
+    gemm_f32_kernel<EPI, FMT><<<grid, 256, 0, s>>>(
         static_cast<const float*>(a), static_cast<const WF*>(b), static_cast<const WF*>(b2),
-        sc, sc2, static_cast<float*>(c), M, N, K, act);
+        sc, sc2, static_cast<float*>(c), M, N, K, gs, act);
 }
 
-template <bool Q>
+template <int FMT>
 int gemm(const void* a, const void* b, const void* b2, const float* sc, const float* sc2,
-         void* c, int E, int M, int N, int K, int dtype, int epilogue, int act,
+         void* c, int E, int M, int N, int K, int gs, int dtype, int epilogue, int act,
          cudaStream_t s) {
   if (M > 0 && E > 0) {
-    if (epilogue == kStore) launch<kStore, Q>(a, b, b2, sc, sc2, c, E, M, N, K, dtype, act, s);
-    else if (epilogue == kAct) launch<kAct, Q>(a, b, b2, sc, sc2, c, E, M, N, K, dtype, act, s);
-    else launch<kGlu, Q>(a, b, b2, sc, sc2, c, E, M, N, K, dtype, act, s);
+    if (epilogue == kStore) launch<kStore, FMT>(a, b, b2, sc, sc2, c, E, M, N, K, gs, dtype, act, s);
+    else if (epilogue == kAct) launch<kAct, FMT>(a, b, b2, sc, sc2, c, E, M, N, K, gs, dtype, act, s);
+    else launch<kGlu, FMT>(a, b, b2, sc, sc2, c, E, M, N, K, gs, dtype, act, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -317,8 +387,8 @@ int gemm(const void* a, const void* b, const void* b2, const float* sc, const fl
 extern "C" int rt_expert_gemm(const void* a, const void* b, const void* b2, void* c,
                               int E, int M, int N, int K, int dtype, int epilogue,
                               int act, void* stream) {
-  return gemm<false>(a, b, b2, nullptr, nullptr, c, E, M, N, K, dtype, epilogue, act,
-                     static_cast<cudaStream_t>(stream));
+  return gemm<kFp>(a, b, b2, nullptr, nullptr, c, E, M, N, K, 1, dtype, epilogue, act,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // The same over int8 weights: C[e] = epilogue((A[e] @ Bq[e]) * bs[e] [, ...]).
@@ -328,6 +398,19 @@ extern "C" int rt_expert_gemm_q(const void* a, const void* bq, const void* bs,
                                 const void* b2q, const void* b2s, void* c, int E, int M,
                                 int N, int K, int dtype, int epilogue, int act,
                                 void* stream) {
-  return gemm<true>(a, bq, b2q, static_cast<const float*>(bs), static_cast<const float*>(b2s),
-                    c, E, M, N, K, dtype, epilogue, act, static_cast<cudaStream_t>(stream));
+  return gemm<kInt8>(a, bq, b2q, static_cast<const float*>(bs), static_cast<const float*>(b2s),
+                     c, E, M, N, K, 1, dtype, epilogue, act, static_cast<cudaStream_t>(stream));
+}
+
+// The same over nibble-packed int4 weights with group scales:
+// C[e] = epilogue(A[e] @ dequant(Bq[e]) [, ...]), dequant(Bq)[k, n] =
+// q[k, n] · bs[k / gs, n]. Bq/B2q [E, K/2, N] uint8 (byte i = rows 2i, 2i+1,
+// low nibble first), bs/b2s [E, K/gs, N] fp32; gs divides K. Same shape rules
+// as rt_expert_gemm (N % 64 == 0, K % 64 == 0).
+extern "C" int rt_expert_gemm_q4(const void* a, const void* bq, const void* bs,
+                                 const void* b2q, const void* b2s, void* c, int E, int M,
+                                 int N, int K, int gs, int dtype, int epilogue, int act,
+                                 void* stream) {
+  return gemm<kInt4>(a, bq, b2q, static_cast<const float*>(bs), static_cast<const float*>(b2s),
+                     c, E, M, N, K, gs, dtype, epilogue, act, static_cast<cudaStream_t>(stream));
 }

@@ -29,6 +29,25 @@
 // ragged last tile) get p = 0 exactly, so any S works (the Pallas kernel
 // asserted S % bs == 0). With B·K blocks (96 on the path) the card is
 // under-filled; splitting S across blocks (flash-decoding) is later work.
+//
+// Paged variant. Replaces src/repro/kernels/flash_decode.py::
+// flash_decode_paged (body _paged_decode_kernel): the same token reads K/V
+// through a page table [B, Mp] into a shared pool [P+1, page, K, D] whose
+// last page is the trash page; slot j of table entry p holds position
+// p·page + j, and an entry of -1 (unallocated or spilled) is masked. The TPU
+// kernel takes the table by scalar prefetch and DMAs one page per step of
+// its sequential grid. Here each block reads its lane's table row itself
+// and compacts the live entries (allocated, and overlapping the causal /
+// window band) into a page list in shared memory, in table order, with a
+// warp-ballot prefix sum. The key stream is then the list's pages back to
+// back, walked in the same 32-key tiles, so each live page's K and V are
+// read once for all G query heads and a page smaller than a tile costs no
+// idle lanes. Bytes bound it as above: at the decode path's shape (page 16,
+// 32 entries a lane, 8 lanes) it reads the same 12.6 MB. Skipping dead
+// entries is exact only for a lane with a valid key (a masked key's weight
+// is then exp(-1e30 - m) = 0); a lane with none walks every entry, -1
+// through the trash page, and averages V over all of them as the reference
+// does.
 #include "common.cuh"
 
 namespace {
@@ -61,18 +80,78 @@ template <> struct Row<__nv_bfloat16> {
 };
 
 template <int D, int GM>
-constexpr size_t smem_floats() {
+__host__ __device__ constexpr size_t smem_floats() {
   constexpr size_t tiles = (size_t)kWarps * kTile * ((D + 1) + D);
   constexpr size_t merge = (size_t)kWarps * GM * (D + 2);
   return (size_t)GM * D + (tiles > merge ? tiles : merge);
 }
 
-// GM: query heads per kv head rounded up to the instantiated width (G <= GM)
-template <typename T, int D, int GM>
+// Where the keys of lane b live. Ring: key j is cache slot j, valid per
+// slot_pos. Paged: key j is slot j % page of the (j / page)-th page of the
+// block's page list (table index pidx, pool page ppid).
+struct Paged {
+  const int* table;   // [B, Mp]
+  int Mp, page, trash;
+};
+
+// Build the block's page list in shared memory (pidx / ppid, Mp ints each)
+// and return how many pages it holds; *none says the lane has no valid key.
+__device__ int build_page_list(const Paged& pg, int b, int p, int window, int* pidx,
+                               int* ppid, bool* none) {
+  __shared__ int warp_cnt[kWarps];
+  __shared__ int total;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int* row = pg.table + (size_t)b * pg.Mp;
+  const int lo = window > 0 ? p - window + 1 : 0;    // lowest valid position
+  if (tid == 0) total = 0;
+  __syncthreads();
+  for (int c0 = 0; c0 < pg.Mp; c0 += kWarps * 32) {
+    const int i = c0 + tid;
+    int ent = -1;
+    bool live = false;
+    if (i < pg.Mp) {
+      ent = row[i];
+      live = ent >= 0 && i * pg.page <= p && i * pg.page + pg.page - 1 >= lo;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) warp_cnt[w] = __popc(bal);
+    __syncthreads();
+    int off = total;
+    for (int ww = 0; ww < w; ++ww) off += warp_cnt[ww];
+    off += __popc(bal & ((1u << lane) - 1u));
+    if (live) {
+      pidx[off] = i;
+      ppid[off] = ent;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int add = 0;
+      for (int ww = 0; ww < kWarps; ++ww) add += warp_cnt[ww];
+      total += add;
+    }
+    __syncthreads();
+  }
+  const int n = total;
+  *none = n == 0;
+  if (n > 0) return n;
+  // no valid key: every entry, -1 through the trash page, all masked
+  for (int i = tid; i < pg.Mp; i += kWarps * 32) {
+    const int ent = row[i];
+    pidx[i] = i;
+    ppid[i] = ent >= 0 ? ent : pg.trash;
+  }
+  __syncthreads();
+  return pg.Mp;
+}
+
+// GM: query heads per kv head rounded up to the instantiated width (G <= GM).
+// PAGED: k / v are the page pool and pg the table; else a ring [B, S, KH, D]
+// with slot_pos.
+template <typename T, int D, int GM, bool PAGED>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ slot_pos,
-                    const int* __restrict__ pos, T* __restrict__ o,
+                    const int* __restrict__ pos, T* __restrict__ o, Paged pg,
                     int S, int KH, int G, int window, float cap, float scale) {
   constexpr int DL = D / 32;         // acc values per lane per head
   constexpr int VN = Row<T>::N;
@@ -94,6 +173,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int p = pos[b];
+  int* pidx = reinterpret_cast<int*>(smem + smem_floats<D, GM>());   // paged: [Mp]
+  int* ppid = pidx + (PAGED ? pg.Mp : 0);                            // paged: [Mp]
+  bool none = false;
+  if constexpr (PAGED) S = build_page_list(pg, b, p, window, pidx, ppid, &none) * pg.page;
   float m[GM], l[GM], acc[GM][DL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
@@ -109,7 +192,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / (D / VN), c = (i % (D / VN)) * VN;
       float kv[VN], vv[VN];
       if (t0 + r < S) {
-        const size_t off = (((size_t)b * S + t0 + r) * KH + kh) * D + c;
+        size_t row_id = (size_t)b * S + t0 + r;
+        if constexpr (PAGED) {
+          const int pi = (t0 + r) / pg.page;
+          row_id = (size_t)ppid[pi] * pg.page + (t0 + r - pi * pg.page);
+        }
+        const size_t off = (row_id * KH + kh) * D + c;
         Row<T>::load(k + off, kv);
         Row<T>::load(v + off, vv);
       } else {
@@ -128,7 +216,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool in = j < S;
     bool valid = false;
     if (in) {
-      const int sp = slot_pos[(size_t)b * S + j];
+      int sp;
+      if constexpr (PAGED) {
+        const int pi = j / pg.page;
+        sp = none ? -1 : pidx[pi] * pg.page + (j - pi * pg.page);
+      } else {
+        sp = slot_pos[(size_t)b * S + j];
+      }
       valid = sp >= 0 && sp <= p && (window <= 0 || sp > p - window);
     }
     float s[GM];
@@ -199,41 +293,54 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int GM>
+template <typename T, int D, int GM, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* sp, const int* pos,
-                   void* o, int B, int S, int KH, int G, int window, float cap,
-                   cudaStream_t s) {
-  auto kern = flash_decode_kernel<T, D, GM>;
-  constexpr size_t bytes = sizeof(float) * smem_floats<D, GM>();
-  static bool attr_set = false;   // once per instantiation (> 48 KB needs the opt-in)
-  if (!attr_set) {
+                   void* o, const Paged& pg, int B, int S, int KH, int G, int window,
+                   float cap, cudaStream_t s) {
+  auto kern = flash_decode_kernel<T, D, GM, PAGED>;
+  const size_t bytes = sizeof(float) * smem_floats<D, GM>() + (PAGED ? 2 * sizeof(int) * pg.Mp : 0);
+  static size_t attr_bytes = 0;   // per instantiation (> 48 KB needs the opt-in)
+  if (bytes > attr_bytes) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
-    attr_set = true;
+    attr_bytes = bytes;
   }
   kern<<<dim3(KH, B), kWarps * 32, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), sp, pos,
-      static_cast<T*>(o), S, KH, G, window, cap, 1.0f / sqrtf((float)D));
+      static_cast<T*>(o), pg, S, KH, G, window, cap, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAGED>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* sp,
-                       const int* pos, void* o, int B, int S, int KH, int G, int window,
-                       float cap, cudaStream_t s) {
-  if (G == 1) return launch<T, D, 1>(q, k, v, sp, pos, o, B, S, KH, G, window, cap, s);
-  if (G <= 4) return launch<T, D, 4>(q, k, v, sp, pos, o, B, S, KH, G, window, cap, s);
-  return launch<T, D, 8>(q, k, v, sp, pos, o, B, S, KH, G, window, cap, s);
+                       const int* pos, void* o, const Paged& pg, int B, int S, int KH, int G,
+                       int window, float cap, cudaStream_t s) {
+  if (G == 1) return launch<T, D, 1, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, window, cap, s);
+  if (G <= 4) return launch<T, D, 4, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, window, cap, s);
+  return launch<T, D, 8, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, window, cap, s);
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const int* sp,
-                       const int* pos, void* o, int B, int S, int KH, int G, int D,
-                       int window, float cap, cudaStream_t s) {
-  if (D == 32) return dispatch_g<T, 32>(q, k, v, sp, pos, o, B, S, KH, G, window, cap, s);
-  if (D == 64) return dispatch_g<T, 64>(q, k, v, sp, pos, o, B, S, KH, G, window, cap, s);
-  return dispatch_g<T, 128>(q, k, v, sp, pos, o, B, S, KH, G, window, cap, s);
+                       const int* pos, void* o, const Paged& pg, int B, int S, int KH, int G,
+                       int D, int window, float cap, cudaStream_t s) {
+  if (D == 32) return dispatch_g<T, 32, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, window, cap, s);
+  if (D == 64) return dispatch_g<T, 64, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, window, cap, s);
+  return dispatch_g<T, 128, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, window, cap, s);
+}
+
+template <bool PAGED>
+int decode(const void* q, const void* k, const void* v, const int* sp, const int* pos, void* o,
+           const Paged& pg, int B, int S, int H, int KH, int D, int window, float cap,
+           int dtype, cudaStream_t s) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  const int G = H / KH;
+  const cudaError_t e =
+      dtype == rt::kBF16
+          ? dispatch_d<__nv_bfloat16, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, D, window, cap, s)
+          : dispatch_d<float, PAGED>(q, k, v, sp, pos, o, pg, B, S, KH, G, D, window, cap, s);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -245,14 +352,20 @@ extern "C" int rt_flash_decode(const void* q, const void* k, const void* v,
                                const void* slot_pos, const void* pos, void* o, int B, int S,
                                int H, int KH, int D, int window, float cap, int dtype,
                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  const int* sp = static_cast<const int*>(slot_pos);
-  const int* ps = static_cast<const int*>(pos);
-  const int G = H / KH;
-  const cudaError_t e =
-      dtype == rt::kBF16
-          ? dispatch_d<__nv_bfloat16>(q, k, v, sp, ps, o, B, S, KH, G, D, window, cap, s)
-          : dispatch_d<float>(q, k, v, sp, ps, o, B, S, KH, G, D, window, cap, s);
-  return static_cast<int>(e);
+  return decode<false>(q, k, v, static_cast<const int*>(slot_pos), static_cast<const int*>(pos),
+                       o, Paged{nullptr, 0, 1, 0}, B, S, H, KH, D, window, cap, dtype,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// o = decode attention(q, kp, vp) through a page table: q/o [B, H, D], kp/vp
+// [P1, page, KH, D] (page P1 - 1 is the trash page), table [B, Mp] int32
+// with entries in [-1, P1 - 2], pos [B] int32, all contiguous; the same
+// H / KH / D rules as rt_flash_decode, and 2·Mp ints of shared memory on top.
+extern "C" int rt_flash_decode_paged(const void* q, const void* kp, const void* vp,
+                                     const void* table, const void* pos, void* o, int B,
+                                     int Mp, int page, int P1, int H, int KH, int D,
+                                     int window, float cap, int dtype, void* stream) {
+  return decode<true>(q, kp, vp, nullptr, static_cast<const int*>(pos), o,
+                      Paged{static_cast<const int*>(table), Mp, page, P1 - 1}, B, Mp, H, KH,
+                      D, window, cap, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -38,12 +38,17 @@ _SIGNATURES = {
     "rt_expert_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, bq, bs, b2q, b2s, c, E, M, N, K, dtype, epilogue, act, stream
     "rt_expert_gemm_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, bq, bs, b2q, b2s, c, E, M, N, K, group, dtype, epilogue, act, stream
+    "rt_expert_gemm_q4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # z, out, rows, L, stream
     "rt_sparsemax": (_P, _P, _I, _I, _P),
     # q, k, v, o, B, S, H, KH, D, window, cap, causal, dtype, stream
     "rt_flash_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, slot_pos, pos, o, B, S, H, KH, D, window, cap, dtype, stream
     "rt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, kp, vp, table, pos, o, B, Mp, page, P1, H, KH, D, window, cap, dtype, stream
+    "rt_flash_decode_paged": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                              _P),
 }
 
 _lock = threading.Lock()

@@ -6,8 +6,10 @@ gated). Two launches of one GEMM kernel: the up-projection with the
 activation fused writes h [E, C, F] once in the working dtype, then the
 down-projection. `expert_ffn_q` (port of `expert_gemm.py::expert_ffn_q`) is
 the same over int8-resident weights with per-output-channel fp32 scales,
-which the kernel applies to the fp32 product. Callers go through
-`repro_torch.kernels.ops`.
+which the kernel applies to the fp32 product, and `expert_ffn_q4` (port of
+`expert_gemm.py::expert_ffn_q4`) the same over nibble-packed int4 weights
+with per-group fp32 scales, which the kernel applies as it stages each
+weight tile. Callers go through `repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -133,5 +135,67 @@ def expert_ffn_q_cuda(
         build.check("expert_ffn_q down", lib.rt_expert_gemm_q(
             h.data_ptr(), w_out_q.data_ptr(), w_out_scale.data_ptr(), None, None, y.data_ptr(),
             E, C, d, F, dt, _STORE, ACT_CODES[act], stream,
+        ))
+    return y
+
+
+def _group(name: str, scale: torch.Tensor, k: int) -> int:
+    """The int4 group size along a contraction axis of length k, from the
+    scale plane [E, k / group, n]."""
+    ng = scale.shape[1] if scale.dim() == 3 else 0
+    if ng < 1 or k % ng:
+        raise ValueError(f"expert_ffn_q4: {name} has {ng} groups, which do not tile {k} rows")
+    return k // ng
+
+
+def expert_ffn_q4_cuda(
+    xe: torch.Tensor,                       # [E, C, d] bf16 / fp32
+    w_in_q4: torch.Tensor,                  # [E, d/2, F] uint8
+    w_in_scale: torch.Tensor,               # [E, d/g, F] fp32
+    w_gate_q4: Optional[torch.Tensor],      # [E, d/2, F] uint8 or None (non-gated)
+    w_gate_scale: Optional[torch.Tensor],   # [E, d/g, F] fp32, or None
+    w_out_q4: torch.Tensor,                 # [E, F/2, d] uint8
+    w_out_scale: torch.Tensor,              # [E, F/g', d] fp32
+    act: str = "silu",
+) -> torch.Tensor:
+    """Returns [E, C, d] in xe's dtype; each weight is dequantised to
+    q·s in xe's dtype as it is staged, and h is rounded to xe's dtype
+    between the two products, as the plain version rounds them."""
+    fn = "expert_ffn_q4"
+    _check_x(fn, xe, act)
+    if w_in_q4.dim() != 3:
+        raise ValueError("expert_ffn_q4: w_in_q4 [E, d/2, F] expected")
+    E, C, d = xe.shape
+    F = w_in_q4.shape[-1]
+    if d % TILE or F % TILE:
+        raise ValueError(f"expert_ffn_q4: d={d} and F={F} must be multiples of {TILE}")
+    gated = w_gate_q4 is not None
+    if gated != (w_gate_scale is not None):
+        raise ValueError("expert_ffn_q4: w_gate_q4 and w_gate_scale go together")
+    g_in, g_out = _group("w_in_scale", w_in_scale, d), _group("w_out_scale", w_out_scale, F)
+    _check("xe", xe, (E, C, d), xe, fn=fn)
+    _check("w_in_q4", w_in_q4, (E, d // 2, F), xe, torch.uint8, fn)
+    _check("w_in_scale", w_in_scale, (E, d // g_in, F), xe, torch.float32, fn)
+    _check("w_out_q4", w_out_q4, (E, F // 2, d), xe, torch.uint8, fn)
+    _check("w_out_scale", w_out_scale, (E, F // g_out, d), xe, torch.float32, fn)
+    if gated:
+        _check("w_gate_q4", w_gate_q4, (E, d // 2, F), xe, torch.uint8, fn)
+        _check("w_gate_scale", w_gate_scale, (E, d // g_in, F), xe, torch.float32, fn)
+
+    lib = build.library()
+    dt = build.DTYPE_CODES[xe.dtype]
+    h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
+    y = torch.empty((E, C, d), dtype=xe.dtype, device=xe.device)
+    with torch.cuda.device(xe.device):
+        stream = build.stream_handle(xe)
+        build.check("expert_ffn_q4 up", lib.rt_expert_gemm_q4(
+            xe.data_ptr(), w_in_q4.data_ptr(), w_in_scale.data_ptr(),
+            w_gate_q4.data_ptr() if gated else None,
+            w_gate_scale.data_ptr() if gated else None, h.data_ptr(),
+            E, C, F, d, g_in, dt, _GLU if gated else _ACT, ACT_CODES[act], stream,
+        ))
+        build.check("expert_ffn_q4 down", lib.rt_expert_gemm_q4(
+            h.data_ptr(), w_out_q4.data_ptr(), w_out_scale.data_ptr(), None, None, y.data_ptr(),
+            E, C, d, F, g_out, dt, _STORE, ACT_CODES[act], stream,
         ))
     return y

@@ -14,12 +14,13 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
-from repro_torch.kernels.flash_decode import flash_decode_cuda
+from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
 
-KERNELS = ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode", "expert_ffn_q")
+KERNELS = ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode", "expert_ffn_q",
+           "expert_ffn_q4", "flash_decode_paged")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _count_lock = threading.Lock()   # the hash and inference threads both launch
 
@@ -71,6 +72,20 @@ def expert_ffn_q(xe, w_in_q, w_in_scale, w_gate_q: Optional[torch.Tensor],
                                 w_out_q, w_out_scale, act=act)
 
 
+def expert_ffn_q4(xe, w_in_q4, w_in_scale, w_gate_q4: Optional[torch.Tensor],
+                  w_gate_scale: Optional[torch.Tensor], w_out_q4, w_out_scale,
+                  act: str = "silu"):
+    """xe [E, C, d] -> [E, C, d] through each slot's FFN over nibble-packed
+    int4 weights with per-group fp32 scales (the warm tier)."""
+    if _on_card(xe, "expert_ffn_q4"):
+        out = expert_ffn_q4_cuda(xe, w_in_q4, w_in_scale, w_gate_q4, w_gate_scale,
+                                 w_out_q4, w_out_scale, act=act)
+        _count("expert_ffn_q4")
+        return out
+    return ref.expert_ffn_q4_ref(xe, w_in_q4, w_in_scale, w_gate_q4, w_gate_scale,
+                                 w_out_q4, w_out_scale, act=act)
+
+
 def sparsemax(z: torch.Tensor) -> torch.Tensor:
     """z [..., L] -> simplex projection along the last axis."""
     if _on_card(z, "sparsemax"):
@@ -97,3 +112,14 @@ def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0):
         _count("flash_decode")
         return out
     return ref.flash_decode_ref(q, k, v, slot_pos, pos, window=window, cap=cap).to(q.dtype)
+
+
+def flash_decode_paged(q, kp, vp, page_table, pos, window: int = 0, cap: float = 0.0):
+    """q [B, H, D] over a shared page pool kp/vp [P+1, page, K, D] read
+    through page_table [B, Mp] (-1 = not resident) -> [B, H, D] in q's dtype."""
+    if _on_card(q, "flash_decode_paged"):
+        out = flash_decode_paged_cuda(q, kp, vp, page_table, pos, window=window, cap=cap)
+        _count("flash_decode_paged")
+        return out
+    return ref.flash_decode_paged_ref(q, kp, vp, page_table, pos, window=window,
+                                      cap=cap).to(q.dtype)

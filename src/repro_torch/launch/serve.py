@@ -9,8 +9,10 @@ same workload (`np.random.default_rng(0)` tokens), the same hash width
 seeded `torch.Generator`s (0 for the model, 1 for the hash function). Runs
 on CUDA unless `--device cpu`. `--host-quant int8` keeps int8 host masters
 (dequantised at slot write), `--quantized-slots` keeps the slots int8 and
-runs the int8 expert FFN. The baselines (ROADMAP A8), the request server
-(A13) and the other serving flags come with later slices.
+runs the int8 expert FFN, and `--int4-slots` (with `--quantized-slots`)
+splits the slot budget into hot int8 and warm int4 slots (`--tier-split`,
+`--quant-group`). The baselines (ROADMAP A8), the request server (A13) and
+the other serving flags come with later slices.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import TierConfig, get_config
 from repro_torch.core.engine import SiDAEngine
 from repro_torch.core.hash_fn import init_hash_fn
 from repro_torch.device import resolve_device
@@ -28,7 +30,7 @@ from repro_torch.models.transformer import init_params, n_moe_layers
 
 def build_engine(cfg, params, slots: int, eviction: str = "fifo", device=None,
                  host_quant: str = "none", quantized_slots: bool = False,
-                 scale_granularity: str = "channel") -> SiDAEngine:
+                 scale_granularity: str = "channel", tier=None) -> SiDAEngine:
     hp = init_hash_fn(
         torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
         cfg.moe.num_experts, d_h=64, device="cpu",
@@ -36,8 +38,25 @@ def build_engine(cfg, params, slots: int, eviction: str = "fifo", device=None,
     return SiDAEngine(
         cfg, params, hp, slots_per_layer=slots, eviction=eviction, device=device,
         host_quant=host_quant, quantized_slots=quantized_slots,
-        scale_granularity=scale_granularity,
+        scale_granularity=scale_granularity, tier=tier,
     )
+
+
+def serve_tier(args):
+    """The `TierConfig` of --int4-slots, or None when tiering is off. Refuses
+    what the reference's flag validation refuses."""
+    if not args.int4_slots:
+        return None
+    if not args.quantized_slots:
+        raise SystemExit("serve: invalid flags: the int4 warm tier extends the quantized "
+                         "slot pool: also set --quantized-slots (hot tier stays int8)")
+    if not 0.0 < args.tier_split <= 1.0:
+        raise SystemExit(f"serve: invalid flags: --tier-split {args.tier_split} must be in "
+                         "(0, 1]: the fraction of the slot byte budget held as int8 hot slots")
+    if args.quant_group <= 0:
+        raise SystemExit("serve: invalid flags: --quant-group must be >= 1 (int4 scale "
+                         "group size along the contraction axis)")
+    return TierConfig(int4_slots=True, tier_split=args.tier_split, group_size=args.quant_group)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +86,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "resident experts per slot byte; implies --host-quant int8)")
     ap.add_argument("--scale-granularity", default="channel", choices=["channel", "tensor"],
                     help="int8 scale granularity per expert tensor")
+    ap.add_argument("--int4-slots", action="store_true",
+                    help="hierarchical residency tiers: keep the hot tier int8 and add a warm "
+                         "tier of nibble-packed int4 slots with per-group scales (~2x experts "
+                         "per byte); requires --quantized-slots")
+    ap.add_argument("--tier-split", type=float, default=0.5,
+                    help="fraction of the slot byte budget held as int8 hot slots; the "
+                         "remainder becomes int4 warm slots (1.0 = all-hot, degenerate to "
+                         "--quantized-slots)")
+    ap.add_argument("--quant-group", type=int, default=64,
+                    help="int4 scale group size along the contraction axis (smaller = "
+                         "tighter error, more scale-plane bytes)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu to run on the CPU)")
     return ap
@@ -74,6 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    tier = serve_tier(args)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
@@ -89,10 +120,11 @@ def main(argv=None):
     ]
     srv = build_engine(cfg, params, args.slots, args.eviction, device,
                        host_quant=args.host_quant, quantized_slots=args.quantized_slots,
-                       scale_granularity=args.scale_granularity)
+                       scale_granularity=args.scale_granularity, tier=tier)
     del params   # the engine holds what it serves: host masters + device params
     metrics = srv.serve(batches)
-    print(f"engine={args.engine} slots={args.slots}")
+    print(f"engine={args.engine} slots={args.slots} quantized_slots={args.quantized_slots} "
+          f"int4_slots={args.int4_slots} tier_split={args.tier_split}")
     for k, v in metrics.summary().items():
         print(f"  {k:20s} {v:.4f}")
     print(f"  device_mem_mb        {srv.device_memory_bytes()/1e6:.2f}")
@@ -100,6 +132,7 @@ def main(argv=None):
         print(f"  {k:20s} {v:.4f}")
     st = srv.store.stats
     print(f"  loads={st.loads} hits={st.hits} evictions={st.evictions} "
+          f"promotions={st.promotions} demotions={st.demotions} "
           f"h2d_mb={st.bytes_h2d/1e6:.2f} sync_upload_s={st.prepare_time:.4f}")
     srv.close()
 

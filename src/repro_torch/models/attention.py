@@ -5,13 +5,17 @@ Port of `repro/models/attention.py` without the mesh. On CUDA, `attend_full`
 runs the whole sequence through the hand-written `flash_prefill` kernel and
 `decode_attention` the token through `flash_decode`; on the CPU they keep the
 reference's plain `_attend_chunk` (with `Q_CHUNK` query chunking and
-sliding-window banding) and `decode_attention_local`. The mesh-sharded
-paths come with expert parallelism (ROADMAP A14), cross-attention with the
-encoder-decoder families (A15) and paged K/V with A12.
+sliding-window banding) and `decode_attention_local`. `attend_decode_paged`
+is the same token over a shared page pool read through a page table
+(`core/residency.py`): the `flash_decode_paged` kernel on CUDA, the
+reference's gather and the plain path on the CPU. The mesh-sharded paths
+come with expert parallelism (ROADMAP A14), cross-attention with the
+encoder-decoder families (A15) and the chunked paged prefill with A13.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -219,3 +223,97 @@ def attend_decode(
     o = decode_attention(q, cache_k, cache_v, slot_pos, pos, window, cfg.attn.logit_softcap)
     y = o.reshape(B, cfg.n_heads * cfg.hd).to(x_tok.dtype) @ params["wo"]
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# paged K/V — decode through a page table
+# ---------------------------------------------------------------------------
+# The pool layout and its invariants live in core/residency.py: a shared
+# [P+1, page, K, D] pool per sublayer (last page = trash), one [B, Mp] page
+# table for all layers, pages allocated in position order so that slot j of
+# entry i holds position i·page + j. Entry -1 (unallocated or spilled) is
+# masked.
+
+
+def _paged_gather(
+    kp: torch.Tensor,          # [P+1, page, K, D] shared pool (trash page last)
+    vp: torch.Tensor,
+    page_table: torch.Tensor,  # [B, Mp] (-1 invalid)
+    last_pos: torch.Tensor,    # [B] highest position a query can reach
+    span: int,                 # 0 = every page; else positions reachable back
+):
+    """The reference's gather through the table -> (k [B, S, K, D], v,
+    slot_pos [B, S]). Windowed layers gather only the pages the window can
+    reach; full attention gathers the first min(Mp, P) entries (allocation
+    is position-ordered and the working set fits the pool, so later entries
+    are -1)."""
+    B, Mp = page_table.shape
+    page = kp.shape[1]
+    trash = kp.shape[0] - 1
+    dev = page_table.device
+    if span:
+        Wp = min(Mp, span // page + 2)
+        base = torch.clamp(last_pos.long() // page - (Wp - 1), 0, Mp - Wp)
+        idx = base[:, None] + torch.arange(Wp, device=dev)[None, :]       # [B, Wp]
+        pt = torch.gather(page_table, 1, idx)
+    else:
+        Wp = min(Mp, trash)
+        idx = torch.arange(Wp, device=dev)[None, :].expand(B, Wp)
+        pt = page_table[:, :Wp]
+    ptl = torch.where(pt >= 0, pt, torch.full_like(pt, trash)).long()
+    kg, vg = kp[ptl], vp[ptl]                                            # [B, Wp, page, K, D]
+    spos = idx[:, :, None] * page + torch.arange(page, device=dev)[None, None, :]
+    slot_pos = torch.where((pt >= 0)[:, :, None], spos, torch.full_like(spos, -1))
+    slot_pos = slot_pos.reshape(B, -1).to(torch.int32)
+    S = slot_pos.shape[1]
+    return (kg.reshape(B, S, kp.shape[2], kp.shape[3]),
+            vg.reshape(B, S, vp.shape[2], vp.shape[3]), slot_pos)
+
+
+def attend_decode_paged(
+    params: dict,
+    x_tok: torch.Tensor,        # [B, d] current-token activations
+    kp: torch.Tensor,           # [P+1, page, K, D] shared page pool
+    vp: torch.Tensor,
+    page_table: torch.Tensor,   # [B, Mp] int32
+    pos: torch.Tensor,          # [B] int32 decode position
+    cfg: ModelConfig,
+    layer: int,
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive lanes write trash
+):
+    """One paged decode step. Returns (y [B, d], kp, vp), the pools written
+    in place.
+
+    The new token's K/V land at (page_table[b, pos // page], pos % page).
+    A position past the table, an unallocated entry or an inactive lane is
+    routed to the trash page explicitly; nothing relies on index clamping.
+    On CUDA the read is `ops.flash_decode_paged` straight over the pool and
+    the table; on the CPU it is the reference's gather, then the plain
+    `decode_attention`. The two agree for every lane with a valid key."""
+    B = x_tok.shape[0]
+    page = kp.shape[1]
+    trash = kp.shape[0] - 1
+    Mp = page_table.shape[1]
+    window = cfg.layer_window(layer)
+    q = _project_q(params, x_tok[:, None, :], cfg)                  # [B, 1, H, D]
+    q = apply_rope(q, pos[:, None], cfg.attn.rope_theta)[:, 0]
+    k_new, v_new = _project_kv(params, x_tok[:, None, :], cfg)
+    k_new = apply_rope(k_new, pos[:, None], cfg.attn.rope_theta)
+    pidx = (pos // page).long()
+    in_table = (pidx >= 0) & (pidx < Mp)
+    pid = torch.gather(page_table, 1, torch.where(in_table, pidx, 0)[:, None])[:, 0].long()
+    ok = in_table & (pid >= 0)
+    if active is not None:
+        ok &= active
+    pid = torch.where(ok, pid, torch.full_like(pid, trash))
+    off = (pos % page).long()
+    kp.index_put_((pid, off), k_new[:, 0].to(kp.dtype))
+    vp.index_put_((pid, off), v_new[:, 0].to(vp.dtype))
+    cap = cfg.attn.logit_softcap
+    if q.device.type == "cuda":
+        o = ops.flash_decode_paged(q.contiguous(), kp, vp, page_table, pos, window=window, cap=cap)
+    else:
+        kg, vg, slot_pos = _paged_gather(kp, vp, page_table, pos, window)
+        o = decode_attention(q, kg, vg, slot_pos, pos, window, cap)
+    y = o.reshape(B, cfg.n_heads * cfg.hd).to(x_tok.dtype) @ params["wo"]
+    return y, kp, vp

@@ -10,11 +10,11 @@ overflow column / pad row that is sliced off (JAX drops them with
 `mode="drop"`; torch would raise on an out-of-range index).
 
 The expert compute always goes through `kernels.ops`: `expert_ffn` over fp
-slot stacks, `expert_ffn_q` over int8-resident ones (the hand-written
-kernels for CUDA tensors, the plain versions for CPU tensors). `moe_decode`
-is the one-token-per-lane form the decode step calls. Shared experts, int4
-slot stacks and expert-parallel dispatch come in later slices (ROADMAP A15,
-A11-int4, A14).
+slot stacks, `expert_ffn_q` over int8-resident ones and `expert_ffn_q4` over
+the warm tier's int4 slots (the hand-written kernels for CUDA tensors, the
+plain versions for CPU tensors). `moe_decode` is the one-token-per-lane form
+the decode step calls. Shared experts and expert-parallel dispatch come in
+later slices (ROADMAP A15, A14).
 """
 from __future__ import annotations
 
@@ -143,6 +143,9 @@ def _dispatch_combine(params, xt, ids, w, cfg, dispatch):
     passes slot pools with S_slots << num_experts and slot-translated ids."""
     T, d = xt.shape
     E, K = params["w_in"].shape[0], ids.shape[-1]
+    if expert_params_tiered(params):
+        # hot slots [0, S8) then warm slots [S8, S8 + S4): one slot space
+        E += params["w_in_q4"].shape[0]
     blk = _block_tokens(T)
     n = T // blk
     C = _capacity(cfg, blk, E)
@@ -199,14 +202,26 @@ def expert_params_quantized(p: dict) -> bool:
     return "w_in_scale" in p
 
 
+def expert_params_tiered(p: dict) -> bool:
+    """True when the stack also carries the warm int4 tier: the tiered store
+    publishes nibble-packed `w_*_q4` pools and `w_*_q4_scale` planes beside
+    the int8 hot pools."""
+    return "w_in_q4" in p
+
+
 def apply_expert_stack_blocked(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """xe: [n, E, C, d] -> [n, E, C, d] through each slot's (G)LU FFN, as
     one [E, n·C, d] call of `ops.expert_ffn`, or of `ops.expert_ffn_q` when
     the slots are int8 (the reference's Pallas-path reshape). On the CPU the
     int8 call is the reference's jnp path: dequantise to x's dtype, then the
-    plain FFN."""
-    if "w_in_q4" in p:
-        raise NotImplementedError("int4 warm-tier slots are ported in ROADMAP A11-int4")
+    plain FFN. A tiered stack splits the slot axis into the int8 hot block
+    [0, S8) and the int4 warm block, each through its own kernel."""
+    if expert_params_tiered(p):
+        S8 = p["w_in"].shape[0]
+        hot = {k: v for k, v in p.items() if "_q4" not in k}
+        y8 = apply_expert_stack_blocked(hot, xe[:, :S8], cfg)
+        y4 = _apply_expert_stack_q4(p, xe[:, S8:], cfg)
+        return torch.cat([y8, y4], dim=1)
     n, E, C, d = xe.shape
     x2 = xe.transpose(0, 1).reshape(E, n * C, d).contiguous()
     if expert_params_quantized(p):
@@ -219,6 +234,20 @@ def apply_expert_stack_blocked(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> t
         out = ops.expert_ffn(
             x2, p["w_in"], p["w_gate"] if cfg.glu else None, p["w_out"], act=cfg.act,
         )
+    return out.reshape(E, n, C, d).transpose(0, 1)
+
+
+def _apply_expert_stack_q4(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """xe: [n, S4, C, d] -> [n, S4, C, d] through the warm int4 slots, as one
+    `ops.expert_ffn_q4` call. On the CPU that is the reference's jnp path:
+    dequantise per group to x's dtype, then the plain FFN."""
+    n, E, C, d = xe.shape
+    x2 = xe.transpose(0, 1).reshape(E, n * C, d).contiguous()
+    out = ops.expert_ffn_q4(
+        x2, p["w_in_q4"], p["w_in_q4_scale"],
+        p["w_gate_q4"] if cfg.glu else None, p["w_gate_q4_scale"] if cfg.glu else None,
+        p["w_out_q4"], p["w_out_q4_scale"], act=cfg.act,
+    )
     return out.reshape(E, n, C, d).transpose(0, 1)
 
 

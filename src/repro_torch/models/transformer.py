@@ -5,20 +5,27 @@ cache and the one-token `decode_step`).
 Layers are grouped into repeating periods (Switch's dense/MoE pair) and each
 sublayer's params are stacked over the groups, as in the reference; its
 `lax.scan` over the stacked groups becomes a Python loop over the leading
-group axis of the params and of the cache. Recurrent / hybrid blocks and
-encoder-decoder stacks are ported with the other families (ROADMAP A15),
-paged K/V with A12 and the speculative `verify_step` with A10-spec.
+group axis of the params and of the cache. `init_paged_cache` and the paged
+branch of `decode_step` keep K/V in shared page pools read through a page
+table (`core/residency.py`). Recurrent / hybrid blocks and encoder-decoder
+stacks are ported with the other families (ROADMAP A15), the speculative
+`verify_step` with A10-spec and the chunked paged prefill with A13.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import attend_decode, attend_full, init_attention
+from repro_torch.models.attention import (
+    attend_decode,
+    attend_decode_paged,
+    attend_full,
+    init_attention,
+)
 from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
 from repro_torch.models.moe import init_moe, moe_decode, moe_layer
 from repro_torch.tree import tree_map, tree_stack
@@ -218,10 +225,44 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
     return cache
 
 
-def _apply_sublayer_decode(bp, k, v, x, pos, cfg, sub, routing_override):
-    """One sublayer for one token; k/v [B, Sc, K, D] are written in place."""
+def init_paged_cache(cfg: ModelConfig, batch: int, paged, device: DeviceLike = None) -> dict:
+    """Zeros paged cache on `device` (CUDA unless asked otherwise). Layout:
+    {"pos": [B] int32, "page_table": [B, Mp] int32 (-1 = unallocated),
+    "sub{s}": {"kp", "vp": [G, P+1, page, K, D]}}: the pools are shared by
+    all lanes and the last page is the trash page. One table serves every
+    layer, since all layers cache the same positions. `paged` is a
+    `residency.PagedKVConfig`; `KVPagePool` keeps the table."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    per = period(cfg)
+    n_groups = cfg.n_layers // per
+    dtype = getattr(torch, cfg.dtype)
+    K, D = cfg.n_kv_heads, cfg.hd
+    cache: dict = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "page_table": torch.full((batch, paged.pages_per_lane()), -1, dtype=torch.int32,
+                                 device=device),
+    }
+    shape = (n_groups, paged.kv_pages + 1, paged.page_size, K, D)
+    for s in range(per):
+        cache[f"sub{s}"] = {
+            "kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device),
+        }
+    return cache
+
+
+def _apply_sublayer_decode(bp, kv, x, pos, cfg, sub, routing_override,
+                           page_table=None, active=None):
+    """One sublayer for one token. `kv` is the group's (k, v) ring [B, Sc,
+    K, D] or, with `page_table`, its (kp, vp) page pools; either is written
+    in place."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    a, _, _ = attend_decode(bp["attn"], h, k, v, pos, cfg, sub)
+    if page_table is not None:
+        a, _, _ = attend_decode_paged(bp["attn"], h, kv[0], kv[1], page_table, pos, cfg, sub,
+                                      active=active)
+    else:
+        a, _, _ = attend_decode(bp["attn"], h, kv[0], kv[1], pos, cfg, sub)
     if cfg.post_norm:
         a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
     x = x + a
@@ -243,16 +284,18 @@ def decode_step(
     tokens: torch.Tensor,      # [B] int
     cfg: ModelConfig,
     routing_override=None,     # (ids [L_moe,B,k], w [L_moe,B,k]) or None
+    active: Optional[torch.Tensor] = None,   # [B] bool; paged: inactive lanes write trash
 ):
     """One serve step: next-token logits [B, V] and the cache. The K/V
-    tensors are updated in place (see `attention.attend_decode`); the
-    returned dict holds them and the advanced `pos`."""
+    tensors (ring or page pools) are updated in place (see
+    `attention.attend_decode`); the returned dict holds them and the
+    advanced `pos`."""
     _check_supported(cfg)
-    if "page_table" in cache:
-        raise NotImplementedError("paged K/V caches are ported in ROADMAP A12")
     per = period(cfg)
     moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
     pos = cache["pos"]
+    page_table = cache.get("page_table")
+    names = ("kp", "vp") if page_table is not None else ("k", "v")
     x = embed_tokens(params, cfg, tokens)
     for g in range(cfg.n_layers // per):
         gp = tree_map(lambda t: t[g], params["blocks"])
@@ -262,8 +305,9 @@ def decode_step(
                 li = g * len(moe_subs) + moe_subs.index(s)
                 ro = (routing_override[0][li], routing_override[1][li])
             entry = cache[f"sub{s}"]
-            x = _apply_sublayer_decode(gp[f"sub{s}"], entry["k"][g], entry["v"][g], x, pos,
-                                       cfg, s, ro)
+            kv = (entry[names[0]][g], entry[names[1]][g])
+            x = _apply_sublayer_decode(gp[f"sub{s}"], kv, x, pos, cfg, s, ro,
+                                       page_table=page_table, active=active)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     new_cache = dict(cache)

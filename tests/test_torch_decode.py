@@ -235,9 +235,10 @@ def test_decode_engine_refuses_unported_modes(e8):
                      (dict(sharded=object()), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=2, device="cpu", **kw)
-    eng = td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        eng.generate(np.zeros((1,), np.int32), steps=1, paged=object())
+    from repro_torch.core.residency import KVPagePool, PagedKVConfig
+
+    with pytest.raises(NotImplementedError, match="A9"):     # async page-in
+        KVPagePool(cfg_t, PagedKVConfig(), 1, pipeline=object(), device="cpu")
 
 
 def test_table_buffer_brings_ids_and_alpha_in_one_copy():

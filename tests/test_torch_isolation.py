@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.decode_engine", "repro_torch.core.offload",
         "repro_torch.launch.serve", "repro_torch.kernels.ops",
         "repro_torch.kernels.flash_decode", "repro_torch.kernels.expert_gemm",
+        "repro_torch.core.residency",
     ]
     code = (
         "import sys\n"

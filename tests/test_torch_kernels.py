@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
-from repro_torch.kernels.flash_decode import flash_decode_cuda
+from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda
+from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
 
@@ -164,6 +164,22 @@ def test_kernels_refuse_cpu_and_other_devices():
     assert ops.launches() == before     # the plain version counts no launch
 
 
+def test_int4_and_paged_kernels_refuse_cpu_tensors():
+    x = torch.zeros(2, 8, 64)
+    q4, s4 = torch.zeros(2, 32, 64, dtype=torch.uint8), torch.ones(2, 1, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_ffn_q4_cuda(x, q4, s4, None, None, q4, s4)
+    kp = torch.zeros(3, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_paged_cuda(torch.zeros(1, 2, 32), kp, kp, torch.zeros(1, 2, dtype=torch.int32),
+                                torch.zeros(1, dtype=torch.int32))
+    before = ops.launches()
+    ops.expert_ffn_q4(x, q4, s4, None, None, q4, s4, act="gelu")
+    ops.flash_decode_paged(torch.zeros(1, 2, 32), kp, kp, torch.zeros(1, 2, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32))
+    assert ops.launches() == before     # the plain versions count no launch
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (skip without a GPU)
 # ---------------------------------------------------------------------------
@@ -263,3 +279,74 @@ def test_flash_decode_kernel_matches_plain(cuda, B, S, H, K, D, pos, wrap, windo
     assert got.dtype == q.dtype and tuple(got.shape) == (B, H, D)
     want = ref.flash_decode_ref(q, k, v, sp, p, window, cap)
     _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+def _quantized4(arr: np.ndarray, group: int):
+    """Per-group symmetric int4 of a [E, d_in, d_out] stack, nibble-packed
+    along d_in (core/offload.py quantize_expert_q4)."""
+    from repro_torch.core.offload import quantize_expert_q4
+
+    q, s = quantize_expert_q4(arr, group)
+    return torch.from_numpy(q), torch.from_numpy(s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,d,F,glu,act,group", [
+    (3, 8, 768, 3072, False, "gelu", 64),       # the warm block at decode
+    (4, 640, 768, 3072, False, "gelu", 64),     # a batch shape
+    (3, 77, 128, 512, True, "silu", 32), (2, 1, 64, 128, False, "relu", 100),   # one group
+    (2, 9, 192, 192, True, "gelu", 48),         # groups that straddle the 32-row tiles
+])
+def test_expert_ffn_q4_kernel_matches_plain(cuda, E, C, d, F, glu, act, group, dtype):
+    xe, wi, wg, wo = _ffn_inputs(E, C, d, F, glu)
+    args = [_t(xe, dtype).to(cuda)]
+    for a in (wi, wg, wo):
+        args += [None, None] if a is None else [t.to(cuda) for t in _quantized4(a, group)]
+    got = ops.expert_ffn_q4(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == getattr(torch, dtype)
+    want = ref.expert_ffn_q4_ref(*args, act=act)
+    _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+def _paged_inputs(B, H, K, D, page, n_pages, table, dtype, cuda, seed=40):
+    q = _t(_np((B, H, D), seed), dtype).to(cuda)
+    kp, vp = (_t(_np((n_pages + 1, page, K, D), seed + i), dtype).to(cuda) for i in (1, 2))
+    return q, kp, vp, torch.tensor(table, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,K,D,page,window,cap", [
+    (12, 12, 64, 16, 0, 0.0), (8, 2, 64, 4, 6, 30.0), (6, 2, 128, 8, 0, 0.0),
+    (8, 1, 32, 8, 9, 0.0),
+])
+def test_flash_decode_paged_kernel_matches_plain(cuda, H, K, D, page, window, cap, dtype):
+    n_pages, Mp = 12, 5
+    # lane 0 full, lane 1 with spilled entries, lane 2 past its table, lane 3
+    # with no valid key (it averages V over every entry, -1 through the trash page)
+    table = [[0, 1, 2, 3, 4], [-1, 5, -1, 6, 7], [8, 9, 10, -1, -1], [-1, -1, -1, -1, 11]]
+    q, kp, vp, pt = _paged_inputs(4, H, K, D, page, n_pages, table, dtype, cuda)
+    pos = torch.tensor([5 * page - 1, 4 * page - 2, 7 * page, 2], dtype=torch.int32, device=cuda)
+    got = ops.flash_decode_paged(q, kp, vp, pt, pos, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and tuple(got.shape) == tuple(q.shape)
+    want = ref.flash_decode_paged_ref(q, kp, vp, pt, pos, window, cap)
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_decode_paged_kernel_equals_ring_kernel_on_the_same_keys(cuda):
+    """A full table over 8 lanes of 32 pages of 16 reads the keys of the
+    [8, 512] ring case: the two kernels agree."""
+    B, H, D, page, Mp = 8, 12, 64, 16, 32
+    q, kp, vp, pt = _paged_inputs(B, H, H, D, page, B * Mp, np.arange(B * Mp).reshape(B, Mp),
+                                  "bfloat16", cuda)
+    pos = torch.full((B,), Mp * page - 1, dtype=torch.int32, device=cuda)
+    k, v = (x[:-1].reshape(B, Mp * page, H, D).contiguous() for x in (kp, vp))
+    sp = torch.arange(Mp * page, dtype=torch.int32, device=cuda).expand(B, -1).contiguous()
+    got = ops.flash_decode_paged(q, kp, vp, pt, pos)
+    want = ops.flash_decode(q, k, v, sp, pos)
+    torch.cuda.synchronize()
+    _close(got.float().cpu(), want.float().cpu(), 1e-2)

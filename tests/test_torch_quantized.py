@@ -27,7 +27,7 @@ from repro.models import moe as jmoe
 from repro.models.transformer import init_params as j_init_params
 from repro.models.transformer import n_moe_layers as j_n_moe_layers
 from repro_torch.checkpoint import params_from_numpy
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import TierConfig, get_config
 from repro_torch.core import offload as to
 from repro_torch.core.engine import SiDAEngine
 from repro_torch.core.hash_table import HashTable
@@ -212,8 +212,11 @@ def test_quantized_capacity_at_equal_bytes(system):
     q = to.ExpertStore(cfg_t, pt, slots_per_layer=2, device="cpu", quantized_slots=True)
     assert fp.expert_slot_bytes() >= 2 * q.expert_slot_bytes()    # fp32 slots here: ~3.8x
     assert q.device_bytes() < fp.device_bytes()
-    with pytest.raises(NotImplementedError, match="A11-int4"):
-        tmoe.apply_expert_stack_blocked({"w_in_q4": None}, torch.zeros(1, 1, 1, 1), cfg_t)
+    # the int4 warm tier: the same int8 budget buys more resident experts
+    q4 = to.ExpertStore(cfg_t, pt, slots_per_layer=4, device="cpu", quantized_slots=True)
+    tiered = to.ExpertStore(cfg_t, pt, slots_per_layer=4, device="cpu", quantized_slots=True,
+                            tier=TierConfig(int4_slots=True))
+    assert tiered.S8 + tiered.S4 > q4.S and tiered.device_bytes() <= q4.device_bytes()
 
 
 # ---------------------------------------------------------------------------
