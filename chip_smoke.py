@@ -8,8 +8,11 @@
 2. Kernels vs plain: each hand-written kernel at the shapes the served
    switch-base-8 batch and decode runs give it, in bf16 and fp32, against
    its plain PyTorch version — max abs error and tolerance, kernel / plain /
-   library ms (CUDA events, warm L2, back to back) and the least time the
-   H100 could take (989 TFLOP/s bf16 or 67 TFLOP/s fp32, 3.35 TB/s).
+   library ms (CUDA events around 20 back-to-back calls, warm L2: host launch
+   work included), the least time the H100 could take (989 TFLOP/s bf16 or
+   67 TFLOP/s fp32, 3.35 TB/s), the rate reached and its share of that
+   bound; then the kernel's and the library's device time alone (the same
+   20 calls captured in one CUDA graph and replayed), with its rate and share.
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -31,8 +34,10 @@
    loads and tier moves), and one fixed table's decode_step logits within
    tolerance.
 
-The second-to-last lines are the kernels' JSON record and the nvidia-smi
-line; the last line is {"ok": true, "device": {...}}. Imports nothing of
+The second-to-last lines are the kernels' JSON record (the seven kernels
+and expert_ffn at the decode shape; `device_ms` and `library_device_ms` are
+the graph-replayed times) and the nvidia-smi line; the last line
+is {"ok": true, "device": {...}}. Imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -59,6 +64,10 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, reps: int = 20) -> float:
+    """Time of one call of `fn`: CUDA events around `reps` back-to-back calls
+    (warm L2), as every slice has timed it. The kernels line's `ms`,
+    `plain_ms` and `library_ms`. Below ~0.06 ms it is the host's launch work
+    (the Python wrappers) that paces it, not the device."""
     import torch
 
     for _ in range(3):
@@ -73,30 +82,79 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20):
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph, replayed between two events (warm L2), so no host launch work is
+    in it. The kernels line's `device_ms` and `library_device_ms`; None, and
+    said so, where the call cannot be captured."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:   # an op the graph cannot capture
+        print(f"    (not capturable, device_ms is null: {str(exc)[:120]})")
+        return None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
+    """(least ms, what bounds it, bytes, operations) of a call on the H100."""
     t_bytes, t_ops = nbytes / H100_BYTES_S, flops / peak_flops
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"),
+            nbytes, flops)
 
 
 def nb(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def report(failed, name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd, lib_label=""):
+def report(failed, name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd, lib_label="",
+           graph=None):
     """Print one kernel-vs-plain case; append it to `failed` if it disagrees.
+    `graph` is (kernel call, library call or None), timed again on the device
+    alone by `graph_ms`. Beside each kernel time: its rate in the unit of what
+    bounds it (TFLOP/s or GB/s) and the share of the bound it reaches.
     Returns the case's record for the kernels' JSON line."""
     import torch
 
     err = (got.float() - want.float()).abs().max().item()
     ok = bool(err <= tol) and bool(torch.isfinite(got.float()).all())
+    k_dev = l_dev = None
+    if graph is not None:
+        k_dev = graph_ms(graph[0])
+        l_dev = None if graph[1] is None else graph_ms(graph[1])
+
+    def rate(ms):
+        if ms is None:
+            return "null"
+        r = (f"{bnd[3] / ms / 1e9:.1f} TFLOP/s" if bnd[1] == "operations"
+             else f"{bnd[2] / ms / 1e6:.1f} GB/s")
+        return f"{ms:.4f} ({r}, share_of_bound={bnd[0] / ms:.3f})"
+
     lib = "null" if lib_ms is None else f"{lib_ms:.4f}{lib_label}"
+    dev = ("" if graph is None else
+           f" device_ms={rate(k_dev)} library_device_ms="
+           f"{'null' if l_dev is None else f'{l_dev:.4f}'}")
     print(f"  {name:20s} {str(dtype).replace('torch.', ''):8s} {shape} max_abs_err={err:.3e} "
-          f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"library_ms={lib} bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
+          f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={rate(k_ms)} plain_ms={p_ms:.4f} "
+          f"library_ms={lib} bound_ms={bnd[0]:.4f} ({bnd[1]}){dev}", flush=True)
     if not ok:
         failed.append(f"{name} {dtype} {shape}")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=lib_ms)
+                library_ms=lib_ms, device_ms=k_dev, library_device_ms=l_dev)
 
 
 def check_kernels(cfg, batch: int, seq: int, slots: int):
@@ -137,11 +195,12 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
 
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
         bnd = bound_ms(nb(xe, wi, wo, got), 2 * 2 * slots * C * d * Fh, peak)
-        k_ms = time_ms(lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act))
+        kern = lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+        k_ms = time_ms(kern)
         p_ms = time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act))
         l_ms = time_ms(lib)
         rec = report(failed, "expert_ffn", dtype, (slots, C, d, Fh), got, want, tol, k_ms, p_ms,
-                     l_ms, bnd)
+                     l_ms, bnd, " (bmm+gelu+bmm)", graph=(kern, lib))
         if dtype == torch.bfloat16:
             records["expert_ffn"] = rec
 
@@ -153,7 +212,8 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
     bnd = bound_ms(nb(z, got), 4 * z.numel(), H100_F32_FLOPS)
     k_ms, p_ms = time_ms(lambda: sparsemax_cuda(z)), time_ms(lambda: ref.sparsemax_ref(z))
     records["sparsemax"] = report(failed, "sparsemax", torch.float32, tuple(z.shape), got, want,
-                                  1e-5, k_ms, p_ms, None, bnd)
+                                  1e-5, k_ms, p_ms, None, bnd,
+                                  graph=(lambda: sparsemax_cuda(z), None))
 
     # --- flash_prefill: [B, S, H, D] causal (the path), plus window + softcap
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -172,15 +232,18 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
             pairs = int(vis.sum())
             peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
             bnd = bound_ms(nb(q, k, v, got), 4 * batch * H * D * pairs, peak)
-            l_ms = None
+            l_ms = lib = None
             if not window and not cap:
                 qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-            k_ms = time_ms(lambda: flash_prefill_cuda(q, k, v, window=window, cap=cap))
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+                l_ms = time_ms(lib)
+            kern = lambda: flash_prefill_cuda(q, k, v, window=window, cap=cap)
+            k_ms = time_ms(kern)
             p_ms = time_ms(lambda: ref.flash_prefill_ref(q, k, v, window, cap, True))
             rec = report(failed,
                          f"flash_prefill{'/w' + str(window) + 'c' + str(int(cap)) if window else ''}",
-                         dtype, tuple(q.shape), got, want, tol, k_ms, p_ms, l_ms, bnd)
+                         dtype, tuple(q.shape), got, want, tol, k_ms, p_ms, l_ms, bnd,
+                         " (SDPA)" if l_ms is not None else "", graph=(kern, lib))
             if dtype == torch.bfloat16 and not window:
                 records["flash_prefill"] = rec
     if failed:
@@ -396,16 +459,18 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
         want = ref.flash_decode_ref(q, k, v, sp, p, window=window, cap=cap)
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
         bnd = bound_ms(nb(q, k, v, sp, p, got), 4 * lanes * h * S * D, peak)
-        k_ms = time_ms(lambda: flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap))
+        kern = lambda: flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap)
+        k_ms = time_ms(kern)
         p_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, sp, p, window=window, cap=cap))
-        l_ms = None
+        l_ms = lib = None
         if name == "flash_decode" and kh == h:
             qt = q[:, :, None, :]
             kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
             valid = ((sp >= 0) & (sp <= p[:, None]))[:, None, None, :]
-            l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid)
+            l_ms = time_ms(lib)
         rec = report(failed, name, dtype, (lanes, h, D, S, kh), got, want, tol, k_ms, p_ms, l_ms, bnd,
-                     " (SDPA, boolean mask)" if l_ms is not None else "")
+                     " (SDPA, boolean mask)" if l_ms is not None else "", graph=(kern, lib))
         if name == "flash_decode" and dtype == torch.bfloat16:
             records["flash_decode"] = rec
 
@@ -435,10 +500,12 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
 
             peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
             bnd = bound_ms(nb(xe, wi_q, wi_s, wo_q, wo_s, got), 2 * 2 * E * C * d * Fh, peak)
-            k_ms = time_ms(lambda: expert_ffn_q_cuda(*args, act=cfg.act))
+            kern = lambda: expert_ffn_q_cuda(*args, act=cfg.act)
+            k_ms = time_ms(kern)
             p_ms = time_ms(lambda: ref.expert_ffn_q_ref(*args, act=cfg.act))
             rec = report(failed, "expert_ffn_q", dtype, (E, C, d, Fh), got, want, tol, k_ms, p_ms,
-                         time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)")
+                         time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
+                         graph=(kern, lib))
             if dtype == torch.bfloat16 and E == int8_slots:
                 records["expert_ffn_q"] = rec
             if dtype == torch.bfloat16 and E == slots:
@@ -447,12 +514,12 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
                 torch.cuda.synchronize()
                 want = ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)
                 bnd = bound_ms(nb(xe, wi, wo, got), 2 * 2 * E * C * d * Fh, peak)
-                report(failed, "expert_ffn/decode", dtype, (E, C, d, Fh), got, want, tol,
-                       time_ms(lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)),
-                       time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)),
-                       time_ms(lambda: torch.bmm(F.gelu(torch.bmm(xe, wi), approximate="tanh"),
-                                                 wo)),
-                       bnd, " (bmm+gelu+bmm)")
+                kern = lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+                records["expert_ffn/decode"] = report(
+                    failed, "expert_ffn/decode", dtype, (E, C, d, Fh), got, want, tol,
+                    time_ms(kern),
+                    time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)),
+                    time_ms(lib), bnd, " (bmm+gelu+bmm)", graph=(kern, lib))
 
     # --- sparsemax: the predictor's ring scores, invalid slots at -1e30
     z = rnd((lanes, HISTORY), 3.0, torch.float32)
@@ -513,12 +580,16 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
             wo_f = ref.dequantize_q4_ref(wo_q, wo_s, Fh).to(dtype)
             peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
             bnd = bound_ms(nb(xe, wi_q, wi_s, wo_q, wo_s, got), 2 * 2 * E * C * d * Fh, peak)
+            kern = lambda: expert_ffn_q4_cuda(*args, act=cfg.act)
+
+            def lib():
+                return torch.bmm(F.gelu(torch.bmm(xe, wi_f), approximate="tanh"), wo_f)
+
             rec = report(failed, "expert_ffn_q4", dtype, (E, C, d, Fh), got, want, tol,
-                         time_ms(lambda: expert_ffn_q4_cuda(*args, act=cfg.act)),
+                         time_ms(kern),
                          time_ms(lambda: ref.expert_ffn_q4_ref(*args, act=cfg.act)),
-                         time_ms(lambda: torch.bmm(F.gelu(torch.bmm(xe, wi_f), approximate="tanh"),
-                                                   wo_f)),
-                         bnd, " (bmm+gelu+bmm, pre-dequantised)")
+                         time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
+                         graph=(kern, lib))
             if dtype == torch.bfloat16 and E == warm:
                 records["expert_ffn_q4"] = rec
 
@@ -563,11 +634,12 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
         op_keys = (int(live.sum()) + Mp * empty) * page
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
         bnd = bound_ms(kv_bytes + nb(q, pt, p, got), 4 * H * D * op_keys, peak)
-        k_ms = time_ms(lambda: flash_decode_paged_cuda(q, kp, vp, pt, p, window=window, cap=cap))
+        kern = lambda: flash_decode_paged_cuda(q, kp, vp, pt, p, window=window, cap=cap)
+        k_ms = time_ms(kern)
         p_ms = time_ms(lambda: ref.flash_decode_paged_ref(q, kp, vp, pt, p, window=window,
                                                            cap=cap))
         rec = report(failed, name, dtype, (lanes, H, D, Mp, page), got, want, tol, k_ms, p_ms,
-                     None, bnd)
+                     None, bnd, graph=(kern, None))
         if not window:
             sp = torch.arange(cache_len, dtype=torch.int32, device=dev).expand(lanes, -1)
             sp = sp.contiguous()
@@ -899,7 +971,7 @@ def main() -> int:
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
-        "expert_ffn": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
+        "expert_ffn": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                        "src/repro/kernels/expert_gemm.py:269"),
         "sparsemax": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
                       "src/repro/kernels/sparsemax.py:43"),
@@ -913,13 +985,18 @@ def main() -> int:
                           "src/repro/kernels/expert_gemm.py:211"),
         "flash_decode_paged": ("cuda", "src/repro_torch/csrc/flash_decode.cu",
                                "src/repro/kernels/flash_decode.py:180"),
+        # expert_ffn again, at the decode step's [slots, 8, d] capacity buffer
+        "expert_ffn/decode": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
+                              "src/repro/kernels/expert_gemm.py:269"),
     }
     # each kernel's launches on the path that runs it: the batch serve for
-    # the batch kernels, the bf16 decode for flash_decode, the int8 decode
+    # the batch kernels, the bf16 decode for flash_decode and expert_ffn at
+    # the decode shape, the int8 decode
     # for expert_ffn_q, the tiered paged decode for expert_ffn_q4 and
     # flash_decode_paged
     launches = {k: counts[k] for k in BATCH_KERNELS}
     launches["flash_decode"] = dcounts["bf16"]["flash_decode"]
+    launches["expert_ffn/decode"] = dcounts["bf16"]["expert_ffn"]
     launches["expert_ffn_q"] = dcounts["int8"]["expert_ffn_q"]
     for k in ("expert_ffn_q4", "flash_decode_paged"):
         launches[k] = dcounts["tiered-paged"][k]
@@ -929,7 +1006,9 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "device_ms": r["device_ms"],
+                        "library_device_ms": r["library_device_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

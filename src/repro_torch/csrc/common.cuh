@@ -19,6 +19,10 @@ enum DType : int { kF32 = 0, kBF16 = 1 };
 // activation codes shared with repro_torch/kernels/expert_gemm.py
 enum Act : int { kSilu = 0, kGelu = 1, kRelu = 2 };
 
+// GEMM epilogue codes shared with repro_torch/kernels/expert_gemm.py: store
+// the product, activate it, or multiply it by the activated second product
+enum Epilogue : int { kStore = 0, kAct = 1, kGlu = 2 };
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -38,6 +42,27 @@ __device__ __forceinline__ float activate(float h, int act) {
   return fmaxf(h, 0.0f);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// c += a · b on the tensor cores: one m16n8k16 tile, bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values as one bf16 pair (lo in the low half), the layout of an
+// mma fragment register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -49,5 +74,14 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// The bf16 expert GEMM on Hopper's TMA and wgmma (csrc/expert_ffn_sm90.cu):
+// C[e] = epilogue(A[e] @ B[e] [, A[e] @ B2[e]]) on a bm x bn tile per block
+// through a ring of `stages` shared-memory stages, with the contraction
+// split `split` ways into the fp32 workspace ws [split, E, M, N] and summed
+// in a fixed order when split > 1.
+int sm90_expert_gemm(const void* a, const void* b, const void* b2, void* c, void* ws, int E,
+                     int M, int N, int K, int bm, int bn, int split, int stages, int epilogue,
+                     int act, cudaStream_t stream);
 
 }  // namespace rt

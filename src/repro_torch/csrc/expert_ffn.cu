@@ -13,45 +13,54 @@
 // TPU kernel applies to per-group partial products in its f32 epilogue.
 //
 // What bounds it on the H100: at the batch serving shapes (E = 4 slots,
-// C = 640, d = 768, F = 3072, bf16) the two products are 24 GFLOP against
-// 46 MB of operands, ~500 FLOP/byte, so the tensor cores bound it, not HBM.
+// C = 640, d = 768, F = 3072, bf16) the two products are 24.2 GFLOP against
+// 45.6 MB of operands, ~530 FLOP/byte, so the tensor cores bound it, not HBM.
 // At decode (C = 8 rows a slot) the same weights do 0.3 GFLOP: HBM bytes
 // bound it, and int8 weights halve them (18.9 MB instead of 37.7 MB);
 // int4 weights halve them again (3 warm slots: 8.0 MB with the scale
 // planes, 2.4 us at 3.35 TB/s).
 //
 // Design. A block has no 16 MB of fast memory to hold the [C, F] hidden
-// tile the TPU kernel keeps in VMEM, so the FFN runs as two launches of one
-// GEMM kernel: the up-projection with the activation (and the GLU gate
-// product) fused into its epilogue writes h once in the working dtype —
-// the same rounding point as the TPU kernel's h.astype(x.dtype) — and the
-// down-projection reads it back. bf16 runs on the tensor cores through
-// mma.sync m16n8k16 with fp32 accumulation over the whole contraction; fp32
-// runs a SIMT tile with fmaf, so fp32 results stay IEEE (no TF32).
-// int8 weights (Q) stream from HBM as int8 and widen to the compute type as
-// they are staged into shared memory — exact, |q| <= 127 fits bf16's
-// mantissa — and the epilogue multiplies the fp32 product by the column's
-// scale, as _ffn_kernel_q does (x @ (q·s) == (x @ q)·s for a per-output-
-// channel s).
-// int4 weights (Q4) stream as packed bytes (one byte = contraction rows 2i
-// and 2i+1 of a column, low nibble first, two's complement) and are
-// dequantised as they are staged: each value becomes q·s[k / group, n] in
-// fp32 and is rounded to the compute type before the product. Per-group
-// scales do not commute with the whole contraction, so unlike the int8 path
-// they cannot wait for the epilogue; dequantising at staging (instead of
-// the TPU kernel's per-group partial sums) keeps one accumulator and takes
-// any group size, the whole axis included, and it rounds the weights where
-// the plain version rounds them, so the two differ only in summation order.
+// tile the TPU kernel keeps in VMEM, so the FFN runs as two GEMM launches:
+// the up-projection with the activation (and the GLU gate product) fused
+// into its epilogue writes h once in the working dtype — the same rounding
+// point as the TPU kernel's h.astype(x.dtype) — and the down-projection
+// reads it back.
+// - bf16 weights go to the Hopper GEMM of csrc/expert_ffn_sm90.cu: a TMA
+//   ring of shared-memory stages under mbarriers, one producer warp, and
+//   wgmma consumer warpgroups, tiles and a split of the contraction chosen
+//   per shape by kernels/expert_gemm.py::gemm_plan. Its note says what
+//   bounds it.
+// - fp32 runs a SIMT tile with fmaf below, so fp32 results stay IEEE (no
+//   TF32).
+// - int8 weights (Q) in bf16 run on the tensor cores through mma.sync
+//   m16n8k16 with fp32 accumulation. They stream from HBM as int8 and widen
+//   to the compute type as they are staged into shared memory — exact,
+//   |q| <= 127 fits bf16's mantissa — and the epilogue multiplies the fp32
+//   product by the column's scale, as _ffn_kernel_q does (x @ (q·s) ==
+//   (x @ q)·s for a per-output-channel s).
+// - int4 weights (Q4) stream as packed bytes (one byte = contraction rows 2i
+//   and 2i+1 of a column, low nibble first, two's complement) through the
+//   same mma.sync kernel and are dequantised as they are staged: each value
+//   becomes q·s[k / group, n] in fp32 and is rounded to the compute type
+//   before the product. Per-group scales do not commute with the whole
+//   contraction, so unlike the int8 path they cannot wait for the epilogue;
+//   dequantising at staging (instead of the TPU kernel's per-group partial
+//   sums) keeps one accumulator and takes any group size, the whole axis
+//   included, and it rounds the weights where the plain version rounds them,
+//   so the two differ only in summation order.
 // The capacity axis M is masked per row, so any C works (the Pallas kernel
-// asserted C % bc == 0); N and K must be multiples of 64.
-// Simple first: no cp.async pipeline, wgmma or TMA yet.
+// asserted C % bc == 0); N and K must be multiples of 64. The int8 / int4
+// mma.sync kernel has no cp.async pipeline, wgmma or TMA yet.
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-enum Epilogue : int { kStore = 0, kAct = 1, kGlu = 2 };
+using rt::kAct;
+using rt::kGlu;
+using rt::kStore;
 // weight formats: the working dtype, int8 with per-column scales applied in
 // the epilogue, or nibble-packed int4 with group scales applied at staging
 enum WFmt : int { kFp = 0, kInt8 = 1, kInt4 = 2 };
@@ -66,7 +75,8 @@ __device__ __forceinline__ float q4_at(const uint8_t* B, const float* sc, int gs
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores via mma.sync.m16n8k16 (fp32 accumulate)
+// int8 / int4 weights in bf16: tensor cores via mma.sync.m16n8k16 (fp32
+// accumulate)
 // ---------------------------------------------------------------------------
 constexpr int BM = 64, BN = 64, BK = 32;
 constexpr int LDS = BK + 8;  // padded smem row (80 bytes: 16B aligned, conflict-free)
@@ -75,32 +85,11 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using rt::mma_bf16;
 
-// B tile [BK, BN] (n contiguous in HBM) -> smem transposed [BN][LDS] so the
-// mma B fragment (two consecutive k at one n) is one 32-bit load.
-__device__ __forceinline__ void load_b_tile_t(bf16* sB, const bf16* B, int k0, int n0,
-                                              int N, int tid) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = tid + j * 128;
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    uint4 v = *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * N + n0 + c);
-    const bf16* pv = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sB[(c + i) * LDS + r] = pv[i];
-  }
-}
-
-// int8 B tile [BK, BN]: one 16-byte load a thread, widened to bf16 (exact)
-// as it is stored transposed like the bf16 tile.
+// int8 B tile [BK, BN] -> smem transposed [BN][LDS], so the mma B fragment
+// (two consecutive k at one n) is one 32-bit load: one 16-byte load a
+// thread, widened to bf16 (exact) as it is stored.
 __device__ __forceinline__ void load_b_tile_t(bf16* sB, const int8_t* B, int k0, int n0,
                                               int N, int tid) {
   const int r = tid >> 2, c = (tid & 3) * 16;
@@ -112,7 +101,7 @@ __device__ __forceinline__ void load_b_tile_t(bf16* sB, const int8_t* B, int k0,
 
 // packed int4 B tile [BK, BN]: 8 bytes (16 values of two rows) a thread,
 // dequantised with the rows' group scales and stored transposed like the
-// bf16 tile. The rounding to bf16 is the plain version's.
+// int8 tile. The rounding to bf16 is the plain version's.
 __device__ __forceinline__ void load_b_tile_q4(bf16* sB, const uint8_t* B, const float* sc,
                                                int gs, int k0, int n0, int N, int tid) {
   const int pr = tid >> 3, c = (tid & 7) * 8;          // packed row 0..15, 8 columns
@@ -130,7 +119,7 @@ __device__ __forceinline__ void load_b_tile_q4(bf16* sB, const uint8_t* B, const
 }
 
 template <int FMT> struct WType;
-template <> struct WType<kFp> { using bf = bf16; using f32 = float; };
+template <> struct WType<kFp> { using f32 = float; };
 template <> struct WType<kInt8> { using bf = int8_t; using f32 = int8_t; };
 template <> struct WType<kInt4> { using bf = uint8_t; using f32 = uint8_t; };
 
@@ -145,7 +134,8 @@ __device__ __forceinline__ size_t scale_offset(int e, int N, int K, int gs) {
   return FMT == kInt8 ? (size_t)e * N : FMT == kInt4 ? (size_t)e * (K / gs) * N : 0;
 }
 
-// FMT: the weights' format (WFmt); sc/sc2 their scales, gs the int4 group
+// FMT: the weights' format (kInt8 or kInt4); sc/sc2 their scales, gs the
+// int4 group
 template <int EPI, int FMT>
 __global__ void __launch_bounds__(128)
 gemm_bf16_kernel(const bf16* __restrict__ A, const typename WType<FMT>::bf* __restrict__ B,
@@ -163,10 +153,8 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const typename WType<FMT>::bf* __re
   A += (size_t)e * M * K;
   B += weight_offset<FMT>(e, N, K);
   if (GLU) B2 += weight_offset<FMT>(e, N, K);
-  if (FMT != kFp) {
-    sc += scale_offset<FMT>(e, N, K, gs);
-    if (GLU) sc2 += scale_offset<FMT>(e, N, K, gs);
-  }
+  sc += scale_offset<FMT>(e, N, K, gs);
+  if (GLU) sc2 += scale_offset<FMT>(e, N, K, gs);
   C += (size_t)e * M * N;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -193,7 +181,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const typename WType<FMT>::bf* __re
     if constexpr (FMT == kInt4) {
       load_b_tile_q4(sB, B, sc, gs, k0, n0, N, tid);
       if (GLU) load_b_tile_q4(sB2, B2, sc2, gs, k0, n0, N, tid);
-    } else {
+    } else {   // kInt8
       load_b_tile_t(sB, B, k0, n0, N, tid);
       if (GLU) load_b_tile_t(sB2, B2, k0, n0, N, tid);
     }
@@ -354,17 +342,20 @@ gemm_f32_kernel(const float* __restrict__ A, const typename WType<FMT>::f32* __r
 template <int EPI, int FMT>
 void launch(const void* a, const void* b, const void* b2, const float* sc, const float* sc2,
             void* c, int E, int M, int N, int K, int gs, int dtype, int act, cudaStream_t s) {
-  using WB = typename WType<FMT>::bf;
   using WF = typename WType<FMT>::f32;
   const dim3 grid(N / BN, (M + BM - 1) / BM, E);
-  if (dtype == rt::kBF16)
-    gemm_bf16_kernel<EPI, FMT><<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const WB*>(b), static_cast<const WB*>(b2),
-        sc, sc2, static_cast<bf16*>(c), M, N, K, gs, act);
-  else
-    gemm_f32_kernel<EPI, FMT><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const WF*>(b), static_cast<const WF*>(b2),
-        sc, sc2, static_cast<float*>(c), M, N, K, gs, act);
+  if constexpr (FMT != kFp) {   // bf16 over fp weights is rt::sm90_expert_gemm's
+    using WB = typename WType<FMT>::bf;
+    if (dtype == rt::kBF16) {
+      gemm_bf16_kernel<EPI, FMT><<<grid, 128, 0, s>>>(
+          static_cast<const bf16*>(a), static_cast<const WB*>(b), static_cast<const WB*>(b2),
+          sc, sc2, static_cast<bf16*>(c), M, N, K, gs, act);
+      return;
+    }
+  }
+  gemm_f32_kernel<EPI, FMT><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const WF*>(b), static_cast<const WF*>(b2),
+      sc, sc2, static_cast<float*>(c), M, N, K, gs, act);
 }
 
 template <int FMT>
@@ -382,13 +373,19 @@ int gemm(const void* a, const void* b, const void* b2, const float* sc, const fl
 }  // namespace
 
 // C[e] = epilogue(A[e] @ B[e] [, A[e] @ B2[e]]) for e < E.
-// A [E, M, K], B/B2 [E, K, N], C [E, M, N], all contiguous and of one dtype.
-// Requires N % 64 == 0 and K % 64 == 0 (checked by the Python wrapper).
-extern "C" int rt_expert_gemm(const void* a, const void* b, const void* b2, void* c,
-                              int E, int M, int N, int K, int dtype, int epilogue,
-                              int act, void* stream) {
-  return gemm<kFp>(a, b, b2, nullptr, nullptr, c, E, M, N, K, 1, dtype, epilogue, act,
-                   static_cast<cudaStream_t>(stream));
+// A [E, M, K], B/B2 [E, K, N], C [E, M, N], all contiguous, 16-byte aligned
+// and of one dtype. Requires N % 64 == 0 and K % 64 == 0 (checked by the
+// Python wrapper). bf16 runs rt::sm90_expert_gemm on the plan (bm, bn,
+// split, stages) of kernels/expert_gemm.py::gemm_plan, with ws an fp32
+// workspace [split, E, M, N] when split > 1; fp32 ignores the plan.
+extern "C" int rt_expert_gemm(const void* a, const void* b, const void* b2, void* c, void* ws,
+                              int E, int M, int N, int K, int bm, int bn, int split, int stages,
+                              int dtype, int epilogue, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kBF16)
+    return rt::sm90_expert_gemm(a, b, b2, c, ws, E, M, N, K, bm, bn, split, stages, epilogue,
+                                act, s);
+  return gemm<kFp>(a, b, b2, nullptr, nullptr, c, E, M, N, K, 1, dtype, epilogue, act, s);
 }
 
 // The same over int8 weights: C[e] = epilogue((A[e] @ Bq[e]) * bs[e] [, ...]).

@@ -34,8 +34,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # a, b, b2, c, E, M, N, K, dtype, epilogue, act, stream
-    "rt_expert_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, b, b2, c, ws, E, M, N, K, bm, bn, split, stages, dtype, epilogue, act, stream
+    "rt_expert_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, bq, bs, b2q, b2s, c, E, M, N, K, dtype, epilogue, act, stream
     "rt_expert_gemm_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, bq, bs, b2q, b2s, c, E, M, N, K, group, dtype, epilogue, act, stream

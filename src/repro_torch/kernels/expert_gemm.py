@@ -1,10 +1,12 @@
-"""Launch wrappers for the hand-written expert FFN kernels (`csrc/expert_ffn.cu`).
+"""Launch wrappers for the hand-written expert FFN kernels (`csrc/expert_ffn.cu`,
+`csrc/expert_ffn_sm90.cu`).
 
 Port of `repro/kernels/expert_gemm.py::expert_ffn`: xe [E, C, d] ->
 act(xe @ w_in) @ w_out per slot (or act(xe @ w_gate) * (xe @ w_in) when
-gated). Two launches of one GEMM kernel: the up-projection with the
-activation fused writes h [E, C, F] once in the working dtype, then the
-down-projection. `expert_ffn_q` (port of `expert_gemm.py::expert_ffn_q`) is
+gated). Two GEMM launches: the up-projection with the activation fused
+writes h [E, C, F] once in the working dtype, then the down-projection. In
+bf16 both run the Hopper TMA + wgmma GEMM on the tiles `gemm_plan` picks for
+their shape. `expert_ffn_q` (port of `expert_gemm.py::expert_ffn_q`) is
 the same over int8-resident weights with per-output-channel fp32 scales,
 which the kernel applies to the fp32 product, and `expert_ffn_q4` (port of
 `expert_gemm.py::expert_ffn_q4`) the same over nibble-packed int4 weights
@@ -13,6 +15,7 @@ weight tile. Callers go through `repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,6 +25,40 @@ from repro_torch.kernels import build
 ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
 _STORE, _ACT, _GLU = 0, 1, 2   # epilogue codes of rt_expert_gemm
 TILE = 64                      # d and F must be multiples of the kernel's N/K tiles
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+SMEM_ONE, SMEM_TWO = 220 * 1024, 110 * 1024   # shared memory of a block alone on its SM, or of two
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(E: int, M: int, N: int, K: int,
+              gated: bool = False) -> tuple[int, int, int, int]:
+    """(bm, bn, split, stages) of the bf16 Hopper GEMM C[e] = A[e] [M, K] @ B[e] [K, N].
+
+    bm: 64 rows (one consumer warpgroup) when M fits, else 128 (two). bn: 128
+    columns (m64n128 wgmma, fewer shared-memory bytes a product), or 64 for
+    a gated up-projection (two accumulators) and where 128 would leave more
+    than half the SMs without a tile and no split can make up for it. split:
+    with few rows (fp32 partials small beside the weights, 32·split·M <= K)
+    the contraction is cut in two until the blocks cover ~0.7 of the SMs —
+    the decode down-projection, 24 tiles of [8, 3072] x [3072, 128], runs as
+    96 blocks; each split keeps at least 4 stages of 64 rows. stages: the
+    depth of the TMA ring — as deep as fits (up to 8) when each SM holds one
+    block, half that when blocks outnumber the SMs so that two share one.
+    Memoised: the wrapper asks twice a call, and decode asks the same shapes
+    every step."""
+    bm = 64 if M <= 64 else 128
+    m_tiles = -(-M // bm)
+    bn = 64 if gated or N % 128 else 128
+    if bn == 128 and E * m_tiles * (N // 128) < SMS // 2 and 64 * M > K:
+        bn = 64
+    split = 1
+    while (not gated and E * m_tiles * (N // bn) * split < 0.7 * SMS
+           and 32 * 2 * split * M <= K
+           and (K // TILE) % (2 * split) == 0 and K // (TILE * 2 * split) >= 4):
+        split *= 2
+    stage_bytes = (bm + (2 if gated else 1) * bn) * TILE * 2
+    budget = SMEM_ONE if E * m_tiles * (N // bn) * split <= SMS else SMEM_TWO
+    return bm, bn, split, max(2, min(8, budget // stage_bytes))
 
 
 def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor,
@@ -37,14 +74,18 @@ def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor,
 
 
 def _check_x(fn: str, xe: torch.Tensor, act: str) -> None:
-    if xe.device.type != "cuda":
-        raise ValueError(f"{fn}_cuda needs CUDA tensors, got {xe.device}")
     if xe.dtype not in build.DTYPE_CODES:
         raise ValueError(f"{fn}: dtype {xe.dtype} not supported (float32, bfloat16)")
     if act not in ACT_CODES:
         raise ValueError(f"{fn}: unknown activation {act!r}")
     if xe.dim() != 3:
         raise ValueError(f"{fn}: xe [E, C, d] expected")
+
+
+def _check_cuda(fn: str, xe: torch.Tensor) -> None:
+    """Last of a wrapper's checks, so a CPU tensor meets the others first."""
+    if xe.device.type != "cuda":
+        raise ValueError(f"{fn}_cuda needs CUDA tensors, got {xe.device}")
 
 
 def expert_ffn_cuda(
@@ -66,23 +107,29 @@ def expert_ffn_cuda(
     if w_gate is not None:
         _check("w_gate", w_gate, (E, d, F), xe)
     _check("w_out", w_out, (E, F, d), xe)
+    _check_cuda("expert_ffn", xe)
 
     lib = build.library()
     dt = build.DTYPE_CODES[xe.dtype]
+    gated = w_gate is not None
     h = torch.empty((E, C, F), dtype=xe.dtype, device=xe.device)
     y = torch.empty((E, C, d), dtype=xe.dtype, device=xe.device)
     with torch.cuda.device(xe.device):
         stream = build.stream_handle(xe)
-        up = _GLU if w_gate is not None else _ACT
-        build.check("expert_ffn up", lib.rt_expert_gemm(
-            xe.data_ptr(), w_in.data_ptr(),
-            w_gate.data_ptr() if w_gate is not None else None, h.data_ptr(),
-            E, C, F, d, dt, up, ACT_CODES[act], stream,
-        ))
-        build.check("expert_ffn down", lib.rt_expert_gemm(
-            h.data_ptr(), w_out.data_ptr(), None, y.data_ptr(),
-            E, C, d, F, dt, _STORE, ACT_CODES[act], stream,
-        ))
+        for name, a, b, b2, out, N, K, epi in (
+            ("expert_ffn up", xe, w_in, w_gate, h, F, d, _GLU if gated else _ACT),
+            ("expert_ffn down", h, w_out, None, y, d, F, _STORE),
+        ):
+            # fp32 runs the SIMT kernel, which takes no plan
+            bm, bn, split, stages = (gemm_plan(E, C, N, K, gated=epi == _GLU)
+                                     if xe.dtype == torch.bfloat16 else (0, 0, 1, 0))
+            ws = (torch.empty((split, E, C, N), dtype=torch.float32, device=xe.device)
+                  if split > 1 else None)
+            build.check(name, lib.rt_expert_gemm(
+                a.data_ptr(), b.data_ptr(), b2.data_ptr() if b2 is not None else None,
+                out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                E, C, N, K, bm, bn, split, stages, dt, epi, ACT_CODES[act], stream,
+            ))
     return y
 
 
@@ -119,6 +166,7 @@ def expert_ffn_q_cuda(
         w_gate_scale = w_gate_scale.reshape(E, F)
         _check("w_gate_q", w_gate_q, (E, d, F), xe, torch.int8, "expert_ffn_q")
         _check("w_gate_scale", w_gate_scale, (E, F), xe, torch.float32, "expert_ffn_q")
+    _check_cuda("expert_ffn_q", xe)
 
     lib = build.library()
     dt = build.DTYPE_CODES[xe.dtype]
@@ -181,6 +229,7 @@ def expert_ffn_q4_cuda(
     if gated:
         _check("w_gate_q4", w_gate_q4, (E, d // 2, F), xe, torch.uint8, fn)
         _check("w_gate_scale", w_gate_scale, (E, d // g_in, F), xe, torch.float32, fn)
+    _check_cuda(fn, xe)
 
     lib = build.library()
     dt = build.DTYPE_CODES[xe.dtype]

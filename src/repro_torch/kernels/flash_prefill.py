@@ -3,6 +3,8 @@
 
 Port of `repro/kernels/flash_prefill.py::flash_prefill`: full-sequence GQA
 flash attention with causal masking, sliding window and tanh logit softcap.
+bf16 runs on the tensor cores (64 query rows a block, P rounded to bf16
+before P V); fp32 on the CUDA cores, in IEEE fp32.
 Callers go through `repro_torch.kernels.ops.flash_prefill`.
 """
 from __future__ import annotations
@@ -22,9 +24,8 @@ def flash_prefill_cuda(
     cap: float = 0.0,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Returns [B, S, H, D] in q's dtype."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_prefill_cuda needs CUDA tensors, got {q.device}")
+    """Returns [B, S, H, D] in q's dtype. Shapes and types are checked before
+    the device, so a CPU tensor meets those refusals first."""
     if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"flash_prefill: dtype {q.dtype} not supported (float32, bfloat16)")
     if q.dim() != 4 or k.dim() != 4:
@@ -39,10 +40,12 @@ def flash_prefill_cuda(
         if tuple(t.shape) != (B, S, K, D) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_prefill: {name} is {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}, expected {(B, S, K, D)} {q.dtype} on {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_prefill: q, k, v must be contiguous")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_prefill: q, k, v must be contiguous and 16-byte aligned")
     if window < 0 or cap < 0:
         raise ValueError("flash_prefill: window and cap must be >= 0")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill_cuda needs CUDA tensors, got {q.device}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         build.check("flash_prefill", build.library().rt_flash_prefill(

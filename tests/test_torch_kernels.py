@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda
+from repro_torch.kernels.expert_gemm import (
+    SMS, TILE, expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda, gemm_plan,
+)
 from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
@@ -181,6 +183,97 @@ def test_int4_and_paged_kernels_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 Hopper GEMM's plan, and the wrappers' refusals (CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("E,M,N,K,gated,plan", [
+    (4, 640, 3072, 768, False, (128, 128, 1, 3)),   # batch up-projection: 480 tiles, 2 an SM
+    (4, 640, 768, 3072, False, (128, 128, 1, 6)),   # batch down-projection: 120 tiles, one wave
+    (4, 8, 3072, 768, False, (64, 128, 1, 8)),      # decode up-projection: 96 tiles
+    (4, 8, 768, 3072, False, (64, 128, 4, 8)),      # decode down-projection: 24 tiles x 4 splits
+    (3, 77, 512, 128, True, (128, 64, 1, 6)),       # gated: two accumulators, bn 64, no split
+])
+def test_gemm_plan_at_the_served_shapes(E, M, N, K, gated, plan):
+    assert gemm_plan(E, M, N, K, gated=gated) == plan
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 77, 129, 640, 5000])
+def test_gemm_plan_is_a_valid_launch(M, gated):
+    for E in (1, 4, 8):
+        for N, K in ((3072, 768), (768, 3072), (128, 64), (64, 4096), (512, 128)):
+            bm, bn, split, stages = gemm_plan(E, M, N, K, gated=gated)
+            assert bm == (64 if M <= 64 else 128)
+            # the ring and its barriers fit a block's 227 KB of shared memory
+            assert 2 <= stages <= 8
+            assert stages * (bm + (2 if gated else 1) * bn) * TILE * 2 + 1024 + 16 * stages <= 232448
+            assert bn in (64, 128) and N % bn == 0
+            assert not gated or (bn == 64 and split == 1)
+            kb = K // TILE
+            assert kb % split == 0 and (split == 1 or kb // split >= 4)
+            # a split only while the tiles leave SMs idle, and its fp32
+            # partials stay small beside the weights
+            tiles = E * -(-M // bm) * (N // bn)
+            assert split == 1 or (tiles * split // 2 < 0.7 * SMS and 32 * split * M <= K)
+
+
+def _ffn_args(E=2, C=8, d=64, F=128, dtype=torch.bfloat16):
+    return [torch.zeros(E, C, d, dtype=dtype), torch.zeros(E, d, F, dtype=dtype), None,
+            torch.zeros(E, F, d, dtype=dtype)]
+
+
+def _misaligned(*shape):
+    return torch.zeros(int(np.prod(shape)) + 1, dtype=torch.bfloat16)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("fp16", "not supported"), ("d=96", "multiples of 64"), ("act", "unknown activation"),
+    ("w_out shape", "w_out has shape"), ("misaligned", "16-byte aligned"),
+    ("gate dtype", "w_gate is torch.float32"), ("cpu", "needs CUDA"),
+])
+def test_expert_ffn_cuda_refusals(case, match):
+    args, kw = _ffn_args(), {}
+    if case == "fp16":
+        args = _ffn_args(dtype=torch.float16)
+    elif case == "d=96":
+        args = _ffn_args(d=96)
+    elif case == "act":
+        kw["act"] = "tanh"
+    elif case == "w_out shape":
+        args[3] = torch.zeros(2, 64, 128, dtype=torch.bfloat16)
+    elif case == "misaligned":
+        args[0] = _misaligned(2, 8, 64)
+    elif case == "gate dtype":
+        args[2] = torch.zeros(2, 64, 128)
+    with pytest.raises(ValueError, match=match):
+        expert_ffn_cuda(*args, **kw)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head_dim 48", "head_dim 48"), ("groups", "do not group"), ("k dtype", "k is"),
+    ("misaligned", "16-byte aligned"), ("window", "must be >= 0"), ("cpu", "needs CUDA"),
+])
+def test_flash_prefill_cuda_refusals(case, match):
+    B, S, H, K, D = 1, 8, 4, 2, 32
+    q, k, v = (torch.zeros(B, S, h, D, dtype=torch.bfloat16) for h in (H, K, K))
+    kw = {}
+    if case == "head_dim 48":
+        q, k, v = (torch.zeros(B, S, h, 48, dtype=torch.bfloat16) for h in (H, K, K))
+    elif case == "groups":
+        q = torch.zeros(B, S, 6, D, dtype=torch.bfloat16)
+        k = v = torch.zeros(B, S, 4, D, dtype=torch.bfloat16)
+    elif case == "k dtype":
+        k = k.float()
+    elif case == "misaligned":
+        v = _misaligned(B, S, K, D)
+    elif case == "window":
+        kw["window"] = -1
+    with pytest.raises(ValueError, match=match):
+        flash_prefill_cuda(q, k, v, **kw)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (skip without a GPU)
 # ---------------------------------------------------------------------------
 
@@ -196,6 +289,42 @@ def test_expert_ffn_kernel_matches_plain(cuda, E, C, d, F, glu, act, dtype):
     torch.cuda.synchronize()
     want = ref.expert_ffn_ref(*t, act=act)
     _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("glu,act", [(False, "gelu"), (True, "silu")])
+@pytest.mark.parametrize("E", [1, 4])
+@pytest.mark.parametrize("C", [1, 8, 77, 129, 640])
+def test_expert_ffn_bf16_hopper_gemm_matches_plain(cuda, C, E, glu, act):
+    """The TMA + wgmma GEMM at full width on every tile plan the served shapes
+    reach: ragged capacity (zero fill past C in each slot), one and two
+    consumer warpgroups, bn 64 / 128, the split decode down-projection at
+    [4, 8, 768, 3072], and the gated two-accumulator epilogue. Weights at the
+    served init scale (d^-1/2, F^-1/2, as chip_smoke.py phase 2 draws them),
+    so outputs are O(1): at _ffn_inputs' fixed 0.05 the gated outputs reach
+    |y| ~ 10, where one bf16 ulp (0.0625) is above the tolerance."""
+    d, F = 768, 3072
+    arrs = [_np((E, C, d), C + E), _np((E, d, F), C + E + 1, d ** -0.5),
+            _np((E, d, F), C + E + 2, d ** -0.5) if glu else None,
+            _np((E, F, d), C + E + 3, F ** -0.5)]
+    t = [None if a is None else _t(a, "bfloat16").to(cuda) for a in arrs]
+    got = ops.expert_ffn(*t, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (E, C, 768)
+    want = ref.expert_ffn_ref(*t, act=act)
+    _close(got.float().cpu(), want.float().cpu(), BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_expert_ffn_bf16_split_is_deterministic(cuda):
+    """The split down-projection sums its fp32 partials in a fixed order:
+    two runs on the same inputs are bit-identical."""
+    assert gemm_plan(4, 8, 768, 3072)[2] > 1   # split
+    t = [None if a is None else _t(a, "bfloat16").to(cuda)
+         for a in _ffn_inputs(4, 8, 768, 3072, False)]
+    a, b = ops.expert_ffn(*t, act="gelu"), ops.expert_ffn(*t, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -217,8 +346,42 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, K, D, window, cap, ca
     got = ops.flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
     assert got.dtype == q.dtype
     want = ref.flash_prefill_ref(q, k, v, window, cap, causal)
-    # bf16: the kernel keeps fp32 probabilities and rounds the output once
+    # bf16: the kernel rounds P to bf16 before P V (the oracle's w.to(v.dtype))
     _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 256, 300])
+def test_flash_prefill_bf16_tensor_core_matches_plain(cuda, S, D, G):
+    """64-row query tiles and 64-key tiles: S below, at and across a tile
+    edge, every head dim, GQA groups of 1 and 2, causal."""
+    B, K = 2, 3
+    q, k, v = (_t(_np(s, 30 + i), "bfloat16").to(cuda)
+               for i, s in enumerate([(B, S, K * G, D), (B, S, K, D), (B, S, K, D)]))
+    got = ops.flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    # the kernel rounds P to bf16 before P V, the plain version keeps fp32
+    _close(got.float().cpu(), ref.flash_prefill_ref(q, k, v).cpu(), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,D,G,window,cap,causal", [
+    (256, 64, 1, 64, 50.0, True), (300, 128, 2, 64, 30.0, True), (65, 32, 2, 1, 0.0, True),
+    (129, 64, 2, 17, 0.0, False), (300, 64, 1, 100, 20.0, False), (256, 128, 1, 0, 0.0, False),
+])
+def test_flash_prefill_bf16_window_softcap_and_non_causal(cuda, S, D, G, window, cap, causal):
+    """Tiles skipped below the window band and above the diagonal, masked
+    where they straddle an edge; a window of 1 leaves each row one key."""
+    B, K = 2, 2
+    q, k, v = (_t(_np(s, 40 + i), "bfloat16").to(cuda)
+               for i, s in enumerate([(B, S, K * G, D), (B, S, K, D), (B, S, K, D)]))
+    got = ops.flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_prefill_ref(q, k, v, window, cap, causal)
+    _close(got.float().cpu(), want.cpu(), 2e-2)
 
 
 def _quantized(arr: np.ndarray):
