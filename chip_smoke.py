@@ -6,7 +6,9 @@
 1. Device: the card's name and power limit, then the build of every kernel
    in `src/repro_torch/csrc` (nvcc, one process per source) and its time.
 2. Kernels vs plain: each hand-written kernel at the shapes the served
-   switch-base-8 batch and decode runs give it, in bf16 and fp32, against
+   switch-base-8 batch and decode runs give it (expert_ffn_q at the decode
+   steps of 5a-5c and at the int8 batch serve's [4, 640], expert_ffn_q4 at
+   5c's warm block and [4, 640]), in bf16 and fp32, against
    its plain PyTorch version — max abs error and tolerance, kernel / plain /
    library ms (CUDA events around 20 back-to-back calls, warm L2: host launch
    work included), the least time the H100 could take (989 TFLOP/s bf16 or
@@ -157,6 +159,14 @@ def report(failed, name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd, 
                 library_ms=lib_ms, device_ms=k_dev, library_device_ms=l_dev)
 
 
+def batch_capacity(cfg, batch: int, seq: int, slots: int) -> int:
+    """Rows of each slot's capacity buffer in a batch of batch x seq tokens."""
+    from repro_torch.models.moe import _block_tokens, _capacity
+
+    T = batch * seq
+    return (T // _block_tokens(T)) * _capacity(cfg, _block_tokens(T), slots)
+
+
 def check_kernels(cfg, batch: int, seq: int, slots: int):
     """Phase 2: every kernel vs its plain version at the main path's shapes.
     Returns {kernel: record of the bf16 / main-path case}."""
@@ -167,7 +177,6 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
     from repro_torch.kernels.expert_gemm import expert_ffn_cuda
     from repro_torch.kernels.flash_prefill import flash_prefill_cuda
     from repro_torch.kernels.sparsemax import sparsemax_cuda
-    from repro_torch.models.moe import _block_tokens, _capacity
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(123)
@@ -179,8 +188,7 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
 
     # --- expert_ffn: [E=slots, C, d] through the slot stack (non-gated GELU)
     d, Fh = cfg.d_model, cfg.moe.d_expert
-    T = batch * seq
-    C = (T // _block_tokens(T)) * _capacity(cfg, _block_tokens(T), slots)
+    C = batch_capacity(cfg, batch, seq, slots)
     for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
         xe = rnd((slots, C, d), 1.0, dtype)
         wi = rnd((slots, d, Fh), d ** -0.5, dtype)
@@ -406,9 +414,12 @@ def card_vs_cpu(cfg, tokens, slots: int):
         raise SystemExit("chip_smoke: card and CPU disagree on the whole path")
 
 
-def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots: int):
+def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots: int,
+                         hot: int, c_hot: int, c_batch: int):
     """Phase 2, decode shapes: flash_decode over the ring cache, expert_ffn_q
     and expert_ffn on the decode step's [slots, 8, d] capacity buffer,
+    expert_ffn_q also on 5b's [int8_slots, 8, d], on 5c's hot block
+    [hot, c_hot, d] and on the int8 batch serve's [slots, c_batch, d],
     sparsemax on the predictor's [lanes, 128] ring scores with masked
     entries. Returns {kernel: record of the path's bf16 case}."""
     import torch
@@ -481,9 +492,11 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
         s = torch.clamp(w.float().abs().amax(dim=-2, keepdim=True), min=1e-8) / 127.0
         return torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8), s
 
-    ffn_cases = [(slots, lanes), (int8_slots, lanes)]
-    for E, T in ffn_cases:
-        C = _capacity(cfg, T, E)
+    ffn_cases = [(slots, _capacity(cfg, lanes, slots)),          # 5a's step (bf16 slots)
+                 (int8_slots, _capacity(cfg, lanes, int8_slots)),  # 5b's step
+                 (hot, c_hot),                                     # 5c's hot int8 block
+                 (slots, c_batch)]                                 # the int8 batch serve
+    for i, (E, C) in enumerate(ffn_cases):
         for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
             xe = rnd((E, C, d), 1.0, dtype)
             wi_q, wi_s = quantize(rnd((E, d, Fh), d ** -0.5, torch.float32))
@@ -506,9 +519,9 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
             rec = report(failed, "expert_ffn_q", dtype, (E, C, d, Fh), got, want, tol, k_ms, p_ms,
                          time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
                          graph=(kern, lib))
-            if dtype == torch.bfloat16 and E == int8_slots:
+            if dtype == torch.bfloat16 and i == 1:
                 records["expert_ffn_q"] = rec
-            if dtype == torch.bfloat16 and E == slots:
+            if dtype == torch.bfloat16 and i == 0:
                 wi, wo = wi_f, wo_f      # the same weights in bf16: expert_ffn at decode
                 got = expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
                 torch.cuda.synchronize()
@@ -936,16 +949,18 @@ def main() -> int:
             print(f"  nvcc {line[3:]}")
     print(f"== phase 2: kernels vs plain (switch-base-8 serving and decode shapes) "
           f"[{time.perf_counter() - t_start:.1f} s]")
-    records = check_kernels(cfg, batch, seq, slots)
-    records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots))
     runs = decode_runs(cfg, slots, int8_slots, tier_slots, cache_len)
-    # 5c's warm block: the store's split of its int8 budget, at the capacity
-    # the decode step gives each of its slots (phase 5c checks the store's)
+    # 5c's hot and warm blocks: the store's split of its int8 budget, at the
+    # capacity the decode step gives each of its slots (phase 5c checks the store's)
     d, Fh = cfg.d_model, cfg.moe.d_expert
     hot, warm = tier_geometry(runs[2][1]["tier"], tier_slots, cfg.moe.num_experts,
                               [(d, Fh), (d, Fh), (Fh, d)])
+    c_tier = _capacity(cfg, lanes, hot + warm)
+    records = check_kernels(cfg, batch, seq, slots)
+    records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots, hot, c_tier,
+                                        batch_capacity(cfg, batch, seq, slots)))
     records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
-                                            warm, _capacity(cfg, lanes, hot + warm)))
+                                            warm, c_tier))
 
     print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -979,9 +994,9 @@ def main() -> int:
                           "src/repro/kernels/flash_prefill.py:82"),
         "flash_decode": ("cuda", "src/repro_torch/csrc/flash_decode.cu",
                          "src/repro/kernels/flash_decode.py:80"),
-        "expert_ffn_q": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
+        "expert_ffn_q": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                          "src/repro/kernels/expert_gemm.py:98"),
-        "expert_ffn_q4": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
+        "expert_ffn_q4": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                           "src/repro/kernels/expert_gemm.py:211"),
         "flash_decode_paged": ("cuda", "src/repro_torch/csrc/flash_decode.cu",
                                "src/repro/kernels/flash_decode.py:180"),

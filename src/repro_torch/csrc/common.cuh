@@ -23,6 +23,12 @@ enum Act : int { kSilu = 0, kGelu = 1, kRelu = 2 };
 // the product, activate it, or multiply it by the activated second product
 enum Epilogue : int { kStore = 0, kAct = 1, kGlu = 2 };
 
+// weight formats of the expert GEMMs: the working dtype, int8 with one fp32
+// scale per output column (applied to the fp32 product), or nibble-packed
+// int4 with one fp32 scale per group of contraction rows per column
+// (applied to each weight before the product)
+enum WFmt : int { kFp = 0, kInt8 = 1, kInt4 = 2 };
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -76,12 +82,15 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // The bf16 expert GEMM on Hopper's TMA and wgmma (csrc/expert_ffn_sm90.cu):
-// C[e] = epilogue(A[e] @ B[e] [, A[e] @ B2[e]]) on a bm x bn tile per block
+// C[e] = epilogue(A[e] @ W[e] [, A[e] @ W2[e]]) on a bm x bn tile per block
 // through a ring of `stages` shared-memory stages, with the contraction
 // split `split` ways into the fp32 workspace ws [split, E, M, N] and summed
-// in a fixed order when split > 1.
-int sm90_expert_gemm(const void* a, const void* b, const void* b2, void* c, void* ws, int E,
-                     int M, int N, int K, int bm, int bn, int split, int stages, int epilogue,
-                     int act, cudaStream_t stream);
+// in a fixed order when split > 1. W is bf16 [E, K, N] (kFp), int8 [E, K, N]
+// with column scales bs [E, N] (kInt8), or packed int4 [E, K/2, N] with
+// group scales bs [E, K/gs, N] (kInt4); b2/b2s the gate's, or null.
+int sm90_expert_gemm(int fmt, const void* a, const void* b, const float* bs, const void* b2,
+                     const float* b2s, void* c, void* ws, int E, int M, int N, int K, int gs,
+                     int bm, int bn, int split, int stages, int epilogue, int act,
+                     cudaStream_t stream);
 
 }  // namespace rt

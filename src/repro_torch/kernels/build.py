@@ -36,10 +36,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # a, b, b2, c, ws, E, M, N, K, bm, bn, split, stages, dtype, epilogue, act, stream
     "rt_expert_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # a, bq, bs, b2q, b2s, c, E, M, N, K, dtype, epilogue, act, stream
-    "rt_expert_gemm_q": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # a, bq, bs, b2q, b2s, c, E, M, N, K, group, dtype, epilogue, act, stream
-    "rt_expert_gemm_q4": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, bq, bs, b2q, b2s, c, ws, E, M, N, K, bm, bn, split, stages, dtype, epilogue, act, stream
+    "rt_expert_gemm_q": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+    # a, bq, bs, b2q, b2s, c, ws, E, M, N, K, group, bm, bn, split, stages, dtype, epilogue,
+    # act, stream
+    "rt_expert_gemm_q4": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
     # z, out, rows, L, stream
     "rt_sparsemax": (_P, _P, _I, _I, _P),
     # q, k, v, o, B, S, H, KH, D, window, cap, causal, dtype, stream

@@ -198,23 +198,78 @@ def test_gemm_plan_at_the_served_shapes(E, M, N, K, gated, plan):
     assert gemm_plan(E, M, N, K, gated=gated) == plan
 
 
+@pytest.mark.parametrize("fmt,group,E,M,N,K,plan", [
+    # int8, the 5b decode step (8 slots), 5c's hot block (2) and the int8
+    # batch serve; at C = 8 the decode tile (bm 8: the tokens are wgmma's N;
+    # split so that the busiest SM widens the fewest stages)
+    ("int8", 0, 8, 8, 3072, 768, (8, 128, 1, 6)),      # 192 tiles, two an SM at most
+    ("int8", 0, 8, 8, 768, 3072, (8, 128, 4, 6)),      # 48 tiles x 4 splits
+    ("int8", 0, 2, 8, 3072, 768, (8, 128, 4, 6)),
+    ("int8", 0, 2, 8, 768, 3072, (8, 128, 8, 16)),     # 12 tiles x 8 splits, one an SM
+    ("int8", 0, 4, 640, 3072, 768, (128, 128, 1, 5)),  # a whole SM: the stage holds the bf16 tile
+    ("int8", 0, 4, 640, 768, 3072, (128, 128, 1, 5)),
+    # int4 group 64, 5c's warm block (3 slots) and a batch shape
+    ("int4", 64, 3, 8, 3072, 768, (8, 128, 2, 10)),
+    ("int4", 64, 3, 8, 768, 3072, (8, 128, 8, 10)),    # 18 tiles x 8 splits
+    ("int4", 64, 4, 640, 3072, 768, (128, 128, 1, 5)),
+    ("int4", 64, 4, 640, 768, 3072, (128, 128, 1, 5)),
+])
+def test_gemm_plan_at_the_served_quantised_shapes(fmt, group, E, M, N, K, plan):
+    assert gemm_plan(E, M, N, K, fmt=fmt, group=group) == plan
+
+
+def _smem(bm, bn, gated, fmt, K, group, stages):
+    """A plan's shared memory, written out from the kernels' layouts. Per
+    weight tile (two when gated) a stage holds the raw bytes that land (int8
+    64 x bn; int4 32 x bn and its group-scale rows) and, for bm 64 or 128,
+    the bf16 tile wgmma reads (for bf16 weights, only that); beside them the
+    bm x 64 bf16 activation tile. The decode tile (bm 8 or 16) widens into
+    three 32-row boxes per 64 columns per row half per weight tile instead,
+    and stages its column scales."""
+    up = lambda b: -(-b // 1024) * 1024
+    nb = 2 if gated else 1
+    srows = 1
+    if fmt == "int4":
+        srows = max(len({k // group for k in range(k0, k0 + TILE)}) for k0 in range(0, K, TILE))
+    raw = {"fp": 0, "int8": TILE * bn, "int4": TILE // 2 * bn + 4 * srows * bn}[fmt]
+    if bm < 64:    # + int8's column scales, staged
+        stage = up(bm * TILE * 2) + up(nb * raw)
+        boxes = 3 * nb * (bn // 64) * TILE * TILE * 2 + nb * bn * 4
+    else:
+        stage, boxes = up(bm * TILE * 2 + nb * (TILE * bn * 2 + raw)), 0
+    return stages * stage + boxes + 1024 + 16 * stages
+
+
+@pytest.mark.parametrize("fmt,group", [
+    ("fp", 0), ("int8", 0), ("int4", 1), ("int4", 32), ("int4", 48), ("int4", 64),
+    ("int4", 0),   # one group: the whole contraction axis
+])
 @pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("M", [1, 8, 64, 65, 77, 129, 640, 5000])
-def test_gemm_plan_is_a_valid_launch(M, gated):
+def test_gemm_plan_is_a_valid_launch(M, gated, fmt, group):
     for E in (1, 4, 8):
         for N, K in ((3072, 768), (768, 3072), (128, 64), (64, 4096), (512, 128)):
-            bm, bn, split, stages = gemm_plan(E, M, N, K, gated=gated)
-            assert bm == (64 if M <= 64 else 128)
-            # the ring and its barriers fit a block's 227 KB of shared memory
-            assert 2 <= stages <= 8
-            assert stages * (bm + (2 if gated else 1) * bn) * TILE * 2 + 1024 + 16 * stages <= 232448
+            gs = group if group and K % group == 0 else K    # the store's _group_of
+            bm, bn, split, stages = gemm_plan(E, M, N, K, gated=gated, fmt=fmt, group=gs)
+            if bm < 64:    # the quantised decode tile, its splits one cluster
+                assert fmt != "fp" and M <= bm == (8 if M <= 8 else 16)
+                assert bn == 128 and 2 <= stages <= 16 and split <= 8
+            else:
+                assert bm == (64 if M <= 64 else 128) and 2 <= stages <= 8
+                assert not gated or bn == 64
+            # the ring (raw weight bytes, bf16 tiles and int4 scale rows),
+            # the decode tile's boxes and the barriers fit a block's 227 KB
+            assert _smem(bm, bn, gated, fmt, K, gs, stages) <= 232448
             assert bn in (64, 128) and N % bn == 0
-            assert not gated or (bn == 64 and split == 1)
+            assert not gated or split == 1
             kb = K // TILE
+            tiles = E * -(-M // bm) * (N // bn)
+            if bm < 64:    # a split of 8 or fewer blocks, each of 2 stages or more
+                assert kb % split == 0 and (split == 1 or kb // split >= 2)
+                continue
             assert kb % split == 0 and (split == 1 or kb // split >= 4)
             # a split only while the tiles leave SMs idle, and its fp32
             # partials stay small beside the weights
-            tiles = E * -(-M // bm) * (N // bn)
             assert split == 1 or (tiles * split // 2 < 0.7 * SMS and 32 * split * M <= K)
 
 
@@ -471,6 +526,95 @@ def test_expert_ffn_q4_kernel_matches_plain(cuda, E, C, d, F, glu, act, group, d
     assert got.dtype == getattr(torch, dtype)
     want = ref.expert_ffn_q4_ref(*args, act=act)
     _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+def _served_ffn(E, C, glu, seed, d=768, F=3072):
+    """Full-width FFN inputs with weights at the served init scale (d^-1/2,
+    F^-1/2, as chip_smoke.py phase 2 draws them), so outputs are O(1)."""
+    return [_np((E, C, d), seed), _np((E, d, F), seed + 1, d ** -0.5),
+            _np((E, d, F), seed + 2, d ** -0.5) if glu else None,
+            _np((E, F, d), seed + 3, F ** -0.5)]
+
+
+def _q8_args(arrs, dtype, cuda):
+    args = [_t(arrs[0], dtype).to(cuda)]
+    for a in arrs[1:]:
+        args += [None, None] if a is None else [t.to(cuda) for t in _quantized(a)]
+    return args
+
+
+def _q4_args(arrs, group, dtype, cuda):
+    args = [_t(arrs[0], dtype).to(cuda)]
+    for a in arrs[1:]:
+        args += [None, None] if a is None else [t.to(cuda) for t in _quantized4(a, group)]
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("glu,act", [(False, "gelu"), (True, "silu")])
+@pytest.mark.parametrize("E", [1, 4])
+@pytest.mark.parametrize("C", [1, 8, 12, 77, 129, 640])
+def test_expert_ffn_q_hopper_gemm_matches_plain(cuda, C, E, glu, act):
+    """int8 weights through the TMA + wgmma GEMM at full width on every tile
+    plan the served shapes reach: the decode tile at C <= 16 (n8 and n16,
+    its splits summed in a cluster), the 64-row tile with one and two
+    consumer warpgroups above, ragged capacity, split and unsplit
+    projections (the column scale applied in the epilogue or after the
+    split sum), and the gated two-tile stage."""
+    args = _q8_args(_served_ffn(E, C, glu, 50 + C + E), "bfloat16", cuda)
+    got = ops.expert_ffn_q(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (E, C, 768)
+    want = ref.expert_ffn_q_ref(*args, act=act)
+    _close(got.float().cpu(), want.float().cpu(), BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("glu,act", [(False, "gelu"), (True, "silu")])
+@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("C", [1, 8, 12, 77, 129, 640])
+def test_expert_ffn_q4_hopper_gemm_matches_plain(cuda, C, E, glu, act):
+    """Packed int4 weights (group 64) through the TMA + wgmma GEMM at full
+    width, as the q8 case above; each weight is widened to q·s and rounded
+    to bf16 where the plain version rounds it."""
+    args = _q4_args(_served_ffn(E, C, glu, 70 + C + E), 64, "bfloat16", cuda)
+    got = ops.expert_ffn_q4(*args, act=act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (E, C, 768)
+    want = ref.expert_ffn_q4_ref(*args, act=act)
+    _close(got.float().cpu(), want.float().cpu(), BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("glu", [False, True])
+@pytest.mark.parametrize("group", [32, 48, 1 << 20])   # 1 << 20: the whole axis, one group
+def test_expert_ffn_q4_groups_at_a_split_plan(cuda, group, glu):
+    """Groups of 32 (two a 64-row stage), 48 (straddling the stages) and the
+    whole axis, at [2, 8] where the down-projection splits K eight ways."""
+    E, C = 2, 8
+    assert gemm_plan(E, C, 768, 3072, fmt="int4", group=min(group, 3072))[2] > 1
+    args = _q4_args(_served_ffn(E, C, glu, 90 + group % 97), group, "bfloat16", cuda)
+    got = ops.expert_ffn_q4(*args, act="gelu")
+    torch.cuda.synchronize()
+    want = ref.expert_ffn_q4_ref(*args, act="gelu")
+    _close(got.float().cpu(), want.float().cpu(), BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,E", [("int8", 8), ("int4", 3)])
+def test_expert_ffn_quantised_split_is_deterministic(cuda, fmt, E):
+    """At its split decode plan (int8: 5b's 8 slots, int4: 5c's 3 warm
+    slots) each format sums its fp32 partials in a fixed order: two runs on
+    the same inputs are bit-identical."""
+    assert gemm_plan(E, 8, 768, 3072, fmt=fmt, group=64)[2] > 1
+    arrs = _served_ffn(E, 8, False, 110)
+    if fmt == "int8":
+        args, fn = _q8_args(arrs, "bfloat16", cuda), ops.expert_ffn_q
+    else:
+        args, fn = _q4_args(arrs, 64, "bfloat16", cuda), ops.expert_ffn_q4
+    a, b = fn(*args, act="gelu"), fn(*args, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _paged_inputs(B, H, K, D, page, n_pages, table, dtype, cuda, seed=40):
