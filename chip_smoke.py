@@ -15,6 +15,11 @@
    67 TFLOP/s fp32, 3.35 TB/s), the rate reached and its share of that
    bound; then the kernel's and the library's device time alone (the same
    20 calls captured in one CUDA graph and replayed), with its rate and share.
+   The decode attention kernels also print their split plan (decode_plan),
+   run the split's edge cases (keys not a whole number of tiles a rank,
+   valid keys only in the last rank, fewer live pages than ranks), check
+   that a rerun is bit-identical, and flash_decode_paged is set beside SDPA
+   and flash_decode on the same keys gathered into a ring (gather untimed).
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -29,7 +34,8 @@
    3 warm) over a paged K/V pool (page 16, 256 pages, 512 addressable
    positions); tok/s, ms/step, loads, tier moves, bytes, pages, each
    kernel's launches in the run (0 fails for the kernels of that path), a
-   per-step stage split and the profiled device idle share.
+   per-step stage split, the profiled device idle share and the profile's
+   largest rows (and the decode attention kernel's row).
 6. Decode card vs CPU: full width, 2 layers, fp32, 40 steps over a 32-slot
    ring (it wraps), fp and int8 slots, then (c) tiered slots over a paged
    pool (page 8, 48 pages): greedy tokens identical (and for (c) the same
@@ -38,7 +44,8 @@
 
 The second-to-last lines are the kernels' JSON record (the seven kernels
 and expert_ffn at the decode shape; `device_ms` and `library_device_ms` are
-the graph-replayed times) and the nvidia-smi line; the last line
+the graph-replayed times; flash_decode_paged's `gathered_*` times are its
+comparators on the keys gathered into a ring) and the nvidia-smi line; the last line
 is {"ok": true, "device": {...}}. Imports nothing of
 JAX or of the JAX package.
 """
@@ -428,7 +435,7 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
     from repro_torch.core.decode_engine import HISTORY
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
-    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.flash_decode import decode_plan, flash_decode_cuda
     from repro_torch.kernels.sparsemax import sparsemax_cuda
     from repro_torch.models.moe import _capacity
 
@@ -459,6 +466,11 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
         ("flash_decode/w128c50", torch.bfloat16, H, K, cache_len, wrapped, 128, 50.0, 2e-2),
         ("flash_decode/G4", torch.bfloat16, H, H // 4, cache_len, wrapped, 0, 0.0, 2e-2),
         ("flash_decode/invalid", torch.float32, H, K, 300, [-1] + wrapped[1:], 0, 0.0, 1e-4),
+        # the split's edges: 300 keys are not a whole number of tiles a rank,
+        # and a window of 5 at the end leaves the valid keys in the last rank
+        ("flash_decode/S300", torch.bfloat16, H, K, 300, wrapped, 0, 0.0, 2e-2),
+        ("flash_decode/last-rank", torch.bfloat16, H, K, cache_len, [cache_len - 1] * lanes, 5,
+         0.0, 2e-2),
     ]
     for name, dtype, h, kh, S, pos, window, cap, tol in cases:
         q = rnd((lanes, h, D), 1.0, dtype)
@@ -466,7 +478,12 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
         v = rnd((lanes, S, kh, D), 1.0, dtype)
         sp, p = ring(pos, S)
         got = flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap)
+        again = flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap)
         torch.cuda.synchronize()
+        print(f"    {name} plan (splits) = {decode_plan(lanes, kh, S, h // kh, D, dtype)}, "
+              f"rerun bit-identical: {torch.equal(got, again)}")
+        if not torch.equal(got, again):
+            failed.append(f"{name} {dtype}: a rerun differs")
         want = ref.flash_decode_ref(q, k, v, sp, p, window=window, cap=cap)
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
         bnd = bound_ms(nb(q, k, v, sp, p, got), 4 * lanes * h * S * D, peak)
@@ -563,7 +580,8 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
     from repro_torch.core.offload import quantize_expert_q4
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_gemm import expert_ffn_q4_cuda
-    from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
+    from repro_torch.kernels.flash_decode import (decode_plan, flash_decode_cuda,
+                                                  flash_decode_paged_cuda)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(432)
@@ -616,6 +634,9 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
         ("flash_decode_paged", torch.float32, 0, 0.0, 1e-4),
         ("flash_decode_paged/spilled-w128c50", torch.bfloat16, 128, 50.0, 2e-2),
         ("flash_decode_paged/spilled-w128c50", torch.float32, 128, 50.0, 1e-4),
+        # the split divides each lane's live keys: fewer live pages than
+        # ranks, a lane whose only page is its last entry
+        ("flash_decode_paged/split-edges", torch.bfloat16, 0, 0.0, 2e-2),
     ):
         q = rnd((lanes, H, D), 1.0, dtype)
         k = rnd((lanes, cache_len, K, D), 1.0, dtype)
@@ -631,10 +652,21 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
             table[2, Mp // 2:] = -1                      # unallocated tail
             pos[2] = cache_len // 2 + 5                  # past its allocated pages
             table[3, :] = -1                             # no valid key at all
+        if name.endswith("split-edges"):
+            table[1, 1:] = -1                            # one live page
+            pos[1] = page // 2
+            table[2, :-1] = -1                           # its only page the last entry
+            table[3, 2:] = -1                            # two live pages
         pt = torch.from_numpy(table).to(dev)
         p = torch.from_numpy(pos).to(dev)
         got = flash_decode_paged_cuda(q, kp, vp, pt, p, window=window, cap=cap)
+        again = flash_decode_paged_cuda(q, kp, vp, pt, p, window=window, cap=cap)
         torch.cuda.synchronize()
+        print(f"    {name} plan (splits) = "
+              f"{decode_plan(lanes, K, Mp * page, H // K, D, dtype)}, "
+              f"rerun bit-identical: {torch.equal(got, again)}")
+        if not torch.equal(got, again):
+            failed.append(f"{name} {dtype}: a rerun differs")
         want = ref.flash_decode_paged_ref(q, kp, vp, pt, p, window=window, cap=cap)
         # bytes: the K/V rows of every live page, plus the trash page once if
         # a lane has none; operations: a lane with none averages V over all
@@ -653,19 +685,34 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
                                                            cap=cap))
         rec = report(failed, name, dtype, (lanes, H, D, Mp, page), got, want, tol, k_ms, p_ms,
                      None, bnd, graph=(kern, None))
-        if not window:
+        if name == "flash_decode_paged":
+            # no PyTorch call reads through a page table, so library_ms is
+            # null; beside it, the same keys gathered into a ring (untimed):
+            # SDPA on them, and the port's own flash_decode
             sp = torch.arange(cache_len, dtype=torch.int32, device=dev).expand(lanes, -1)
             sp = sp.contiguous()
             ring = flash_decode_cuda(q, k, v, sp, p)
             err = (ring.float() - got.float()).abs().max().item()
-            print(f"    (no PyTorch call reads through a page table, so library_ms is null; "
-                  f"the port's flash_decode on the same keys pre-gathered into a ring: "
-                  f"{time_ms(lambda: flash_decode_cuda(q, k, v, sp, p)):.4f} ms, "
-                  f"max_abs_diff to paged {err:.3e})")
+            qt = q[:, :, None, :]
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            valid = ((sp >= 0) & (sp <= p[:, None]))[:, None, None, :]
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid)
+            fd = lambda: flash_decode_cuda(q, k, v, sp, p)
+            rec.update(gathered_sdpa_ms=time_ms(sdpa), gathered_sdpa_device_ms=graph_ms(sdpa),
+                       gathered_flash_decode_ms=time_ms(fd),
+                       gathered_flash_decode_device_ms=graph_ms(fd))
+            ratio = (rec["device_ms"] / rec["gathered_flash_decode_device_ms"]
+                     if rec["device_ms"] and rec["gathered_flash_decode_device_ms"] else None)
+            print(f"    (the same keys gathered into a ring: SDPA {rec['gathered_sdpa_ms']:.4f} ms, "
+                  f"device {rec['gathered_sdpa_device_ms']}; the port's flash_decode "
+                  f"{rec['gathered_flash_decode_ms']:.4f} ms, device "
+                  f"{rec['gathered_flash_decode_device_ms']}; paged / ring device "
+                  f"{'null' if ratio is None else f'{ratio:.3f}'}; max_abs_diff to paged "
+                  f"{err:.3e})")
             if err > tol:
                 failed.append(f"{name} {dtype}: paged and ring kernels disagree")
-        if name == "flash_decode_paged" and dtype == torch.bfloat16:
-            records["flash_decode_paged"] = rec
+            if dtype == torch.bfloat16:
+                records["flash_decode_paged"] = rec
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
     return records
@@ -815,8 +862,12 @@ def decode_profile(eng, start, steps: int, cache_len: int, gen_kw):
         return
     print(f"    profiled generate ({steps} steps): wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
           f"device_idle_share={max(0.0, 1 - busy_s / wall):.3f}")
-    for dev_us, key, count in sorted(rows, reverse=True)[:6]:
+    top = sorted(rows, reverse=True)
+    for dev_us, key, count in top[:6]:
         print(f"      {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    for dev_us, key, count in top[6:]:   # the decode attention kernels, wherever they rank
+        if "flash_decode" in key:
+            print(f"      {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
 def decode_card_vs_cpu(cfg, lanes: int, slots: int, int8_slots: int):
@@ -1023,7 +1074,8 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],
-                        "library_device_ms": r["library_device_ms"]})
+                        "library_device_ms": r["library_device_ms"],
+                        **{k: v for k, v in r.items() if k.startswith("gathered_")}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

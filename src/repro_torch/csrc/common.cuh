@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace rt {
 
 // dtype codes shared with repro_torch/kernels/build.py
@@ -69,6 +71,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 16 bytes from global into shared memory, asynchronously; the bytes past
+// src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// every thread of every block of the thread-block cluster is here, and the
+// shared-memory writes before it are visible to the cluster (a block
+// launched without a cluster is a cluster of one)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of p in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  return addr;
+}
+
+// the float at p in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(cluster_addr(p, rank)) : "memory");
+  return v;
+}
+
+// v into the shared memory of a block of the cluster, at a cluster_addr
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -79,6 +124,29 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block may use
+constexpr int MAX_DEVICES = 64;    // devices a process may launch on
+
+// the shared-memory limit is an attribute of each kernel on each device:
+// raise it to MAX_SMEM, less the kernel's static shared memory, once per
+// (kernel, device); `set` is the kernel's own flags, one a device
+inline cudaError_t allow_smem(const void* kernel, std::atomic<bool>* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!set[dev].load(std::memory_order_acquire)) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_SMEM - static_cast<int>(fa.sharedSizeBytes));
+    if (err != cudaSuccess) return err;
+    set[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
 }
 
 // The bf16 expert GEMM on Hopper's TMA and wgmma (csrc/expert_ffn_sm90.cu):

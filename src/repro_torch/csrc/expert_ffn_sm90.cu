@@ -85,12 +85,14 @@ constexpr int BK = 64;                     // contraction depth of a stage: one 
 constexpr int SUB = 64;                    // B columns of one TMA box (128 bytes)
 constexpr int SUB_BYTES = BK * SUB * 2;    // 8 KB
 constexpr int MAX_STAGES = 16;
-constexpr int MAX_SMEM = 232448;           // dynamic shared memory a block may use
-constexpr int MAX_DEVICES = 64;            // devices a process may launch on
-
+using rt::allow_smem;
+using rt::cluster_sync;
 using rt::kFp;
 using rt::kInt4;
 using rt::kInt8;
+using rt::ld_cluster;
+using rt::MAX_DEVICES;
+using rt::MAX_SMEM;
 
 template <int BM, int BN, bool GLU, int FMT>
 struct Cfg {
@@ -621,20 +623,6 @@ struct SwapCfg {
   }
 };
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the float at p in the shared memory of the cluster's block `rank`
-__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
-  uint32_t addr;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(rt::smem_u32(p)), "r"(rank));
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
 // At decode (M <= NTOK tokens a slot, 8 or 16) the 64-row tile of the kernel
 // above would leave 7/8 of each product idle and spend a third of a stage
 // on zero rows. Here the weights are wgmma's A and the tokens its N. A
@@ -945,21 +933,6 @@ struct Args {
   float* ws;
   int E, M, N, K, split, stages, srows, gs, epi, act;
 };
-
-// the shared-memory limit is an attribute of each kernel on each device:
-// set it once per (kernel, device)
-cudaError_t allow_smem(const void* kernel, std::atomic<bool>* set) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err != cudaSuccess) return err;
-    set[dev].store(true, std::memory_order_release);
-  }
-  return cudaSuccess;
-}
 
 template <int BM, int BN, bool GLU, int FMT>
 cudaError_t launch(const Args& g, cudaStream_t s) {

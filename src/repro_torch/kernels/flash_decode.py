@@ -5,17 +5,28 @@ Port of `repro/kernels/flash_decode.py::flash_decode`: one query token per
 batch lane against a ring K/V cache whose slots carry global positions,
 with sliding window and tanh logit softcap; and of
 `flash_decode.py::flash_decode_paged`, the same read through a page table
-into a shared page pool. Callers go through `repro_torch.kernels.ops`.
+into a shared page pool. The kernel splits each (lane, kv head)'s keys over
+a thread-block cluster and merges the blocks' partials inside it;
+`decode_plan` picks the split. Callers go through `repro_torch.kernels.ops`.
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.expert_gemm import SMS
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8   # query heads per kv head the kernel is instantiated for
 SMEM_LIMIT = 227 * 1024 - 256   # dynamic shared memory a block may take (less the static)
+WARPS = 4                       # warps a block
+KEYS_PER_ROW = 4                # keys a row of lanes takes from each ring stage
+MAX_SPLITS = 8                  # blocks a cluster (the portable cluster size)
+STAGES = 2                      # the depth of each block's cp.async ring: a double buffer
+MIN_BLOCKS = 2 * SMS            # the split aims at two blocks an SM or more
 
 
 def _check_q(fn: str, q: torch.Tensor, K: int) -> None:
@@ -33,11 +44,45 @@ def _check_q(fn: str, q: torch.Tensor, K: int) -> None:
                          f"(need a group of 1..{MAX_GROUP})")
 
 
-def _smem_bytes(G: int, D: int) -> int:
-    """The kernel's dynamic shared memory before the page list
-    (csrc/flash_decode.cu smem_floats)."""
+def _tile_keys(D: int, esize: int) -> int:
+    """Keys of one ring stage: KEYS_PER_ROW for each row of 16-byte lanes
+    that a block of WARPS warps holds at once."""
+    return WARPS * (32 // (D * esize // 16)) * KEYS_PER_ROW
+
+
+def _smem_bytes(G: int, D: int, esize: int, splits: int, Mp: Optional[int] = None) -> int:
+    """The kernel's dynamic shared memory (csrc/flash_decode.cu `Layout`),
+    for elements of `esize` bytes: the ring, `STAGES` x (K and V tiles and
+    each key's int position), or the warps' fp32 partials [4][GM][D + 2],
+    which reuse it, whichever is larger; the cluster's block partials
+    [splits][GM][D + 2] (rank 0's are merged); the 8-byte mbarrier; and for
+    the paged kernel (`Mp` entries a table row) the page list, 2 x Mp ints.
+    GM is G rounded up to the instantiated group, 1, 4 or 8."""
     gm = 1 if G == 1 else 4 if G <= 4 else 8
-    return 4 * (gm * D + max(4 * 32 * (2 * D + 1), 4 * gm * (D + 2)))
+    bk = _tile_keys(D, esize)
+    stage = 2 * bk * D * esize + 4 * bk
+    work = max(STAGES * stage, WARPS * gm * (D + 2) * 4)
+    return work + splits * gm * (D + 2) * 4 + 8 + (8 * Mp if Mp is not None else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, KH: int, S: int, G: int, D: int,
+                dtype: torch.dtype) -> int:
+    """The split of the decode kernel for B lanes x KH kv heads over S keys a
+    lane (the ring's slots, or the table's Mp x page), G query heads a kv
+    head, head dim D: the blocks of a cluster that share one (lane, kv
+    head)'s keys, 1, 2, 4 or 8. The fewest that give the grid at least two
+    blocks an SM (`MIN_BLOCKS`), while every block of a full ring keeps a
+    tile of its own (2 x splits <= the tiles of S before each doubling). So
+    the served [8 lanes, 12 kv heads] over 512 keys runs 96 x 4 blocks, and
+    a tiny S runs unsplit. G does not change the split; it is asked so that
+    a plan names the whole launch. Memoised: decode asks the same shapes
+    every step."""
+    tiles = -(-S // _tile_keys(D, 2 if dtype == torch.bfloat16 else 4))
+    splits = 1
+    while splits < MAX_SPLITS and 2 * splits <= tiles and B * KH * splits < MIN_BLOCKS:
+        splits *= 2
+    return splits
 
 
 def flash_decode_cuda(
@@ -68,15 +113,16 @@ def flash_decode_cuda(
     for name, t in (("q", q), ("k", k), ("v", v), ("slot_pos", slot_pos), ("pos", pos)):
         if not t.is_contiguous():
             raise ValueError(f"flash_decode: {name} must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode: k and v must be 16-byte aligned (vector loads)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode: q, k and v must be 16-byte aligned (vector loads)")
     if window < 0 or cap < 0:
         raise ValueError("flash_decode: window and cap must be >= 0")
+    splits = decode_plan(B, K, S, H // K, D, q.dtype)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         build.check("flash_decode", build.library().rt_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, S, H, K, D, int(window), float(cap),
+            out.data_ptr(), B, S, H, K, D, int(window), float(cap), splits,
             build.DTYPE_CODES[q.dtype], build.stream_handle(q),
         ))
     return out
@@ -115,18 +161,22 @@ def flash_decode_paged_cuda(
     for name, t in (("q", q), ("kp", kp), ("vp", vp), ("page_table", page_table), ("pos", pos)):
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
-    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
-        raise ValueError(f"{fn}: kp and vp must be 16-byte aligned (vector loads)")
+    if q.data_ptr() % 16 or kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError(f"{fn}: q, kp and vp must be 16-byte aligned (vector loads)")
     if window < 0 or cap < 0:
         raise ValueError(f"{fn}: window and cap must be >= 0")
-    if _smem_bytes(H // K, D) + 8 * Mp > SMEM_LIMIT:
+    if Mp * page * page >= 1 << 40:
+        raise ValueError(f"{fn}: a table of {Mp} pages of {page} is past the kernel's page "
+                         f"arithmetic (Mp * page^2 < 2^40)")
+    splits = decode_plan(B, K, Mp * page, H // K, D, q.dtype)
+    if _smem_bytes(H // K, D, q.element_size(), splits, Mp) > SMEM_LIMIT:
         raise ValueError(f"{fn}: a table of {Mp} pages a lane needs more shared memory "
                          f"than a block has")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         build.check(fn, build.library().rt_flash_decode_paged(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), B, Mp, page, P1, H, K, D, int(window), float(cap),
+            out.data_ptr(), B, Mp, page, P1, H, K, D, int(window), float(cap), splits,
             build.DTYPE_CODES[q.dtype], build.stream_handle(q),
         ))
     return out

@@ -14,7 +14,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.expert_gemm import (
     SMS, TILE, expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda, gemm_plan,
 )
-from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
+from repro_torch.kernels.flash_decode import (
+    SMEM_LIMIT, _smem_bytes, decode_plan, flash_decode_cuda, flash_decode_paged_cuda,
+)
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
 
@@ -273,6 +275,71 @@ def test_gemm_plan_is_a_valid_launch(M, gated, fmt, group):
             assert split == 1 or (tiles * split // 2 < 0.7 * SMS and 32 * split * M <= K)
 
 
+# ---------------------------------------------------------------------------
+# the decode kernels' split plan (CPU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,KH,S,G,D,dtype,plan", [
+    # the 5a / 5b ring, 8 lanes x 12 kv heads over 512 slots, and 5c's table
+    # of 32 pages of 16 (the same 512 keys a lane): 96 x 4 blocks of two
+    # tiles each
+    (8, 12, 512, 1, 64, "bfloat16", 4),
+    (8, 12, 32 * 16, 1, 64, "bfloat16", 4),
+    (8, 12, 512, 1, 64, "float32", 4),         # 32-key fp32 tiles, four a rank
+    (8, 3, 512, 4, 64, "bfloat16", 8),         # G 4: 24 (lane, kv head) pairs
+    (8, 2, 512, 8, 64, "bfloat16", 8),         # G 8
+    (8, 12, 512, 1, 32, "bfloat16", 4),        # D 32: 128-key tiles, one a rank
+    (8, 12, 512, 1, 128, "bfloat16", 4),       # D 128: 32-key tiles
+    (8, 12, 1, 1, 64, "bfloat16", 1),          # one key: unsplit
+    (8, 12, 33, 1, 64, "bfloat16", 1),         # one 64-key tile
+    (8, 12, 33, 1, 64, "float32", 2),          # two 32-key tiles, one a rank
+])
+def test_decode_plan_at_the_served_shapes(B, KH, S, G, D, dtype, plan):
+    assert decode_plan(B, KH, S, G, D, getattr(torch, dtype)) == plan
+
+
+def _decode_smem(G, D, esize, splits, Mp=None):
+    """The decode kernel's shared memory written out from its layout
+    (csrc/flash_decode.cu `Layout`): a key row spans D·esize/16 lanes of 16
+    bytes, each of the two ring stages holds four keys for each of the
+    4 x 32/that rows of the block, as K and V tiles and one int position a
+    key; the warps' fp32 partials [4][GM][D + 2] reuse the ring; beside it
+    the cluster's block partials [splits][GM][D + 2], an 8-byte mbarrier and
+    the paged kernel's page list, 2 x Mp ints."""
+    gm = 1 if G == 1 else 4 if G <= 4 else 8
+    lanes = D * esize // 16
+    keys = 4 * (32 // lanes) * 4
+    stage = 2 * keys * D * esize + 4 * keys
+    partial = 4 * gm * (D + 2)
+    return (max(2 * stage, 4 * partial) + splits * partial + 8
+            + (8 * Mp if Mp is not None else 0))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+def test_decode_plan_is_a_valid_launch(G, D, dtype):
+    esize = 2 if dtype == "bfloat16" else 4
+    keys = 4 * (32 // (D * esize // 16)) * 4     # a ring stage's keys
+    for B in (1, 3, 8, 64):
+        for KH in (1, 2, 12):
+            for S in (1, 7, 33, 64, 300, 512, 4096, 32768):
+                splits = decode_plan(B, KH, S, G, D, getattr(torch, dtype))
+                assert splits in (1, 2, 4, 8)    # a cluster of 8 at most
+                # the kernel's balanced runs of tiles: on a ring no rank is empty
+                tiles = -(-S // keys)
+                assert all((r + 1) * tiles // splits > r * tiles // splits for r in range(splits))
+                # a split only while the grid has fewer than two blocks an SM
+                assert splits == 1 or B * KH * splits // 2 < 2 * 132
+                smem = _smem_bytes(G, D, esize, splits)
+                assert smem == _decode_smem(G, D, esize, splits) <= SMEM_LIMIT
+                # the paged kernel over a table of 16-slot pages holding S keys
+                Mp = -(-S // 16)
+                paged = _smem_bytes(G, D, esize, splits, Mp)
+                assert paged == _decode_smem(G, D, esize, splits, Mp) <= SMEM_LIMIT
+
+
 def _ffn_args(E=2, C=8, d=64, F=128, dtype=torch.bfloat16):
     return [torch.zeros(E, C, d, dtype=dtype), torch.zeros(E, d, F, dtype=dtype), None,
             torch.zeros(E, F, d, dtype=dtype)]
@@ -489,6 +556,11 @@ def _decode_inputs(B, S, H, K, D, pos, wrap, dtype, cuda, seed=20):
     (3, 77, 6, 2, 128, [76, 10, 200], False, 0, 0.0),             # G = 3, D = 128
     (2, 33, 8, 1, 32, [5, 32], True, 0, 0.0),                     # G = 8, D = 32
     (2, 40, 4, 4, 64, [-1, 3], False, 0, 0.0),                    # lane 0: every slot invalid
+    # the split (decode_plan: 4 ranks of 64-key tiles at these shapes): 300
+    # keys are not a whole number of tiles a rank; a window of 5 at the end
+    # leaves each lane's only valid keys in the last rank
+    (8, 300, 12, 12, 64, [299, 310, 5, 600, 0, 299, 150, 420], True, 0, 0.0),
+    (8, 512, 12, 12, 64, [511] * 8, False, 5, 0.0),
 ])
 def test_flash_decode_kernel_matches_plain(cuda, B, S, H, K, D, pos, wrap, window, cap, dtype):
     q, k, v, sp, p = _decode_inputs(B, S, H, K, D, pos, wrap, dtype, cuda)
@@ -641,6 +713,55 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, H, K, D, page, window, ca
     assert got.dtype == q.dtype and tuple(got.shape) == tuple(q.shape)
     want = ref.flash_decode_paged_ref(q, kp, vp, pt, pos, window, cap)
     _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (100, 30.0)])
+def test_flash_decode_paged_kernel_split_edge_cases(cuda, window, cap, dtype):
+    """5c's shape (8 lanes, 32 pages of 16, the plan's 4 ranks of 64-key
+    tiles), where the split divides each lane's live keys: fewer live pages
+    than ranks, a lane whose only page is its last entry, no valid key,
+    spilled entries, and a position past the allocated pages."""
+    B, H, D, page, Mp = 8, 12, 64, 16, 32
+    assert decode_plan(B, H, Mp * page, 1, D, getattr(torch, dtype)) == 4
+    table = np.arange(B * Mp, dtype=np.int32).reshape(B, Mp)
+    pos = np.full((B,), Mp * page - 1, np.int32)
+    table[1, 1:] = -1                # one live page
+    pos[1] = 9
+    table[2, :-1] = -1               # its only page the last entry
+    table[3, :] = -1                 # no valid key
+    table[4, ::3] = -1               # spilled entries
+    pos[5] = 5 * page + 3            # past its allocated pages
+    table[6, 2:] = -1                # two live pages
+    q, kp, vp, pt = _paged_inputs(B, H, H, D, page, B * Mp, table, dtype, cuda)
+    p = torch.from_numpy(pos).to(cuda)
+    got = ops.flash_decode_paged(q, kp, vp, pt, p, window=window, cap=cap)
+    torch.cuda.synchronize()
+    want = ref.flash_decode_paged_ref(q, kp, vp, pt, p, window, cap)
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_split_is_deterministic(cuda, paged):
+    """At the served plan (8 lanes x 12 kv heads over 512 keys, 4 ranks) the
+    ranks' partials merge in rank order: two runs are bit-identical."""
+    B, H, D, page, Mp = 8, 12, 64, 16, 32
+    assert decode_plan(B, H, Mp * page, 1, D, torch.bfloat16) > 1
+    q, kp, vp, pt = _paged_inputs(B, H, H, D, page, B * Mp, np.arange(B * Mp).reshape(B, Mp),
+                                  "bfloat16", cuda)
+    pos = torch.tensor([Mp * page - 1 - 37 * i for i in range(B)], dtype=torch.int32,
+                       device=cuda)
+    if paged:
+        args, fn = (q, kp, vp, pt, pos), ops.flash_decode_paged
+    else:
+        k, v = (x[:-1].reshape(B, Mp * page, H, D).contiguous() for x in (kp, vp))
+        sp = torch.arange(Mp * page, dtype=torch.int32, device=cuda).expand(B, -1).contiguous()
+        args, fn = (q, k, v, sp, pos), ops.flash_decode
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
