@@ -1,8 +1,9 @@
 """Launch wrapper for the hand-written SparseMax kernel (`csrc/sparsemax.cu`).
 
 Port of `repro/kernels/sparsemax.py::sparsemax`: row-wise projection onto
-the simplex along the last axis, one warp per row. Callers go through
-`repro_torch.kernels.ops.sparsemax`.
+the simplex along the last axis, one warp per row, the threshold found
+exactly by shrinking the support from max(z) - 1 (no bisection). Callers go
+through `repro_torch.kernels.ops.sparsemax`.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""The port's decode path against the JAX package on the CPU (fp32): the
+"""The port's decode path against the JAX package on the CPU (fp32, and
+`decode_step` / `forward` also in bf16, the served dtype): the
 `flash_decode` oracle (and the Pallas kernel in interpret mode), one-token
 `attend_decode` across a ring wrap, the incremental predictor
 `hash_fn_step` past its 128-slot ring, `decode_step` on the committed
@@ -24,6 +25,7 @@ from repro.models.attention import ShardingCtx
 from repro.models.attention import attend_decode as j_attend_decode
 from repro.models.attention import init_attention as j_init_attention
 from repro.models.transformer import decode_step as j_decode_step
+from repro.models.transformer import forward as j_forward
 from repro.models.transformer import init_cache as j_init_cache
 from repro.models.transformer import init_params as j_init_params
 from repro.models.transformer import n_moe_layers as j_n_moe_layers
@@ -32,7 +34,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import decode_engine as td
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import attend_decode, decode_attention
-from repro_torch.models.transformer import decode_step, init_cache
+from repro_torch.models.transformer import decode_step, forward, init_cache
 
 torch.set_num_threads(2)
 CK = os.path.join(os.path.dirname(__file__), "..", "experiments", "cache", "sys_E8")
@@ -203,6 +205,78 @@ def test_decode_step_matches_jax_on_e8(e8):
     for sub in ("sub0", "sub1"):
         _close(ct[sub]["k"], cj[sub]["k"], MODEL_TOL)
         _close(ct[sub]["v"], cj[sub]["v"], MODEL_TOL)
+
+
+# bf16: the served dtype. The weights are sys_E8's, cast once to the dtype
+# the bf16 config gives each leaf, and handed as the same numpy arrays to
+# both sides. Tolerance: each bf16 kernel of the path is held to its plain
+# version at 5e-2 (tests/test_torch_kernels.py), and one bf16 ulp of a logit
+# near 6 is 0.03; so logits agree within 5e-2 * max(1, max|logit|).
+BF16_LOGIT_TOL = 5e-2
+
+
+@pytest.fixture(scope="module")
+def e8_bf16():
+    cfg_j = dataclasses.replace(_e8_cfg(jget_config), dtype="bfloat16")
+    cfg_t = dataclasses.replace(_e8_cfg(get_config), dtype="bfloat16")
+    pj, _ = j_load_checkpoint(os.path.join(CK, "model"),
+                              like=j_init_params(jax.random.PRNGKey(0), cfg_j))
+    pj = jax.tree.map(np.asarray, pj)
+    assert {str(a.dtype) for a in jax.tree.leaves(pj)} >= {"bfloat16"}
+    return cfg_j, cfg_t, pj, params_from_numpy(pj)
+
+
+def _bf16_close(got, want):
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    tol = BF16_LOGIT_TOL * max(1.0, float(np.abs(want).max()))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+def _fixed_table(rng, L, B, S, E):
+    return (rng.integers(0, E, (L, B, S, 1)).astype(np.int32),
+            rng.random((L, B, S, 1)).astype(np.float32))
+
+
+def test_decode_step_matches_jax_on_e8_bf16(e8_bf16):
+    """decode_step in bf16 over a wrapping ring, one fixed routing table for
+    every step on both sides; each step feeds both the JAX argmax, so a bf16
+    near-tie cannot send the two down different tokens."""
+    cfg_j, cfg_t, pj, pt = e8_bf16
+    B, cache_len, steps = 2, 8, 12
+    L, E = j_n_moe_layers(cfg_j), cfg_j.moe.num_experts
+    rng = np.random.default_rng(6)
+    ids, w = (a[:, :, 0] for a in _fixed_table(rng, L, B, 1, E))
+    jstep = jax.jit(lambda p, c, t, ids, w: j_decode_step(p, c, t, cfg_j, ShardingCtx(),
+                                                          routing_override=(ids, w)))
+    cj = j_init_cache(cfg_j, B, cache_len)
+    ct = init_cache(cfg_t, B, cache_len, device="cpu")
+    assert ct["sub0"]["k"].dtype == torch.bfloat16
+    toks = rng.integers(0, cfg_t.vocab_size, (B,)).astype(np.int32)
+    for _ in range(steps):
+        lj, cj = jstep(pj, cj, toks, ids, w)
+        lt, ct = decode_step(pt, ct, torch.from_numpy(toks), cfg_t,
+                             routing_override=(torch.from_numpy(ids), torch.from_numpy(w)))
+        assert lt.dtype == torch.bfloat16
+        _bf16_close(lt, lj)
+        toks = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+    np.testing.assert_array_equal(ct["pos"].numpy(), np.asarray(cj["pos"]))
+
+
+def test_forward_matches_jax_on_e8_bf16(e8_bf16):
+    """forward in bf16 over a batch, the same fixed routing table on both sides."""
+    cfg_j, cfg_t, pj, pt = e8_bf16
+    B, S = 2, 20
+    L, E = j_n_moe_layers(cfg_j), cfg_j.moe.num_experts
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg_t.vocab_size, (B, S)).astype(np.int32)
+    ids, w = _fixed_table(rng, L, B, S, E)
+    oj = j_forward(pj, cfg_j, ShardingCtx(), toks,
+                   routing_override=(jnp.asarray(ids), jnp.asarray(w)))
+    ot = forward(pt, cfg_t, torch.from_numpy(toks),
+                 routing_override=(torch.from_numpy(ids), torch.from_numpy(w)))
+    assert ot["logits"].dtype == torch.bfloat16
+    _bf16_close(ot["logits"], oj["logits"])
 
 
 @pytest.mark.parametrize("quant", [

@@ -107,6 +107,62 @@ def test_sparsemax_plain_matches_jax(jx, shape):
     assert (got >= 0).all()
 
 
+MASKED = np.float32(-1e30)   # what both callers write into the scores they mask
+
+
+def _ring_rows(live, seed, scale=3.0):
+    """The decode predictor's [lanes, 128] ring scores: lane i has live[i]
+    valid entries, -1e30 past them (`core/decode_engine.py::hash_fn_step`)."""
+    z = _np((len(live), 128), seed, scale)
+    return np.where(np.arange(128)[None, :] < np.asarray(live)[:, None], z, MASKED)
+
+
+def _causal_rows(B, S, seed, scale=3.0):
+    """The batch predictor's causal [B, S, S] scores (`core/hash_fn.py::_sparse_attention`)."""
+    return np.where(np.tril(np.ones((S, S), bool)), _np((B, S, S), seed, scale), MASKED)
+
+
+def _tie_rows(L):
+    """Rows whose support ends in ties: values equal to tau itself (which
+    change nothing whichever side of the support they fall), equal maxima,
+    and one value above a flat rest. All exact in fp32."""
+    rows = np.full((6, L), -0.5, np.float32)
+    rows[0, :4] = [0.75, 0.5, 0.5, 0.25]      # tau = 0.25: the fourth value sits on it
+    rows[0, 4:] = 0.25                        # and so does every other one
+    rows[1, :] = 2.0                          # all equal: 1 / L each
+    rows[2, 0], rows[2, 1:] = 1.0, 0.0        # tau = 0 = every value but the max
+    rows[3, :2], rows[3, 2:] = 0.5, 0.0       # two maxima, tau = 0 on the rest
+    rows[4, ::2] = 1.0                        # half the row tied at the max
+    rows[5, :3] = [3.0, 3.0, 2.0]             # two maxima, the third value exactly 1 below
+    return rows
+
+
+SPARSEMAX_PATH_CASES = {
+    "ring": lambda: _ring_rows([1, 2, 5, 17, 64, 100, 127, 128], 11),
+    "causal": lambda: _causal_rows(2, 48, 12),
+    "causal-slow": lambda: _causal_rows(2, 48, 13, 0.05),
+    "ties": lambda: _tie_rows(96),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPARSEMAX_PATH_CASES))
+def test_sparsemax_plain_matches_path_jax(jx, case):
+    """The inputs the path gives sparsemax (masked ring rows, causal batch
+    rows, ties at the support's edge) through the plain version, the path's
+    own JAX function (`repro.core.hash_fn.sparsemax`, sort-based) and the
+    Pallas kernel (interpret mode): all within 1e-5."""
+    jnp, jops, _ = jx
+    from repro.core.hash_fn import sparsemax as j_sparsemax
+
+    z = SPARSEMAX_PATH_CASES[case]()
+    got = ref.sparsemax_ref(torch.from_numpy(z))
+    _close(got, j_sparsemax(jnp.asarray(z)), SPARSEMAX_TOL)
+    _close(got, jops.sparsemax(jnp.asarray(z)), SPARSEMAX_TOL)
+    _close(ops.sparsemax(torch.from_numpy(z)), got, 0.0)          # CPU dispatch = plain
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert (got >= 0).all()
+
+
 # ---------------------------------------------------------------------------
 # flash_prefill
 # ---------------------------------------------------------------------------
@@ -449,11 +505,52 @@ def test_expert_ffn_bf16_split_is_deterministic(cuda):
     assert torch.equal(a, b)
 
 
+SPARSEMAX_KERNEL_CASES = {
+    **{f"shape-{'x'.join(map(str, s))}": (lambda s=s: _np(s, 10, 3.0))
+       for s in [(8, 256, 256), (37, 33), (5, 1), (300, 1024)]},
+    # every row length class of the kernel, L % 4 != 0 (scalar loads) included
+    **{f"L{L}": (lambda L=L: _np((37, L), L, 3.0))
+       for L in [1, 2, 31, 32, 33, 127, 128, 129, 255, 256, 257, 1023, 1024]},
+    # the decode ring with n live entries a lane, -1e30 elsewhere
+    **{f"ring-live{n}": (lambda n=n: _ring_rows([n] * 8, 20 + n))
+       for n in [1, 2, 5, 17, 64, 100, 127, 128]},
+    "ring-served": lambda: _ring_rows([1, 2, 5, 17, 64, 100, 127, 128], 11),
+    "one-live-L256": lambda: np.where(np.eye(16, 256, 3, dtype=bool), _np((16, 256), 14),
+                                      MASKED),
+    "ties-L96": lambda: _tie_rows(96),
+    "ties-L256": lambda: _tie_rows(256),
+    "ties-L33": lambda: _tie_rows(33),
+    # slowly converging: many values near the max, tau far from max - 1
+    "slow-0.01-L256": lambda: _np((512, 256), 15, 0.01),
+    "slow-0.05-L256": lambda: _np((512, 256), 16, 0.05),
+    "slow-0.01-L1024": lambda: _np((64, 1024), 17, 0.01),
+    "slow-0.05-L1024": lambda: _np((64, 1024), 18, 0.05),
+    "causal-8x256x256": lambda: _causal_rows(8, 256, 19),
+    "causal-slow-8x256x256": lambda: _causal_rows(8, 256, 21, 0.05),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 256, 256), (37, 33), (5, 1), (300, 1024)])
-def test_sparsemax_kernel_matches_plain(cuda, shape):
-    z = torch.from_numpy(_np(shape, 10, 3.0)).to(cuda)
-    _close(ops.sparsemax(z).cpu(), ref.sparsemax_ref(z).cpu(), SPARSEMAX_TOL)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", list(SPARSEMAX_KERNEL_CASES))
+def test_sparsemax_kernel_matches_plain(cuda, case, offset):
+    """Within 1e-5 of the plain version, non-negative, summing to 1 within
+    1e-5, and a rerun bit-identical. offset 1 puts the rows one float past a
+    16-byte boundary (a contiguous view at a storage offset), so every row
+    length also runs with 4-byte loads."""
+    a = SPARSEMAX_KERNEL_CASES[case]()
+    buf = torch.empty(a.size + offset, dtype=torch.float32, device=cuda)
+    z = buf[offset:].view(a.shape)
+    z.copy_(torch.from_numpy(a))
+    assert z.is_contiguous() and (z.data_ptr() % 16 == 0) == (offset == 0)
+    got = ops.sparsemax(z)
+    again = ops.sparsemax(z)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got = got.cpu()
+    _close(got, ref.sparsemax_ref(torch.from_numpy(a)), SPARSEMAX_TOL)
+    assert (got >= 0).all()
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
 
 
 @pytest.mark.gpu
