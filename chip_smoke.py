@@ -2,8 +2,6 @@
 """On-card smoke test of the PyTorch/CUDA port (`src/repro_torch`).
 
     python3 chip_smoke.py          # needs one CUDA GPU; exits non-zero on any failure
-    python3 chip_smoke.py --sparsemax-of build/parent   # phase 2's sparsemax cases only,
-                                   # on the kernel of another checkout (its parent, say)
 
 1. Device: the card's name and power limit, then the build of every kernel
    in `src/repro_torch/csrc` (nvcc, one process per source) and its time.
@@ -224,6 +222,10 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
         if dtype == torch.bfloat16:
             records["expert_ffn"] = rec
 
+    # --- sparsemax: the predictor's scores [B, S, S] (fp32 only on the path)
+    z = rnd((batch, seq, seq), 3.0, torch.float32)
+    records["sparsemax"] = check_sparsemax(failed, "sparsemax", z)
+
     # --- flash_prefill: [B, S, H, D] causal (the path), plus window + softcap
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
@@ -255,80 +257,35 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
                          " (SDPA)" if l_ms is not None else "", graph=(kern, lib))
             if dtype == torch.bfloat16 and not window:
                 records["flash_prefill"] = rec
+
+    # --- sparsemax on slowly converging rows (scale 0.05: many values near
+    # the max, so the most support-shrinking passes of a served shape)
+    check_sparsemax(failed, "sparsemax/slow", rnd((batch, seq, seq), 0.05, torch.float32))
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
     return records
 
 
-def support_passes(z):
-    """The support passes (reductions) each row of z takes in the sparsemax
-    kernel, the one from max - 1 included, counted the kernel's way in fp32
-    on the device: (mean, max) over the rows."""
+def check_sparsemax(failed, name, z):
+    """Phase 2, sparsemax (fp32 only on the path) on scores z: held to its
+    plain version at 1e-5, a rerun bit-identical, timed with `device_ms`.
+    Returns the record."""
     import torch
 
-    z = z.reshape(-1, z.shape[-1])
-    tau = z.max(-1).values - 1.0
-    live = torch.ones_like(tau, dtype=torch.bool)
-    passes = torch.ones_like(tau)
-    while True:
-        inside = z > tau[:, None]
-        cnt = inside.sum(-1)
-        nxt = (torch.where(inside, z, 0.0).sum(-1) - 1.0) / cnt.clamp(min=1)
-        live &= (cnt > 0) & (inside & (z <= nxt[:, None])).any(-1)
-        if not live.any():
-            return float(passes.mean()), int(passes.max())
-        tau = torch.where(live, nxt, tau)
-        passes += live.float()
-
-
-def check_sparsemax(batch: int, seq: int, lanes: int):
-    """Phase 2, sparsemax (fp32 only on the path) at both shapes it serves:
-    the batch predictor's [B, S, S] scores (non-causal, as SiDAEngine builds
-    them), the same with slowly converging rows (scale 0.05: many values
-    near the max, so the most support-shrinking passes of a served shape),
-    and the decode predictor's [lanes, 128] ring scores, invalid slots at
-    -1e30. Inputs from their own generator, so `--sparsemax-of` times
-    another tree's kernel on the same ones. Beside each: the support passes
-    its rows take, and a graph-replayed copy of the same bytes (`copy_`,
-    one read and one write: the launch and the bytes without the passes).
-    Returns {name: record}."""
-    import torch
-
-    from repro_torch.core.decode_engine import HISTORY
     from repro_torch.kernels import ref
     from repro_torch.kernels.sparsemax import sparsemax_cuda
 
-    gen = torch.Generator(device="cpu").manual_seed(654)
-    ring = torch.randn((lanes, HISTORY), generator=gen) * 3.0
-    live = torch.tensor([1, 2, 5, 17, 64, 100, 127, 128][:lanes])
-    cases = (
-        ("sparsemax", torch.randn((batch, seq, seq), generator=gen) * 3.0),
-        ("sparsemax/slow", torch.randn((batch, seq, seq), generator=gen) * 0.05),
-        ("sparsemax/ring", torch.where(torch.arange(HISTORY)[None, :] < live[:, None], ring,
-                                       torch.full_like(ring, -1e30))),
-    )
-    records, failed = {}, []
-    for name, z in cases:
-        z = z.to("cuda").contiguous()
-        got = sparsemax_cuda(z)
-        again = sparsemax_cuda(z)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            failed.append(f"{name}: a rerun differs")
-        want = ref.sparsemax_ref(z)
-        bnd = bound_ms(nb(z, got), 4 * z.numel(), H100_F32_FLOPS)
-        kern = lambda: sparsemax_cuda(z)
-        records[name] = report(failed, name, torch.float32, tuple(z.shape), got, want, 1e-5,
-                               time_ms(kern), time_ms(lambda: ref.sparsemax_ref(z)), None, bnd,
-                               graph=(kern, None))
-        mean, most = support_passes(z)
-        copy_ms = graph_ms(lambda: got.copy_(z))
-        records[name].update(passes_mean=mean, passes_max=most, copy_device_ms=copy_ms)
-        print(f"    support passes a row: mean {mean:.3f}, max {most}; copy_ of the same bytes, "
-              f"device_ms={copy_ms}")
-    if failed:
-        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
-    return records
+    z = z.contiguous()
+    got = sparsemax_cuda(z)
+    again = sparsemax_cuda(z)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        failed.append(f"{name}: a rerun differs")
+    want = ref.sparsemax_ref(z)
+    bnd = bound_ms(nb(z, got), 4 * z.numel(), H100_F32_FLOPS)
+    kern = lambda: sparsemax_cuda(z)
+    return report(failed, name, torch.float32, tuple(z.shape), got, want, 1e-5, time_ms(kern),
+                  time_ms(lambda: ref.sparsemax_ref(z)), None, bnd, graph=(kern, None))
 
 
 def seeded_model(cfg):
@@ -491,11 +448,13 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
     """Phase 2, decode shapes: flash_decode over the ring cache, expert_ffn_q
     and expert_ffn on the decode step's [slots, 8, d] capacity buffer,
     expert_ffn_q also on 5b's [int8_slots, 8, d], on 5c's hot block
-    [hot, c_hot, d] and on the int8 batch serve's [slots, c_batch, d].
-    Returns {kernel: record of the path's bf16 case}."""
+    [hot, c_hot, d] and on the int8 batch serve's [slots, c_batch, d],
+    sparsemax on the predictor's [lanes, 128] ring scores with masked
+    entries. Returns {kernel: record of the path's bf16 case}."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.core.decode_engine import HISTORY
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q_cuda
     from repro_torch.kernels.flash_decode import decode_plan, flash_decode_cuda
@@ -613,6 +572,12 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
                     time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)),
                     time_ms(lib), bnd, " (bmm+gelu+bmm)", graph=(kern, lib))
 
+    # --- sparsemax: the predictor's ring scores, invalid slots at -1e30
+    z = rnd((lanes, HISTORY), 3.0, torch.float32)
+    filled = torch.tensor([1, 2, 5, 17, 64, 100, 127, 128][:lanes], device=dev)
+    z = torch.where(torch.arange(HISTORY, device=dev)[None, :] < filled[:, None], z,
+                    torch.full_like(z, -1e30))
+    records["sparsemax/ring"] = check_sparsemax(failed, "sparsemax/ring", z)
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
     return records
@@ -1033,21 +998,12 @@ def tiered_paged_card_vs_cpu(cfg, lanes: int, tier_slots: int):
 
 
 def main() -> int:
-    import argparse
-
     import torch
 
-    parser = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    parser.add_argument("--sparsemax-of", metavar="TREE",
-                        help="only build the kernels of TREE (a checkout of this repository, "
-                             "e.g. a parent commit unpacked with git archive) and run phase 2's "
-                             "sparsemax cases on its kernel; prints the records, no ok line")
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU only", file=sys.stderr)
         return 2
-    tree = os.path.abspath(args.sparsemax_of) if args.sparsemax_of else ROOT
-    sys.path.insert(0, os.path.join(tree, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -1072,11 +1028,6 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if line.startswith("== "):
             print(f"  nvcc {line[3:]}")
-    if args.sparsemax_of:
-        print(f"== phase 2, sparsemax only, the kernel of {tree}")
-        print(json.dumps({"sparsemax_of": tree, "records": check_sparsemax(batch, seq, lanes)}))
-        print(smi)
-        return 0
     print(f"== phase 2: kernels vs plain (switch-base-8 serving and decode shapes) "
           f"[{time.perf_counter() - t_start:.1f} s]")
     runs = decode_runs(cfg, slots, int8_slots, tier_slots, cache_len)
@@ -1087,7 +1038,6 @@ def main() -> int:
                               [(d, Fh), (d, Fh), (Fh, d)])
     c_tier = _capacity(cfg, lanes, hot + warm)
     records = check_kernels(cfg, batch, seq, slots)
-    records.update(check_sparsemax(batch, seq, lanes))
     records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots, hot, c_tier,
                                         batch_capacity(cfg, batch, seq, slots)))
     records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
