@@ -22,7 +22,9 @@
    and flash_decode on the same keys gathered into a ring (gather untimed).
    sparsemax runs at both shapes it serves (the batch predictor's
    [8, 256, 256], also with slowly converging rows, and the decode ring's
-   [8, 128] with masked entries), each rerun bit-identical.
+   [8, 128] with masked entries), each rerun bit-identical. Phase 7's shapes
+   too: expert_ffn at Standard's [8, 320] and the tiered batch serve's hot
+   (expert_ffn_q) and warm (expert_ffn_q4) blocks.
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -35,19 +37,35 @@
    int8-resident slots per MoE layer (about the same device bytes), and
    (c) on hot int8 / warm int4 slots (a 4-slot int8 budget split 0.5: 2 hot,
    3 warm) over a paged K/V pool (page 16, 256 pages, 512 addressable
-   positions); tok/s, ms/step, loads, tier moves, bytes, pages, each
-   kernel's launches in the run (0 fails for the kernels of that path), a
-   per-step stage split, the profiled device idle share and the profile's
-   largest rows (and the decode attention kernel's row).
+   positions), and (d) 5a again through the async prefetch pipeline
+   (prefetch_depth 2); tok/s, ms/step, loads, tier moves, bytes, pages, the
+   prefetch stall, each kernel's launches in the run (0 fails for the
+   kernels of that path), a per-step stage split, the profiled device idle
+   share and the profile's largest rows (and the decode attention kernel's
+   and the host-to-device copies' rows).
 6. Decode card vs CPU: full width, 2 layers, 40 steps over a 32-slot ring
    (it wraps), fp and int8 slots, in fp32 and in bf16, then (c) tiered
    slots over a paged pool (page 8, 48 pages, fp32): in fp32 the greedy
    tokens identical (and for (c) the same loads and tier moves); one fixed
    table's decode_step logits within tolerance (bf16: 5e-2 * max(1,
    max|logit|), the tokens' agreement printed, not gated).
+7. SiDA against the paper's baselines (run after phase 3, on its batches):
+   StandardServer (all 8 experts resident), OnDemandServer and
+   PrefetchAllServer at 4 slots, SiDAEngine synchronous, through the async
+   prefetch pipeline, on int8 slots and on hot int8 / warm int4 tiers;
+   throughput, latency, device bytes, memory saving, store traffic, prefetch
+   overlap and launches each, then SiDA's ratios beside the paper's 3.93x,
+   72 % and 80 % (reported, not gated). Gates: async logits within 5e-2 *
+   max(1, max|logit|) of sync, every resident slot equal to its host master
+   after the async serve, OnDemand at 8 slots within that bound of Standard.
+8. Card vs CPU, fp32, 2 layers: the async batch engine (hash ids, logits),
+   OnDemand and PrefetchAll (logits, loads), the async decode engine (greedy
+   tokens and per-step loads identical).
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
-expert_ffn at the decode shape and sparsemax at the ring's; `device_ms` and
+expert_ffn at the decode shape and at Standard's, expert_ffn_q and
+expert_ffn_q4 at the batch serves' shapes, and sparsemax at the ring's;
+`device_ms` and
 `library_device_ms` are the graph-replayed times; flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}. Imports
@@ -179,7 +197,8 @@ def batch_capacity(cfg, batch: int, seq: int, slots: int) -> int:
 
 
 def check_kernels(cfg, batch: int, seq: int, slots: int):
-    """Phase 2: every kernel vs its plain version at the main path's shapes.
+    """Phase 2: every kernel vs its plain version at the main path's shapes,
+    and expert_ffn at Standard's all-expert dispatch [E, C, d] (bf16).
     Returns {kernel: record of the bf16 / main-path case}."""
     import torch
     import torch.nn.functional as F
@@ -221,6 +240,27 @@ def check_kernels(cfg, batch: int, seq: int, slots: int):
                      l_ms, bnd, " (bmm+gelu+bmm)", graph=(kern, lib))
         if dtype == torch.bfloat16:
             records["expert_ffn"] = rec
+
+    # --- expert_ffn at StandardServer's dense dispatch over all E experts
+    E = cfg.moe.num_experts
+    C_std = batch_capacity(cfg, batch, seq, E)
+    xe = rnd((E, C_std, d), 1.0, torch.bfloat16)
+    wi = rnd((E, d, Fh), d ** -0.5, torch.bfloat16)
+    wo = rnd((E, Fh, d), Fh ** -0.5, torch.bfloat16)
+    got = expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+    torch.cuda.synchronize()
+    want = ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)
+
+    def lib_std():
+        return torch.bmm(F.gelu(torch.bmm(xe, wi), approximate="tanh"), wo)
+
+    kern = lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+    records["expert_ffn/standard"] = report(
+        failed, "expert_ffn/standard", torch.bfloat16, (E, C_std, d, Fh), got, want, 5e-2,
+        time_ms(kern), time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)),
+        time_ms(lib_std), bound_ms(nb(xe, wi, wo, got), 2 * 2 * E * C_std * d * Fh,
+                                   H100_BF16_FLOPS),
+        " (bmm+gelu+bmm)", graph=(kern, lib_std))
 
     # --- sparsemax: the predictor's scores [B, S, S] (fp32 only on the path)
     z = rnd((batch, seq, seq), 3.0, torch.float32)
@@ -412,6 +452,252 @@ def breakdown(eng, batches):
         print(f"    {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
+BASELINE_KERNELS = {"standard": ("expert_ffn", "flash_prefill"),
+                    "ondemand": ("expert_ffn", "flash_prefill"),
+                    "prefetchall": ("expert_ffn", "flash_prefill"),
+                    "sida-sync": ("expert_ffn", "sparsemax", "flash_prefill"),
+                    "sida-async": ("expert_ffn", "sparsemax", "flash_prefill"),
+                    "sida-int8": ("expert_ffn_q", "sparsemax", "flash_prefill"),
+                    "sida-tiered": ("expert_ffn_q", "expert_ffn_q4", "sparsemax", "flash_prefill")}
+PAPER = {"throughput_x": 3.93, "latency_reduction": 0.72, "memory_saving": 0.80}
+
+
+def baseline_runs(cfg, slots: int, tier_slots: int):
+    """Phase 7's runs: (name, engine factory(params, hp)). Standard holds all
+    E experts; every other run holds `slots` a MoE layer (the tiered one a
+    budget of `tier_slots` int8 slots, split as in phase 5c)."""
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.baselines import OnDemandServer, PrefetchAllServer, StandardServer
+    from repro_torch.core.engine import SiDAEngine
+
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+
+    def sida(**kw):
+        return lambda p, hp: SiDAEngine(cfg, p, hp, device="cuda", **kw)
+
+    return (("standard", lambda p, hp: StandardServer(cfg, p, device="cuda")),
+            ("ondemand", lambda p, hp: OnDemandServer(cfg, p, slots, device="cuda")),
+            ("prefetchall", lambda p, hp: PrefetchAllServer(cfg, p, slots, device="cuda")),
+            ("sida-sync", sida(slots_per_layer=slots)),
+            ("sida-async", sida(slots_per_layer=slots, prefetch_depth=2, staging_buffers=2)),
+            ("sida-int8", sida(slots_per_layer=slots, quantized_slots=True)),
+            ("sida-tiered", sida(slots_per_layer=tier_slots, quantized_slots=True, tier=tier)))
+
+
+def resident_equals_host(store) -> int:
+    """Every resident slot of `store` against its host master, byte for byte
+    (the fp / int8 rows and scale planes, the warm tier's int4 rows and group
+    scales). Returns the number of slots checked; raises on a mismatch."""
+    import torch
+
+    from repro_torch.core.offload import EXPERT_TENSORS
+
+    n = 0
+    for l in range(store.L):
+        g, s = store.layer_to_gs(l)
+        moe_p = store.serve_params["blocks"][f"sub{s}"]["moe"]
+        for e, slot in store.resident[(g, s)].items():
+            for t in EXPERT_TENSORS:
+                if slot >= store.S8:
+                    pairs = ((moe_p[t + "_q4"][g, slot - store.S8], store.host4[f"sub{s}"][t]),
+                             (moe_p[t + "_q4_scale"][g, slot - store.S8],
+                              store.host4_scale[f"sub{s}"][t]))
+                elif store.quantized_slots:
+                    pairs = ((moe_p[t][g, slot], store.host[f"sub{s}"][t]),
+                             (moe_p[t + "_scale"][g, slot], store.host_scale[f"sub{s}"][t]))
+                else:
+                    pairs = ((moe_p[t][g, slot], store.host[f"sub{s}"][t]),)
+                for dev, host in pairs:
+                    if not torch.equal(dev.cpu(), host[g, e]):
+                        raise SystemExit(f"chip_smoke: slot {slot} of MoE layer {l} does not hold "
+                                         f"expert {e}'s master ({t})")
+            n += 1
+    return n
+
+
+def baselines_path(cfg, params, hp, batches, slots: int, tier_slots: int, tiers):
+    """Phase 7: SiDA against the paper's baselines, full width and depth, bf16,
+    on phase 3's batches. Each run: build, one warm-up batch, counters reset,
+    then the 8 batches (SiDA threaded, as phase 3), with each kernel's
+    launches. Gates: the async SiDA logits within the bf16 bound of the
+    synchronous ones, every resident slot equal to its host master after the
+    async serve, OnDemand at E slots within the bf16 bound of Standard on
+    batch 0. The SiDA-vs-baseline ratios are printed beside the paper's, not
+    gated. Returns {run: launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import OnDemandServer
+    from repro_torch.core.engine import SiDAEngine
+    from repro_torch.kernels import ops
+
+    V, E = cfg.vocab_size, cfg.moe.num_experts
+    out, summary, logits = {}, {}, {}
+    std = None
+    for name, make in baseline_runs(cfg, slots, tier_slots):
+        t0 = time.perf_counter()
+        eng = make(params, hp)
+        setup = time.perf_counter() - t0
+        sida = isinstance(eng, SiDAEngine)
+        if sida:
+            eng.serve(batches[:1], threaded=False)      # warm-up, as phase 3
+            eng.store.stats.reset()
+            if eng.prefetcher is not None:
+                eng.prefetcher.stats.reset()
+        else:
+            eng.serve(batches[:1])
+            if hasattr(eng, "store"):
+                eng.store.stats.reset()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        m = eng.serve(batches, threaded=True) if sida else eng.serve(batches)
+        counts = ops.launches()
+        summary[name] = (m.throughput, m.mean_latency, eng.device_memory_bytes())
+        print(f"  ({name}) setup_s={setup:.2f} throughput_tok_s={m.throughput:.1f} "
+              f"mean_latency_s={m.mean_latency:.5f} wall_s={m.wall_s:.4f} "
+              f"device_memory_bytes={eng.device_memory_bytes()}")
+        if hasattr(eng, "store"):
+            st = eng.store.stats
+            saving = (f" memory_saving={eng.memory_saving()['reduction']:.4f}" if sida else "")
+            print(f"    store S8={eng.store.S8} S4={eng.store.S4} loads={st.loads} "
+                  f"evictions={st.evictions} promotions={st.promotions} "
+                  f"demotions={st.demotions} bytes_h2d={st.bytes_h2d} "
+                  f"sync_upload_s={st.prepare_time:.4f}{saving}")
+        if sida and eng.prefetcher is not None:
+            ps = eng.prefetcher.stats
+            print(f"    prefetch stall_s={ps.stall_s:.4f} transfer_s={ps.transfer_s:.4f} "
+                  f"overlap_s={ps.overlap_s:.4f} uploads={ps.uploads} stolen={ps.stolen} "
+                  f"staging_waits={ps.staging_waits} submitted={ps.submitted}")
+        print(f"    launches {json.dumps(counts)}")
+        idle = [k for k in BASELINE_KERNELS[name] if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on the {name} run: {idle}")
+        if name == "sida-tiered" and (eng.store.S8, eng.store.S4) != tiers:
+            raise SystemExit(f"chip_smoke: the tiered batch store has (S8, S4) = "
+                             f"{(eng.store.S8, eng.store.S4)}, phase 2 checked {tiers}")
+        if name in ("sida-sync", "sida-async"):
+            logits[name] = eng.results
+        if name == "sida-async":
+            n = resident_equals_host(eng.store)
+            print(f"    after the async serve: {n} resident slots equal their host masters")
+        if name == "standard":
+            std = eng
+        elif sida:
+            eng.close()
+        out[name] = counts
+        del eng
+
+    # gate: async against sync SiDA on the same batches
+    worst = 0.0
+    for a, b in zip(logits["sida-async"], logits["sida-sync"]):
+        a, b = a[..., :V].float(), b[..., :V].float()
+        err = (a - b).abs().max().item()
+        tol = 5e-2 * max(1.0, b.abs().max().item())
+        worst = max(worst, err / tol)
+        if not err <= tol or not torch.isfinite(a).all():
+            raise SystemExit(f"chip_smoke: async SiDA logits differ from sync: {err:.3e} > {tol:.3e}")
+    print(f"  gate: async vs sync SiDA logits, worst error / bound = {worst:.4f} (need <= 1)")
+    # gate: OnDemand at E slots against Standard on batch 0 (the same
+    # per-expert capacity, so the same dropped tokens)
+    od = OnDemandServer(cfg, params, E, device="cuda")
+    lo = od._forward_batch(batches[0])[..., :V].float()
+    ls = std._fwd(batches[0])[..., :V].float()
+    err = (lo - ls).abs().max().item()
+    tol = 5e-2 * max(1.0, ls.abs().max().item())
+    print(f"  gate: OnDemand at {E} slots vs Standard, batch 0: max_abs_err={err:.3e} tol={tol:.3e}")
+    if not err <= tol or not torch.isfinite(lo).all():
+        raise SystemExit("chip_smoke: OnDemand at E slots disagrees with Standard")
+    del od, std
+
+    # the paper's comparison, reported, not gated
+    for sida in ("sida-sync", "sida-async", "sida-int8", "sida-tiered"):
+        tput, lat, mem = summary[sida]
+        parts = []
+        for base in ("standard", "ondemand", "prefetchall"):
+            bt, bl, _ = summary[base]
+            parts.append(f"vs {base}: throughput x{tput / bt:.3f} latency reduction "
+                         f"{1 - lat / bl:.4f}")
+        print(f"  {sida}: " + "; ".join(parts) + f"; device memory saving vs standard "
+              f"{1 - mem / summary['standard'][2]:.4f}")
+    print(f"  (paper: up to x{PAPER['throughput_x']} throughput, "
+          f"{PAPER['latency_reduction']:.0%} latency reduction, "
+          f"{PAPER['memory_saving']:.0%} memory saving)")
+    return out
+
+
+def async_card_vs_cpu(cfg, batches, slots: int, lanes: int):
+    """Phase 8: fp32, 2 layers, on the card and on the CPU with the same
+    weights: the async batch engine (the same hash ids, >= 0.999; logits of
+    a threaded serve on the CPU's tables within 1e-3 * max(1, max|logit|)),
+    OnDemand and PrefetchAll (logits within that bound, the same loads and
+    evictions), the async decode engine (greedy tokens and per-step loads
+    identical)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import OnDemandServer, PrefetchAllServer
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.engine import SiDAEngine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params, hp = seeded_model(cfg2)
+    V = cfg2.vocab_size
+    where = {"card": "cuda", "cpu": "cpu"}
+
+    def close(a, b):
+        err = float(np.abs(a[..., :V] - b[..., :V]).max())
+        tol = 1e-3 * max(1.0, float(np.abs(b[..., :V]).max()))
+        return err, tol, err <= tol and np.isfinite(a).all()
+
+    # the async batch engine: the CPU's tables on both, threaded serve
+    eng = {k: SiDAEngine(cfg2, params, hp, slots_per_layer=slots, device=d, prefetch_depth=2)
+           for k, d in where.items()}
+    tabs = {k: [e.build_table(j, b) for j, b in enumerate(batches)] for k, e in eng.items()}
+    agree = float(np.mean([(a.expert_ids == b.expert_ids).mean()
+                           for a, b in zip(tabs["card"], tabs["cpu"])]))
+    for e in eng.values():
+        e.build_table = lambda j, toks: tabs["cpu"][j]
+        e.serve(batches, threaded=True)
+        e.close()
+    errs = [close(a.float().numpy(), b.float().numpy())
+            for a, b in zip(eng["card"].results, eng["cpu"].results)]
+    ps = eng["card"].prefetcher.stats
+    print(f"  (sida-async) fp32 n_layers=2 batches={len(batches)}x{batches[0].shape}: hash id "
+          f"agreement={agree:.6f} (need >= 0.999); logits max_abs_err="
+          f"{max(e[0] for e in errs):.3e} tol={min(e[1] for e in errs):.3e}; card uploads="
+          f"{ps.uploads} stolen={ps.stolen}")
+    if agree < 0.999 or not all(e[2] for e in errs):
+        raise SystemExit("chip_smoke: card and CPU disagree on the async batch path")
+    del eng
+
+    for name, cls in (("ondemand", OnDemandServer), ("prefetchall", PrefetchAllServer)):
+        srv = {k: cls(cfg2, params, slots, device=d) for k, d in where.items()}
+        lg = {k: [s._forward_batch(b).float().cpu().numpy() for b in batches]
+              for k, s in srv.items()}
+        errs = [close(a, b) for a, b in zip(lg["card"], lg["cpu"])]
+        stats = {k: (s.store.stats.loads, s.store.stats.evictions, s.store.stats.bytes_h2d)
+                 for k, s in srv.items()}
+        print(f"  ({name}) fp32 n_layers=2: logits max_abs_err={max(e[0] for e in errs):.3e} "
+              f"tol={min(e[1] for e in errs):.3e}; loads, evictions, bytes_h2d card "
+              f"{stats['card']} cpu {stats['cpu']}")
+        if not all(e[2] for e in errs) or stats["card"] != stats["cpu"]:
+            raise SystemExit(f"chip_smoke: card and CPU disagree on {name}")
+
+    start = np.random.default_rng(0).integers(0, V, (lanes,)).astype(np.int32)
+    dec = {k: SiDADecodeEngine(cfg2, params, hp, slots_per_layer=slots, device=d,
+                               prefetch_depth=2) for k, d in where.items()}
+    res = {k: e.generate(start, steps=40, cache_len=32) for k, e in dec.items()}
+    for e in dec.values():
+        e.close()
+    same = float((res["card"][0] == res["cpu"][0]).mean())
+    loads_same = res["card"][1].loads_per_step == res["cpu"][1].loads_per_step
+    print(f"  (decode-async) fp32 n_layers=2 lanes={lanes} steps=40 cache_len=32: greedy tokens "
+          f"identical={same:.6f} (need 1.0); per-step loads identical={loads_same}; card "
+          f"stall_s={res['card'][1].stall_s:.4f}")
+    if same < 1.0 or not loads_same:
+        raise SystemExit("chip_smoke: card and CPU disagree on the async decode path")
+
+
 def card_vs_cpu(cfg, tokens, slots: int):
     """Phase 4: the whole path on the card and on the CPU, same weights."""
     import numpy as np
@@ -444,13 +730,14 @@ def card_vs_cpu(cfg, tokens, slots: int):
 
 
 def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots: int,
-                         hot: int, c_hot: int, c_batch: int):
+                         hot: int, c_hot: int, c_batch: int, hot_b: int, c_tb: int):
     """Phase 2, decode shapes: flash_decode over the ring cache, expert_ffn_q
     and expert_ffn on the decode step's [slots, 8, d] capacity buffer,
     expert_ffn_q also on 5b's [int8_slots, 8, d], on 5c's hot block
-    [hot, c_hot, d] and on the int8 batch serve's [slots, c_batch, d],
-    sparsemax on the predictor's [lanes, 128] ring scores with masked
-    entries. Returns {kernel: record of the path's bf16 case}."""
+    [hot, c_hot, d], on the int8 batch serve's [slots, c_batch, d] and on the
+    tiered batch serve's hot block [hot_b, c_tb, d], sparsemax on the
+    predictor's [lanes, 128] ring scores with masked entries. Returns
+    {kernel: record of the path's bf16 case}."""
     import torch
     import torch.nn.functional as F
 
@@ -533,7 +820,8 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
     ffn_cases = [(slots, _capacity(cfg, lanes, slots)),          # 5a's step (bf16 slots)
                  (int8_slots, _capacity(cfg, lanes, int8_slots)),  # 5b's step
                  (hot, c_hot),                                     # 5c's hot int8 block
-                 (slots, c_batch)]                                 # the int8 batch serve
+                 (slots, c_batch),                                 # the int8 batch serve
+                 (hot_b, c_tb)]                                    # the tiered batch's hot block
     for i, (E, C) in enumerate(ffn_cases):
         for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
             xe = rnd((E, C, d), 1.0, dtype)
@@ -557,8 +845,9 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
             rec = report(failed, "expert_ffn_q", dtype, (E, C, d, Fh), got, want, tol, k_ms, p_ms,
                          time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
                          graph=(kern, lib))
-            if dtype == torch.bfloat16 and i == 1:
-                records["expert_ffn_q"] = rec
+            if dtype == torch.bfloat16 and i in (1, 3, 4):
+                records[{1: "expert_ffn_q", 3: "expert_ffn_q/batch",
+                         4: "expert_ffn_q/tiered-batch"}[i]] = rec
             if dtype == torch.bfloat16 and i == 0:
                 wi, wo = wi_f, wo_f      # the same weights in bf16: expert_ffn at decode
                 got = expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
@@ -583,9 +872,11 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
     return records
 
 
-def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: int, c_warm: int):
+def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: int, c_warm: int,
+                             warm_b: int, c_tb: int):
     """Phase 2, tiered and paged decode shapes: expert_ffn_q4 on phase 5c's
-    warm block [warm, c_warm, d] and on a batch shape, and flash_decode_paged
+    warm block [warm, c_warm, d], on [4, 640, d] and on the tiered batch
+    serve's warm block [warm_b, c_tb, d], and flash_decode_paged
     over a full table that holds the keys of flash_decode's ring case, plus
     spilled entries with window, softcap and a lane with no valid key.
     Returns {kernel: record of the path's bf16 case}."""
@@ -614,7 +905,7 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
         q, sc = quantize_expert_q4(w.numpy(), 64)
         return torch.from_numpy(q).to(dev), torch.from_numpy(sc).to(dev)
 
-    for E, C in ((warm, c_warm), (4, 640)):
+    for E, C in ((warm, c_warm), (4, 640), (warm_b, c_tb)):
         wi_q, wi_s = quantize4(torch.randn((E, d, Fh), generator=gen) * d ** -0.5)
         wo_q, wo_s = quantize4(torch.randn((E, Fh, d), generator=gen) * Fh ** -0.5)
         for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
@@ -637,8 +928,10 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
                          time_ms(lambda: ref.expert_ffn_q4_ref(*args, act=cfg.act)),
                          time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
                          graph=(kern, lib))
-            if dtype == torch.bfloat16 and E == warm:
+            if dtype == torch.bfloat16 and (E, C) == (warm, c_warm):
                 records["expert_ffn_q4"] = rec
+            if dtype == torch.bfloat16 and (E, C) == (warm_b, c_tb):
+                records["expert_ffn_q4/tiered-batch"] = rec
 
     # --- flash_decode_paged: lane b's entry i is pool page b·Mp + i, so the
     # pool holds the [lanes, cache_len] ring case's keys, all valid at the
@@ -735,13 +1028,15 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
 
 
 DECODE_KERNELS = {"bf16": ("flash_decode", "expert_ffn", "sparsemax"),
+                  "bf16-async": ("flash_decode", "expert_ffn", "sparsemax"),
                   "int8": ("flash_decode", "expert_ffn_q", "sparsemax"),
                   "tiered-paged": ("flash_decode_paged", "expert_ffn_q", "expert_ffn_q4",
                                    "sparsemax")}
 
 
 def decode_runs(cfg, slots: int, int8_slots: int, tier_slots: int, cache_len: int):
-    """Phase 5's three runs: (name, engine kwargs, generate kwargs)."""
+    """Phase 5's four runs: (name, engine kwargs, generate kwargs); the last
+    is 5a again through the async prefetch pipeline."""
     from repro_torch.configs.base import TierConfig
     from repro_torch.core.residency import PagedKVConfig
 
@@ -750,7 +1045,8 @@ def decode_runs(cfg, slots: int, int8_slots: int, tier_slots: int, cache_len: in
     return (("bf16", dict(slots_per_layer=slots), {}),
             ("int8", dict(slots_per_layer=int8_slots, quantized_slots=True), {}),
             ("tiered-paged", dict(slots_per_layer=tier_slots, quantized_slots=True, tier=tier),
-             dict(paged=paged)))
+             dict(paged=paged)),
+            ("bf16-async", dict(slots_per_layer=slots, prefetch_depth=2, staging_buffers=2), {}))
 
 
 def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, tiers):
@@ -780,7 +1076,12 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, t
         print(f"  ({name}) slots={kw['slots_per_layer']} (S8={eng.store.S8} S4={eng.store.S4}) "
               f"lanes={lanes} steps={steps} cache_len={cache_len} setup_s={setup:.2f}")
         print(f"    tok_s={m.tok_s:.1f} ms_per_step={1e3 * m.wall_s / m.steps:.3f} "
-              f"wall_s={m.wall_s:.4f} tokens={m.tokens}")
+              f"wall_s={m.wall_s:.4f} tokens={m.tokens} stall_s={m.stall_s:.4f}")
+        if eng.prefetcher is not None:
+            ps = eng.prefetcher.stats
+            print(f"    prefetch uploads={ps.uploads} stolen={ps.stolen} stall_s={ps.stall_s:.4f} "
+                  f"transfer_s={ps.transfer_s:.4f} overlap_s={ps.overlap_s:.4f} "
+                  f"staging_waits={ps.staging_waits}")
         print(f"    loads first_step={m.loads_per_step[0]} last_step={m.loads_per_step[-1]} "
               f"total={st.loads} hits={st.hits} evictions={st.evictions} "
               f"promotions={st.promotions} demotions={st.demotions} bytes_h2d={st.bytes_h2d}")
@@ -837,7 +1138,7 @@ def decode_stages(eng, start, steps: int, cache_len: int, paged=None):
             ids, alpha, hstate = eng._predict_step(tokens, hstate)
             table = tbuf.fill(i, ids, alpha)                 # ends in the ids' copy to host
             t1 = time.perf_counter()
-            trans = eng._route_table(table, m)
+            trans, ticket = eng._route_table(table, m)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             slot_ids, w = eng.store.translate_device(ids[:, :, None, :], alpha[:, :, None, :], trans)
@@ -848,6 +1149,8 @@ def decode_stages(eng, start, steps: int, cache_len: int, paged=None):
             t4 = time.perf_counter()
             if pool is not None:
                 pool.unpin_all()
+            if ticket is not None:
+                ticket.release()
             for k, v in zip(stages, (t0 - tp, t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 stages[k].append(v)
     if pool is None:
@@ -881,8 +1184,8 @@ def decode_profile(eng, start, steps: int, cache_len: int, gen_kw):
     top = sorted(rows, reverse=True)
     for dev_us, key, count in top[:6]:
         print(f"      {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
-    for dev_us, key, count in top[6:]:   # the decode attention kernels, wherever they rank
-        if "flash_decode" in key:
+    for dev_us, key, count in top[6:]:   # decode attention and copies, wherever they rank
+        if "flash_decode" in key or "Memcpy HtoD" in key:
             print(f"      {dev_us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
@@ -1037,11 +1340,13 @@ def main() -> int:
     hot, warm = tier_geometry(runs[2][1]["tier"], tier_slots, cfg.moe.num_experts,
                               [(d, Fh), (d, Fh), (Fh, d)])
     c_tier = _capacity(cfg, lanes, hot + warm)
+    # phase 7's tiered batch serve: the same split, at the batch's capacity
+    c_tb = batch_capacity(cfg, batch, seq, hot + warm)
     records = check_kernels(cfg, batch, seq, slots)
     records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots, hot, c_tier,
-                                        batch_capacity(cfg, batch, seq, slots)))
+                                        batch_capacity(cfg, batch, seq, slots), hot, c_tb))
     records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
-                                            warm, c_tier))
+                                            warm, c_tier, warm, c_tb))
 
     print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -1052,6 +1357,10 @@ def main() -> int:
     batches = [rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
                for _ in range(n_batches)]
     counts = main_path(cfg, params, hp, batches, slots)
+
+    print(f"== phase 7: SiDA against the baselines (switch-base-8 full width and depth, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    bcounts = baselines_path(cfg, params, hp, batches, slots, tier_slots, (hot, warm))
 
     print(f"== phase 4: card vs CPU on the whole batch path [{time.perf_counter() - t_start:.1f} s]")
     card_vs_cpu(cfg, batches[0], slots)
@@ -1065,6 +1374,9 @@ def main() -> int:
     decode_card_vs_cpu(cfg, lanes, slots, int8_slots, "float32")
     decode_card_vs_cpu(cfg, lanes, slots, int8_slots, "bfloat16")
     tiered_paged_card_vs_cpu(cfg, lanes, tier_slots)
+    print(f"== phase 8: async pipeline and baselines, card vs CPU "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    async_card_vs_cpu(cfg, batches[:2], slots, lanes)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -1088,18 +1400,37 @@ def main() -> int:
         # expert_ffn again, at the decode step's [slots, 8, d] capacity buffer
         "expert_ffn/decode": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                               "src/repro/kernels/expert_gemm.py:269"),
+        # expert_ffn at StandardServer's dispatch over all E experts
+        "expert_ffn/standard": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
+                                "src/repro/kernels/expert_gemm.py:269"),
+        # the int8 and tiered batch serves' shapes
+        "expert_ffn_q/batch": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
+                               "src/repro/kernels/expert_gemm.py:98"),
+        "expert_ffn_q/tiered-batch": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
+                                      "src/repro/kernels/expert_gemm.py:98"),
+        "expert_ffn_q4/tiered-batch": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
+                                       "src/repro/kernels/expert_gemm.py:211"),
     }
     # each kernel's launches on the path that runs it: the batch serve for
     # the batch kernels, the bf16 decode for flash_decode, sparsemax's ring
-    # and expert_ffn at the decode shape, the int8 decode for expert_ffn_q,
-    # the tiered paged decode for expert_ffn_q4 and flash_decode_paged
+    # and expert_ffn at the decode shape, the int8 decode and the int8 and
+    # tiered batch serves for expert_ffn_q, the tiered paged decode and the
+    # tiered batch serve for expert_ffn_q4, the tiered paged decode for
+    # flash_decode_paged; each batch shape's own row its own serve's
     launches = {k: counts[k] for k in BATCH_KERNELS}
     launches["flash_decode"] = dcounts["bf16"]["flash_decode"]
     launches["sparsemax/ring"] = dcounts["bf16"]["sparsemax"]
     launches["expert_ffn/decode"] = dcounts["bf16"]["expert_ffn"]
-    launches["expert_ffn_q"] = dcounts["int8"]["expert_ffn_q"]
-    for k in ("expert_ffn_q4", "flash_decode_paged"):
-        launches[k] = dcounts["tiered-paged"][k]
+    launches["expert_ffn/standard"] = bcounts["standard"]["expert_ffn"]
+    launches["expert_ffn_q/batch"] = bcounts["sida-int8"]["expert_ffn_q"]
+    launches["expert_ffn_q/tiered-batch"] = bcounts["sida-tiered"]["expert_ffn_q"]
+    launches["expert_ffn_q4/tiered-batch"] = bcounts["sida-tiered"]["expert_ffn_q4"]
+    launches["expert_ffn_q"] = (dcounts["int8"]["expert_ffn_q"]
+                                + launches["expert_ffn_q/batch"]
+                                + launches["expert_ffn_q/tiered-batch"])
+    launches["expert_ffn_q4"] = (dcounts["tiered-paged"]["expert_ffn_q4"]
+                                 + launches["expert_ffn_q4/tiered-batch"])
+    launches["flash_decode_paged"] = dcounts["tiered-paged"]["flash_decode_paged"]
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = records[name]

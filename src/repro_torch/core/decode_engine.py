@@ -14,13 +14,17 @@ Per decode step:
      page pool whose pages a `KVPagePool` allocates, spills and pages back
      in before each step.
 
+With a prefetch pipeline (`prefetch_depth`) step 2 becomes a ticket: the
+step's table is submitted to the transfer thread, its fences cleared (the
+wait is `DecodeMetrics.stall_s`), and the ticket released once the step's
+token is on the host; a paged pool's page-ins ride the same pipeline.
+
 The store may split its slots into hot int8 and warm int4 tiers
 (`tier=TierConfig(int4_slots=True)` with `quantized_slots=True`). The
 SparseMax attention over LSTM outputs is kept exactly, over a ring of the
 last `HISTORY` outputs; it goes through `kernels.ops.sparsemax`, the
-hand-written kernel on the card. Speculative decode (ROADMAP A10-spec), the
-async prefetch pipeline (A9) and expert-parallel shards (A14) are not
-ported yet and raise.
+hand-written kernel on the card. Speculative decode (ROADMAP A10-spec) and
+expert-parallel shards (A14) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hash_table import HashTable
-from repro_torch.core.offload import ExpertStore
+from repro_torch.core.offload import ExpertStore, PrefetchPipeline
 from repro_torch.core.residency import KVPagePool
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
@@ -103,9 +107,10 @@ def hash_fn_step(params: dict, emb_tok: torch.Tensor, state: dict, num_experts: 
 
 @dataclass
 class DecodeMetrics:
-    """Decode accounting, as the reference keeps it. On the synchronous path
+    """Decode accounting, as the reference keeps it. Without speculation
     every verified position is emitted, so `tokens == proposed` and the
-    acceptance rate is 1.0; `stall_s` stays 0 (no prefetch fences)."""
+    acceptance rate is 1.0; `stall_s` is the time spent clearing prefetch
+    tickets (0 on the synchronous path)."""
 
     steps: int = 0
     tokens: int = 0
@@ -165,7 +170,8 @@ class SiDADecodeEngine:
         host_quant: str = "none",
         eviction: str = "fifo",
         prefetch_depth: Optional[int] = None,
-        prefetcher=None,
+        staging_buffers: Optional[int] = None,
+        prefetcher: Optional[PrefetchPipeline] = None,
         quantized_slots: Optional[bool] = None,
         scale_granularity: Optional[str] = None,
         tier=None,
@@ -179,12 +185,6 @@ class SiDADecodeEngine:
             raise ValueError(f"unknown spec_mode {mode!r}")
         if mode == "draft" and (spec_k if spec_k is not None else cfg.spec.k) > 1:
             raise NotImplementedError("speculative decode is ported in ROADMAP A10-spec")
-        # the reference's precedence: explicit depth > cfg.prefetch > off
-        depth = prefetch_depth if prefetch_depth is not None else (
-            cfg.prefetch.depth if cfg.prefetch.enabled else 0
-        )
-        if prefetcher is not None or depth > 0:
-            raise NotImplementedError("the async prefetch pipeline is ported in ROADMAP A9")
         if sharded is not None:
             raise NotImplementedError("expert-parallel shards are ported in ROADMAP A14")
         self.cfg = cfg
@@ -195,6 +195,15 @@ class SiDADecodeEngine:
             scale_granularity=scale_granularity, tier=tier,
         )
         self.device = self.store.device
+        # the reference's precedence: explicit depth > cfg.prefetch > off; a
+        # caller's pipeline is shared as it is
+        self._owns_prefetcher = False
+        if prefetcher is not None:
+            self.prefetcher: Optional[PrefetchPipeline] = prefetcher
+        else:
+            self.prefetcher = PrefetchPipeline.maybe_create(
+                self.store, cfg, prefetch_depth, staging_buffers)
+            self._owns_prefetcher = self.prefetcher is not None
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
         self.embed_table = self.store.serve_params["embed"]
         self.L = n_moe_layers(cfg)
@@ -217,20 +226,33 @@ class SiDADecodeEngine:
         )
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    def _route_table(self, table: HashTable, m: DecodeMetrics) -> np.ndarray:
-        """Synchronous prepare for one decode table; its loads are attributed
-        to the current step in `m`."""
+    def _route_table(self, table: HashTable, m: DecodeMetrics):
+        """Residency for one decode table: an async ticket (fences only) or a
+        synchronous prepare. Returns (trans, ticket); the loads and the stall
+        are attributed to the current step in `m`, and the caller releases
+        a non-None ticket after the step."""
         loads_before = self.store.stats.loads
-        trans = self.store.prepare(table)
+        if self.prefetcher is not None:
+            stall0 = self.prefetcher.stats.stall_s
+            ticket = self.prefetcher.submit(table)
+            ticket.wait()
+            m.stall_s += self.prefetcher.stats.stall_s - stall0
+            trans = ticket.trans
+        else:
+            ticket = None
+            trans = self.store.prepare(table)
         m.loads_per_step.append(self.store.stats.loads - loads_before)
-        return trans
+        return trans, ticket
 
     def _make_cache(self, B: int, cache_len: int, paged):
         """A ring cache, or with a `residency.PagedKVConfig` a paged cache and
-        the `KVPagePool` that keeps its table (α-mass page eviction)."""
+        the `KVPagePool` that keeps its table (α-mass page eviction). The
+        pool shares the engine's prefetch pipeline, so page-ins ride the
+        same transfer queue as expert uploads."""
         if paged is None:
             return init_cache(self.cfg, B, cache_len, device=self.device), None
-        pool = KVPagePool(self.cfg, paged, B, eviction="alpha", device=self.device)
+        pool = KVPagePool(self.cfg, paged, B, eviction="alpha", pipeline=self.prefetcher,
+                          device=self.device)
         return pool.init_cache(), pool
 
     @staticmethod
@@ -238,9 +260,11 @@ class SiDADecodeEngine:
         """Before a step: make each lane's positions resident up to `upto[b]`
         (allocating, or paging spilled in-span pages back in), pinning them
         so one lane's allocation cannot evict a page another lane reads;
-        then install the table. The caller unpins after the step."""
+        clear the page-in fences; then install the table. The caller
+        unpins after the step."""
         for b in range(upto.shape[0]):
             cache = pool.ensure(cache, b, int(upto[b]), pin=True)
+        cache = pool.sync(cache)
         cache["page_table"] = pool.device_table()
         return cache
 
@@ -272,7 +296,7 @@ class SiDADecodeEngine:
                 cache = self._page_tick(pool, cache, np.full((B,), i + 1, np.int64))
             ids, alpha, hstate = self._predict_step(tokens, hstate)
             table = tbuf.fill(i, ids, alpha)
-            trans = self._route_table(table, m)
+            trans, ticket = self._route_table(table, m)
             # translation runs on the device straight off the still-resident
             # prediction (no per-step host slot gather or override upload)
             slot_ids, w = self.store.translate_device(ids[:, :, None, :], alpha[:, :, None, :],
@@ -281,6 +305,8 @@ class SiDADecodeEngine:
             out[:, i] = tokens.cpu().numpy()   # forces the step; slots consumed
             if pool is not None:
                 pool.unpin_all()               # pinned by _page_tick
+            if ticket is not None:
+                ticket.release()
             m.steps += 1
             m.tokens += B                      # every position emitted == accepted
             m.proposed += B
@@ -290,4 +316,7 @@ class SiDADecodeEngine:
         return out, m
 
     def close(self) -> None:
-        """Nothing to join: the synchronous store starts no thread."""
+        """Join the prefetch transfer thread (nothing to do when synchronous,
+        or when the pipeline belongs to the caller)."""
+        if self.prefetcher is not None and self._owns_prefetcher:
+            self.prefetcher.close()

@@ -1,6 +1,6 @@
 """SiDA serving engine: hash-building thread ∥ inference thread (paper Fig. 5).
 
-Port of `repro/core/engine.py` for the synchronous store (Algorithm 1):
+Port of `repro/core/engine.py` (Algorithm 1):
 
   Hash-building thread: for each incoming batch X_j, run the hash function,
   build hash table H_j (expert ids + α per token per MoE layer), enqueue.
@@ -10,8 +10,14 @@ Port of `repro/core/engine.py` for the synchronous store (Algorithm 1):
 
 Both threads launch on PyTorch's default stream, so the device runs their
 work in enqueue order; the hash thread's copy of the table to the host waits
-for what is queued before it. Tables hold numpy, as in the reference. The
-async prefetch pipeline comes with ROADMAP A9.
+for what is queued before it. Tables hold numpy, as in the reference.
+
+With an async prefetch pipeline (`prefetch_depth`, `core/offload.py`) the
+hash thread also submits each table's uploads as it builds it, so batch
+j+1's copies run on the transfer stream while batch j's forward runs, and
+the inference thread only clears ready fences. A ticket is released once
+its forward has finished on the device, since the slots are written in
+place.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.core.hash_fn import (
     predict_topk,
 )
 from repro_torch.core.hash_table import HashTable, HashTableQueue
-from repro_torch.core.offload import ExpertStore, nbytes
+from repro_torch.core.offload import ExpertStore, PrefetchPipeline, PrefetchTicket, nbytes
 from repro_torch.device import DeviceLike
 from repro_torch.models.transformer import forward
 from repro_torch.tree import tree_leaves, tree_map
@@ -80,9 +86,10 @@ class SiDAEngine:
         quantized_slots: Optional[bool] = None,     # int8-resident slots
         scale_granularity: Optional[str] = None,    # "channel" | "tensor"
         tier: Optional[TierConfig] = None,          # hot int8 / warm int4 slots
+        prefetch_depth: Optional[int] = None,       # async prefetch lookahead (0 = sync)
+        staging_buffers: Optional[int] = None,      # host staging slabs of the pipeline
+        prefetcher: Optional[PrefetchPipeline] = None,
     ):
-        if cfg.prefetch.enabled:
-            raise NotImplementedError("the async prefetch pipeline is ported in ROADMAP A9")
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
         self.store = ExpertStore(
@@ -91,6 +98,15 @@ class SiDAEngine:
             scale_granularity=scale_granularity, tier=tier,
         )
         self.device = self.store.device
+        # async prefetch: explicit args > cfg.prefetch > off; a caller's
+        # pipeline is shared as it is
+        self._owns_prefetcher = False
+        if prefetcher is not None:
+            self.prefetcher: Optional[PrefetchPipeline] = prefetcher
+        else:
+            self.prefetcher = PrefetchPipeline.maybe_create(
+                self.store, cfg, prefetch_depth, staging_buffers)
+            self._owns_prefetcher = self.prefetcher is not None
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
         self.embed_table = self.store.serve_params["embed"]
         self.E = cfg.moe.num_experts
@@ -110,40 +126,62 @@ class SiDAEngine:
         ids, w = predict_topk(logits, self.k)
         return HashTable(batch_index, ids.cpu().numpy(), w.cpu().numpy())
 
-    def _route(self, table: HashTable):
-        """(slot_ids, weights) on the device for `table`, after loading its
-        experts synchronously."""
-        trans = self.store.prepare(table)
+    def _route(self, table: HashTable, ticket: Optional[PrefetchTicket] = None):
+        """(slot_ids, weights, ticket) for `table`, the first two on the
+        device: through the pipeline (clear the ticket's fences, never
+        upload inline) when one is attached, else a synchronous prepare.
+        The caller releases a non-None ticket once the forward is done."""
+        if ticket is None and self.prefetcher is not None:
+            ticket = self.prefetcher.submit(table)
+        if ticket is not None:
+            ticket.wait()
+            trans = ticket.trans
+        else:
+            trans = self.store.prepare(table)
         slot_ids, w = self.store.translate(table, trans)
         return (torch.from_numpy(slot_ids).to(self.device),
-                torch.from_numpy(w).to(self.device))
+                torch.from_numpy(w).to(self.device), ticket)
 
     @torch.inference_mode()
-    def _forward(self, tokens: np.ndarray, table: HashTable, collect_kv: bool):
-        return forward(
+    def _forward(self, tokens: np.ndarray, table: HashTable, collect_kv: bool,
+                 ticket: Optional[PrefetchTicket] = None):
+        slot_ids, w, ticket = self._route(table, ticket)
+        out = forward(
             self.store.serve_params, self.cfg,
             torch.as_tensor(tokens, device=self.device),
-            routing_override=self._route(table), collect_kv=collect_kv,
+            routing_override=(slot_ids, w), collect_kv=collect_kv,
         )
+        if ticket is not None:
+            # the slots stay eviction-protected until the forward has read them
+            self._sync()
+            ticket.release()
+        return out
 
-    def infer(self, tokens: np.ndarray, table: HashTable) -> torch.Tensor:
+    def infer(self, tokens: np.ndarray, table: HashTable,
+              ticket: Optional[PrefetchTicket] = None) -> torch.Tensor:
         """Logits [B, S, V] on the device."""
-        return self._forward(tokens, table, collect_kv=False)["logits"]
+        return self._forward(tokens, table, collect_kv=False, ticket=ticket)["logits"]
 
-    def prefill(self, tokens: np.ndarray, table: HashTable):
+    def prefill(self, tokens: np.ndarray, table: HashTable,
+                ticket: Optional[PrefetchTicket] = None):
         """Like `infer`, but also returns every layer's rope-applied K/V
         ({sub: (k, v)} each [G, B, S, K, D]) to seed decode caches."""
-        out = self._forward(tokens, table, collect_kv=True)
+        out = self._forward(tokens, table, collect_kv=True, ticket=ticket)
         return out["logits"], out["kv"]
 
     # ------------------------------------------------------------------
     def _cache_affinity(self, table: HashTable) -> float:
-        """Fraction of the table's active experts already resident."""
+        """Fraction of the table's active experts already resident or with
+        an upload in flight."""
+        if self.prefetcher is not None:
+            return self.prefetcher.cache_affinity(table)
         return self.store.cache_affinity(table)
 
     def _sync(self) -> None:
+        """Wait for the work queued on this thread's stream, not the
+        transfer stream's copies of later batches."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def serve(
         self, batches: Sequence[np.ndarray], threaded: bool = True,
@@ -153,17 +191,25 @@ class SiDAEngine:
 
         lookahead > 1 enables cache-aware scheduling: the inference thread
         buffers up to `lookahead` hash tables and serves the one whose
-        predicted expert set overlaps the resident cache the most."""
+        predicted expert set overlaps the resident cache the most.
+
+        With a prefetch pipeline the hash thread is also its producer: it
+        submits each table's uploads the moment the table is built."""
         metrics = ServeMetrics()
         q = HashTableQueue(maxsize=max(4, lookahead))
         results: List[Optional[torch.Tensor]] = [None] * len(batches)
         errors: List[Exception] = []
+        # ticket handoff hash -> inference thread; the queue's put / get pair
+        # orders the dict write before the read
+        tickets: Dict[int, PrefetchTicket] = {}
 
         def hash_thread():
             try:
                 for j, toks in enumerate(batches):
                     t0 = time.perf_counter()
                     table = self.build_table(j, toks)
+                    if self.prefetcher is not None:
+                        tickets[j] = self.prefetcher.submit(table)
                     q.put(table)
                     metrics.hash_time_s += time.perf_counter() - t0
             except Exception as e:    # re-raised by serve() after the join
@@ -174,7 +220,7 @@ class SiDAEngine:
         def _run_one(table: HashTable):
             i = table.batch_index
             t0 = time.perf_counter()
-            logits = self.infer(batches[i], table)
+            logits = self.infer(batches[i], table, ticket=tickets.pop(i, None))
             self._sync()
             metrics.latency_s.append(time.perf_counter() - t0)
             results[i] = logits.cpu()
@@ -228,7 +274,10 @@ class SiDAEngine:
 
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Nothing to join: the synchronous store starts no thread."""
+        """Join the prefetch transfer thread (nothing to do when synchronous,
+        or when the pipeline belongs to the caller)."""
+        if self.prefetcher is not None and self._owns_prefetcher:
+            self.prefetcher.close()
 
     def device_memory_bytes(self) -> int:
         """Device-resident bytes: non-expert params + slot buffers."""

@@ -1,5 +1,6 @@
-"""Expert offloading: host-resident expert store + device slot cache
-(port of the synchronous, one-shard case of `repro/core/offload.py`).
+"""Expert offloading: host-resident expert store + device slot cache, and
+the async prefetch pipeline (port of the one-shard case of
+`repro/core/offload.py`).
 
 The full expert stacks live in host memory as CPU tensors, in the model
 dtype or, with `host_quant="int8"`, as symmetric int8 with fp32 scale planes
@@ -23,18 +24,29 @@ coldest hot resident past `promote_margin`, and a hot tier whose residents
 are all protected overflows into the warm tier. Every move re-uploads the
 host master of the target format; nothing is transcoded on the device.
 
-One shard, no replicas and no prefetcher: the async prefetch pipeline
-(ROADMAP A9) and expert-parallel shards (A14) come in later slices. The
-slot bookkeeping is the reference's, so the same table stream gives the same
-resident sets, tier moves, evictions, hits, translations and byte counts.
+`PrefetchPipeline` moves the uploads off the forward path: `submit` plans
+the slots at once and a transfer thread gathers the rows into pinned
+staging slabs and copies them on a side CUDA stream, behind per-expert
+ready fences (see the class). The pools are written in place on either
+stream, so every write waits on the CUDA event of the slot's previous
+write, and every reader on the events of the slots it reads.
+
+One shard, no replicas, no fault injection: expert-parallel shards and the
+per-shard queues are ROADMAP A14, and the pipeline's fault tolerance (retry,
+fence poisoning and rollback, degraded sync commit, thread restart,
+watchdog) is A13. The slot bookkeeping is the reference's, so the same
+table stream gives the same resident sets, tier moves, evictions, hits,
+translations and byte counts.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import sys
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -423,6 +435,7 @@ class ExpertStore:
                 self.pinned[(g, s)] = set()
                 self.alpha_ema[(g, s)] = np.zeros((self.E,), np.float64)
         self._lock = threading.RLock()
+        self._prefetcher: Optional["PrefetchPipeline"] = None
 
     # -- layer indexing: moe layer l = g * len(moe_subs) + j ----------------
     def layer_to_gs(self, l: int) -> Tuple[int, int]:
@@ -640,10 +653,16 @@ class ExpertStore:
         the H2D bytes of bf16); fp rows. Loads into warm slots land the
         int4 masters (`_commit_warm`).
 
-        The pools are written in place (`index_copy_`). That is safe here:
-        prepare and the forward that reads the slots run on one thread and
-        one stream, so the copy is ordered before every later read. An async
-        prefetcher (ROADMAP A9) will need copy-on-write or events instead."""
+        The pools are written in place (`index_copy_`) on the caller's
+        stream, which is ordered before every later forward on it. With a
+        prefetch pipeline attached, the writes also wait on the CUDA event of
+        each slot's last write on the transfer stream, and record their own
+        (`PrefetchPipeline._ordered_write`)."""
+        pf = self._prefetcher
+        with (pf._ordered_write(s, items) if pf is not None else contextlib.nullcontext()):
+            self._commit_loads(s, items)
+
+    def _commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
         if self.S4:
             self._commit_warm(s, [i for i in items if i[1] >= self.S8])
             items = [i for i in items if i[1] < self.S8]
@@ -711,11 +730,14 @@ class ExpertStore:
         self.stats.prepare_time += time.perf_counter() - t0
         return row
 
-    def plan(self, table: HashTable):
+    def plan(self, table: HashTable,
+             protect_fn: Optional[Callable[[int, int], Set[int]]] = None):
         """Slot bookkeeping for a whole table (no device traffic).
 
         Returns (trans [L, E], pending {sub: [(g, slot, e)]}, needed {l: ids}).
-        Caller must hold `_lock`."""
+        `protect_fn(g, s)` supplies extra never-evict experts (the prefetch
+        pipeline protects experts of outstanding tickets and uploads in
+        flight). Caller must hold `_lock`."""
         trans = np.full((self.L, self.E), -1, np.int32)
         pending: Dict[int, List[Tuple[int, int, int]]] = {s: [] for s in self.moe_subs}
         needed_by_layer: Dict[int, np.ndarray] = {}
@@ -728,8 +750,9 @@ class ExpertStore:
             if len(needed) > self.S:
                 # tighter budget than the active set: keep the highest-α-mass
                 needed = needed[np.argsort(-mass[needed])][: self.S]
-            _, s = self.layer_to_gs(l)
-            pending[s].extend(self.plan_layer(l, needed, mass=mass))
+            g, s = self.layer_to_gs(l)
+            extra = protect_fn(g, s) if protect_fn is not None else None
+            pending[s].extend(self.plan_layer(l, needed, mass=mass, extra_protected=extra))
             needed_by_layer[l] = needed
             trans[l] = self.trans_row(l)
         return trans, pending, needed_by_layer
@@ -737,26 +760,40 @@ class ExpertStore:
     def prepare(self, table: HashTable) -> np.ndarray:
         """Load the predicted experts for a whole batch; returns the
         translation table [L, E] expert -> slot (-1 = not resident). Uploads
-        run inline, so their time lands in `stats.prepare_time`."""
+        run inline, so their time lands in `stats.prepare_time`. With a
+        prefetch pipeline attached, experts it is uploading are fenced on
+        instead of uploaded again."""
         t0 = time.perf_counter()
+        pf = self._prefetcher
         with self._lock:
-            trans, pending, _ = self.plan(table)
+            trans, pending, needed = self.plan(
+                table, protect_fn=pf.protected_experts if pf is not None else None)
             for s, items in pending.items():
                 self.commit_loads(s, items)
+            fences = pf.events_for(needed) if pf is not None else []
+        for _, ev in fences:
+            ev.wait()
+        if pf is not None:
+            pf._raise_if_failed()
+            pf._device_wait(needed)
         self.stats.prepare_time += time.perf_counter() - t0
         return trans
 
     # ------------------------------------------------------------------
-    def cache_affinity(self, table: HashTable) -> float:
+    def cache_affinity(self, table: HashTable,
+                       inflight: Optional[Dict[Tuple[int, int], Set[int]]] = None) -> float:
         """Fraction of the table's active experts already resident — the
-        score for cache-aware batch ordering."""
+        score for cache-aware batch ordering. `inflight` extends residency
+        with uploads in flight, so prefetches already paid for count."""
         hits = tot = 0
         with self._lock:
             for l in range(self.L):
-                res = self.resident[self.layer_to_gs(l)]
+                gs = self.layer_to_gs(l)
+                res = self.resident[gs]
+                fly = inflight.get(gs, ()) if inflight else ()
                 for e in table.active_experts(l):
                     tot += 1
-                    hits += int(int(e) in res)
+                    hits += int(int(e) in res or int(e) in fly)
         return hits / max(tot, 1)
 
     def translate(self, table: HashTable, trans: np.ndarray):
@@ -791,3 +828,658 @@ class ExpertStore:
         surv = masked.sum(dim=-1, keepdim=True)
         scale = torch.where(surv > 0, orig / torch.clamp(surv, min=1e-12), torch.ones_like(surv))
         return torch.clamp(slots, min=0).to(torch.int32), masked * scale
+
+
+# ---------------------------------------------------------------------------
+# asynchronous prefetch pipeline
+# ---------------------------------------------------------------------------
+
+
+def _staged_put(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """H2D copy of one staged slab on the current stream (the transfer
+    thread's side stream); a CPU device gets the slab itself. Module-level so
+    tests can inject a slow link."""
+    return x.to(device, non_blocking=True)
+
+
+@dataclass
+class PrefetchStats:
+    """Overlap accounting for the async pipeline.
+
+    `stall_s` is the only time the forward path lost: consumer time spent
+    clearing a ticket (stealing a queued job, re-planning, waiting on ready
+    fences). `transfer_s` is the transfer thread's busy host time: gathers
+    into the staging slabs, waits for a slab to drain, and enqueueing the
+    copies and slot writes (on the card the copies themselves run on the
+    side stream, after the thread moved on). Its part that is not stall is
+    transfer hidden behind compute."""
+
+    submitted: int = 0          # tickets submitted
+    uploads: int = 0            # experts uploaded by the transfer thread (or stolen)
+    stall_s: float = 0.0        # consumer time blocked on ready fences
+    transfer_s: float = 0.0     # background gather + upload busy time
+    staging_waits: int = 0      # gathers that waited for a staging slab to drain
+    warm_skipped: int = 0       # warming prefetches dropped (transfer backlog)
+    stolen: int = 0             # jobs a fence found still queued and ran inline
+
+    @property
+    def overlap_s(self) -> float:
+        return max(0.0, self.transfer_s - self.stall_s)
+
+    def reset(self) -> None:
+        self.submitted = self.uploads = self.staging_waits = 0
+        self.warm_skipped = self.stolen = 0
+        self.stall_s = self.transfer_s = 0.0
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "prefetch_submitted": float(self.submitted),
+            "prefetch_uploads": float(self.uploads),
+            "prefetch_stall_s": self.stall_s,
+            "prefetch_transfer_s": self.transfer_s,
+            "prefetch_overlap_s": self.overlap_s,
+            "prefetch_staging_waits": float(self.staging_waits),
+            "prefetch_warm_skipped": float(self.warm_skipped),
+            "prefetch_stolen": float(self.stolen),
+        }
+
+
+class _CallableJob:
+    """A non-expert transfer job (a K/V page-in, `core/residency.py`): `fn`
+    runs on the transfer thread, then `done` is set. It rides the same
+    three priority classes as expert uploads."""
+
+    __slots__ = ("fn", "done")
+
+    def __init__(self, fn: Callable[[], None]):
+        self.fn = fn
+        self.done = threading.Event()
+
+
+class PrefetchTicket:
+    """Handle for one submitted prediction: a translation-table snapshot plus
+    the ready fences the consumer must clear before forwarding with it.
+
+    Protocol: `submit` plans slots at once (so `trans` is final at
+    submission) and the uploads land asynchronously; the consumer calls
+    `wait()` (or `wait_experts` for a partial fence) before running the
+    forward, and `release()` once the forward has finished on the device —
+    until then every expert the ticket references is protected from
+    eviction, so no slot it reads is overwritten in place."""
+
+    def __init__(self, pipeline: "PrefetchPipeline", trans: np.ndarray,
+                 needed: Dict[int, np.ndarray], fences, protect: bool):
+        self._pipeline = pipeline
+        self.trans = trans
+        self.needed = needed                  # layer -> expert ids planned
+        self._fences = fences                 # ((g, s, e), fence) to clear
+        self._protect = protect
+        self._job: Optional[Dict[int, List[tuple]]] = None   # queued upload job (stealable)
+        self.released = False
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Make the ticket consumable: clear its ready fences, re-plan any
+        needed expert whose prefetch was dropped (slot contention with other
+        outstanding tickets) or evicted since planning, refresh `trans` in
+        place, and make the caller's stream wait on the writes of every slot
+        the ticket reads. Returns False if `timeout` expired first; `trans`
+        may then still name experts that are not resident, so the caller
+        must wait again (never forward with a timed-out ticket)."""
+        return self._pipeline._refresh(self, timeout)
+
+    def wait_experts(self, l: int, experts) -> None:
+        """Partial fence: block only on uploads of `experts` at MoE layer
+        `l`; experts already resident (no upload pending) never block."""
+        pf = self._pipeline
+        g, s = pf.store.layer_to_gs(l)
+        want = {int(e) for e in experts}
+        t0 = time.perf_counter()
+        for (fg, fs, fe), ev in self._fences:
+            if (fg, fs) == (g, s) and fe in want:
+                ev.wait()
+        pf._raise_if_failed()
+        pf._device_wait({l: np.fromiter(want, np.int64)})
+        pf.stats.stall_s += time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Drop eviction protection. Call after the forward that read this
+        ticket's slots has finished on the device: the pools are written in
+        place, so a slot released early could be overwritten under it."""
+        if not self.released:
+            self._pipeline._release(self)
+            self.released = True
+
+
+class PrefetchPipeline:
+    """Async double-buffered expert prefetch over one ExpertStore.
+
+    A background transfer thread takes planned load batches off a
+    three-class priority queue (0 urgent consumer, 1 pre-submitted
+    lookahead, 2 warming), gathers the host rows (int8 + scales under
+    `host_quant="int8"`, the int4 masters for warm slots) into one of
+    `staging_buffers` reusable host slabs, copies each slab to the device
+    and writes the slot pools. Slot planning happens at `submit` under the
+    store lock, so the ticket carries the final translation; only the bytes
+    move later.
+
+    On the card the slabs are pinned (`pin_memory=True`), grown on demand
+    and reused round-robin; the thread owns one side `torch.cuda.Stream`
+    and issues every copy (`non_blocking=True`) and every pool write (the
+    int8 slots, the dequant-at-write of int8 host masters into fp slots,
+    the warm int4 slots) on it, then records one CUDA event per upload
+    batch. On the CPU there is no stream and no pinning: the copies are
+    synchronous and the bookkeeping the same. A pinning or stream failure
+    raises; nothing drops to the synchronous path.
+
+    Invariants:
+      * an expert referenced by an unreleased ticket, or with an upload in
+        flight, is never an eviction victim;
+      * a ready fence is a pair: the host `threading.Event`, set only after
+        every tensor (w_in, w_gate, w_out, scale planes) of its upload is
+        written and the CUDA event after those writes is recorded, and that
+        event, kept as the slot's last write in `_slot_event` (a host set
+        alone orders nothing on the device);
+      * each slot's last write (on either stream) leaves its CUDA event in
+        `_slot_event`: the next write to the slot waits on it (no two
+        writes race), and a consumer's stream waits on the events of the
+        slots it is about to read;
+      * a staging slab is reused only after the CUDA event of the copies
+        out of it has completed (the double-buffer fence, `staging_waits`).
+
+    A failure on the transfer thread is kept and re-raised by the next
+    submit, wait or fence; retry and fence poisoning are ROADMAP A13."""
+
+    # CPython's default switch interval (5 ms) starves the transfer thread's
+    # short ops behind the serving loop's Python work; the interval is
+    # process-global, so it is refcounted and restored at close().
+    SWITCH_INTERVAL_S = 0.0005
+    _switch_refs = 0
+    _switch_saved: Optional[float] = None
+    _switch_lock = threading.Lock()
+
+    @classmethod
+    def _acquire_switch_interval(cls) -> None:
+        with cls._switch_lock:
+            if cls._switch_refs == 0 and sys.getswitchinterval() > cls.SWITCH_INTERVAL_S:
+                cls._switch_saved = sys.getswitchinterval()
+                sys.setswitchinterval(cls.SWITCH_INTERVAL_S)
+            cls._switch_refs += 1
+
+    @classmethod
+    def _release_switch_interval(cls) -> None:
+        with cls._switch_lock:
+            cls._switch_refs -= 1
+            if cls._switch_refs == 0 and cls._switch_saved is not None:
+                sys.setswitchinterval(cls._switch_saved)
+                cls._switch_saved = None
+
+    @classmethod
+    def maybe_create(cls, store: ExpertStore, cfg, prefetch_depth: Optional[int] = None,
+                     staging_buffers: Optional[int] = None,
+                     faults=None) -> Optional["PrefetchPipeline"]:
+        """Resolve the prefetch knobs (explicit args > cfg.prefetch > off) and
+        build a pipeline, or return None for the synchronous path: the one
+        precedence rule every engine shares."""
+        if faults is not None:
+            raise NotImplementedError("prefetch fault injection is ported in ROADMAP A13")
+        depth = prefetch_depth if prefetch_depth is not None else (
+            cfg.prefetch.depth if cfg.prefetch.enabled else 0)
+        nbuf = staging_buffers if staging_buffers is not None else cfg.prefetch.staging_buffers
+        if depth <= 0:
+            return None
+        return cls(store, depth, nbuf)
+
+    def __init__(self, store: ExpertStore, depth: int = 2, staging_buffers: int = 2):
+        if store._prefetcher is not None:
+            raise ValueError("the store already has a prefetch pipeline")
+        self.store = store
+        self.depth = max(1, depth)
+        self.n_staging = max(1, staging_buffers)
+        self.stats = PrefetchStats()
+        self._lock = store._lock
+        self.device = store.device
+        self._cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self._jobs_cv = threading.Condition()
+        self._jobs: List[collections.deque] = [collections.deque() for _ in range(3)]
+        # (g, s) -> expert -> {dest slot: fence} for uploads still in flight
+        self._pending: Dict[Tuple[int, int], Dict[int, Dict[int, threading.Event]]] = (
+            collections.defaultdict(dict))
+        # (g, s) -> expert -> refcount from unreleased tickets
+        self._refs: Dict[Tuple[int, int], collections.Counter] = (
+            collections.defaultdict(collections.Counter))
+        # (g, s, global slot) -> CUDA event of the slot's last write
+        self._slot_event: Dict[Tuple[int, int, int], torch.cuda.Event] = {}
+        # per staging buffer: key -> host slab, and the event of the copies
+        # out of it (the slab is reused once that event has completed)
+        self._staging: List[Dict[tuple, torch.Tensor]] = [{} for _ in range(self.n_staging)]
+        self._staging_event: List[Optional[torch.cuda.Event]] = [None] * self.n_staging
+        self._buf_i = 0
+        self._closed = False
+        self._error: Optional[Exception] = None
+        self._acquire_switch_interval()
+        store._prefetcher = self
+        self._thread = threading.Thread(target=self._transfer_main, name="sida-prefetch",
+                                        daemon=True)
+        self._thread.start()
+
+    # -- device ordering ------------------------------------------------
+    def record_event(self) -> Optional[torch.cuda.Event]:
+        """A CUDA event recorded on the calling thread's current stream (None
+        on the CPU); a callable job records one after the work it enqueued."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    @contextlib.contextmanager
+    def _ordered_write(self, s: int, items):
+        """Around an in-place write of the slots of `items` [(g, slot, ...)]
+        at sub `s` on the current stream: wait first on each slot's last
+        write, then leave this write's event as theirs (for an upload, the
+        device half of its ready fence, recorded before the host event is
+        set). Caller holds the store lock, so the slots' writes enqueue in
+        lock order."""
+        if not self._cuda or not items:
+            yield None
+            return
+        keys = {(it[0], s, it[1]) for it in items}
+        cur = torch.cuda.current_stream(self.device)
+        last = (self._slot_event.get(k) for k in keys)
+        for ev in {id(e): e for e in last if e is not None}.values():
+            cur.wait_event(ev)
+        yield None
+        done = self.record_event()
+        for k in keys:
+            self._slot_event[k] = done
+
+    def _device_wait(self, needed: Dict[int, np.ndarray]) -> None:
+        """Make the current stream wait on the last write of every slot that
+        holds an expert of `needed` (layer -> ids): the device half of each
+        ready fence, and of uploads already retired whose copies may still
+        be in flight on the side stream."""
+        if not self._cuda:
+            return
+        evs = {}
+        with self._lock:
+            for l, ids in needed.items():
+                g, s = self.store.layer_to_gs(l)
+                res = self.store.resident[(g, s)]
+                for e in ids:
+                    slot = res.get(int(e))
+                    ev = None if slot is None else self._slot_event.get((g, s, slot))
+                    if ev is not None:
+                        evs[id(ev)] = ev
+        cur = torch.cuda.current_stream(self.device)
+        for ev in evs.values():
+            cur.wait_event(ev)
+
+    def _raise_if_failed(self) -> None:
+        if self._error is not None:
+            raise RuntimeError("the prefetch transfer thread failed") from self._error
+
+    # -- planning side (consumer threads) -------------------------------
+    def protected_experts(self, g: int, s: int) -> Set[int]:
+        """Experts at (g, s) that must survive eviction: referenced by an
+        unreleased ticket or mid-upload. Caller holds the store lock."""
+        prot = set(self._refs[(g, s)].keys())
+        prot.update(self._pending[(g, s)].keys())
+        return prot
+
+    def events_for(self, needed: Dict[int, np.ndarray]):
+        """Ready fences covering `needed` (layer -> expert ids): one entry a
+        needed expert with an upload in flight. Caller holds the lock."""
+        fences = []
+        for l, ids in needed.items():
+            g, s = self.store.layer_to_gs(l)
+            pend = self._pending[(g, s)]
+            for e in ids:
+                for ev in pend.get(int(e), {}).values():
+                    fences.append(((g, s, int(e)), ev))
+        return fences
+
+    def inflight(self) -> Dict[Tuple[int, int], Set[int]]:
+        """Snapshot of experts with uploads in flight (for cache affinity)."""
+        with self._lock:
+            return {k: set(v.keys()) for k, v in self._pending.items() if v}
+
+    def cache_affinity(self, table: HashTable) -> float:
+        """Affinity that credits in-flight prefetches, not only residency."""
+        return self.store.cache_affinity(table, inflight=self.inflight())
+
+    def submit(self, table: HashTable, protect: bool = True,
+               priority: Optional[int] = None) -> Optional[PrefetchTicket]:
+        """Plan slots for `table` now; enqueue its uploads for the transfer
+        thread. `protect=False` submits a fire-and-forget warming prefetch:
+        nothing is pinned, so a warmed expert may be evicted before use, and
+        with the warming queue at `depth` it returns None without planning.
+        `priority` (default 0 protected, 2 warming) picks the transfer class;
+        a protected submit waits while its class holds `depth` jobs."""
+        if self._closed:
+            raise RuntimeError("the prefetch pipeline is closed")
+        self._raise_if_failed()
+        prio = priority if priority is not None else (0 if protect else 2)
+        if not protect:
+            with self._jobs_cv:
+                if len(self._jobs[2]) >= self.depth:
+                    self.stats.warm_skipped += 1
+                    return None
+        with self._lock:
+            trans, pending, needed = self.store.plan(table, protect_fn=self.protected_experts)
+            job: Dict[int, List[tuple]] = {}
+            for s, items in pending.items():
+                for g, slot, e in items:
+                    ev = threading.Event()
+                    self._pending[(g, s)].setdefault(e, {})[slot] = ev
+                    job.setdefault(s, []).append((g, slot, e, ev))
+            if protect:
+                for l, ids in needed.items():
+                    self._refs[self.store.layer_to_gs(l)].update(int(e) for e in ids)
+            # the ticket fences on every needed expert still in flight,
+            # whether this submit started the upload or an earlier one did
+            fences = self.events_for(needed)
+            self.stats.submitted += 1
+        ticket = PrefetchTicket(self, trans, needed, fences, protect)
+        if job:
+            # outside the store lock: the put may wait at `depth`; a planned
+            # job is never dropped, its slots are already assigned
+            ticket._job = job
+            with self._jobs_cv:
+                while (protect and len(self._jobs[prio]) >= self.depth
+                       and self._error is None):
+                    self._jobs_cv.wait()
+                self._jobs[prio].append(job)
+                self._jobs_cv.notify_all()
+        return ticket
+
+    def submit_job(self, fn: Callable[[], None], priority: int = 1) -> threading.Event:
+        """Enqueue a transfer callable at `priority` and return its done
+        fence (the K/V page pool's page-ins ride the pipeline this way)."""
+        if self._closed:
+            raise RuntimeError("the prefetch pipeline is closed")
+        self._raise_if_failed()
+        job = _CallableJob(fn)
+        with self._jobs_cv:
+            self._jobs[priority].append(job)
+            self._jobs_cv.notify_all()
+        return job.done
+
+    def _upload_done(self, g: int, s: int, slot: int, e: int, ev: threading.Event) -> None:
+        """Retire one written upload's pending entry (caller holds the lock;
+        the identity check skips a newer upload of the same expert)."""
+        pend = self._pending[(g, s)]
+        slots_ev = pend.get(e)
+        if slots_ev is not None and slots_ev.get(slot) is ev:
+            del slots_ev[slot]
+            if not slots_ev:
+                del pend[e]
+
+    def _steal(self, ticket: PrefetchTicket) -> None:
+        """If the ticket's upload job is still queued when its fence is
+        reached, take it off the queue and write it inline on the consumer's
+        stream: the fence was about to pay for the whole transfer anyway, so
+        a starved transfer thread never makes the async path slower than
+        synchronous uploads."""
+        job, ticket._job = ticket._job, None
+        if job is None:
+            return
+        with self._jobs_cv:
+            for q in self._jobs:
+                if any(item is job for item in q):
+                    q.remove(job)
+                    self._jobs_cv.notify_all()   # a producer may wait for this queue slot
+                    break
+            else:
+                return
+        with self._lock:
+            for s, rows in job.items():
+                self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
+                for g, sl, e, ev in rows:
+                    self._upload_done(g, s, sl, e, ev)
+            self.stats.uploads += sum(len(r) for r in job.values())
+            self.stats.stolen += 1
+        for rows in job.values():
+            for *_, ev in rows:
+                ev.set()
+
+    def _refresh(self, ticket: PrefetchTicket, timeout: Optional[float] = None) -> bool:
+        """Consume-time reconciliation for one ticket (see `wait`): loop until
+        every needed expert is resident (or unplannable, where the sync path
+        drops too), re-planning missing experts ahead of later tickets'
+        refs but never evicting one mid-upload; commit re-planned loads
+        inline; clear the fences; rebuild the translation from live
+        residency. The elapsed time is the pipeline's stall."""
+        store = self.store
+        t0 = time.perf_counter()
+        self._steal(ticket)
+
+        def _left() -> Optional[float]:
+            return None if timeout is None else max(0.0, timeout - (time.perf_counter() - t0))
+
+        ok = True
+        for _ in range(64):  # in-flight uploads strictly drain between rounds
+            drain: List[threading.Event] = []
+            with self._lock:
+                progressed_all = True
+                for l, ids in ticket.needed.items():
+                    g, s = store.layer_to_gs(l)
+                    res = store.resident[(g, s)]
+                    missing = [int(e) for e in ids if int(e) not in res]
+                    if not missing:
+                        continue
+                    pend = self._pending[(g, s)]
+                    # protect own needed residents and mid-copy uploads; later
+                    # tickets' prefetched experts are fair eviction game
+                    extra = set(pend.keys()) | {int(e) for e in ids}
+                    loads = store.plan_layer(l, np.asarray(missing, np.int64),
+                                             extra_protected=extra)
+                    if loads:
+                        store.commit_loads(s, loads)
+                    if any(e not in res for e in missing):
+                        progressed_all = False
+                        drain.extend(ev for d in pend.values() for ev in d.values())
+                fences = self.events_for(ticket.needed)
+            for _, ev in fences:
+                if not ev.wait(_left()):
+                    ok = False
+                    break
+            if not ok or (progressed_all and not drain):
+                break
+            if not all(ev.wait(_left()) for ev in drain):
+                ok = False
+                break
+            if not drain:
+                break  # unplannable without pending uploads: sync drops too
+        self._raise_if_failed()
+        with self._lock:
+            for l in ticket.needed:
+                ticket.trans[l] = store.trans_row(l)
+        if ok:
+            self._device_wait(ticket.needed)
+        self.stats.stall_s += time.perf_counter() - t0
+        return ok
+
+    def _release(self, ticket: PrefetchTicket) -> None:
+        if not ticket._protect:
+            return
+        with self._lock:
+            for l, ids in ticket.needed.items():
+                refs = self._refs[self.store.layer_to_gs(l)]
+                refs.subtract(int(e) for e in ids)
+                for e in [e for e, c in refs.items() if c <= 0]:
+                    del refs[e]
+
+    # -- transfer side (the background thread) --------------------------
+    def _next_job(self):
+        with self._jobs_cv:
+            while True:
+                q = next((q for q in self._jobs if q), None)
+                if q is not None:
+                    job = q.popleft()
+                    self._jobs_cv.notify_all()
+                    return job
+                if self._closed:
+                    return None
+                self._jobs_cv.wait()
+
+    def _transfer_main(self) -> None:
+        """Thread body. On the card the thread sets its device and its side
+        stream (the current stream is per thread), so every copy and write
+        below lands on that stream."""
+        job = None
+        try:
+            if self._cuda:
+                torch.cuda.set_device(self._stream.device)
+                ctx = torch.cuda.stream(self._stream)
+            else:
+                ctx = contextlib.nullcontext()
+            with ctx, torch.no_grad():
+                while True:
+                    job = self._next_job()
+                    if job is None:
+                        return
+                    t0 = time.perf_counter()
+                    if isinstance(job, _CallableJob):
+                        try:
+                            job.fn()
+                        finally:
+                            job.done.set()
+                    else:
+                        for s, rows in job.items():
+                            self._upload(s, rows)
+                    job = None
+                    with self._jobs_cv:
+                        self.stats.transfer_s += time.perf_counter() - t0
+        except Exception as exc:   # kept, and re-raised to every consumer
+            self._fail(exc, job)
+
+    def _fail(self, exc: Exception, job) -> None:
+        """The transfer thread died: keep the error, wake every producer and
+        fence waiter (they re-raise it), and stop."""
+        with self._jobs_cv:
+            self._error = exc
+            queued = [j for q in self._jobs for j in q]
+            for q in self._jobs:
+                q.clear()
+            self._jobs_cv.notify_all()
+        for j in queued + ([job] if job is not None else []):
+            if isinstance(j, _CallableJob):
+                j.done.set()
+        with self._lock:
+            for pend in self._pending.values():
+                for slots_ev in pend.values():
+                    for ev in slots_ev.values():
+                        ev.set()
+
+    def _stage(self, buf: Dict[tuple, torch.Tensor], key: tuple, arr: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+        """Gather rows `idx` of a host tensor [G, E, ...] (flat g·E + e)
+        straight into this buffer's slab (pinned on the card, grown on
+        demand), so every copy reads a stable, reusable host region."""
+        n, tail = len(idx), tuple(arr.shape[2:])
+        slab = buf.get(key)
+        if slab is None or slab.shape[0] < n or tuple(slab.shape[1:]) != tail \
+                or slab.dtype != arr.dtype:
+            slab = torch.empty((n,) + tail, dtype=arr.dtype, pin_memory=self._cuda)
+            buf[key] = slab
+        view = slab[:n]
+        torch.index_select(arr.reshape((-1,) + tail), 0, idx, out=view)
+        return view
+
+    def _upload(self, s: int, rows: List[tuple]) -> None:
+        """Stage, copy and write one sub's upload batch, then fire its
+        fences. Hot rows land the int8 / fp masters, warm rows the int4
+        masters; every copied byte is counted, and where one batch fills a
+        warm slot twice the last upload is what lands."""
+        store = self.store
+        i = self._buf_i
+        self._buf_i = (i + 1) % self.n_staging
+        ev = self._staging_event[i]
+        if ev is not None:   # double-buffer fence: the copies out of slab i
+            if not ev.query():
+                with self._jobs_cv:
+                    self.stats.staging_waits += 1
+            ev.synchronize()
+        staging = self._staging[i]
+        hot = [r for r in rows if r[1] < store.S8]
+        warm = [r for r in rows if r[1] >= store.S8]
+        E, dev = store.E, self.device
+        staged, nbytes_up = [], 0
+        for part, tier in ((hot, "hot"), (warm, "warm")):
+            if not part:
+                continue
+            idx = torch.tensor([g * E + e for g, _, e, _ in part], dtype=torch.long)
+            if tier == "hot":
+                srcs = [(t, store.host, "") for t in EXPERT_TENSORS]
+                if store.quant == "int8":
+                    srcs += [(t, store.host_scale, "_scale") for t in EXPERT_TENSORS]
+            else:
+                srcs = [(t, store.host4, "_q4") for t in EXPERT_TENSORS]
+                srcs += [(t, store.host4_scale, "_q4_scale") for t in EXPERT_TENSORS]
+            put = {}
+            for t, host, suffix in srcs:
+                view = self._stage(staging, (s, t, suffix), host[f"sub{s}"][t], idx)
+                put[(t, suffix)] = _staged_put(view, dev)
+                nbytes_up += nbytes(view)
+            # the last upload into each (group, slot) lands
+            last = list({r[:2]: k for k, r in enumerate(part)}.values())
+            S_pool, base = (store.S8, 0) if tier == "hot" else (store.S4, store.S8)
+            dst = torch.tensor([part[k][0] * S_pool + part[k][1] - base for k in last],
+                               dtype=torch.long).to(dev, non_blocking=True)
+            keep = torch.tensor(last, dtype=torch.long).to(dev, non_blocking=True)
+            staged.append((tier, put, dst, keep))
+        self._staging_event[i] = self.record_event()
+        with self._lock:
+            moe_p = store.serve_params["blocks"][f"sub{s}"]["moe"]
+
+            def write(key: str, vals: torch.Tensor, dst, keep) -> None:
+                pool = moe_p[key]
+                pool.view(-1, *pool.shape[2:]).index_copy_(0, dst, vals.index_select(0, keep))
+
+            with self._ordered_write(s, rows):
+                for tier, put, dst, keep in staged:
+                    for t in EXPERT_TENSORS:
+                        if tier == "warm":
+                            write(t + "_q4", put[(t, "_q4")], dst, keep)
+                            write(t + "_q4_scale", put[(t, "_q4_scale")], dst, keep)
+                        elif store.quantized_slots:
+                            write(t, put[(t, "")], dst, keep)
+                            write(t + "_scale", put[(t, "_scale")], dst, keep)
+                        elif store.quant == "int8":   # dequantise at slot write
+                            q, sc = put[(t, "")], put[(t, "_scale")]
+                            write(t, (q.float() * sc).to(moe_p[t].dtype), dst, keep)
+                        else:
+                            write(t, put[(t, "")], dst, keep)
+            store.stats.bytes_h2d += nbytes_up
+            # every tensor of every expert in the batch is written and its
+            # CUDA event recorded: the fences may fire (no half-written slot
+            # is observable)
+            for g, slot, e, fence in rows:
+                self._upload_done(g, s, slot, e, fence)
+            self.stats.uploads += len(rows)
+        for *_, fence in rows:
+            fence.set()
+
+    # -- lifecycle ------------------------------------------------------
+    def close(self) -> None:
+        """Drain queued uploads, join the transfer thread and detach from the
+        store. Idempotent; every fence handed out has fired when it returns."""
+        if self._closed:
+            return
+        with self._jobs_cv:
+            self._closed = True
+            self._jobs_cv.notify_all()
+        self._thread.join()
+        if self._cuda:
+            self._stream.synchronize()
+        self._staging = []
+        self._staging_event = []
+        self.store._prefetcher = None
+        self._release_switch_interval()
+
+    def __enter__(self) -> "PrefetchPipeline":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

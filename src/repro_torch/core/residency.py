@@ -30,14 +30,16 @@ by default: the decayed attention mass of the owning lane), and
 into expert slots (hot and warm) and K/V pages.
 
 The port writes pages into the pool in place (the reference returns updated
-copies), and every page-in runs inline: the async page-in through the
-prefetch pipeline comes with ROADMAP A9, chunked prefill with A13. Bookkeeping
-is numpy, as in the reference; the device copy of the table is refreshed only
-after it changed.
+copies). A page-in runs inline, or with `pipeline=` (a `PrefetchPipeline`)
+its H2D copy rides the transfer thread's queue and side stream and `sync`
+writes the arrived pages on the caller's stream after their fences; chunked
+prefill comes with ROADMAP A13. Bookkeeping is numpy, as in the reference;
+the device copy of the table is refreshed only after it changed.
 """
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -86,6 +88,7 @@ class KVPoolStats:
     page_ins: int = 0
     bytes_spilled: int = 0
     bytes_paged_in: int = 0
+    fence_wait_s: float = 0.0   # `sync` time blocked on page-in fences
 
 
 def _page_write(pool: torch.Tensor, pid: int, data) -> None:
@@ -114,9 +117,6 @@ class KVPagePool:
         pipeline=None,
         device: DeviceLike = None,
     ):
-        if pipeline is not None:
-            raise NotImplementedError("async page-in through the prefetch pipeline is "
-                                      "ported in ROADMAP A9")
         if paged.prefill_chunk:
             raise NotImplementedError("chunked paged prefill is ported in ROADMAP A13")
         if cfg.block_kind != "attn" or cfg.enc_dec:
@@ -147,6 +147,10 @@ class KVPagePool:
         self._pinned: set = set()
         self._lock = threading.RLock()
         self._dev_table: Optional[torch.Tensor] = None
+        self.pipeline = pipeline
+        self._fences: List[threading.Event] = []
+        # (lane, page_idx, pid) -> ({sub: (k, v) on the device}, CUDA event)
+        self._arrived: Dict[Tuple[int, int, int], tuple] = {}
 
     # -- geometry / accounting -----------------------------------------
     def page_bytes(self) -> int:
@@ -245,14 +249,53 @@ class KVPagePool:
         return cache
 
     def page_in(self, cache: dict, lane: int, page_idx: int) -> dict:
-        """Bring a spilled page back, inline."""
+        """Bring a spilled page back. Without a pipeline the upload runs
+        inline; with one, its H2D copy rides the transfer queue (the urgent
+        class) and the caller must `sync` before the next step reads it."""
         cache, pid = self.alloc(cache, lane, page_idx)
         data = self._spill.pop((lane, page_idx))
         self.stats.page_ins += 1
         self.stats.bytes_paged_in += self.page_bytes()
-        for skey, (k_host, v_host) in data.items():
-            _page_write(cache[skey]["kp"], pid, k_host)
-            _page_write(cache[skey]["vp"], pid, v_host)
+        if self.pipeline is None:
+            for skey, (k_host, v_host) in data.items():
+                _page_write(cache[skey]["kp"], pid, k_host)
+                _page_write(cache[skey]["vp"], pid, v_host)
+            return cache
+        pipe, dev = self.pipeline, self.device
+
+        def stage(key=(lane, page_idx, pid), data=data):
+            # on the transfer thread: the copies go on its side stream
+            staged = {skey: (k.to(dev, non_blocking=True), v.to(dev, non_blocking=True))
+                      for skey, (k, v) in data.items()}
+            ev = pipe.record_event()
+            with self._lock:
+                self._arrived[key] = (staged, ev)
+
+        self._fences.append(pipe.submit_job(stage, priority=0))
+        return cache
+
+    def sync(self, cache: dict) -> dict:
+        """Wait the outstanding page-in fences, then write the arrived pages
+        into the pools on the caller's stream, after the CUDA event of their
+        copies: the paged analogue of a prefetch ticket's `wait`."""
+        if self._fences:
+            t0 = time.perf_counter()
+            for ev in self._fences:
+                ev.wait()
+            self._fences = []
+            self.stats.fence_wait_s += time.perf_counter() - t0
+            self.pipeline._raise_if_failed()
+        with self._lock:
+            arrived, self._arrived = self._arrived, {}
+        for (_, _, pid), (staged, ev) in arrived.items():
+            if ev is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(ev)
+            for skey, kv in staged.items():
+                for name, t in zip(("kp", "vp"), kv):
+                    if ev is not None:
+                        t.record_stream(cur)   # made on the side stream, read on this one
+                    _page_write(cache[skey][name], pid, t)
         return cache
 
     def ensure(

@@ -1,17 +1,21 @@
-"""Serving launcher, batch mode: the SiDA engine on a Switch config.
+"""Serving launcher, batch mode: SiDA against the paper's baselines on a
+Switch config.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch switch-base-8 \\
-        --full --engine sida --slots 4 --batches 8 --batch 8 --seq 256
+        --full --engine sida --slots 4 --batches 8 --batch 8 --seq 256 \\
+        [--prefetch-depth 2 --staging-buffers 2]
+    ... --engine standard | ondemand | prefetchall
 
-Port of `repro/launch/serve.py`'s batch mode for `--engine sida`, with the
-same workload (`np.random.default_rng(0)` tokens), the same hash width
-(d_h 64) and the same summary lines. Trains nothing: random weights from
-seeded `torch.Generator`s (0 for the model, 1 for the hash function). Runs
-on CUDA unless `--device cpu`. `--host-quant int8` keeps int8 host masters
+Port of `repro/launch/serve.py`'s batch mode, with the same workload
+(`np.random.default_rng(0)` tokens), the same hash width (d_h 64) and the
+same summary lines. Trains nothing: random weights from seeded
+`torch.Generator`s (0 for the model, 1 for the hash function). Runs on CUDA
+unless `--device cpu`. `--prefetch-depth` (> 0) moves SiDA's uploads to the
+async prefetch pipeline. `--host-quant int8` keeps int8 host masters
 (dequantised at slot write), `--quantized-slots` keeps the slots int8 and
 runs the int8 expert FFN, and `--int4-slots` (with `--quantized-slots`)
 splits the slot budget into hot int8 and warm int4 slots (`--tier-split`,
-`--quant-group`). The baselines (ROADMAP A8), the request server (A13) and
+`--quant-group`). The request server (`--engine server`, ROADMAP A13) and
 the other serving flags come with later slices.
 """
 from __future__ import annotations
@@ -22,22 +26,30 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TierConfig, get_config
+from repro_torch.core.baselines import OnDemandServer, PrefetchAllServer, StandardServer
 from repro_torch.core.engine import SiDAEngine
 from repro_torch.core.hash_fn import init_hash_fn
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params, n_moe_layers
 
 
-def build_engine(cfg, params, slots: int, eviction: str = "fifo", device=None,
+def build_engine(engine: str, cfg, params, slots: int, eviction: str = "fifo", device=None,
+                 prefetch_depth: int = 0, staging_buffers: int = 2,
                  host_quant: str = "none", quantized_slots: bool = False,
-                 scale_granularity: str = "channel", tier=None) -> SiDAEngine:
+                 scale_granularity: str = "channel", tier=None):
+    if engine == "standard":
+        return StandardServer(cfg, params, device=device)
+    if engine == "ondemand":
+        return OnDemandServer(cfg, params, slots_per_layer=slots, device=device)
+    if engine == "prefetchall":
+        return PrefetchAllServer(cfg, params, slots_per_layer=slots, device=device)
     hp = init_hash_fn(
         torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
         cfg.moe.num_experts, d_h=64, device="cpu",
     )
     return SiDAEngine(
         cfg, params, hp, slots_per_layer=slots, eviction=eviction, device=device,
-        host_quant=host_quant, quantized_slots=quantized_slots,
+        prefetch_depth=prefetch_depth, staging_buffers=staging_buffers, host_quant=host_quant, quantized_slots=quantized_slots,
         scale_granularity=scale_granularity, tier=tier,
     )
 
@@ -63,8 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="switch-base-8",
                     help="architecture config name (configs/)")
-    ap.add_argument("--engine", default="sida", choices=["sida"],
-                    help="batch engine (the baselines are not ported yet)")
+    ap.add_argument("--engine", default="sida",
+                    choices=["sida", "standard", "ondemand", "prefetchall"],
+                    help="batch engines: sida | standard | ondemand | prefetchall (the "
+                         "request server is not ported yet)")
     ap.add_argument("--batches", type=int, default=8,
                     help="batch-mode workload: number of batches")
     ap.add_argument("--batch", type=int, default=4,
@@ -78,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eviction", default="fifo", choices=["fifo", "lru", "alpha"],
                     help="slot replacement: fifo | lru | alpha (α-mass)")
     # the JAX CLI's flags, with its choices and defaults (serving/config.py)
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="async prefetch lookahead (0 = synchronous uploads)")
+    ap.add_argument("--staging-buffers", type=int, default=2,
+                    help="host staging slabs for the transfer thread")
     ap.add_argument("--host-quant", default="none", choices=["none", "int8"],
                     help="host expert tier format (int8 halves H2D bytes; dequantised "
                          "at slot write unless --quantized-slots)")
@@ -118,23 +136,28 @@ def main(argv=None):
         rng.integers(0, cfg.vocab_size, (args.batch, args.seq)).astype(np.int32)
         for _ in range(args.batches)
     ]
-    srv = build_engine(cfg, params, args.slots, args.eviction, device,
+    srv = build_engine(args.engine, cfg, params, args.slots, args.eviction, device,
+                       args.prefetch_depth, args.staging_buffers,
                        host_quant=args.host_quant, quantized_slots=args.quantized_slots,
                        scale_granularity=args.scale_granularity, tier=tier)
-    del params   # the engine holds what it serves: host masters + device params
+    del params   # the engine holds what it serves
     metrics = srv.serve(batches)
     print(f"engine={args.engine} slots={args.slots} quantized_slots={args.quantized_slots} "
           f"int4_slots={args.int4_slots} tier_split={args.tier_split}")
     for k, v in metrics.summary().items():
         print(f"  {k:20s} {v:.4f}")
     print(f"  device_mem_mb        {srv.device_memory_bytes()/1e6:.2f}")
-    for k, v in srv.memory_saving().items():
-        print(f"  {k:20s} {v:.4f}")
-    st = srv.store.stats
-    print(f"  loads={st.loads} hits={st.hits} evictions={st.evictions} "
-          f"promotions={st.promotions} demotions={st.demotions} "
-          f"h2d_mb={st.bytes_h2d/1e6:.2f} sync_upload_s={st.prepare_time:.4f}")
-    srv.close()
+    if isinstance(srv, SiDAEngine):
+        for k, v in srv.memory_saving().items():
+            print(f"  {k:20s} {v:.4f}")
+        st = srv.store.stats
+        print(f"  loads={st.loads} hits={st.hits} evictions={st.evictions} "
+              f"promotions={st.promotions} demotions={st.demotions} "
+              f"h2d_mb={st.bytes_h2d/1e6:.2f} sync_upload_s={st.prepare_time:.4f}")
+        if srv.prefetcher is not None:
+            for k, v in srv.prefetcher.stats.summary().items():
+                print(f"  {k:22s} {v:.4f}")
+        srv.close()
 
 
 if __name__ == "__main__":

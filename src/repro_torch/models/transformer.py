@@ -111,10 +111,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = Non
 # ---------------------------------------------------------------------------
 
 
-def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv):
-    aux: dict = {}
+def attention_half(bp, x, cfg, sub, aux: Optional[dict] = None):
+    """The attention half of a sublayer: attention, residual, then the
+    pre-FFN norm. Returns (x, h) with h the FFN / MoE input; with an `aux`
+    dict, the rope-applied K/V go into aux["kv"]. The layerwise baselines
+    call it too, so their router input is the full forward's, bit for bit."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    if collect_kv:
+    if aux is not None:
         # rope-applied K/V, what a decode cache holds at positions 0..S-1
         a, aux["kv"] = attend_full(bp["attn"], h, cfg, sub, return_kv=True)
     else:
@@ -122,7 +125,12 @@ def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv):
     if cfg.post_norm:
         a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
     x = x + a
-    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    return x, rmsnorm(bp["ln2"], x, cfg.norm_eps)
+
+
+def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv):
+    aux: dict = {}
+    x, h = attention_half(bp, x, cfg, sub, aux if collect_kv else None)
     if sub_kind(cfg, sub)["moe"]:
         y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override)
         aux.update(moe_aux)

@@ -305,14 +305,16 @@ def test_decode_engine_matches_jax_on_e8(e8, quant):
 
 def test_decode_engine_refuses_unported_modes(e8):
     _, cfg_t, _, _, pt, ht = e8
-    for kw, item in ((dict(spec_mode="draft"), "A10-spec"), (dict(prefetch_depth=2), "A9"),
-                     (dict(sharded=object()), "A14")):
+    for kw, item in ((dict(spec_mode="draft"), "A10-spec"), (dict(sharded=object()), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=2, device="cpu", **kw)
-    from repro_torch.core.residency import KVPagePool, PagedKVConfig
+    from repro_torch.core.offload import ExpertStore, PrefetchPipeline
 
-    with pytest.raises(NotImplementedError, match="A9"):     # async page-in
-        KVPagePool(cfg_t, PagedKVConfig(), 1, pipeline=object(), device="cpu")
+    # the async pipeline is ported (A9); its fault injection is not (A13)
+    store = ExpertStore(cfg_t, pt, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        PrefetchPipeline.maybe_create(store, cfg_t, prefetch_depth=2, faults=object())
+    assert store._prefetcher is None
 
 
 def test_table_buffer_brings_ids_and_alpha_in_one_copy():

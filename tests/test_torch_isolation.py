@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.decode_engine", "repro_torch.core.offload",
         "repro_torch.launch.serve", "repro_torch.kernels.ops",
         "repro_torch.kernels.flash_decode", "repro_torch.kernels.expert_gemm",
-        "repro_torch.core.residency",
+        "repro_torch.core.residency", "repro_torch.core.baselines",
+        "repro_torch.data.synthetic",
     ]
     code = (
         "import sys\n"
@@ -62,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
 def test_port_sources_cover_the_decode_slice():
     names = {os.path.relpath(p, PORT) for p in _port_sources()}
     for mod in ("core/decode_engine.py", "kernels/flash_decode.py", "kernels/expert_gemm.py",
-                "core/offload.py", "models/attention.py"):
+                "core/offload.py", "models/attention.py", "core/baselines.py",
+                "data/synthetic.py"):
         assert mod in names, mod
 
 

@@ -203,8 +203,6 @@ def test_pool_full_attention_overcommit_asserts(tiny):
         pt.ensure(ct, 0, 12)
     with pytest.raises(ValueError, match="addressable range"):
         pt.ensure(ct, 0, 33)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tr.KVPagePool(tiny[1], tr.PagedKVConfig(), 1, pipeline=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         tr.KVPagePool(tiny[1], tr.PagedKVConfig(prefill_chunk=8), 1, device="cpu")
 
