@@ -43,12 +43,26 @@
    kernels of that path), a per-step stage split, the profiled device idle
    share and the profile's largest rows (and the decode attention kernel's
    and the host-to-device copies' rows).
+5e. Speculative decode: `SiDADecodeEngine(spec_mode="draft", spec_k=4)` on
+   the same model with a seeded (untrained) draft head, 8 lanes, 64 tokens a
+   lane: (i) all 8 experts on bf16 slots, its tokens gated identical to a
+   vanilla run on the same slots; (ii) 5c's tiers over 5c's paged pool;
+   (iii) (i) through the async pipeline, gated identical to (i); tok/s, ms a
+   block and an emitted token, acceptance, loads a block, stall, bytes and
+   launches each (0 fails). Then a directed rollback on (i)'s engine, on
+   the ring and on pages: a block of the model's own greedy tokens with one
+   wrong draft on half the lanes, whose accept counts, outputs, K/V and
+   positions must equal running only each lane's accepted prefix, bit for
+   bit.
 6. Decode card vs CPU: full width, 2 layers, 40 steps over a 32-slot ring
    (it wraps), fp and int8 slots, in fp32 and in bf16, then (c) tiered
    slots over a paged pool (page 8, 48 pages, fp32): in fp32 the greedy
    tokens identical (and for (c) the same loads and tier moves); one fixed
    table's decode_step logits within tolerance (bf16: 5e-2 * max(1,
-   max|logit|), the tokens' agreement printed, not gated).
+   max|logit|), the tokens' agreement printed, not gated). (d) speculative
+   decode, fp32, 2 layers: a ring synchronous and through the pipeline, and
+   tiered slots over pages; the greedy tokens, the accepted tokens and loads
+   of every block and the store's counters identical.
 7. SiDA against the paper's baselines (run after phase 3, on its batches):
    StandardServer (all 8 experts resident), OnDemandServer and
    PrefetchAllServer at 4 slots, SiDAEngine synchronous, through the async
@@ -63,10 +77,12 @@
    tokens and per-step loads identical).
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
-expert_ffn at the decode shape and at Standard's, expert_ffn_q and
+expert_ffn at the decode shape, at 5e's all-resident verify step
+[8, 8, d] and at Standard's, expert_ffn_q and
 expert_ffn_q4 at the batch serves' shapes, and sparsemax at the ring's;
 `device_ms` and
-`library_device_ms` are the graph-replayed times; flash_decode_paged's
+`library_device_ms` are the graph-replayed times; `spec_launches` a decode
+kernel's launches on 5e's speculative runs, null for the batch rows; flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
@@ -730,12 +746,14 @@ def card_vs_cpu(cfg, tokens, slots: int):
 
 
 def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots: int,
-                         hot: int, c_hot: int, c_batch: int, hot_b: int, c_tb: int):
+                         hot: int, c_hot: int, c_batch: int, hot_b: int, c_tb: int,
+                         spec_slots: int):
     """Phase 2, decode shapes: flash_decode over the ring cache, expert_ffn_q
     and expert_ffn on the decode step's [slots, 8, d] capacity buffer,
     expert_ffn_q also on 5b's [int8_slots, 8, d], on 5c's hot block
     [hot, c_hot, d], on the int8 batch serve's [slots, c_batch, d] and on the
-    tiered batch serve's hot block [hot_b, c_tb, d], sparsemax on the
+    tiered batch serve's hot block [hot_b, c_tb, d], expert_ffn also on 5e's
+    all-resident verify step [spec_slots, 8, d], sparsemax on the
     predictor's [lanes, 128] ring scores with masked entries. Returns
     {kernel: record of the path's bf16 case}."""
     import torch
@@ -817,20 +835,22 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
         s = torch.clamp(w.float().abs().amax(dim=-2, keepdim=True), min=1e-8) / 127.0
         return torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8), s
 
-    ffn_cases = [(slots, _capacity(cfg, lanes, slots)),          # 5a's step (bf16 slots)
-                 (int8_slots, _capacity(cfg, lanes, int8_slots)),  # 5b's step
-                 (hot, c_hot),                                     # 5c's hot int8 block
-                 (slots, c_batch),                                 # the int8 batch serve
-                 (hot_b, c_tb)]                                    # the tiered batch's hot block
-    for i, (E, C) in enumerate(ffn_cases):
+    # (slots, capacity, {weight format checked: the record its bf16 case
+    # gives, or None}): "q" is expert_ffn_q over int8 weights, "bf16" expert_ffn
+    ffn_cases = [(slots, _capacity(cfg, lanes, slots),
+                  {"q": None, "bf16": "expert_ffn/decode"}),          # 5a's step
+                 (int8_slots, _capacity(cfg, lanes, int8_slots), {"q": "expert_ffn_q"}),  # 5b
+                 (hot, c_hot, {"q": None}),                           # 5c's hot int8 block
+                 (slots, c_batch, {"q": "expert_ffn_q/batch"}),       # the int8 batch serve
+                 (hot_b, c_tb, {"q": "expert_ffn_q/tiered-batch"}),   # the tiered batch's hot
+                 # 5e's verify step over all E bf16 slots
+                 (spec_slots, _capacity(cfg, lanes, spec_slots), {"bf16": "expert_ffn/spec"})]
+    for E, C, recs in ffn_cases:
         for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
             xe = rnd((E, C, d), 1.0, dtype)
             wi_q, wi_s = quantize(rnd((E, d, Fh), d ** -0.5, torch.float32))
             wo_q, wo_s = quantize(rnd((E, Fh, d), Fh ** -0.5, torch.float32))
             args = (xe, wi_q, wi_s, None, None, wo_q, wo_s)
-            got = expert_ffn_q_cuda(*args, act=cfg.act)
-            torch.cuda.synchronize()
-            want = ref.expert_ffn_q_ref(*args, act=cfg.act)
             wi_f = ref.dequantize_ref(wi_q, wi_s).to(dtype)      # dequantised ahead of time
             wo_f = ref.dequantize_ref(wo_q, wo_s).to(dtype)
 
@@ -838,25 +858,28 @@ def check_decode_kernels(cfg, lanes: int, cache_len: int, slots: int, int8_slots
                 return torch.bmm(F.gelu(torch.bmm(xe, wi_f), approximate="tanh"), wo_f)
 
             peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-            bnd = bound_ms(nb(xe, wi_q, wi_s, wo_q, wo_s, got), 2 * 2 * E * C * d * Fh, peak)
-            kern = lambda: expert_ffn_q_cuda(*args, act=cfg.act)
-            k_ms = time_ms(kern)
-            p_ms = time_ms(lambda: ref.expert_ffn_q_ref(*args, act=cfg.act))
-            rec = report(failed, "expert_ffn_q", dtype, (E, C, d, Fh), got, want, tol, k_ms, p_ms,
-                         time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
-                         graph=(kern, lib))
-            if dtype == torch.bfloat16 and i in (1, 3, 4):
-                records[{1: "expert_ffn_q", 3: "expert_ffn_q/batch",
-                         4: "expert_ffn_q/tiered-batch"}[i]] = rec
-            if dtype == torch.bfloat16 and i == 0:
+            if "q" in recs:
+                got = expert_ffn_q_cuda(*args, act=cfg.act)
+                torch.cuda.synchronize()
+                want = ref.expert_ffn_q_ref(*args, act=cfg.act)
+                bnd = bound_ms(nb(xe, wi_q, wi_s, wo_q, wo_s, got), 2 * 2 * E * C * d * Fh, peak)
+                kern = lambda: expert_ffn_q_cuda(*args, act=cfg.act)
+                k_ms = time_ms(kern)
+                p_ms = time_ms(lambda: ref.expert_ffn_q_ref(*args, act=cfg.act))
+                rec = report(failed, "expert_ffn_q", dtype, (E, C, d, Fh), got, want, tol, k_ms,
+                             p_ms, time_ms(lib), bnd, " (bmm+gelu+bmm, pre-dequantised)",
+                             graph=(kern, lib))
+                if dtype == torch.bfloat16 and recs["q"]:
+                    records[recs["q"]] = rec
+            if dtype == torch.bfloat16 and "bf16" in recs:
                 wi, wo = wi_f, wo_f      # the same weights in bf16: expert_ffn at decode
                 got = expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
                 torch.cuda.synchronize()
                 want = ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)
                 bnd = bound_ms(nb(xe, wi, wo, got), 2 * 2 * E * C * d * Fh, peak)
                 kern = lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
-                records["expert_ffn/decode"] = report(
-                    failed, "expert_ffn/decode", dtype, (E, C, d, Fh), got, want, tol,
+                records[recs["bf16"]] = report(
+                    failed, recs["bf16"], dtype, (E, C, d, Fh), got, want, tol,
                     time_ms(kern),
                     time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)),
                     time_ms(lib), bnd, " (bmm+gelu+bmm)", graph=(kern, lib))
@@ -1300,6 +1323,271 @@ def tiered_paged_card_vs_cpu(cfg, lanes: int, tier_slots: int):
         raise SystemExit("chip_smoke: card and CPU disagree on the tiered paged decode path")
 
 
+SPEC_KERNELS = {"spec-bf16": ("flash_decode", "expert_ffn", "sparsemax"),
+                "spec-tiered-paged": ("flash_decode_paged", "expert_ffn_q", "expert_ffn_q4",
+                                      "sparsemax"),
+                "spec-async": ("flash_decode", "expert_ffn", "sparsemax")}
+
+
+def spec_runs(cfg, tier_slots: int, cache_len: int):
+    """Phase 5e's three runs: (name, engine kwargs, generate kwargs). (i) all
+    E experts on bf16 slots, (ii) 5c's tiers over 5c's paged pool, (iii)
+    (i) through the async prefetch pipeline."""
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.residency import PagedKVConfig
+
+    E = cfg.moe.num_experts
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    paged = PagedKVConfig(page_size=16, kv_pages=256, max_seq=cache_len)
+    return (("spec-bf16", dict(slots_per_layer=E), {}),
+            ("spec-tiered-paged", dict(slots_per_layer=tier_slots, quantized_slots=True,
+                                       tier=tier), dict(paged=paged)),
+            ("spec-async", dict(slots_per_layer=E, prefetch_depth=2, staging_buffers=2), {}))
+
+
+def with_draft_head(cfg, hp):
+    """The served predictor with a draft head from seed 7 (random, untrained)."""
+    import torch
+
+    from repro_torch.core.hash_fn import init_draft_head
+
+    return init_draft_head(torch.Generator().manual_seed(7), hp, cfg.d_model)
+
+
+def spec_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, K: int, runs, tiers):
+    """Phase 5e: speculative decode at full width, `SiDADecodeEngine(spec_mode=
+    "draft", spec_k=K).generate` on each run of `spec_runs`, beside a vanilla
+    run on all E bf16 slots from the same start tokens. Gates: the all-
+    resident spec tokens equal the vanilla ones, the async run's equal the
+    sync run's, every kernel of a run launched; then the directed rollback
+    on the spec-bf16 engine. Returns {run name: launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.offload import nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    E = cfg.moe.num_experts
+    start = np.random.default_rng(0).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
+    van = SiDADecodeEngine(cfg, params, hp, slots_per_layer=E, device="cuda")
+    van_toks, vm = van.generate(start, steps=steps, cache_len=cache_len)
+    van.close()
+    print(f"  (vanilla) slots={E} lanes={lanes} steps={steps} tok_s={vm.tok_s:.1f} "
+          f"ms_per_step={1e3 * vm.wall_s / vm.steps:.3f} loads first_step={vm.loads_per_step[0]} "
+          f"last_step={vm.loads_per_step[-1]}")
+    out_counts, toks_of = {}, {}
+    for name, kw, gen_kw in runs:
+        t0 = time.perf_counter()
+        eng = SiDADecodeEngine(cfg, params, hp, device="cuda", spec_mode="draft", spec_k=K, **kw)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        toks, m = eng.generate(start, steps=steps, cache_len=cache_len, **gen_kw)
+        counts = ops.launches()
+        toks_of[name] = toks
+        st = eng.store.stats
+        dev_bytes = sum(nbytes(x) for x in tree_leaves(eng.store.serve_params))
+        print(f"  ({name}) spec_k={K} slots={kw['slots_per_layer']} (S8={eng.store.S8} "
+              f"S4={eng.store.S4}) lanes={lanes} tokens_a_lane={steps} cache_len={cache_len} "
+              f"setup_s={setup:.2f}")
+        print(f"    tok_s={m.tok_s:.1f} ms_per_block={1e3 * m.wall_s / m.steps:.3f} "
+              f"ms_per_emitted_token={1e3 * m.wall_s * lanes / m.tokens:.3f} blocks={m.steps} "
+              f"tokens={m.tokens} proposed={m.proposed} acceptance_rate={m.acceptance_rate:.4f} "
+              f"mean_accepted={m.mean_accepted:.4f} wall_s={m.wall_s:.4f} stall_s={m.stall_s:.4f}")
+        if eng.prefetcher is not None:
+            ps = eng.prefetcher.stats
+            print(f"    prefetch uploads={ps.uploads} stolen={ps.stolen} stall_s={ps.stall_s:.4f} "
+                  f"transfer_s={ps.transfer_s:.4f} overlap_s={ps.overlap_s:.4f}")
+        print(f"    loads first_block={m.loads_per_step[0]} last_block={m.loads_per_step[-1]} "
+              f"total={st.loads} hits={st.hits} evictions={st.evictions} "
+              f"promotions={st.promotions} demotions={st.demotions} bytes_h2d={st.bytes_h2d}")
+        # the draft head's fp32 product casts the bf16 table on each call:
+        # no second copy of the embedding is kept on the device
+        print(f"    device_memory_bytes={dev_bytes} expert_device_bytes={eng.store.device_bytes()} "
+              f"draft_head_bytes={nbytes(eng.hash_params['draft_proj'])} "
+              f"fp32_embed_copy_bytes=0 (cast a call: {4 * eng.embed_table.numel()} bytes "
+              f"temporary)")
+        if eng.kv_pool is not None:
+            pool = eng.kv_pool
+            print(f"    kv pages allocated={pool.stats.allocs} resident={pool.resident_pages()} "
+                  f"spills={pool.stats.spills} page_ins={pool.stats.page_ins} "
+                  f"kv_pool_bytes={pool.kv_pool_bytes()}")
+        print(f"    launches {json.dumps(counts)}")
+        if "tier" in kw and (eng.store.S8, eng.store.S4) != tiers:
+            raise SystemExit(f"chip_smoke: the tiered store has (S8, S4) = "
+                             f"{(eng.store.S8, eng.store.S4)}, phase 2 checked {tiers}")
+        if toks.shape != (lanes, steps) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"chip_smoke: spec decode ({name}) emitted out-of-vocab tokens")
+        if m.tokens != lanes * steps or m.proposed != lanes * K * m.steps:
+            raise SystemExit(f"chip_smoke: spec decode ({name}) miscounted its tokens")
+        idle = [k for k in SPEC_KERNELS[name] if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on the {name} path: {idle}")
+        same = {"spec-bf16": ("vanilla", van_toks), "spec-async": ("spec-bf16",
+                                                                   toks_of.get("spec-bf16"))}
+        if name in same:
+            other, want = same[name]
+            ok = bool((toks == want).all())
+            print(f"    tokens identical to {other}: {ok} (need True; "
+                  f"{float((toks == want).mean()):.6f} of {toks.size})")
+            if not ok:
+                raise SystemExit(f"chip_smoke: {name} tokens differ from {other}'s")
+        if name == "spec-bf16":
+            for paged in (None, runs[1][2]["paged"]):
+                directed_rollback(eng, cfg, lanes, K, cache_len, paged)
+        out_counts[name] = counts
+        eng.close()
+        del eng
+    return out_counts
+
+
+def directed_rollback(eng, cfg, lanes: int, K: int, cache_len: int, paged, j: int = 2,
+                      prefix: int = 14):
+    """Phase 5e, directed rollback: from a cache `prefix` positions deep (a
+    paged block then crosses a page boundary), a block whose drafts are the
+    model's own greedy tokens, with the draft at column j + 1 wrong on the
+    odd lanes. Gates: n_acc = j + 1 there and K elsewhere, the outputs the
+    greedy tokens, and every layer's K/V and `pos` bit-equal to running only
+    each lane's accepted prefix (j + 1 or K plain decode_steps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import hash_state_init
+    from repro_torch.core.hash_table import HashTable
+    from repro_torch.models.transformer import decode_step, verify_step
+
+    params = eng.store.serve_params
+
+    def route(tokens, hstate):
+        """One position's routing from the predictor, as the vanilla loop
+        makes it: (slot ids, weights, new predictor state)."""
+        ids, alpha, hstate = eng._predict_step(tokens, hstate)
+        ids, alpha = ids[:, :, None, :], alpha[:, :, None, :]
+        trans = eng.store.prepare(HashTable(0, ids.cpu().numpy(), alpha.cpu().numpy()))
+        slot_ids, w = eng.store.translate_device(ids, alpha, trans)
+        return slot_ids[:, :, 0], w[:, :, 0], hstate
+
+    def kv(cache):
+        return {(s, n): t.clone() for s in cache if s.startswith("sub")
+                for n, t in cache[s].items()}
+
+    def step(cache, tokens, ro, pool):
+        if pool is not None:
+            cache = eng._page_tick(pool, cache, cache["pos"].cpu().numpy().astype(np.int64) + 1)
+        lg, cache = decode_step(params, cache, tokens, cfg, routing_override=ro)
+        if pool is not None:
+            pool.unpin_all()
+        return torch.argmax(lg, dim=-1).to(torch.int32), cache
+
+    with torch.inference_mode():
+        cache, pool = eng._make_cache(lanes, cache_len, paged)
+        hstate = hash_state_init(eng.hash_params, lanes)
+        tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (lanes,)),
+                              dtype=torch.int32, device=eng.device)
+        for _ in range(prefix):
+            sid, w, hstate = route(tok, hstate)
+            tok, cache = step(cache, tok, (sid, w), pool)
+        if pool is not None:   # the block's pages, allocated and installed up front
+            cache = eng._page_tick(pool, cache, np.full((lanes,), prefix + K, np.int64),
+                                   extra_span=K - 1)
+        pos0 = cache["pos"].clone()
+        start_kv = kv(cache)
+        # the plain run: K steps, K/V kept after j + 1 of them
+        blk, ros = [tok], []
+        for i in range(K):
+            sid, w, hstate = route(blk[-1], hstate)
+            ros.append((sid, w))
+            nxt, cache = step(cache, blk[-1], ros[-1], None)
+            blk.append(nxt)
+            if i == j:
+                after_j = kv(cache)
+        plain_kv, plain_pos = kv(cache), cache["pos"].clone()
+        # back to the block's start, then the block with wrong drafts
+        for (s, n), t in start_kv.items():
+            cache[s][n].copy_(t)
+        cache["pos"] = pos0
+        wrong = torch.arange(lanes, device=eng.device) % 2 == 1
+        tokens = torch.stack(blk[:K], dim=1)
+        tokens[:, j + 1] = torch.where(wrong, (tokens[:, j + 1] + 1) % cfg.vocab_size,
+                                       tokens[:, j + 1])
+        out, n_acc, _, cache = verify_step(
+            params, cache, tokens, cfg,
+            routing_override=(torch.stack([r[0] for r in ros]), torch.stack([r[1] for r in ros])))
+        torch.cuda.synchronize()
+        if pool is not None:
+            pool.unpin_all()
+        want_n = torch.where(wrong, j + 1, K).to(torch.int32)
+        greedy = torch.stack(blk[1:], dim=1)
+        out_ok = all(bool((out[b, :int(n_acc[b])] == greedy[b, :int(n_acc[b])]).all())
+                     for b in range(lanes))
+        want_pos = torch.where(wrong, pos0 + j + 1, plain_pos)
+        kv_ok = True
+        for (s, n), t in kv(cache).items():
+            want = plain_kv[(s, n)].clone()
+            if pool is None:
+                want[:, wrong] = after_j[(s, n)][:, wrong]
+            else:
+                for b in torch.nonzero(wrong).flatten().tolist():
+                    pages = torch.as_tensor(pool.table[b][pool.table[b] >= 0], device=t.device)
+                    want[:, pages.long()] = after_j[(s, n)][:, pages.long()]
+            kv_ok &= torch.equal(t, want)
+        ok = (torch.equal(n_acc, want_n) and torch.equal(cache["pos"], want_pos) and kv_ok
+              and out_ok)
+        print(f"  (directed rollback, {'paged' if pool else 'ring'}) K={K} wrong draft at "
+              f"column {j + 1} on lanes {torch.nonzero(wrong).flatten().tolist()}, block at "
+              f"positions {int(pos0[0])}..{int(pos0[0]) + K - 1}: n_acc={n_acc.tolist()} "
+              f"(need {want_n.tolist()}), outputs the greedy tokens={out_ok}, K/V and pos "
+              f"bit-equal to the accepted prefix alone={kv_ok and torch.equal(cache['pos'], want_pos)}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: directed rollback failed "
+                             f"({'paged' if pool else 'ring'})")
+
+
+def spec_card_vs_cpu(cfg, lanes: int, slots: int, tier_slots: int, K: int):
+    """Phase 6d: speculative decode on the card and on the CPU, fp32, 2
+    layers, same weights (with the seeded draft head): a ring (sync and
+    through the async pipeline) and tiered slots over a paged pool. Gate:
+    the greedy tokens, the per-block acceptance and loads, and the store's
+    counters identical."""
+    import numpy as np
+
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.residency import PagedKVConfig
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params, hp = seeded_model(cfg2)
+    hp = with_draft_head(cfg2, hp)
+    start = np.random.default_rng(0).integers(0, cfg2.vocab_size, (lanes,)).astype(np.int32)
+    steps, cache_len = 16, 16     # the ring wraps within the run
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    runs = (("ring", dict(slots_per_layer=slots), {}),
+            ("ring-async", dict(slots_per_layer=slots, prefetch_depth=2, staging_buffers=2), {}),
+            ("tiered-paged", dict(slots_per_layer=tier_slots, quantized_slots=True, tier=tier),
+             dict(paged=PagedKVConfig(page_size=8, kv_pages=4 * lanes, max_seq=32))))
+    for name, kw, gen_kw in runs:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            eng = SiDADecodeEngine(cfg2, params, hp, device=dev, spec_mode="draft", spec_k=K, **kw)
+            toks, m = eng.generate(start, steps=steps, cache_len=cache_len, **gen_kw)
+            st = eng.store.stats
+            got[dev] = (toks, m.accepted_per_step, m.loads_per_step, m.steps,
+                        (st.loads, st.hits, st.evictions, st.promotions, st.demotions,
+                         st.bytes_h2d))
+            eng.close()
+        c, h = got["cuda"], got["cpu"]
+        same = [bool((c[0] == h[0]).all()), c[1] == h[1], c[2] == h[2], c[3:] == h[3:]]
+        print(f"  ({name}) fp32 n_layers=2 lanes={lanes} spec_k={K} tokens_a_lane={steps} "
+              f"blocks={c[3]} mean_accepted={float(np.mean(c[1])):.4f}: greedy tokens, "
+              f"accepted per block, loads per block, store counters identical on card and "
+              f"CPU = {same} (need all True); loads={c[4][0]} evictions={c[4][2]} "
+              f"promotions={c[4][3]}")
+        if not all(same):
+            raise SystemExit(f"chip_smoke: card and CPU disagree on the {name} spec decode path")
+
+
 def main() -> int:
     import torch
 
@@ -1328,6 +1616,7 @@ def main() -> int:
     slots, batch, seq, n_batches = 4, 8, 256, 8
     int8_slots, lanes, steps, cache_len = 8, 8, 64, 512
     tier_slots = 4          # int8-slot budget of 5c: 2 hot int8 + 3 warm int4 slots
+    spec_k = 4              # 5e's draft block
     for line in build.build_log().splitlines():
         if line.startswith("== "):
             print(f"  nvcc {line[3:]}")
@@ -1344,7 +1633,8 @@ def main() -> int:
     c_tb = batch_capacity(cfg, batch, seq, hot + warm)
     records = check_kernels(cfg, batch, seq, slots)
     records.update(check_decode_kernels(cfg, lanes, cache_len, slots, int8_slots, hot, c_tier,
-                                        batch_capacity(cfg, batch, seq, slots), hot, c_tb))
+                                        batch_capacity(cfg, batch, seq, slots), hot, c_tb,
+                                        cfg.moe.num_experts))
     records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
                                             warm, c_tier, warm, c_tb))
 
@@ -1368,12 +1658,19 @@ def main() -> int:
     print(f"== phase 5: decode path (SiDADecodeEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
     dcounts = decode_path(cfg, params, hp, lanes, steps, cache_len, runs, (hot, warm))
+
+    print(f"== phase 5e: speculative decode (SiDADecodeEngine spec_mode=draft, switch-base-8 "
+          f"full width and depth, bf16) [{time.perf_counter() - t_start:.1f} s]")
+    scounts = spec_path(cfg, params, with_draft_head(cfg, hp), lanes, steps, cache_len, spec_k,
+                        spec_runs(cfg, tier_slots, cache_len), (hot, warm))
     del params
 
     print(f"== phase 6: decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
     decode_card_vs_cpu(cfg, lanes, slots, int8_slots, "float32")
     decode_card_vs_cpu(cfg, lanes, slots, int8_slots, "bfloat16")
     tiered_paged_card_vs_cpu(cfg, lanes, tier_slots)
+    print(f"== phase 6d: speculative decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
+    spec_card_vs_cpu(cfg, lanes, slots, tier_slots, spec_k)
     print(f"== phase 8: async pipeline and baselines, card vs CPU "
           f"[{time.perf_counter() - t_start:.1f} s]")
     async_card_vs_cpu(cfg, batches[:2], slots, lanes)
@@ -1400,6 +1697,9 @@ def main() -> int:
         # expert_ffn again, at the decode step's [slots, 8, d] capacity buffer
         "expert_ffn/decode": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                               "src/repro/kernels/expert_gemm.py:269"),
+        # and at the all-resident verify step's [E, 8, d] (phase 5e)
+        "expert_ffn/spec": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
+                            "src/repro/kernels/expert_gemm.py:269"),
         # expert_ffn at StandardServer's dispatch over all E experts
         "expert_ffn/standard": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                                 "src/repro/kernels/expert_gemm.py:269"),
@@ -1431,11 +1731,22 @@ def main() -> int:
     launches["expert_ffn_q4"] = (dcounts["tiered-paged"]["expert_ffn_q4"]
                                  + launches["expert_ffn_q4/tiered-batch"])
     launches["flash_decode_paged"] = dcounts["tiered-paged"]["flash_decode_paged"]
+    launches["expert_ffn/spec"] = scounts["spec-bf16"]["expert_ffn"]
+    # each decode kernel's launches on the speculative path (phase 5e): the
+    # all-resident bf16 run for the ring kernels, the tiered paged run for
+    # the quantised and paged ones; null for the batch serves' rows
+    spec_launches = {"flash_decode": scounts["spec-bf16"]["flash_decode"],
+                     "sparsemax/ring": scounts["spec-bf16"]["sparsemax"],
+                     "expert_ffn/spec": scounts["spec-bf16"]["expert_ffn"],
+                     "expert_ffn_q": scounts["spec-tiered-paged"]["expert_ffn_q"],
+                     "expert_ffn_q4": scounts["spec-tiered-paged"]["expert_ffn_q4"],
+                     "flash_decode_paged": scounts["spec-tiered-paged"]["flash_decode_paged"]}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         r = records[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "launches": launches[name], "spec_launches": spec_launches.get(name),
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],

@@ -5,8 +5,9 @@ compress FC (d_model -> d_h), two LSTM layers, self-attention over the LSTM
 outputs with SparseMax weights, a residual from the current token, then one
 linear head per MoE layer -> expert logits [B, S, L_moe, E]. The SparseMax
 goes through `kernels.ops.sparsemax`: the hand-written kernel for CUDA
-tensors, the sort-based plain version for CPU tensors. The draft head of
-speculative decode comes with that slice (ROADMAP A10).
+tensors, the sort-based plain version for CPU tensors. An optional
+tied-embedding draft head (`draft_proj`) reads next-token logits off the
+same state for speculative decode.
 """
 from __future__ import annotations
 
@@ -54,18 +55,40 @@ def _lstm_layer(p: dict, x: torch.Tensor, carry: Optional[Carry] = None):
 
 def init_hash_fn(
     gen: torch.Generator, d_model: int, n_moe_layers: int, num_experts: int,
-    d_h: int = 256, device: DeviceLike = None,
+    d_h: int = 256, device: DeviceLike = None, draft: bool = False,
 ) -> dict:
     """Random predictor weights from `gen`, on `device` (CUDA unless asked
-    otherwise)."""
+    otherwise). `draft` adds the tied-embedding draft head, drawn last, so
+    the other weights are those drawn without it."""
     device = resolve_device(device)
-    return {
+    p = {
         "compress": dense_init(gen, d_model, d_h, torch.float32, device),
         "lstm1": _init_lstm_layer(gen, d_h, d_h, device),
         "lstm2": _init_lstm_layer(gen, d_h, d_h, device),
         "attn_q": dense_init(gen, d_h, d_h, torch.float32, device),
         "heads": dense_init(gen, d_h, n_moe_layers * num_experts, torch.float32, device),
     }
+    if draft:
+        p["draft_proj"] = dense_init(gen, d_h, d_model, torch.float32, device)
+    return p
+
+
+def init_draft_head(gen: torch.Generator, params: dict, d_model: int) -> dict:
+    """`params` with a random draft head from `gen` attached, on the
+    params' device: the router heads stay as they are."""
+    d_h = params["attn_q"].shape[0]
+    dev = params["attn_q"].device
+    return {**params, "draft_proj": dense_init(gen, d_h, d_model, torch.float32, dev)}
+
+
+def draft_logits_from_state(params: dict, z: torch.Tensor, embed_table: torch.Tensor) -> torch.Tensor:
+    """z [..., d_h] predictor state -> next-token logits [..., V] through the
+    tied embedding: z @ draft_proj is a d_model query, the embedding table
+    the output matrix. The product is fp32, as the reference's; a bf16 table
+    is cast on each call (a [V, d] fp32 temporary) rather than kept as a
+    second fp32 copy beside the model's."""
+    q = z @ params["draft_proj"]                          # [..., d_model]
+    return q @ embed_table.float().T
 
 
 def _sparse_attention(params: dict, h: torch.Tensor, causal: bool = False) -> torch.Tensor:
@@ -81,19 +104,23 @@ def _sparse_attention(params: dict, h: torch.Tensor, causal: bool = False) -> to
 
 
 def hash_fn_apply(params: dict, emb: torch.Tensor, num_experts: int,
-                  causal: bool = False) -> torch.Tensor:
+                  causal: bool = False, embed_table: Optional[torch.Tensor] = None):
     """emb: [B, S, d_model] token embeddings -> logits [B, S, L_moe, E].
 
     causal=True masks the SparseMax attention to the past (the decode-time
     predictor's training form); the default is the paper's full-batch
-    look-ahead."""
+    look-ahead. With `embed_table` and a draft head in `params`, returns
+    (logits, draft logits [B, S, V]): the full-sequence view of what the
+    decode predictor drafts a token at a time."""
     L = params["heads"].shape[-1] // num_experts
     x = torch.tanh(emb.float() @ params["compress"])
     h, _ = _lstm_layer(params["lstm1"], x)
     h, _ = _lstm_layer(params["lstm2"], h)
     z = _sparse_attention(params, h, causal)
-    logits = z @ params["heads"]
-    return logits.reshape(*emb.shape[:2], L, num_experts)
+    logits = (z @ params["heads"]).reshape(*emb.shape[:2], L, num_experts)
+    if embed_table is not None and "draft_proj" in params:
+        return logits, draft_logits_from_state(params, z, embed_table)
+    return logits
 
 
 # Prompts at or below this length take the one-shot O(S^2) build.

@@ -305,6 +305,7 @@ class KVPagePool:
         upto_pos: int,
         weight: float = 1.0,
         pin: bool = False,
+        extra_span: int = 0,
     ) -> dict:
         """Make positions [0, upto_pos) of `lane` safe to read and write:
         allocate missing pages in position order and page spilled in-span
@@ -313,7 +314,13 @@ class KVPagePool:
         With `pin`, every in-span page is pinned as soon as it is resident,
         so a later allocation in the same tick cannot evict it; pressure
         beyond the pool then raises the pool-exhausted error instead of
-        attending past a spilled page."""
+        attending past a spilled page.
+
+        `extra_span` widens the span for a multi-position step (a
+        speculative verify block): the block's earliest query reads
+        `window` back from the block's first position, `extra_span`
+        positions before `upto_pos - 1`, so its in-window pages page back in
+        and pin too. Full attention (span 0) keeps every page resident."""
         if upto_pos > self.Mp * self.page:
             raise ValueError(f"position {upto_pos} exceeds addressable range "
                              f"{self.Mp * self.page} (raise PagedKVConfig.max_seq)")
@@ -327,7 +334,7 @@ class KVPagePool:
             )
         lo = 0
         if self.span:
-            lo = max(0, upto_pos - 1 - self.span) // self.page
+            lo = max(0, upto_pos - 1 - self.span - extra_span) // self.page
         with self._lock:
             if pin:
                 # pin resident in-span pages before any alloc below could

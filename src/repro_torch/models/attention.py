@@ -201,9 +201,8 @@ def attend_decode(
     which returns updated copies, the port writes them into `cache_k` /
     `cache_v` in place (`index_put_`) and returns the same tensors: the
     decode loop owns its cache, and a copy of every layer's K/V per token
-    would move the whole cache each step. The speculative slice (ROADMAP
-    A10-spec) needs the pre-step cache for its rollback
-    (`transformer.verify_step`), so it will have to snapshot what it
+    would move the whole cache each step. `transformer.verify_step`, which
+    needs the pre-block entries for its rollback, snapshots the few it
     overwrites."""
     B = x_tok.shape[0]
     Sc = cache_k.shape[1]

@@ -7,9 +7,10 @@ sublayer's params are stacked over the groups, as in the reference; its
 `lax.scan` over the stacked groups becomes a Python loop over the leading
 group axis of the params and of the cache. `init_paged_cache` and the paged
 branch of `decode_step` keep K/V in shared page pools read through a page
-table (`core/residency.py`). Recurrent / hybrid blocks and encoder-decoder
-stacks are ported with the other families (ROADMAP A15), the speculative
-`verify_step` with A10-spec and the chunked paged prefill with A13.
+table (`core/residency.py`). `verify_step` runs a speculative draft block
+and rolls the rejected positions back. Recurrent / hybrid blocks and
+encoder-decoder stacks are ported with the other families (ROADMAP A15),
+the chunked paged prefill with A13.
 """
 from __future__ import annotations
 
@@ -321,3 +322,96 @@ def decode_step(
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: kb-position decode with accept/reject rollback
+# ---------------------------------------------------------------------------
+
+
+def _block_index(cache: dict, skey: str, pos0: torch.Tensor, kb: int, active=None):
+    """Where block position pos0 + i of each lane writes sublayer `skey`'s
+    K/V, as a pair of [B, kb] indices into the tensor's dims 1 and 2: (lane,
+    ring slot), or (page id, offset) through the installed table, with
+    positions past the table, unallocated entries and inactive lanes on the
+    trash page, as `attend_decode_paged` writes them."""
+    p = pos0.long()[:, None] + torch.arange(kb, device=pos0.device)[None, :]
+    pt = cache.get("page_table")
+    if pt is None:
+        lanes = torch.arange(p.shape[0], device=p.device)[:, None].expand_as(p)
+        return lanes, p % cache[skey]["k"].shape[2]
+    kp = cache[skey]["kp"]
+    page, trash, Mp = kp.shape[2], kp.shape[1] - 1, pt.shape[1]
+    pidx = p // page
+    in_table = pidx < Mp
+    pid = torch.gather(pt, 1, torch.where(in_table, pidx, 0)).long()
+    ok = in_table & (pid >= 0)
+    if active is not None:
+        ok &= active[:, None]
+    return torch.where(ok, pid, torch.full_like(pid, trash)), p % page
+
+
+def verify_step(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,      # [B, kb]: column 0 the last accepted token, then the drafts
+    cfg: ModelConfig,
+    routing_override=None,     # (ids [kb, L_moe, B, k], w [kb, L_moe, B, k]) or None
+    active: Optional[torch.Tensor] = None,   # [B] bool; False => lane fully rolled back
+):
+    """Verify a speculative draft block: `kb` sequential `decode_step`s, so
+    each position's math is the one-token step's and greedy outputs equal
+    those of `kb` separate steps.
+
+    Acceptance: position 0's input is the real last token, so its argmax is
+    always emitted; position i > 0 consumed draft `tokens[:, i]`, so its
+    output counts only while every earlier draft matched the model's
+    argmax. n_acc is in [1, kb] a lane (0 for an inactive lane).
+
+    Rollback leaves the cache as if only the accepted prefix had run. The
+    reference restores rejected positions from the untouched pre-verify
+    cache; here `decode_step` writes K/V in place, so before the block runs
+    this snapshots only what the block will overwrite, the kb entries a
+    lane of each K/V tensor (ring slots (pos0 + i) % Sc, or the (page,
+    offset) the installed table gives, trash for positions past it), and
+    writes the rejected ones back afterwards. `pos` advances by n_acc.
+
+    Returns (out tokens [B, kb] int32, n_acc [B] int32, logits [kb, B, V],
+    the cache); the cache's K/V tensors are the ones passed in, updated in
+    place."""
+    B, kb = tokens.shape
+    subs = [k for k in cache if k.startswith("sub")]
+    if any("state" in cache[k] for k in subs):
+        raise NotImplementedError("recurrent-state rollback comes with ROADMAP A15")
+    names = ("kp", "vp") if cache.get("page_table") is not None else ("k", "v")
+    if names[0] == "k":
+        for skey in subs:
+            if cache[skey]["k"].shape[2] < kb:
+                raise ValueError(f"draft window {kb} exceeds {skey}'s ring cache "
+                                 f"({cache[skey]['k'].shape[2]} slots)")
+    pos0 = cache["pos"]
+    idx = {skey: _block_index(cache, skey, pos0, kb, active) for skey in subs}
+    snap = {(skey, n): cache[skey][n][:, idx[skey][0], idx[skey][1]]    # [G, B, kb, K, D]
+            for skey in subs for n in names}
+
+    c, outs, logits = cache, [], []
+    for i in range(kb):
+        ro = None if routing_override is None else (routing_override[0][i],
+                                                    routing_override[1][i])
+        lg, c = decode_step(params, c, tokens[:, i], cfg, routing_override=ro, active=active)
+        logits.append(lg)
+        outs.append(torch.argmax(lg, dim=-1).to(torch.int32))
+    out = torch.stack(outs, dim=1)                           # [B, kb]
+
+    # longest accepted prefix: 1 (position 0 is real) + leading draft matches
+    match = (out[:, :kb - 1] == tokens[:, 1:]).to(torch.int32)
+    n_acc = (1 + torch.cumprod(match, dim=1).sum(dim=1)).to(torch.int32)
+    if active is not None:
+        n_acc = torch.where(active, n_acc, torch.zeros_like(n_acc))
+    rejected = torch.arange(kb, device=tokens.device)[None, :] >= n_acc[:, None]
+    for (skey, n), sn in snap.items():
+        t, (i0, i1) = c[skey][n], idx[skey]
+        t[:, i0, i1] = torch.where(rejected[None, :, :, None, None], sn, t[:, i0, i1])
+    new_cache = dict(c)
+    new_cache["pos"] = pos0 + n_acc
+    return out, n_acc, torch.stack(logits), new_cache
