@@ -75,6 +75,24 @@
 8. Card vs CPU, fp32, 2 layers: the async batch engine (hash ids, logits),
    OnDemand and PrefetchAll (logits, loads), the async decode engine (greedy
    tokens and per-step loads identical).
+9. The request server (`RequestServer.run`, run after 5e on the same model):
+   24 Poisson requests at 8 req/s in real time (prompts 16-256 tokens, 8-64
+   new tokens, `poisson_requests(np.random.default_rng(0), ...)`), 8 lanes,
+   prefill batches of up to 8 in buckets (64, 128, 256): (a) a 512-slot
+   ring over 4 bf16 slots, (b) (a) through the async prefetch pipeline,
+   (c) 5c's hot int8 / warm int4 slots over a paged pool (page 16, 512
+   pages, 2048 addressable positions) with one more, 1536-token prompt that
+   streams in in six 256-token chunks between decode ticks, (d) speculative
+   decode (K = 4, 5e's seeded draft head) over all 8 experts on bf16 slots;
+   each run's `summary()`, its wall split (decode ticks, prefill batches,
+   chunks, the rest), ms a decode tick beside 5a's ms/step, store traffic,
+   9c's `ResidencyManager.summary()`, and each kernel's launches. Gates:
+   every request completes with its whole budget of in-vocab tokens and
+   none is rejected, 9c's long prompt takes 6 chunks and completes, each
+   run's kernels launch, all seven kernels over 9a-9d. (e) card vs CPU, fp32,
+   2 layers at full width, capacity_factor 100, pre-admitted: 9a's, 9c's
+   (a 768-token prompt in 3 chunks) and 9d's setups give every request the
+   same tokens and the store the same counters on the card and the CPU.
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -82,7 +100,9 @@ expert_ffn at the decode shape, at 5e's all-resident verify step
 expert_ffn_q4 at the batch serves' shapes, and sparsemax at the ring's;
 `device_ms` and
 `library_device_ms` are the graph-replayed times; `spec_launches` a decode
-kernel's launches on 5e's speculative runs, null for the batch rows; flash_decode_paged's
+kernel's launches on 5e's speculative runs, null for the batch rows;
+`server_launches` a kernel's launches on each of 9a-9d (null for the shape
+rows); flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
@@ -1074,7 +1094,7 @@ def decode_runs(cfg, slots: int, int8_slots: int, tier_slots: int, cache_len: in
 
 def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, tiers):
     """Phase 5: SiDADecodeEngine.generate at full width on each run of
-    `decode_runs`; returns {run name: launch counts}. `tiers` is the (S8, S4)
+    `decode_runs`; returns ({run name: launch counts}, {run name: ms/step}). `tiers` is the (S8, S4)
     phase 2 timed the tiered kernels at, which the tiered store must have."""
     import numpy as np
     import torch
@@ -1085,7 +1105,7 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, t
     from repro_torch.tree import tree_leaves
 
     start = np.random.default_rng(0).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
-    out_counts = {}
+    out_counts, ms_per_step = {}, {}
     for name, kw, gen_kw in runs:
         t0 = time.perf_counter()
         eng = SiDADecodeEngine(cfg, params, hp, device="cuda", **kw)
@@ -1130,9 +1150,10 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, t
         decode_profile(eng, start, 16, cache_len, gen_kw)
         print(f"    (stage split {t1 - t0:.1f} s, profile {time.perf_counter() - t1:.1f} s)")
         out_counts[name] = counts
+        ms_per_step[name] = 1e3 * m.wall_s / m.steps
         eng.close()
         del eng
-    return out_counts
+    return out_counts, ms_per_step
 
 
 def decode_stages(eng, start, steps: int, cache_len: int, paged=None):
@@ -1588,6 +1609,208 @@ def spec_card_vs_cpu(cfg, lanes: int, slots: int, tier_slots: int, K: int):
             raise SystemExit(f"chip_smoke: card and CPU disagree on the {name} spec decode path")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the request server
+# ---------------------------------------------------------------------------
+
+SERVER_KERNELS = {"9a": ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode"),
+                  "9b": ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode"),
+                  "9c": ("expert_ffn_q", "expert_ffn_q4", "sparsemax", "flash_prefill",
+                         "flash_decode_paged"),
+                  "9d": ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode")}
+SERVER_BUCKETS = (64, 128, 256)
+
+
+def server_runs(cfg, slots: int, tier_slots: int, K: int, cache_len: int):
+    """Phase 9's runs: (name, RequestServer kwargs, long prompt length or 0).
+    9a a ring over bf16 slots, 9b 9a through the async pipeline, 9c hot int8
+    / warm int4 slots (5c's split) over a paged pool with chunked prefill,
+    9d speculative decode over every expert on bf16 slots."""
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.residency import PagedKVConfig
+
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    base = dict(max_lanes=8, max_prefill_batch=8, buckets=SERVER_BUCKETS)
+    ring = dict(base, cache_len=cache_len)
+    paged = PagedKVConfig(page_size=16, kv_pages=512, max_seq=2048, prefill_chunk=256)
+    return (("9a", dict(ring, slots_per_layer=slots), 0),
+            ("9b", dict(ring, slots_per_layer=slots, prefetch_depth=2, staging_buffers=2), 0),
+            ("9c", dict(base, slots_per_layer=tier_slots, quantized_slots=True, tier=tier,
+                        paged=paged), 6 * paged.prefill_chunk),
+            ("9d", dict(ring, slots_per_layer=cfg.moe.num_experts, spec_mode="draft",
+                        spec_k=K), 0))
+
+
+def server_requests(cfg, n: int, rate: float, prompts, new, long_len: int = 0, seed: int = 0):
+    """`poisson_requests(np.random.default_rng(seed), ...)`, plus one prompt
+    of `long_len` tokens (seed + 1) that arrives with the third request."""
+    import numpy as np
+
+    from repro_torch.serving import Request, poisson_requests
+
+    reqs = poisson_requests(np.random.default_rng(seed), n, rate_rps=rate,
+                            vocab_size=cfg.vocab_size, prompt_len_range=prompts,
+                            max_new_range=new)
+    if long_len:
+        prompt = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (long_len,))
+        reqs.append(Request(rid=n, prompt=prompt.astype(np.int32), max_new_tokens=new[0],
+                            arrival_s=reqs[min(2, n - 1)].arrival_s))
+    return reqs
+
+
+def check_served(srv, reqs, cfg, name: str) -> None:
+    """Every request completed with its whole budget of in-vocab tokens, none
+    rejected."""
+    done = {r.rid: r for r in srv.completed}
+    bad = [r.rid for r in reqs if r.rid not in done or len(done[r.rid].generated)
+           != r.max_new_tokens or min(done[r.rid].generated) < 0
+           or max(done[r.rid].generated) >= cfg.vocab_size]
+    if srv.rejected or bad:
+        raise SystemExit(f"chip_smoke: server {name}: rejected "
+                         f"{[(r.rid, r.reject_reason) for r in srv.rejected]}, incomplete or "
+                         f"out-of-vocab {bad}")
+
+
+def server_path(cfg, params, hp, runs, ms_5a: float):
+    """Phase 9: `RequestServer.run` at full width on each run of
+    `server_runs`, 24 Poisson requests at 8 req/s in real time (prompts
+    16-256 tokens, 8-64 new tokens); 9c adds one 1536-token prompt that
+    streams through the pages in six 256-token chunks. Prints each run's
+    `summary()`, ms a decode tick beside phase 5a's ms/step, and each
+    kernel's launches; gates completion, 9c's chunks and every kernel of a
+    run's path launched. Returns {run name: launch counts}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RequestServer
+
+    keys = ("completed", "rejected", "throughput_tok_s", "decode_tok_s", "p50_latency_s",
+            "p95_latency_s", "p50_ttft_s", "p95_ttft_s", "cache_hit_rate", "h2d_mb",
+            "upload_stall_s", "upload_overlap_s", "max_queue_depth", "spec_acceptance_rate",
+            "spec_accepted_per_step")
+    out_counts = {}
+    for name, kw, long_len in runs:
+        reqs = server_requests(cfg, 24, 8.0, (16, 256), (8, 64), long_len)
+        hp_run = with_draft_head(cfg, hp) if kw.get("spec_mode") == "draft" else hp
+        t0 = time.perf_counter()
+        srv = RequestServer(cfg, params, hp_run, device="cuda", **kw)
+        setup = time.perf_counter() - t0
+        # the loop's wall split: prefill batches and chunks timed to the end
+        # of their device work (host clock), decode ticks by the server's
+        # own timer
+        spans = {"prefill": 0.0, "chunks": 0.0, "hash_prefill": 0.0}
+
+        def timed(fn, key):
+            def call(*a, **k):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    spans[key] += time.perf_counter() - t1
+            return call
+
+        srv._prefill_and_join = timed(srv._prefill_and_join, "prefill")
+        srv._chunk_tick = timed(srv._chunk_tick, "chunks")
+        srv._hash_prefill = timed(srv._hash_prefill, "hash_prefill")   # inside both
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        try:
+            srv.run(reqs, realtime=True)
+        finally:
+            srv.close()
+        counts = ops.launches()
+        s = srv.summary()
+        t = srv.telemetry
+        steps = t.counter("decode_steps").value
+        tick_ms = 1e3 * t.counter("decode_tick_s_total").value / max(steps, 1)
+        print(f"  ({name}) {', '.join(f'{k}={v}' for k, v in kw.items() if k != 'buckets')} "
+              f"requests={len(reqs)} setup_s={setup:.2f} wall_s={t.wall_s():.3f}")
+        print("    " + " ".join(f"{k}={s[k]:.4f}" for k in keys))
+        ticks_s = t.counter("decode_tick_s_total").value
+        print(f"    wall split: decode_ticks_s={ticks_s:.3f} prefill_s={spans['prefill']:.3f} "
+              f"chunks_s={spans['chunks']:.3f} rest_s="
+              f"{t.wall_s() - ticks_s - spans['prefill'] - spans['chunks']:.3f} (arrival waits, "
+              f"scheduling, the loop's idle polls); the predictor's prompt pass "
+              f"hash_prefill_s={spans['hash_prefill']:.3f} of prefill_s and chunks_s")
+        print(f"    decode_steps={int(steps)} ms_per_decode_tick={tick_ms:.3f} "
+              f"(phase 5a ms_per_step={ms_5a:.3f}) prefill_batches="
+              f"{int(t.counter('prefill_batches').value)} prefill_chunks="
+              f"{int(t.counter('prefill_chunks').value)} tokens_generated="
+              f"{int(t.counter('tokens_generated').value)}")
+        st = srv.store.stats
+        print(f"    store loads={st.loads} hits={st.hits} evictions={st.evictions} "
+              f"promotions={st.promotions} demotions={st.demotions} bytes_h2d={st.bytes_h2d}")
+        if srv.residency is not None:
+            print(f"    residency {json.dumps(srv.residency.summary())}")
+            print(f"    long_prefills_completed={s['long_prefills_completed']:.0f} "
+                  f"prefill_chunks={s['prefill_chunks']:.0f} device_bytes="
+                  f"{srv.residency.device_bytes()} resident_bytes={srv.residency.resident_bytes()}")
+        print(f"    launches {json.dumps(counts)}")
+        check_served(srv, reqs, cfg, name)
+        need = -(-reqs[-1].prompt_len // kw["paged"].prefill_chunk) if long_len else 0
+        if long_len and (s["prefill_chunks"] != need or s["long_prefills_completed"] != 1):
+            raise SystemExit(f"chip_smoke: server {name}: the long prompt took "
+                             f"{s['prefill_chunks']} chunks, {s['long_prefills_completed']} "
+                             f"completed (need {need} and 1)")
+        idle = [k for k in SERVER_KERNELS[name] if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on the server {name} path: "
+                             f"{idle}")
+        out_counts[name] = counts
+        del srv
+    unused = [k for k in out_counts["9a"] if not any(c[k] for c in out_counts.values())]
+    if unused:
+        raise SystemExit(f"chip_smoke: kernels never launched on the server paths: {unused}")
+    return out_counts
+
+
+def server_card_vs_cpu(cfg, slots: int, tier_slots: int, K: int, cache_len: int):
+    """Phase 9e: the request server on the card and on the CPU, fp32, 2
+    layers at full width, capacity_factor 100, the same weights, for the
+    setups of 9a, 9c (a 768-token prompt in three chunks, tiered slots) and
+    9d. The requests are pre-admitted (`build_request_table` + `admit`, then
+    `run([])`), so both run one schedule. Gate: every request's tokens and
+    the store's counters identical."""
+    import numpy as np
+
+    from repro_torch.serving import RequestServer
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+    params, hp = seeded_model(cfg2)
+    hp_d = with_draft_head(cfg2, hp)
+    for name, kw, long_len in server_runs(cfg2, slots, tier_slots, K, cache_len):
+        if name == "9b":
+            continue
+        long_len //= 2
+        got = {}
+        for dev in ("cuda", "cpu"):
+            reqs = server_requests(cfg2, 8, 1e6, (16, 200), (4, 16), long_len, seed=1)
+            srv = RequestServer(cfg2, params, hp_d if name == "9d" else hp, device=dev, **kw)
+            try:
+                for r in reqs:
+                    srv.build_request_table(r)
+                    srv.admit(r, 0.0)
+                srv.run([], realtime=False)
+            finally:
+                srv.close()
+            check_served(srv, reqs, cfg2, f"{name} on {dev}")
+            st = srv.store.stats
+            got[dev] = ({r.rid: r.generated for r in srv.completed},
+                        (st.loads, st.hits, st.evictions, st.promotions, st.demotions,
+                         st.bytes_h2d), srv.summary())
+        (tc, sc, mc), (th, sh, mh) = got["cuda"], got["cpu"]
+        same = [tc == th, sc == sh]
+        print(f"  ({name}) fp32 n_layers=2 requests={len(tc)} tokens={sum(map(len, tc.values()))} "
+              f"prefill_chunks={mc.get('prefill_chunks', 0):.0f} spec_acceptance_rate="
+              f"{mc['spec_acceptance_rate']:.4f}: tokens of every request, store counters "
+              f"identical on card and CPU = {same} (need all True); loads={sc[0]} "
+              f"evictions={sc[2]} promotions={sc[3]}")
+        if not all(same):
+            raise SystemExit(f"chip_smoke: card and CPU disagree on the server {name} path")
+
+
 def main() -> int:
     import torch
 
@@ -1657,12 +1880,16 @@ def main() -> int:
 
     print(f"== phase 5: decode path (SiDADecodeEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
-    dcounts = decode_path(cfg, params, hp, lanes, steps, cache_len, runs, (hot, warm))
+    dcounts, dms = decode_path(cfg, params, hp, lanes, steps, cache_len, runs, (hot, warm))
 
     print(f"== phase 5e: speculative decode (SiDADecodeEngine spec_mode=draft, switch-base-8 "
           f"full width and depth, bf16) [{time.perf_counter() - t_start:.1f} s]")
     scounts = spec_path(cfg, params, with_draft_head(cfg, hp), lanes, steps, cache_len, spec_k,
                         spec_runs(cfg, tier_slots, cache_len), (hot, warm))
+    print(f"== phase 9: request server (RequestServer, switch-base-8 full width and depth, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    svcounts = server_path(cfg, params, hp, server_runs(cfg, slots, tier_slots, spec_k, cache_len),
+                           dms["bf16"])
     del params
 
     print(f"== phase 6: decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
@@ -1674,6 +1901,8 @@ def main() -> int:
     print(f"== phase 8: async pipeline and baselines, card vs CPU "
           f"[{time.perf_counter() - t_start:.1f} s]")
     async_card_vs_cpu(cfg, batches[:2], slots, lanes)
+    print(f"== phase 9e: request server card vs CPU [{time.perf_counter() - t_start:.1f} s]")
+    server_card_vs_cpu(cfg, slots, tier_slots, spec_k, cache_len)
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -1746,6 +1975,8 @@ def main() -> int:
         r = records[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[name], "spec_launches": spec_launches.get(name),
+                        "server_launches": ({run: c[name] for run, c in svcounts.items()}
+                                            if name in svcounts["9a"] else None),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -207,6 +207,13 @@ class DecodeMetrics:
         return float(np.mean(xs)) if xs else 0.0
 
 
+def ids_alpha_to_host(ids: torch.Tensor, alpha: torch.Tensor):
+    """int32 ids and fp32 α of one shape to numpy in one copy (α's bits ride
+    as int32)."""
+    both = torch.stack([ids, alpha.view(torch.int32)]).cpu().numpy()
+    return both[0], both[1].view(np.float32)
+
+
 class TableBuffer:
     """Reusable host backing store for the per-step decode HashTables: one
     persistent pair of [L, B, S, k] arrays that each step's prediction is
@@ -222,11 +229,11 @@ class TableBuffer:
         or [L, B, S, k] (a speculative block's S positions). Both come to
         the host in one copy: alpha's bits ride as int32."""
         self.table.batch_index = batch_index
-        both = torch.stack([ids_dev, alpha_dev.view(torch.int32)]).cpu().numpy()
+        ids, alpha = ids_alpha_to_host(ids_dev, alpha_dev)
         if ids_dev.dim() == 3:
-            both = both[:, :, :, None, :]
-        np.copyto(self.ids, both[0])
-        np.copyto(self.weights, both[1].view(np.float32))
+            ids, alpha = ids[:, :, None, :], alpha[:, :, None, :]
+        np.copyto(self.ids, ids)
+        np.copyto(self.weights, alpha)
         return self.table
 
 

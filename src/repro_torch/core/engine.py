@@ -89,10 +89,13 @@ class SiDAEngine:
         prefetch_depth: Optional[int] = None,       # async prefetch lookahead (0 = sync)
         staging_buffers: Optional[int] = None,      # host staging slabs of the pipeline
         prefetcher: Optional[PrefetchPipeline] = None,
+        store: Optional[ExpertStore] = None,        # share a caller's store as it is
     ):
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
-        self.store = ExpertStore(
+        # the request server shares one store between this engine's prefill
+        # and its own decode ticks
+        self.store = store if store is not None else ExpertStore(
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
             scale_granularity=scale_granularity, tier=tier,

@@ -59,8 +59,28 @@ from repro_torch.tree import tree_map
 
 EXPERT_TENSORS = ("w_in", "w_gate", "w_out")
 # per-table decay of the α-mass EMA that ranks tier moves (the reference's
-# ShardedStoreConfig.alpha_decay default; the port has no EP config yet)
+# ShardedStoreConfig.alpha_decay default)
 ALPHA_DECAY = 0.9
+
+
+@dataclass(frozen=True)
+class ShardedStoreConfig:
+    """Expert-parallel partitioning of the serving slot pools, as the
+    reference's `ShardedStoreConfig` spells it. Only the configuration is
+    ported (the serving flag table builds it): the port's store has one
+    shard, and a server asked for `ep_shards > 1` raises until the shard
+    pools, replication and rebalancing are ported (ROADMAP A14)."""
+
+    ep_shards: int = 1
+    model_axis: str = "model"
+    placement: str = "mod"            # "mod": e -> e % shards | "block": e -> e // (E/shards)
+    replicate_hot: int = 0            # extra copies a hot expert may hold
+    hot_alpha: Optional[float] = None  # hot threshold as a share of total α
+    alpha_decay: float = ALPHA_DECAY  # per-table decay of the α-mass EMA
+
+    @property
+    def enabled(self) -> bool:
+        return self.ep_shards > 1
 
 
 class EvictionPolicy:
@@ -436,6 +456,14 @@ class ExpertStore:
                 self.alpha_ema[(g, s)] = np.zeros((self.E,), np.float64)
         self._lock = threading.RLock()
         self._prefetcher: Optional["PrefetchPipeline"] = None
+        self._epoch = 0   # residency version (`affinity_epoch`)
+
+    @property
+    def affinity_epoch(self) -> int:
+        """Monotonic residency version: while it is unchanged every
+        `cache_affinity` answer is too, so the request scheduler reuses a
+        memoised score instead of rescanning L x E under the store lock."""
+        return self._epoch
 
     # -- layer indexing: moe layer l = g * len(moe_subs) + j ----------------
     def layer_to_gs(self, l: int) -> Tuple[int, int]:
@@ -575,6 +603,9 @@ class ExpertStore:
             policy.admit(e, w)
             pending.append((g, slot, e))
             self.stats.loads += 1
+        if pending:
+            # every residency change (load, eviction, tier move) plans an upload
+            self._epoch += 1
         return pending
 
     def _touch(self, g: int, s: int, e: int, slot: int, w: float) -> None:
@@ -1147,6 +1178,20 @@ class PrefetchPipeline:
     def cache_affinity(self, table: HashTable) -> float:
         """Affinity that credits in-flight prefetches, not only residency."""
         return self.store.cache_affinity(table, inflight=self.inflight())
+
+    @property
+    def affinity_epoch(self) -> Tuple[int, int]:
+        """Version key for memoising `cache_affinity`: the store's residency
+        epoch plus the upload counter (uploads retire the pending entries
+        that the in-flight credit reads)."""
+        return (self.store._epoch, self.stats.uploads)
+
+    def degraded_fraction(self) -> float:
+        """Share of transfer shards running the degraded synchronous commit,
+        which the request server's shed gate reads. The port's one-shard
+        pipeline has no degraded mode until its fault tolerance is ported
+        (ROADMAP A13(b)), so this is 0.0 by construction."""
+        return 0.0
 
     def submit(self, table: HashTable, protect: bool = True,
                priority: Optional[int] = None) -> Optional[PrefetchTicket]:

@@ -32,8 +32,10 @@ into expert slots (hot and warm) and K/V pages.
 The port writes pages into the pool in place (the reference returns updated
 copies). A page-in runs inline, or with `pipeline=` (a `PrefetchPipeline`)
 its H2D copy rides the transfer thread's queue and side stream and `sync`
-writes the arrived pages on the caller's stream after their fences; chunked
-prefill comes with ROADMAP A13. Bookkeeping is numpy, as in the reference;
+writes the arrived pages on the caller's stream after their fences. A long
+prompt streams into a lane's pages chunk by chunk
+(`transformer.prefill_chunk_step`, driven by the request server), with
+`prefill_chunk` tokens a chunk. Bookkeeping is numpy, as in the reference;
 the device copy of the table is refreshed only after it changed.
 """
 from __future__ import annotations
@@ -66,7 +68,7 @@ class PagedKVConfig:
 
     page_size: int = 16
     kv_pages: int = 64
-    prefill_chunk: int = 0  # chunked prefill: not ported (ROADMAP A13), must be 0
+    prefill_chunk: int = 0  # chunked prefill: tokens a chunk (0 = off)
     max_seq: int = 0        # 0 => kv_pages * page_size (everything resident)
 
     @property
@@ -89,6 +91,16 @@ class KVPoolStats:
     bytes_spilled: int = 0
     bytes_paged_in: int = 0
     fence_wait_s: float = 0.0   # `sync` time blocked on page-in fences
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "kv_pages_allocated": self.allocs,
+            "kv_page_spills": self.spills,
+            "kv_page_ins": self.page_ins,
+            "kv_bytes_spilled": self.bytes_spilled,
+            "kv_bytes_paged_in": self.bytes_paged_in,
+            "kv_fence_wait_s": self.fence_wait_s,
+        }
 
 
 def _page_write(pool: torch.Tensor, pid: int, data) -> None:
@@ -117,8 +129,6 @@ class KVPagePool:
         pipeline=None,
         device: DeviceLike = None,
     ):
-        if paged.prefill_chunk:
-            raise NotImplementedError("chunked paged prefill is ported in ROADMAP A13")
         if cfg.block_kind != "attn" or cfg.enc_dec:
             raise ValueError("paged K/V supports attention-family decoder-only archs")
         if paged.kv_pages < 1 or paged.page_size < 1:
@@ -431,9 +441,29 @@ class ResidencyManager:
     statically shaped, so arbitration is a byte split at construction
     (`split_budget`, in proportion to the α mass each class is predicted to
     absorb) plus spill pressure at run time, where both pools rank victims
-    by decayed α mass. Only the splitters are ported: the reference's
-    instance API over a live store and pool has no caller in this package
-    until the request server (ROADMAP A13)."""
+    by decayed α mass. The paged request server fronts its live store and
+    pool with one instance and reports its `summary`."""
+
+    def __init__(self, store, kv_pool: KVPagePool):
+        self.store = store
+        self.kv_pool = kv_pool
+
+    def device_bytes(self) -> int:
+        """Device bytes of both pools: expert slots, and K/V pages with the
+        trash page."""
+        return self.store.device_bytes() + self.kv_pool.capacity_bytes()
+
+    def resident_bytes(self) -> int:
+        """Bytes holding live data now: the expert slots and the resident
+        K/V pages."""
+        return self.store.device_bytes() + self.kv_pool.kv_pool_bytes()
+
+    def summary(self) -> Dict[str, float]:
+        out = dict(self.kv_pool.stats.summary())
+        out["kv_pool_bytes"] = self.kv_pool.kv_pool_bytes()
+        out["kv_capacity_bytes"] = self.kv_pool.capacity_bytes()
+        out["expert_device_bytes"] = self.store.device_bytes()
+        return out
 
     @staticmethod
     def split_budget(

@@ -8,9 +8,12 @@ reference's plain `_attend_chunk` (with `Q_CHUNK` query chunking and
 sliding-window banding) and `decode_attention_local`. `attend_decode_paged`
 is the same token over a shared page pool read through a page table
 (`core/residency.py`): the `flash_decode_paged` kernel on CUDA, the
-reference's gather and the plain path on the CPU. The mesh-sharded paths
-come with expert parallelism (ROADMAP A14), cross-attention with the
-encoder-decoder families (A15) and the chunked paged prefill with A13.
+reference's gather and the plain path on the CPU. `attend_prefill_chunk`
+advances one paged lane by a prompt chunk; the reference computes it in
+plain `jnp` (no Pallas kernel), so on every device it is the plain
+`_attend_chunk` over the gathered pages. The mesh-sharded paths come with
+expert parallelism (ROADMAP A14), cross-attention with the encoder-decoder
+families (A15).
 """
 from __future__ import annotations
 
@@ -79,6 +82,7 @@ def _attend_chunk(
     window: int,
     cap: float,
     causal: bool,
+    k_valid: Optional[torch.Tensor] = None,  # [S] extra key validity (paged gather)
 ) -> torch.Tensor:
     B, Tq, H, D = q.shape
     K = k.shape[2]
@@ -91,6 +95,8 @@ def _attend_chunk(
         mask &= q_pos[:, None] >= k_pos[None, :]
     if window:
         mask &= k_pos[None, :] > q_pos[:, None] - window
+    if k_valid is not None:
+        mask &= k_valid[None, :]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)   # bf16 rounding point
@@ -315,4 +321,52 @@ def attend_decode_paged(
         kg, vg, slot_pos = _paged_gather(kp, vp, page_table, pos, window)
         o = decode_attention(q, kg, vg, slot_pos, pos, window, cap)
     y = o.reshape(B, cfg.n_heads * cfg.hd).to(x_tok.dtype) @ params["wo"]
+    return y, kp, vp
+
+
+def attend_prefill_chunk(
+    params: dict,
+    x: torch.Tensor,            # [1, T, d] one lane's prompt chunk
+    kp: torch.Tensor,           # [P+1, page, K, D] shared page pool
+    vp: torch.Tensor,
+    page_table: torch.Tensor,   # [1, Mp] the lane's table row
+    pos0: torch.Tensor,         # [1] the chunk's first position
+    cfg: ModelConfig,
+    layer: int,
+):
+    """Chunked-prefill attention for one paged lane. Returns (y [1, T, d],
+    kp, vp), the pools written in place.
+
+    The chunk's K/V land at their absolute positions through the table
+    (allocation is position-ordered, so no two positions share a (page,
+    offset)); then its queries attend causally over the gathered pages.
+    When `max_seq` is not a multiple of the chunk, the last chunk's pad
+    tail reaches past the table: those positions, and unallocated entries,
+    are routed to the trash page explicitly (an out-of-range index raises
+    in torch where JAX clamps). Spilled out-of-window pages show up as -1
+    entries and are masked through `k_valid`; windowed layers gather only
+    the `window + T` positions the chunk can reach."""
+    B, T, _ = x.shape
+    page = kp.shape[1]
+    trash = kp.shape[0] - 1
+    Mp = page_table.shape[1]
+    window = cfg.layer_window(layer)
+    theta = cfg.attn.rope_theta
+    q_pos = pos0.long()[:, None] + torch.arange(T, device=x.device)[None, :]   # [1, T]
+    q = apply_rope(_project_q(params, x, cfg), q_pos, theta)
+    k_new, v_new = _project_kv(params, x, cfg)
+    k_new = apply_rope(k_new, q_pos, theta)
+    p = q_pos[0]                                                             # [T]
+    pidx = p // page
+    in_table = pidx < Mp
+    pid = page_table[0][torch.where(in_table, pidx, torch.zeros_like(pidx))].long()
+    pid = torch.where(in_table & (pid >= 0), pid, torch.full_like(pid, trash))
+    off = p % page
+    kp.index_put_((pid, off), k_new[0].to(kp.dtype))
+    vp.index_put_((pid, off), v_new[0].to(vp.dtype))
+    span = window + T if window else 0
+    kg, vg, slot_pos = _paged_gather(kp, vp, page_table, pos0 + T - 1, span)
+    out = _attend_chunk(q, kg, vg, p, slot_pos[0], window, cfg.attn.logit_softcap,
+                        causal=True, k_valid=slot_pos[0] >= 0)
+    y = out.reshape(B, T, cfg.n_heads * cfg.hd).to(x.dtype) @ params["wo"]
     return y, kp, vp

@@ -8,9 +8,10 @@ sublayer's params are stacked over the groups, as in the reference; its
 group axis of the params and of the cache. `init_paged_cache` and the paged
 branch of `decode_step` keep K/V in shared page pools read through a page
 table (`core/residency.py`). `verify_step` runs a speculative draft block
-and rolls the rejected positions back. Recurrent / hybrid blocks and
-encoder-decoder stacks are ported with the other families (ROADMAP A15),
-the chunked paged prefill with A13.
+and rolls the rejected positions back. `prefill_chunk_step` advances one
+paged lane through a prompt chunk (the request server's chunked prefill).
+Recurrent / hybrid blocks and encoder-decoder stacks are ported with the
+other families (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.models.attention import (
     attend_decode,
     attend_decode_paged,
     attend_full,
+    attend_prefill_chunk,
     init_attention,
 )
 from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
@@ -415,3 +417,66 @@ def verify_step(
     new_cache = dict(c)
     new_cache["pos"] = pos0 + n_acc
     return out, n_acc, torch.stack(logits), new_cache
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: advance one paged lane through a prompt chunk
+# ---------------------------------------------------------------------------
+
+
+def _apply_sublayer_chunk(bp, kv, x, pos0, page_table, cfg, sub, routing_override):
+    """`_apply_sublayer_full` for a [1, T] chunk that continues at absolute
+    position pos0 against the paged cache; `kv` is the group's (kp, vp)
+    pools, written in place."""
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    a, _, _ = attend_prefill_chunk(bp["attn"], h, kv[0], kv[1], page_table, pos0, cfg, sub)
+    if cfg.post_norm:
+        a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
+    x = x + a
+    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if sub_kind(cfg, sub)["moe"]:
+        y, _ = moe_layer(bp["moe"], h, cfg, routing_override=routing_override)
+    elif "mlp" in bp:
+        y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
+    else:
+        y = torch.zeros_like(h)
+    if cfg.post_norm:
+        y = rmsnorm(bp["ln2_post"], y, cfg.norm_eps)
+    return x + y
+
+
+def prefill_chunk_step(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,      # [1, T] one chunk of one lane's prompt
+    cfg: ModelConfig,
+    routing_override=None,     # (ids [L_moe, 1, T, k], w) as the full forward takes
+):
+    """Advance one paged lane through a prompt chunk: the full forward's
+    math over [1, T] at absolute positions pos0 .. pos0 + T - 1, writing K/V
+    through the page table in place as it goes. `cache` holds the lane's
+    `pos` [1] and `page_table` [1, Mp] rows and the shared pools. Returns
+    (logits [1, T, V], the cache with pos advanced by T). The caller
+    interleaves these steps with decode ticks and makes the chunk's
+    attention span resident first (`KVPagePool.ensure`)."""
+    _check_supported(cfg)
+    per = period(cfg)
+    moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
+    pos0 = cache["pos"]
+    page_table = cache["page_table"]
+    x = embed_tokens(params, cfg, tokens)
+    for g in range(cfg.n_layers // per):
+        gp = tree_map(lambda t: t[g], params["blocks"])
+        for s in range(per):
+            ro = None
+            if routing_override is not None and s in moe_subs:
+                li = g * len(moe_subs) + moe_subs.index(s)
+                ro = (routing_override[0][li], routing_override[1][li])
+            entry = cache[f"sub{s}"]
+            x = _apply_sublayer_chunk(gp[f"sub{s}"], (entry["kp"][g], entry["vp"][g]), x, pos0,
+                                      page_table, cfg, s, ro)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params, cfg, x)
+    new_cache = dict(cache)
+    new_cache["pos"] = pos0 + tokens.shape[1]
+    return logits, new_cache

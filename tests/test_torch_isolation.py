@@ -48,7 +48,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.launch.serve", "repro_torch.kernels.ops",
         "repro_torch.kernels.flash_decode", "repro_torch.kernels.expert_gemm",
         "repro_torch.core.residency", "repro_torch.core.baselines",
-        "repro_torch.data.synthetic",
+        "repro_torch.data.synthetic", "repro_torch.serving", "repro_torch.serving.server",
+        "repro_torch.serving.config", "repro_torch.serving.scheduler",
+        "repro_torch.core.faults",
     ]
     code = (
         "import sys\n"
@@ -64,7 +66,9 @@ def test_port_sources_cover_the_decode_slice():
     names = {os.path.relpath(p, PORT) for p in _port_sources()}
     for mod in ("core/decode_engine.py", "kernels/flash_decode.py", "kernels/expert_gemm.py",
                 "core/offload.py", "models/attention.py", "core/baselines.py",
-                "data/synthetic.py"):
+                "data/synthetic.py", "serving/server.py", "serving/config.py",
+                "serving/scheduler.py", "serving/request.py", "serving/telemetry.py",
+                "core/faults.py"):
         assert mod in names, mod
 
 

@@ -203,8 +203,9 @@ def test_pool_full_attention_overcommit_asserts(tiny):
         pt.ensure(ct, 0, 12)
     with pytest.raises(ValueError, match="addressable range"):
         pt.ensure(ct, 0, 33)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tr.KVPagePool(tiny[1], tr.PagedKVConfig(prefill_chunk=8), 1, device="cpu")
+    # the chunked paged prefill is ported: a chunk size builds the reference's pool
+    (pj8, _), (pt8, _) = _pools(tiny, 1, prefill_chunk=8)
+    assert (pt8.Mp, pt8.n_pages, pt8.paged.prefill_chunk) == (pj8.Mp, pj8.n_pages, 8)
 
 
 # ---------------------------------------------------------------------------
