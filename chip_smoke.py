@@ -89,10 +89,26 @@
    9c's `ResidencyManager.summary()`, and each kernel's launches. Gates:
    every request completes with its whole budget of in-vocab tokens and
    none is rejected, 9c's long prompt takes 6 chunks and completes, each
-   run's kernels launch, all seven kernels over 9a-9d. (e) card vs CPU, fp32,
+   run's kernels launch, all seven kernels over 9a-9d, and no run counts a
+   retry, failure, crash, job error or sync fallback. (e) card vs CPU, fp32,
    2 layers at full width, capacity_factor 100, pre-admitted: 9a's, 9c's
    (a 768-token prompt in 3 chunks) and 9d's setups give every request the
-   same tokens and the store the same counters on the card and the CPU.
+   same tokens and the store the same counters on the card and the CPU;
+   9b's async server under a seeded upload:fail,p=0.2 plan gives the tokens
+   of its fault-free run on the card and on the CPU; 9a's server with two
+   tenants under WFQ gives the same tokens and completed counts per tenant.
+9f. The server under faults (after 9d, full width and depth, bf16): 9b,
+   9c through the pipeline, and 9b under thread crashes, each serving
+   phase 9's 24 requests pre-admitted and closed loop (prefill batches in
+   arrival order), fault-free and then under a seeded plan; gates: every
+   request completes, the fault-free run counts no supervision event, the
+   planned counters are non-zero, the bf16 runs' tokens equal the
+   fault-free run's, resident slots hold their masters, the kernels launch.
+9g. Two tenants under WFQ on 9a's server (light: 16 Poisson requests at 4
+   req/s, SLO 20 s; heavy: 48 at t = 0 with a 0.25 pin quota): light alone,
+   beside heavy under WFQ, and with no tenants; gates: every light request
+   completes, heavy's pinned share is 0.25, one pin refusal a MoE layer;
+   the light tenant's SLO attainment is printed.
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -1748,6 +1764,7 @@ def server_path(cfg, params, hp, runs, ms_5a: float):
                   f"{srv.residency.device_bytes()} resident_bytes={srv.residency.resident_bytes()}")
         print(f"    launches {json.dumps(counts)}")
         check_served(srv, reqs, cfg, name)
+        check_fault_free(srv, name)
         need = -(-reqs[-1].prompt_len // kw["paged"].prefill_chunk) if long_len else 0
         if long_len and (s["prefill_chunks"] != need or s["long_prefills_completed"] != 1):
             raise SystemExit(f"chip_smoke: server {name}: the long prompt took "
@@ -1809,6 +1826,321 @@ def server_card_vs_cpu(cfg, slots: int, tier_slots: int, K: int, cache_len: int)
               f"evictions={sc[2]} promotions={sc[3]}")
         if not all(same):
             raise SystemExit(f"chip_smoke: card and CPU disagree on the server {name} path")
+
+
+# ---------------------------------------------------------------------------
+# phases 9f and 9g: the server under faults, and two tenants under WFQ
+# ---------------------------------------------------------------------------
+
+SUPERVISION = ("upload_retries", "upload_failures", "thread_crashes", "sync_fallbacks")
+# the fault plans' seed: its upload schedule fails the 2nd and 3rd operations
+# (with one retry, the second upload batch is abandoned) and 7 of the first
+# 20, so a run that uploads little still meets the faults it gates on
+FAULT_SEED = 9
+
+
+def check_fault_free(srv, name: str) -> None:
+    """A fault-free run leaves retries, abandoned batches, thread crashes,
+    synchronous fallbacks and callable-job errors at 0 (retry and degrade
+    would otherwise absorb a bug in the transfer path)."""
+    s = srv.summary()
+    counts = {k: s[k] for k in SUPERVISION}
+    counts["job_errors"] = srv.telemetry.counter("prefetch_job_errors").value
+    bad = {k: v for k, v in counts.items() if v}
+    if bad:
+        raise SystemExit(f"chip_smoke: the fault-free server {name} counted {bad}")
+
+
+def serve_pre_admitted(srv, reqs) -> None:
+    """Admit every request before the loop starts (tables built on this
+    thread, no warming submits) and order prefill batches by arrival alone,
+    not by cache affinity: one schedule, whatever the transfer thread's
+    timing or a fault does to residency, so two runs hold token for token."""
+    srv.scheduler.use_affinity = False
+    try:
+        for r in reqs:
+            r.table = srv.engine.build_table(r.rid, r.prompt[None, :])
+            srv.admit(r, 0.0)
+        srv.run([], realtime=False)
+    finally:
+        srv.close()
+
+
+def fault_runs(cfg, slots: int, tier_slots: int, K: int, cache_len: int):
+    """Phase 9f's setups: (name, RequestServer kwargs, fault plan, long
+    prompt length, kernels of the path, whether the faulted run's tokens
+    must equal the fault-free run's). (i) 9b, (ii) 9c through the async
+    pipeline, (iii) 9b under thread crashes past `max_thread_restarts` (3).
+    (ii) spills no K/V page: at its peak every resident page is pinned by a
+    tick, so a pool small enough to spill is exhausted instead. Its tokens
+    are held only up to the first forward whose tier placement differs: an
+    abandoned batch is rolled back and its experts replanned when a tick
+    consumes them, under that tick's protections, so one can land in the
+    other tier (int8 where the fault-free run had int4, or the reverse),
+    and the tokens that follow may differ (ROADMAP §C, C13)."""
+    runs = {name: (kw, long_len) for name, kw, long_len in
+            server_runs(cfg, slots, tier_slots, K, cache_len)}
+    kw_c, long_len = runs["9c"]
+    kw_c = dict(kw_c, prefetch_depth=2, staging_buffers=2)
+    return (("i", runs["9b"][0], "upload:fail,p=0.2", 0, SERVER_KERNELS["9b"], True),
+            ("ii", kw_c, "upload:fail,p=0.2;host_read:fail,p=0.1", long_len,
+             SERVER_KERNELS["9c"], False),
+            ("iii", runs["9b"][0], "thread:crash@1x4", 0, SERVER_KERNELS["9b"], True))
+
+
+def server_faults_path(cfg, params, hp, runs):
+    """Phase 9f: each setup of `fault_runs` serves phase 9's 24 requests
+    (seed 0, prompts 16-256, 8-64 new tokens) pre-admitted and closed loop,
+    fault-free and then under its seeded plan (`FAULT_SEED`), with one retry an
+    upload batch (`cfg.prefetch.max_retries=1`) so that abandoned batches
+    happen, and capacity_factor 100, as the reference's chaos test sets it:
+    a token routed to an expert that missed residency takes a capacity row
+    of slot 0 at weight 0, so where capacity binds, the expert a replan
+    puts in slot 0 decides whose tokens overflow. Gates: every request
+    completes, none rejected; on the bf16 slots of (i) and (iii) the
+    faulted run's tokens equal the fault-free run's, request by request;
+    on (ii)'s tiers every forward's predicted experts equal the fault-free
+    run's until the first forward whose tier placement differs; the
+    fault-free run counts no retry, failure, crash, job error or sync
+    fallback; the planned counters are non-zero (retries and poisoned
+    fences in (i) and (ii); crashes, a degraded shard and a watchdog revive
+    in (iii)); the resident slots hold their masters; every kernel of the
+    path launches in the faulted run."""
+    import numpy as np
+
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RequestServer
+
+    cfg_f = dataclasses.replace(cfg, prefetch=dataclasses.replace(cfg.prefetch, max_retries=1),
+                                moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+    keys = ("completed", "throughput_tok_s", "decode_tok_s", "upload_retries",
+            "upload_failures", "poisoned_fences", "thread_crashes", "thread_restarts",
+            "sync_fallbacks", "degraded_shards", "watchdog_revives", "fence_timeouts")
+    for name, kw, plan_text, long_len, kernels, held in runs:
+        out = {}
+        for plan in (None, FaultPlan.parse(plan_text, seed=FAULT_SEED)):
+            reqs = server_requests(cfg, 24, 8.0, (16, 256), (8, 64), long_len)
+            srv = RequestServer(cfg_f, params, hp, device="cuda", faults=plan, **kw)
+            seen = {"degraded": 0}
+            watchdog = srv.prefetch.watchdog
+
+            def watch(*a, srv=srv, seen=seen, watchdog=watchdog):
+                seen["degraded"] = max(seen["degraded"], srv.prefetch.stats.degraded)
+                return watchdog(*a)
+
+            srv.prefetch.watchdog = watch
+            # each forward's predicted experts and the tier (8 hot, 4 warm, 0
+            # unrouted) each of them is served from
+            forwards = []
+            translate = srv.store.translate
+
+            def spy(table, trans, srv=srv, forwards=forwards, translate=translate):
+                slot_ids, w = translate(table, trans)
+                tiers = np.where(slot_ids >= srv.store.S8, 4, 8) * (w > 0)
+                forwards.append((table.expert_ids.copy(), tiers))
+                return slot_ids, w
+
+            srv.store.translate = spy
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            serve_pre_admitted(srv, reqs)
+            counts = ops.launches()
+            check_served(srv, reqs, cfg, f"9f({name})")
+            n_slots = resident_equals_host(srv.store)
+            s = srv.summary()
+            tag = "faulted" if plan is not None else "fault-free"
+            print(f"  (9f {name}) {tag} plan={plan_text if plan else None} "
+                  f"wall_s={time.perf_counter() - t0:.3f} " + " ".join(
+                      f"{k}={s[k]:.4f}" for k in keys)
+                  + f" degraded_seen={seen['degraded']} job_errors="
+                  f"{srv.telemetry.counter('prefetch_job_errors').value:.0f} "
+                  f"resident_slots_checked={n_slots}")
+            if plan is not None:
+                print(f"    faults {json.dumps(plan.summary())} store loads={srv.store.stats.loads} "
+                      f"bytes_h2d={srv.store.stats.bytes_h2d}")
+                if srv.residency is not None:
+                    print(f"    residency {json.dumps(srv.residency.summary())}")
+                print(f"    launches {json.dumps(counts)}")
+                idle = [k for k in kernels if counts[k] == 0]
+                if idle:
+                    raise SystemExit(f"chip_smoke: kernels never launched on the faulted server "
+                                     f"9f({name}): {idle}")
+            else:
+                check_fault_free(srv, f"9f({name})")
+            out[tag] = ({r.rid: list(r.generated) for r in srv.completed}, s, seen["degraded"],
+                        forwards)
+            del srv
+        (clean, s0, _, fw0), (toks, s1, degraded, fw1) = out["fault-free"], out["faulted"]
+        same = sum(clean[rid] == toks.get(rid) for rid in clean)
+        ratio = s1["throughput_tok_s"] / max(s0["throughput_tok_s"], 1e-9)
+        first = lambda differ: next((i for i, (a, b) in enumerate(zip(fw0, fw1)) if differ(a, b)),
+                                    None)
+        ids_at = first(lambda a, b: a[0].shape != b[0].shape or (a[0] != b[0]).any())
+        tier_at = first(lambda a, b: a[1].shape != b[1].shape or (a[1] != b[1]).any())
+        print(f"    9f({name}): requests with the fault-free tokens {same} of {len(clean)} "
+              f"({'need all' if held else 'held up to the first change of tier placement'}); "
+              f"forwards {len(fw0)} / {len(fw1)}, first with other predicted experts {ids_at}, "
+              f"first with other tier placement {tier_at}; chaos_throughput_ratio={ratio:.4f}")
+        if held and toks != clean:
+            raise SystemExit(f"chip_smoke: 9f({name}): faults changed the tokens of "
+                             f"{len(clean) - same} requests")
+        if len(fw0) != len(fw1) or (ids_at is not None and (tier_at is None or tier_at >= ids_at)):
+            raise SystemExit(f"chip_smoke: 9f({name}): the faulted run's forwards left the "
+                             f"fault-free run's before any change of tier placement")
+        if name == "iii":
+            need = {"thread_crashes": s1["thread_crashes"] >= 4, "degraded_seen": degraded > 0,
+                    "watchdog_revives": s1["watchdog_revives"] >= 1}
+        else:
+            need = {"upload_retries": s1["upload_retries"] > 0,
+                    "poisoned_fences": s1["poisoned_fences"] > 0}
+        if not all(need.values()):
+            raise SystemExit(f"chip_smoke: 9f({name}): planned counters not reached {need}")
+
+
+def tenant_requests(cfg):
+    """Phase 9g's traffic, shaped like the reference's multitenant probe: a
+    light tenant's 16 Poisson requests at 4 req/s and a heavy tenant's 48
+    that all arrive at t = 0; prompts 16-128, 8-32 new tokens, SLO 20 s."""
+    import numpy as np
+
+    from repro_torch.serving import poisson_requests
+
+    light = poisson_requests(np.random.default_rng(0), 16, rate_rps=4.0,
+                             vocab_size=cfg.vocab_size, prompt_len_range=(16, 128),
+                             max_new_range=(8, 32), slo_s=20.0, tenant="light")
+    heavy = poisson_requests(np.random.default_rng(1), 48, rate_rps=1e6,
+                             vocab_size=cfg.vocab_size, prompt_len_range=(16, 128),
+                             max_new_range=(8, 32), slo_s=20.0, tenant="heavy", rid_base=1000)
+    for r in heavy:
+        r.arrival_s = 0.0
+    return light, heavy
+
+
+def tenants_path(cfg, params, hp, slots: int, cache_len: int):
+    """Phase 9g: 9a's server (4 bf16 slots, a ring) serves the light tenant
+    alone, light + heavy under WFQ (weight 1 each, heavy's pin quota 0.25,
+    two experts a MoE layer pinned under heavy's name first), and light +
+    heavy with no tenants, in real time. Gates: every light request
+    completes in each run; heavy's pinned share is 0.25 (1 of 4 slots);
+    the quota refuses one pin a MoE layer; the fault-free counters stay 0;
+    the path's kernels launch. Prints the light tenant's SLO attainment in
+    each run and WFQ's over solo's (not gated)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RequestServer, TenantConfig
+
+    light_cfg = TenantConfig("light", weight=1.0)
+    heavy_cfg = TenantConfig("heavy", weight=1.0, pin_quota=0.25)
+    att = {}
+    for run, tenants in (("solo", (light_cfg,)), ("wfq", (light_cfg, heavy_cfg)), ("flat", ())):
+        light, heavy = tenant_requests(cfg)
+        reqs = light if run == "solo" else light + heavy
+        srv = RequestServer(cfg, params, hp, device="cuda", slots_per_layer=slots, max_lanes=8,
+                            max_prefill_batch=8, buckets=SERVER_BUCKETS, cache_len=cache_len,
+                            tenants=tenants)
+        pins = None
+        if run == "wfq":
+            pins = [srv.store.pin_experts(l, [0, 1], tenant="heavy") for l in range(srv.L)]
+        ops.reset_launches()
+        try:
+            srv.run(reqs, realtime=True)
+        finally:
+            srv.close()
+        counts = ops.launches()
+        check_fault_free(srv, f"9g({run})")
+        done = {r.rid: r for r in srv.completed}
+        lost = [r.rid for r in light if r.rid not in done]
+        ok = sum(1 for r in light if r.rid in done and done[r.rid].latency_s <= r.slo_s)
+        att[run] = ok / len(light)
+        s = srv.summary()
+        print(f"  (9g {run}) requests={len(reqs)} completed={s['completed']:.0f} "
+              f"rejected={s['rejected']:.0f} wall_s={srv.telemetry.wall_s():.3f} "
+              f"throughput_tok_s={s['throughput_tok_s']:.4f} light_slo_attainment={att[run]:.4f} "
+              f"light_max_latency_s={max((done[r.rid].latency_s for r in light if r.rid in done), default=0.0):.3f}")
+        for tname, blk in srv.tenant_summary().items():
+            print(f"    tenant {tname} " + " ".join(f"{k}={v:.4f}" for k, v in blk.items()))
+        print(f"    launches {json.dumps(counts)}")
+        if lost or srv.rejected:
+            raise SystemExit(f"chip_smoke: 9g({run}): light requests not completed {lost}, "
+                             f"rejected {[r.rid for r in srv.rejected]}")
+        idle = [k for k in SERVER_KERNELS["9a"] if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on 9g({run}): {idle}")
+        if run == "wfq":
+            share = srv.store.pinned_share("heavy")
+            refusals = srv.store.stats.pin_quota_refusals
+            print(f"    heavy pinned_share={share:.4f} (need 0.25) pin_quota_refusals={refusals} "
+                  f"(need {srv.L}, one a MoE layer) granted={[sorted(p) for p in pins]}")
+            if share != 0.25 or refusals != srv.L:
+                raise SystemExit("chip_smoke: 9g: heavy's pin quota did not hold")
+    print(f"    light SLO attainment solo={att['solo']:.4f} wfq={att['wfq']:.4f} "
+          f"unprotected={att['flat']:.4f} attainment_ratio={att['wfq'] / max(att['solo'], 1e-9):.4f} "
+          f"(the reference's bar 0.9 was set on the CPU; not gated)")
+
+
+def server_faults_card_vs_cpu(cfg, slots: int, cache_len: int):
+    """Phase 9e, continued (fp32, 2 layers at full width, capacity_factor
+    100, pre-admitted): 9b's async server under a seeded upload:fail,p=0.2
+    plan on the card and the CPU, and fault-free on the card, gives every
+    request the same tokens; 9a's server with two tenants under WFQ gives
+    every request the same tokens and each tenant the same completed count
+    on the card and the CPU. Store counters under a fault plan depend on
+    the thread's timing: printed, not gated."""
+    import numpy as np
+
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.serving import RequestServer, TenantConfig, poisson_requests
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+    params, hp = seeded_model(cfg2)
+    ring = dict(max_lanes=8, max_prefill_batch=8, buckets=SERVER_BUCKETS, cache_len=cache_len,
+                slots_per_layer=slots)
+    got = {}
+    for dev, plan in (("cuda", None), ("cuda", "upload:fail,p=0.2"), ("cpu", "upload:fail,p=0.2")):
+        reqs = server_requests(cfg2, 8, 1e6, (16, 200), (4, 16), seed=1)
+        faults = FaultPlan.parse(plan, seed=FAULT_SEED) if plan else None
+        srv = RequestServer(cfg2, params, hp, device=dev, prefetch_depth=2, staging_buffers=2,
+                            faults=faults, **ring)
+        serve_pre_admitted(srv, reqs)
+        check_served(srv, reqs, cfg2, f"9e async on {dev}")
+        s, st = srv.summary(), srv.store.stats
+        got[(dev, plan)] = {r.rid: r.generated for r in srv.completed}
+        print(f"  (9e async {dev} plan={plan}) fp32 n_layers=2 requests={len(reqs)} "
+              f"retries={s['upload_retries']:.0f} failures={s['upload_failures']:.0f} "
+              f"poisoned={s['poisoned_fences']:.0f} sync_fallbacks={s['sync_fallbacks']:.0f} "
+              f"loads={st.loads} evictions={st.evictions} bytes_h2d={st.bytes_h2d}")
+    clean = got[("cuda", None)]
+    same = [got[("cuda", "upload:fail,p=0.2")] == clean, got[("cpu", "upload:fail,p=0.2")] == clean]
+    print(f"    tokens of every request: faulted card = fault-free card, faulted CPU = "
+          f"fault-free card: {same} (need all True)")
+    if not all(same):
+        raise SystemExit("chip_smoke: 9e: the async server under faults disagrees")
+    tenants = (TenantConfig("a", weight=2.0, pin_quota=0.5), TenantConfig("b", weight=1.0))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        reqs = []
+        for i, name in enumerate(("a", "b")):
+            reqs += poisson_requests(np.random.default_rng(i + 1), 6, rate_rps=1e6,
+                                     vocab_size=cfg2.vocab_size, prompt_len_range=(16, 200),
+                                     max_new_range=(4, 16), tenant=name, rid_base=100 * i)
+        srv = RequestServer(cfg2, params, hp, device=dev, tenants=tenants, **ring)
+        try:
+            for r in reqs:
+                srv.build_request_table(r)
+                srv.admit(r, 0.0)
+            srv.run([], realtime=False)
+        finally:
+            srv.close()
+        check_served(srv, reqs, cfg2, f"9e tenants on {dev}")
+        got[dev] = ({r.rid: r.generated for r in srv.completed},
+                    {n: b["completed"] for n, b in srv.tenant_summary().items()})
+    same = [got["cuda"][0] == got["cpu"][0], got["cuda"][1] == got["cpu"][1]]
+    print(f"  (9e tenants) fp32 n_layers=2 requests={len(got['cuda'][0])} completed per tenant "
+          f"{got['cuda'][1]}: tokens of every request, completed per tenant identical on card "
+          f"and CPU = {same} (need all True)")
+    if not all(same):
+        raise SystemExit("chip_smoke: 9e: the two-tenant server disagrees between card and CPU")
 
 
 def main() -> int:
@@ -1890,6 +2222,16 @@ def main() -> int:
           f"[{time.perf_counter() - t_start:.1f} s]")
     svcounts = server_path(cfg, params, hp, server_runs(cfg, slots, tier_slots, spec_k, cache_len),
                            dms["bf16"])
+    print(f"== phase 9f: request server under faults (switch-base-8 full width and depth, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    t0 = time.perf_counter()
+    server_faults_path(cfg, params, hp, fault_runs(cfg, slots, tier_slots, spec_k, cache_len))
+    print(f"  phase 9f took {time.perf_counter() - t0:.1f} s")
+    print(f"== phase 9g: two tenants under WFQ (switch-base-8 full width and depth, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    t0 = time.perf_counter()
+    tenants_path(cfg, params, hp, slots, cache_len)
+    print(f"  phase 9g took {time.perf_counter() - t0:.1f} s")
     del params
 
     print(f"== phase 6: decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
@@ -1903,6 +2245,9 @@ def main() -> int:
     async_card_vs_cpu(cfg, batches[:2], slots, lanes)
     print(f"== phase 9e: request server card vs CPU [{time.perf_counter() - t_start:.1f} s]")
     server_card_vs_cpu(cfg, slots, tier_slots, spec_k, cache_len)
+    t0 = time.perf_counter()
+    server_faults_card_vs_cpu(cfg, slots, cache_len)
+    print(f"  phase 9e under faults and tenants took {time.perf_counter() - t0:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {

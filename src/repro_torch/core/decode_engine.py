@@ -115,6 +115,66 @@ def hash_fn_step(params: dict, emb_tok: torch.Tensor, state: dict, num_experts: 
     return logits, new_state
 
 
+def hash_fn_prefill(params: dict, emb: torch.Tensor, lengths, state0: Optional[dict] = None
+                    ) -> dict:
+    """The state `hash_fn_step` reaches over each row of a padded prompt
+    block, each row frozen at its own length, without what the state does
+    not need: no attention, no sparsemax, no heads. emb: [n, Sb, d_model];
+    `lengths` [n] host ints; `state0` (default zeros) is continued, ring
+    and step counter included.
+
+    The compress and the first LSTM's input product (with its bias) run
+    for every position at once; the recurrence then runs position by
+    position up to the longest row (each cell's gates from two `addmm`s at
+    most, then one sigmoid over all four), and each row's state is read at
+    its last position. The ring keeps each row's last (at most
+    HISTORY) outputs at slots (t0 + j) % HISTORY, and t advances by the
+    row's length. Sums are associated differently from `hash_fn_step`'s,
+    so the state agrees with it to rounding, not bit for bit."""
+    lengths = np.asarray(lengths, np.int64)
+    n = emb.shape[0]
+    state = state0 if state0 is not None else hash_state_init(params, n)
+    S = int(lengths.max()) if n else 0
+    if S == 0:
+        return dict(state)
+    dev = state["h1"].device
+    p1, p2 = params["lstm1"], params["lstm2"]
+    x = torch.tanh(emb[:, :S].float() @ params["compress"])            # [n, S, d_h]
+    xw1 = x @ p1["wx"] + p1["b"]                                      # [n, S, 4 d_h]
+    d_h = x.shape[-1]
+
+    def cell(g, c):                                                   # gates i, f, g, o
+        sg = torch.sigmoid(g)
+        c = torch.addcmul(sg[:, d_h:2 * d_h] * c, sg[:, :d_h], torch.tanh(g[:, 2 * d_h:3 * d_h]))
+        return sg[:, 3 * d_h:] * torch.tanh(c), c
+
+    h1, c1, h2, c2 = state["h1"], state["c1"], state["h2"], state["c2"]
+    outs = {"h1": [], "c1": [], "h2": [], "c2": []}
+    for j in range(S):
+        h1, c1 = cell(torch.addmm(xw1[:, j], h1, p1["wh"]), c1)
+        h2, c2 = cell(torch.addmm(torch.addmm(p2["b"], h1, p2["wx"]), h2, p2["wh"]), c2)
+        for name, v in (("h1", h1), ("c1", c1), ("h2", h2), ("c2", c2)):
+            outs[name].append(v)
+    seq = {name: torch.stack(v, dim=1) for name, v in outs.items()}   # [n, S, d_h]
+    lens = torch.as_tensor(lengths, device=dev)
+    last = (lens - 1).clamp(min=0)
+    rows = torch.arange(n, device=dev)
+    started = (lens > 0)[:, None]
+    new = {name: torch.where(started, v[rows, last], state[name]) for name, v in seq.items()}
+    # ring: slot (t0 + j) % HISTORY for each row's last <= HISTORY valid
+    # positions; every other position writes a trash slot HISTORY
+    t0 = state["t"]
+    jj = torch.arange(S, device=dev)
+    dest = (t0.long()[:, None] + jj[None, :]) % HISTORY
+    keep = (jj[None, :] < lens[:, None]) & (jj[None, :] >= lens[:, None] - HISTORY)
+    dest = torch.where(keep, dest, torch.full_like(dest, HISTORY))
+    ring = torch.cat([state["ring"], state["ring"][:, :1]], dim=1)     # [n, HISTORY + 1, d_h]
+    ring = ring.scatter(1, dest[:, :, None].expand(-1, -1, ring.shape[-1]), seq["h2"])
+    new["ring"] = ring[:, :HISTORY]
+    new["t"] = t0 + lens.to(t0.dtype)
+    return new
+
+
 # ---------------------------------------------------------------------------
 # speculative draft unroll
 # ---------------------------------------------------------------------------

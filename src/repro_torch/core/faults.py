@@ -1,8 +1,7 @@
 """Deterministic, seeded fault injection for the serving stack (a copy of
 `repro/core/faults.py`, which is framework-free; the port imports nothing
-of `repro`). The port parses and validates plans; its prefetch pipeline and
-request server refuse one until the pipeline's fault tolerance is ported
-(ROADMAP A13(b)).
+of `repro`). The port's prefetch pipeline and request server inject at the
+reference's sites.
 
 The async pipeline (hash-ahead prediction -> prefetch upload -> fenced
 decode) has exactly four places a production deployment sees fail: the H2D

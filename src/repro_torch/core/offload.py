@@ -31,10 +31,18 @@ ready fences (see the class). The pools are written in place on either
 stream, so every write waits on the CUDA event of the slot's previous
 write, and every reader on the events of the slots it reads.
 
-One shard, no replicas, no fault injection: expert-parallel shards and the
-per-shard queues are ROADMAP A14, and the pipeline's fault tolerance (retry,
-fence poisoning and rollback, degraded sync commit, thread restart,
-watchdog) is A13. The slot bookkeeping is the reference's, so the same
+The pipeline is supervised as the reference's is: an upload batch that
+fails is retried with bounded backoff, then abandoned (its slots rolled back
+to the free lists and its fences poisoned, so waiters replan), repeated
+abandonments degrade the shard to synchronous commits, a crashed transfer
+thread restarts in place, and one that crashes too often is revived by the
+`watchdog`. A `FaultPlan` (`faults=`) injects failures at the reference's
+sites. A CUDA error is never retried: it is kept and re-raised to the
+consumers.
+
+One shard and no replicas: expert-parallel shards and their per-shard
+queues are ROADMAP A14 (the supervision state is already kept a shard, as
+lists of length one). The slot bookkeeping is the reference's, so the same
 table stream gives the same resident sets, tier moves, evictions, hits,
 translations and byte counts.
 """
@@ -207,11 +215,13 @@ class TransferStats:
     prepare_time: float = 0.0      # synchronous upload time inside the forward path
     promotions: int = 0            # warm (int4) -> hot (int8) tier moves
     demotions: int = 0             # hot (int8) -> warm (int4) tier moves
+    pin_quota_refusals: int = 0    # tenant pins refused at the quota cap
 
     def reset(self):
         self.bytes_h2d = self.loads = self.evictions = self.hits = self.dropped = 0
         self.prepare_time = 0.0
         self.promotions = self.demotions = 0
+        self.pin_quota_refusals = 0
 
 
 def nbytes(t: torch.Tensor) -> int:
@@ -454,6 +464,11 @@ class ExpertStore:
                 self.free4[(g, s)] = list(range(self.S8, self.S8 + self.S4))
                 self.pinned[(g, s)] = set()
                 self.alpha_ema[(g, s)] = np.zeros((self.E,), np.float64)
+        # tenant pins: (group, sub) -> expert -> owning tenant, and each
+        # tenant's cap as a share of a layer's slots (`set_pin_quota`)
+        self.pin_owner: Dict[Tuple[int, int], Dict[int, str]] = {
+            gs: {} for gs in self.resident}
+        self.pin_quota: Dict[str, float] = {}
         self._lock = threading.RLock()
         self._prefetcher: Optional["PrefetchPipeline"] = None
         self._epoch = 0   # residency version (`affinity_epoch`)
@@ -518,20 +533,73 @@ class ExpertStore:
         return sum(nbytes(a) for sub in self.host.values() for a in sub.values())
 
     # ------------------------------------------------------------------
-    def pin_experts(self, l: int, experts) -> Set[int]:
-        """Mark experts at MoE layer `l` as never-evictable. They still load
-        through the normal prepare path; they just cannot be victims."""
-        g, s = self.layer_to_gs(l)
-        with self._lock:
-            new = {int(e) for e in experts}
-            self.pinned[(g, s)].update(new)
-            return new
+    def set_pin_quota(self, tenant: str, frac: float) -> None:
+        """Cap `tenant`'s pinned share: at most `floor(frac x S)` of each
+        layer's S slots may be pinned under its name (the request server
+        registers `TenantConfig.pin_quota` here)."""
+        if not (0.0 < frac <= 1.0):
+            raise ValueError(f"pin quota for {tenant!r} must be in (0, 1]")
+        self.pin_quota[tenant] = float(frac)
 
-    def unpin_experts(self, l: int, experts) -> None:
+    def pin_cap(self, tenant: str) -> int:
+        """Per-layer pinned-slot cap for `tenant` (S slots when no quota)."""
+        return int(self.pin_quota.get(tenant, 1.0) * self.S)
+
+    def pinned_count(self, l: int, tenant: str) -> int:
+        return sum(1 for t in self.pin_owner[self.layer_to_gs(l)].values() if t == tenant)
+
+    def pinned_share(self, tenant: str) -> float:
+        """Largest fraction of any layer's slots pinned by `tenant`: the
+        quantity the quota bounds."""
+        if self.S <= 0:
+            return 0.0
+        worst = max((sum(1 for t in owners.values() if t == tenant)
+                     for owners in self.pin_owner.values()), default=0)
+        return worst / self.S
+
+    def pin_experts(self, l: int, experts, tenant: Optional[str] = None) -> Set[int]:
+        """Mark experts at MoE layer `l` as never-evictable. They still load
+        through the normal prepare path; they just cannot be victims.
+
+        With `tenant`, each pin is attributed to it and counted against its
+        `set_pin_quota` cap: pins past `floor(quota x S)` a layer, and pins
+        of an expert someone else pinned, are refused (skipped and counted
+        in `stats.pin_quota_refusals`). Returns the experts pinned by this
+        call; tenant-less pins are unattributed and uncapped."""
         g, s = self.layer_to_gs(l)
         with self._lock:
-            for e in experts:
-                self.pinned[(g, s)].discard(int(e))
+            pool = self.pinned[(g, s)]
+            if tenant is None:
+                new = {int(e) for e in experts}
+                pool.update(new)
+                return new
+            owners = self.pin_owner[(g, s)]
+            cap = self.pin_cap(tenant)
+            held = sum(1 for t in owners.values() if t == tenant)
+            granted: Set[int] = set()
+            for e in sorted(int(x) for x in experts):
+                if owners.get(e) == tenant:
+                    granted.add(e)      # re-pinning one's own expert is free
+                    continue
+                if e in pool or held >= cap:
+                    self.stats.pin_quota_refusals += 1
+                    continue
+                pool.add(e)
+                owners[e] = tenant
+                held += 1
+                granted.add(e)
+            return granted
+
+    def unpin_experts(self, l: int, experts, tenant: Optional[str] = None) -> None:
+        """Release pins; with `tenant`, only that tenant's own."""
+        g, s = self.layer_to_gs(l)
+        with self._lock:
+            owners = self.pin_owner[(g, s)]
+            for e in (int(x) for x in experts):
+                if tenant is not None and owners.get(e) != tenant:
+                    continue
+                self.pinned[(g, s)].discard(e)
+                owners.pop(e, None)
 
     def plan_layer(
         self, l: int, needed: np.ndarray, mass: Optional[np.ndarray] = None,
@@ -742,6 +810,24 @@ class ExpertStore:
                 pool = moe_p[key]
                 pool.view(-1, *pool.shape[2:]).index_copy_(0, rows, vals.to(self.device))
 
+    def rollback_upload(self, g: int, s: int, slot: int, e: int) -> bool:
+        """Withdraw the residency published at plan time for one abandoned
+        upload (caller holds the lock): the slot goes back to its tier's
+        free list, so no translation built after this points at a slot
+        whose bytes never landed. A mapping that moved on since (an evict
+        and reload raced the failure) is left to its newer upload. One
+        shard holds no replicas. Returns True iff a mapping was rolled
+        back."""
+        res = self.resident[(g, s)]
+        if res.get(e) != slot:
+            return False
+        del res[e]
+        warm = self.slot_tier(slot) == "warm"
+        (self.policy4 if warm else self.policy)[(g, s)].forget(e)
+        (self.free4 if warm else self.free)[(g, s)].append(slot)
+        self._epoch += 1
+        return True
+
     def trans_row(self, l: int) -> np.ndarray:
         g, s = self.layer_to_gs(l)
         row = np.full((self.E,), -1, np.int32)
@@ -796,16 +882,24 @@ class ExpertStore:
         instead of uploaded again."""
         t0 = time.perf_counter()
         pf = self._prefetcher
-        with self._lock:
-            trans, pending, needed = self.plan(
-                table, protect_fn=pf.protected_experts if pf is not None else None)
-            for s, items in pending.items():
-                self.commit_loads(s, items)
-            fences = pf.events_for(needed) if pf is not None else []
-        for _, ev in fences:
-            ev.wait()
+        # a poisoned fence (an abandoned upload, rolled back) means the
+        # translation names a slot whose bytes never landed: plan again, and
+        # the rolled-back expert loads here, inline
+        for _ in range(64):
+            with self._lock:
+                trans, pending, needed = self.plan(
+                    table, protect_fn=pf.protected_experts if pf is not None else None)
+                for s, items in pending.items():
+                    self.commit_loads(s, items)
+                fences = pf.events_for(needed) if pf is not None else []
+            poisoned = False
+            for _, ev in fences:
+                ev.wait()
+                poisoned |= getattr(ev, "poisoned", False)
+            if not poisoned:
+                break
         if pf is not None:
-            pf._raise_if_failed()
+            pf._raise_if_fatal()
             pf._device_wait(needed)
         self.stats.prepare_time += time.perf_counter() - t0
         return trans
@@ -873,9 +967,20 @@ def _staged_put(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device, non_blocking=True)
 
 
+# a CUDA error is never retried, poisoned or degraded away: the transfer
+# thread keeps it and every consumer re-raises it (`_raise_if_fatal`)
+_CUDA_ERRORS = tuple(c for c in (getattr(torch, "AcceleratorError", None),
+                                 torch.cuda.CudaError, torch.cuda.OutOfMemoryError)
+                     if c is not None)
+
+
+def _fatal(exc: BaseException) -> bool:
+    return isinstance(exc, _CUDA_ERRORS) or "CUDA error" in str(exc)
+
+
 @dataclass
 class PrefetchStats:
-    """Overlap accounting for the async pipeline.
+    """Overlap and supervision accounting for the async pipeline.
 
     `stall_s` is the only time the forward path lost: consumer time spent
     clearing a ticket (stealing a queued job, re-planning, waiting on ready
@@ -883,7 +988,8 @@ class PrefetchStats:
     into the staging slabs, waits for a slab to drain, and enqueueing the
     copies and slot writes (on the card the copies themselves run on the
     side stream, after the thread moved on). Its part that is not stall is
-    transfer hidden behind compute."""
+    transfer hidden behind compute. A fault-free run counts no retries,
+    failures, crashes, job errors or sync fallbacks."""
 
     submitted: int = 0          # tickets submitted
     uploads: int = 0            # experts uploaded by the transfer thread (or stolen)
@@ -892,6 +998,14 @@ class PrefetchStats:
     staging_waits: int = 0      # gathers that waited for a staging slab to drain
     warm_skipped: int = 0       # warming prefetches dropped (transfer backlog)
     stolen: int = 0             # jobs a fence found still queued and ran inline
+    upload_retries: int = 0     # failed upload attempts that were retried
+    upload_failures: int = 0    # upload batches abandoned (retries exhausted)
+    poisoned_fences: int = 0    # per-expert fences poisoned by abandonment
+    thread_crashes: int = 0     # transfer-loop exceptions outside a job guard
+    thread_restarts: int = 0    # supervised restarts (in place or by the watchdog)
+    sync_fallbacks: int = 0     # uploads committed through the synchronous path
+    job_errors: int = 0         # callable-job (K/V page-in) exceptions caught
+    degraded: int = 0           # shards now in degraded (synchronous) mode
 
     @property
     def overlap_s(self) -> float:
@@ -900,6 +1014,10 @@ class PrefetchStats:
     def reset(self) -> None:
         self.submitted = self.uploads = self.staging_waits = 0
         self.warm_skipped = self.stolen = 0
+        self.upload_retries = self.upload_failures = self.poisoned_fences = 0
+        self.thread_crashes = self.thread_restarts = 0
+        self.sync_fallbacks = self.job_errors = 0
+        # `degraded` is a count of shards now, not of events: a reset keeps it
         self.stall_s = self.transfer_s = 0.0
 
     def summary(self) -> Dict[str, float]:
@@ -912,13 +1030,22 @@ class PrefetchStats:
             "prefetch_staging_waits": float(self.staging_waits),
             "prefetch_warm_skipped": float(self.warm_skipped),
             "prefetch_stolen": float(self.stolen),
+            "prefetch_upload_retries": float(self.upload_retries),
+            "prefetch_upload_failures": float(self.upload_failures),
+            "prefetch_poisoned_fences": float(self.poisoned_fences),
+            "prefetch_thread_crashes": float(self.thread_crashes),
+            "prefetch_thread_restarts": float(self.thread_restarts),
+            "prefetch_sync_fallbacks": float(self.sync_fallbacks),
+            "prefetch_job_errors": float(self.job_errors),
+            "prefetch_degraded_shards": float(self.degraded),
         }
 
 
 class _CallableJob:
     """A non-expert transfer job (a K/V page-in, `core/residency.py`): `fn`
     runs on the transfer thread, then `done` is set. It rides the same
-    three priority classes as expert uploads."""
+    three priority classes as expert uploads. A job that failed or was
+    dropped still sets `done`; its waiter re-checks what `fn` was to do."""
 
     __slots__ = ("fn", "done")
 
@@ -947,28 +1074,42 @@ class PrefetchTicket:
         self._protect = protect
         self._job: Optional[Dict[int, List[tuple]]] = None   # queued upload job (stealable)
         self.released = False
+        # set once a fence of this ticket was poisoned (its upload abandoned);
+        # the replan in wait() has healed `trans` by then
+        self.failed = False
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Make the ticket consumable: clear its ready fences, re-plan any
         needed expert whose prefetch was dropped (slot contention with other
-        outstanding tickets) or evicted since planning, refresh `trans` in
-        place, and make the caller's stream wait on the writes of every slot
-        the ticket reads. Returns False if `timeout` expired first; `trans`
-        may then still name experts that are not resident, so the caller
-        must wait again (never forward with a timed-out ticket)."""
+        outstanding tickets), evicted since planning, or rolled back by an
+        abandoned upload, refresh `trans` in place, and make the caller's
+        stream wait on the writes of every slot the ticket reads. Returns
+        False if `timeout` expired first; `trans` may then still name
+        experts that are not resident, so the caller must wait again or
+        fall back to `store.prepare` (never forward with a timed-out
+        ticket)."""
         return self._pipeline._refresh(self, timeout)
 
     def wait_experts(self, l: int, experts) -> None:
         """Partial fence: block only on uploads of `experts` at MoE layer
-        `l`; experts already resident (no upload pending) never block."""
+        `l`; experts already resident (no upload pending) never block. A
+        poisoned fence among them escalates to the full `wait()`: its slot
+        was rolled back."""
         pf = self._pipeline
         g, s = pf.store.layer_to_gs(l)
         want = {int(e) for e in experts}
         t0 = time.perf_counter()
+        poisoned = False
         for (fg, fs, fe), ev in self._fences:
             if (fg, fs) == (g, s) and fe in want:
                 ev.wait()
-        pf._raise_if_failed()
+                poisoned |= getattr(ev, "poisoned", False)
+        pf.stats.stall_s += time.perf_counter() - t0
+        if poisoned:
+            pf._refresh(self)
+            return
+        pf._raise_if_fatal()
+        t0 = time.perf_counter()
         pf._device_wait({l: np.fromiter(want, np.int64)})
         pf.stats.stall_s += time.perf_counter() - t0
 
@@ -999,8 +1140,7 @@ class PrefetchPipeline:
     int8 slots, the dequant-at-write of int8 host masters into fp slots,
     the warm int4 slots) on it, then records one CUDA event per upload
     batch. On the CPU there is no stream and no pinning: the copies are
-    synchronous and the bookkeeping the same. A pinning or stream failure
-    raises; nothing drops to the synchronous path.
+    synchronous and the bookkeeping the same.
 
     Invariants:
       * an expert referenced by an unreleased ticket, or with an upload in
@@ -1009,16 +1149,25 @@ class PrefetchPipeline:
         every tensor (w_in, w_gate, w_out, scale planes) of its upload is
         written and the CUDA event after those writes is recorded, and that
         event, kept as the slot's last write in `_slot_event` (a host set
-        alone orders nothing on the device);
-      * each slot's last write (on either stream) leaves its CUDA event in
-        `_slot_event`: the next write to the slot waits on it (no two
-        writes race), and a consumer's stream waits on the events of the
-        slots it is about to read;
+        alone orders nothing on the device). A fence set with `poisoned`
+        says the bytes never landed: its waiter replans and never reads
+        that slot's CUDA event as a ready mark;
+      * each slot's last write (on either stream, failed attempts too)
+        leaves its CUDA event in `_slot_event`: the next write to the slot
+        waits on it (no two writes race), and a consumer's stream waits on
+        the events of the slots it is about to read;
       * a staging slab is reused only after the CUDA event of the copies
-        out of it has completed (the double-buffer fence, `staging_waits`).
+        out of it, recorded on every exit from an upload attempt, has
+        completed (the double-buffer fence, `staging_waits`).
 
-    A failure on the transfer thread is kept and re-raised by the next
-    submit, wait or fence; retry and fence poisoning are ROADMAP A13."""
+    Supervision (the reference's): an upload batch is retried up to
+    `max_retries` times with exponential backoff, then abandoned
+    (`_fail_rows`: rolled back, fences poisoned); `degrade_after`
+    consecutive abandonments switch the shard to synchronous commits
+    (`_commit_sync`); a transfer-loop crash restarts the loop in place,
+    and past `max_thread_restarts` the shard is dead (producers commit
+    inline) until `watchdog` revives it. A CUDA error is none of these: it
+    is kept and re-raised by every later submit, wait and fence."""
 
     # CPython's default switch interval (5 ms) starves the transfer thread's
     # short ops behind the serving loop's Python work; the interval is
@@ -1050,22 +1199,31 @@ class PrefetchPipeline:
                      faults=None) -> Optional["PrefetchPipeline"]:
         """Resolve the prefetch knobs (explicit args > cfg.prefetch > off) and
         build a pipeline, or return None for the synchronous path: the one
-        precedence rule every engine shares."""
-        if faults is not None:
-            raise NotImplementedError("prefetch fault injection is ported in ROADMAP A13")
+        precedence rule every engine shares. `faults` is a `FaultPlan`; the
+        retry and degradation knobs ride `cfg.prefetch`."""
         depth = prefetch_depth if prefetch_depth is not None else (
             cfg.prefetch.depth if cfg.prefetch.enabled else 0)
         nbuf = staging_buffers if staging_buffers is not None else cfg.prefetch.staging_buffers
         if depth <= 0:
             return None
-        return cls(store, depth, nbuf)
+        pc = cfg.prefetch
+        return cls(store, depth, nbuf, faults=faults, max_retries=pc.max_retries,
+                   backoff_s=pc.backoff_s, degrade_after=pc.degrade_after)
 
-    def __init__(self, store: ExpertStore, depth: int = 2, staging_buffers: int = 2):
+    def __init__(self, store: ExpertStore, depth: int = 2, staging_buffers: int = 2,
+                 faults=None, max_retries: int = 3, backoff_s: float = 0.002,
+                 degrade_after: int = 3, max_thread_restarts: int = 3):
         if store._prefetcher is not None:
             raise ValueError("the store already has a prefetch pipeline")
         self.store = store
+        self.shards = 1
         self.depth = max(1, depth)
         self.n_staging = max(1, staging_buffers)
+        self.faults = faults                      # Optional[FaultPlan]
+        self.max_retries = max(0, max_retries)    # upload attempts = 1 + max_retries
+        self.backoff_s = backoff_s                # base of the exponential backoff
+        self.degrade_after = max(1, degrade_after)
+        self.max_thread_restarts = max(0, max_thread_restarts)
         self.stats = PrefetchStats()
         self._lock = store._lock
         self.device = store.device
@@ -1087,12 +1245,31 @@ class PrefetchPipeline:
         self._staging_event: List[Optional[torch.cuda.Event]] = [None] * self.n_staging
         self._buf_i = 0
         self._closed = False
-        self._error: Optional[Exception] = None
+        self._error: Optional[BaseException] = None   # a CUDA error, kept for consumers
+        # supervision state, a list entry per shard (one shard), guarded by
+        # _jobs_cv: degraded (uploads commit synchronously), dead (the thread
+        # exhausted its restarts; producers commit inline), and the job each
+        # thread holds and since when (crash poisoning, the watchdog)
+        self._degraded = [False] * self.shards
+        self._dead = [False] * self.shards
+        self._fail_streak = [0] * self.shards
+        self._crash_count = [0] * self.shards
+        self._current_job: List[Optional[object]] = [None] * self.shards
+        self._job_started = [0.0] * self.shards
         self._acquire_switch_interval()
         store._prefetcher = self
-        self._thread = threading.Thread(target=self._transfer_main, name="sida-prefetch",
-                                        daemon=True)
-        self._thread.start()
+        self._threads = [self._new_thread(m) for m in range(self.shards)]
+        for t in self._threads:
+            t.start()
+
+    def _new_thread(self, shard: int) -> threading.Thread:
+        return threading.Thread(target=self._transfer_main, args=(shard,),
+                                name=f"sida-prefetch-{shard}", daemon=True)
+
+    @property
+    def _thread(self) -> threading.Thread:
+        """The (one) transfer thread."""
+        return self._threads[0]
 
     # -- device ordering ------------------------------------------------
     def record_event(self) -> Optional[torch.cuda.Event]:
@@ -1110,8 +1287,8 @@ class PrefetchPipeline:
         at sub `s` on the current stream: wait first on each slot's last
         write, then leave this write's event as theirs (for an upload, the
         device half of its ready fence, recorded before the host event is
-        set). Caller holds the store lock, so the slots' writes enqueue in
-        lock order."""
+        set), also when the write raised part-way. Caller holds the store
+        lock, so the slots' writes enqueue in lock order."""
         if not self._cuda or not items:
             yield None
             return
@@ -1120,10 +1297,12 @@ class PrefetchPipeline:
         last = (self._slot_event.get(k) for k in keys)
         for ev in {id(e): e for e in last if e is not None}.values():
             cur.wait_event(ev)
-        yield None
-        done = self.record_event()
-        for k in keys:
-            self._slot_event[k] = done
+        try:
+            yield None
+        finally:
+            done = self.record_event()
+            for k in keys:
+                self._slot_event[k] = done
 
     def _device_wait(self, needed: Dict[int, np.ndarray]) -> None:
         """Make the current stream wait on the last write of every slot that
@@ -1146,9 +1325,9 @@ class PrefetchPipeline:
         for ev in evs.values():
             cur.wait_event(ev)
 
-    def _raise_if_failed(self) -> None:
+    def _raise_if_fatal(self) -> None:
         if self._error is not None:
-            raise RuntimeError("the prefetch transfer thread failed") from self._error
+            raise RuntimeError("the prefetch transfer thread hit a CUDA error") from self._error
 
     # -- planning side (consumer threads) -------------------------------
     def protected_experts(self, g: int, s: int) -> Set[int]:
@@ -1187,11 +1366,9 @@ class PrefetchPipeline:
         return (self.store._epoch, self.stats.uploads)
 
     def degraded_fraction(self) -> float:
-        """Share of transfer shards running the degraded synchronous commit,
-        which the request server's shed gate reads. The port's one-shard
-        pipeline has no degraded mode until its fault tolerance is ported
-        (ROADMAP A13(b)), so this is 0.0 by construction."""
-        return 0.0
+        """Share of transfer shards in degraded (synchronous) mode: the
+        request server's shed gate shrinks its threshold by it."""
+        return sum(self._degraded) / self.shards
 
     def submit(self, table: HashTable, protect: bool = True,
                priority: Optional[int] = None) -> Optional[PrefetchTicket]:
@@ -1200,10 +1377,11 @@ class PrefetchPipeline:
         nothing is pinned, so a warmed expert may be evicted before use, and
         with the warming queue at `depth` it returns None without planning.
         `priority` (default 0 protected, 2 warming) picks the transfer class;
-        a protected submit waits while its class holds `depth` jobs."""
+        a protected submit waits while its class holds `depth` jobs. A dead
+        shard's uploads are committed here, inline."""
         if self._closed:
             raise RuntimeError("the prefetch pipeline is closed")
-        self._raise_if_failed()
+        self._raise_if_fatal()
         prio = priority if priority is not None else (0 if protect else 2)
         if not protect:
             with self._jobs_cv:
@@ -1231,23 +1409,36 @@ class PrefetchPipeline:
             # job is never dropped, its slots are already assigned
             ticket._job = job
             with self._jobs_cv:
-                while (protect and len(self._jobs[prio]) >= self.depth
-                       and self._error is None):
+                # a dead shard's queue never drains: the wait breaks on it
+                while (protect and len(self._jobs[prio]) >= self.depth and not self._dead[0]
+                       and not self._closed and self._error is None):
                     self._jobs_cv.wait()
-                self._jobs[prio].append(job)
-                self._jobs_cv.notify_all()
+                self._raise_if_fatal()    # no thread would ever run the job
+                inline = self._dead[0]
+                if not inline:
+                    self._jobs[prio].append(job)
+                    self._jobs_cv.notify_all()
+            if inline:
+                ticket._job = None
+                self._commit_sync(0, job)
         return ticket
 
     def submit_job(self, fn: Callable[[], None], priority: int = 1) -> threading.Event:
         """Enqueue a transfer callable at `priority` and return its done
-        fence (the K/V page pool's page-ins ride the pipeline this way)."""
+        fence (the K/V page pool's page-ins ride the pipeline this way). On
+        a dead shard it runs here, inline."""
         if self._closed:
             raise RuntimeError("the prefetch pipeline is closed")
-        self._raise_if_failed()
+        self._raise_if_fatal()
         job = _CallableJob(fn)
         with self._jobs_cv:
-            self._jobs[priority].append(job)
-            self._jobs_cv.notify_all()
+            self._raise_if_fatal()
+            dead = self._dead[0]
+            if not dead:
+                self._jobs[priority].append(job)
+                self._jobs_cv.notify_all()
+        if dead:
+            self._run_callable(job)
         return job.done
 
     def _upload_done(self, g: int, s: int, slot: int, e: int, ev: threading.Event) -> None:
@@ -1293,8 +1484,9 @@ class PrefetchPipeline:
         every needed expert is resident (or unplannable, where the sync path
         drops too), re-planning missing experts ahead of later tickets'
         refs but never evicting one mid-upload; commit re-planned loads
-        inline; clear the fences; rebuild the translation from live
-        residency. The elapsed time is the pipeline's stall."""
+        inline; clear the fences (a poisoned one, rolled back after the
+        residency check, takes one more round); rebuild the translation
+        from live residency. The elapsed time is the pipeline's stall."""
         store = self.store
         t0 = time.perf_counter()
         self._steal(ticket)
@@ -1325,21 +1517,25 @@ class PrefetchPipeline:
                         progressed_all = False
                         drain.extend(ev for d in pend.values() for ev in d.values())
                 fences = self.events_for(ticket.needed)
+            poisoned = False
             for _, ev in fences:
                 if not ev.wait(_left()):
                     ok = False
                     break
-            if not ok or (progressed_all and not drain):
+                poisoned |= getattr(ev, "poisoned", False)
+            if not ok or (progressed_all and not drain and not poisoned):
                 break
             if not all(ev.wait(_left()) for ev in drain):
                 ok = False
                 break
-            if not drain:
+            if not drain and not poisoned:
                 break  # unplannable without pending uploads: sync drops too
-        self._raise_if_failed()
+        self._raise_if_fatal()
         with self._lock:
             for l in ticket.needed:
                 ticket.trans[l] = store.trans_row(l)
+        if not ticket.failed and any(getattr(ev, "poisoned", False) for _, ev in ticket._fences):
+            ticket.failed = True
         if ok:
             self._device_wait(ticket.needed)
         self.stats.stall_s += time.perf_counter() - t0
@@ -1368,11 +1564,16 @@ class PrefetchPipeline:
                     return None
                 self._jobs_cv.wait()
 
-    def _transfer_main(self) -> None:
+    def _transfer_main(self, shard: int) -> None:
         """Thread body. On the card the thread sets its device and its side
-        stream (the current stream is per thread), so every copy and write
-        below lands on that stream."""
-        job = None
+        stream and takes `no_grad` (all three are per thread, so a revived
+        thread sets them again), then runs the supervised loop: a crash
+        (an exception outside the per-job guards, an injected `thread:crash`
+        included) poisons the job the loop held and restarts the loop in
+        place; past `max_thread_restarts` crashes the shard is dead, its
+        queue drains synchronously and producers commit inline until
+        `revive`. A CUDA error (or a failure to set the thread up) stops
+        the thread and is kept for the consumers."""
         try:
             if self._cuda:
                 torch.cuda.set_device(self._stream.device)
@@ -1380,28 +1581,138 @@ class PrefetchPipeline:
             else:
                 ctx = contextlib.nullcontext()
             with ctx, torch.no_grad():
-                while True:
-                    job = self._next_job()
-                    if job is None:
-                        return
-                    t0 = time.perf_counter()
-                    if isinstance(job, _CallableJob):
-                        try:
-                            job.fn()
-                        finally:
-                            job.done.set()
-                    else:
-                        for s, rows in job.items():
-                            self._upload(s, rows)
-                    job = None
-                    with self._jobs_cv:
-                        self.stats.transfer_s += time.perf_counter() - t0
-        except Exception as exc:   # kept, and re-raised to every consumer
-            self._fail(exc, job)
+                self._supervise(shard)
+        except Exception as exc:
+            job, self._current_job[shard] = self._current_job[shard], None
+            self._fail_fatal(exc, job)
 
-    def _fail(self, exc: Exception, job) -> None:
-        """The transfer thread died: keep the error, wake every producer and
-        fence waiter (they re-raise it), and stop."""
+    def _supervise(self, shard: int) -> None:
+        while True:
+            try:
+                self._transfer_loop(shard)
+                return                      # closed
+            except Exception as exc:
+                if _fatal(exc):
+                    raise
+                job, self._current_job[shard] = self._current_job[shard], None
+                with self._jobs_cv:
+                    self.stats.thread_crashes += 1
+                    self._crash_count[shard] += 1
+                    crashes = self._crash_count[shard]
+                    closed = self._closed
+                if job is not None:
+                    self._fail_job(shard, job)
+                if closed:
+                    return
+                if crashes > self.max_thread_restarts:
+                    with self._jobs_cv:
+                        self._dead[shard] = True
+                        self._set_degraded(shard, True)
+                        # producers parked in submit() re-check _dead
+                        self._jobs_cv.notify_all()
+                    self._drain_sync(shard)
+                    return
+                with self._jobs_cv:
+                    self.stats.thread_restarts += 1
+
+    def _transfer_loop(self, shard: int) -> None:
+        while True:
+            job = self._next_job()
+            if job is None:
+                return
+            self._job_started[shard] = time.perf_counter()
+            self._current_job[shard] = job
+            if self.faults is not None:
+                self.faults.inject("thread")   # outside the per-job guards
+            t0 = time.perf_counter()
+            if isinstance(job, _CallableJob):
+                self._run_callable(job)
+            else:
+                self._run_upload_job(shard, job)
+            self._current_job[shard] = None
+            with self._jobs_cv:
+                self.stats.transfer_s += time.perf_counter() - t0
+
+    def _run_callable(self, job: _CallableJob) -> None:
+        """A callable job's failure is counted and does not kill the thread;
+        its waiter finds `done` set and re-checks. A CUDA error propagates."""
+        try:
+            job.fn()
+        except Exception as exc:
+            if _fatal(exc):
+                raise
+            with self._jobs_cv:
+                self.stats.job_errors += 1
+        finally:
+            job.done.set()
+
+    def _run_upload_job(self, shard: int, job: Dict[int, List[tuple]]) -> None:
+        """Upload one job sub by sub, retrying a failed attempt with bounded
+        exponential backoff; exhausted retries abandon the batch
+        (`_fail_rows`). A degraded shard commits synchronously."""
+        if self._degraded[shard]:
+            self._commit_sync(shard, job)
+            return
+        for s, rows in job.items():
+            attempt = 0
+            while True:
+                try:
+                    self._upload(s, rows)
+                    with self._jobs_cv:
+                        self._fail_streak[shard] = 0
+                    break
+                except Exception as exc:
+                    if _fatal(exc):
+                        raise
+                    attempt += 1
+                    if attempt > self.max_retries:
+                        self._fail_rows(shard, s, rows)
+                        break
+                    with self._jobs_cv:
+                        self.stats.upload_retries += 1
+                    # a retry re-stages from the host masters
+                    time.sleep(self.backoff_s * (2.0 ** (attempt - 1)))
+
+    def _set_degraded(self, shard: int, value: bool) -> None:
+        """Flip one shard's degraded flag, keeping the count exact. Caller
+        holds `_jobs_cv`."""
+        if self._degraded[shard] != value:
+            self._degraded[shard] = value
+            self.stats.degraded += 1 if value else -1
+
+    def _fail_rows(self, shard: int, s: int, rows: List[tuple]) -> None:
+        """Abandon one upload batch: roll every planned slot back to its free
+        list, retire the pending entries, then poison the fences (`poisoned`
+        is set before `set()`, so no waiter sees a fired, unpoisoned fence of
+        an abandoned upload). `degrade_after` consecutive abandonments make
+        the shard degraded."""
+        with self._lock:
+            for g, slot, e, ev in rows:
+                self.store.rollback_upload(g, s, slot, e)
+                self._upload_done(g, s, slot, e, ev)
+            self.stats.upload_failures += 1
+            self.stats.poisoned_fences += len(rows)
+        with self._jobs_cv:
+            self._fail_streak[shard] += 1
+            if self._fail_streak[shard] >= self.degrade_after:
+                self._set_degraded(shard, True)
+        for *_, ev in rows:
+            ev.poisoned = True
+            ev.set()
+
+    def _fail_job(self, shard: int, job) -> None:
+        """Poison a whole crashed job (`_fail_rows` rolls back only mappings
+        still pointing at the planned slot)."""
+        if isinstance(job, _CallableJob):
+            job.done.set()
+            return
+        for s, rows in job.items():
+            self._fail_rows(shard, s, rows)
+
+    def _fail_fatal(self, exc: BaseException, job) -> None:
+        """A CUDA error on the transfer thread: keep it, drop the queues,
+        fire every fence poisoned (and retire it) and wake every producer;
+        each consumer re-raises it."""
         with self._jobs_cv:
             self._error = exc
             queued = [j for q in self._jobs for j in q]
@@ -1415,13 +1726,83 @@ class PrefetchPipeline:
             for pend in self._pending.values():
                 for slots_ev in pend.values():
                     for ev in slots_ev.values():
+                        ev.poisoned = True
                         ev.set()
+                pend.clear()
+
+    def _commit_sync(self, shard: int, job: Dict[int, List[tuple]]) -> None:
+        """The degraded path: commit one job through the store's synchronous
+        `commit_loads` (host gather and device write inline on the calling
+        thread's stream, ordered by `_ordered_write`; no staging ring, no
+        injected upload faults): the bytes the async path would land."""
+        evs: List[threading.Event] = []
+        with self._lock:
+            for s, rows in job.items():
+                self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
+                for g, sl, e, ev in rows:
+                    self._upload_done(g, s, sl, e, ev)
+                    evs.append(ev)
+            n = sum(len(r) for r in job.values())
+            self.stats.uploads += n
+            self.stats.sync_fallbacks += n
+        for ev in evs:
+            ev.set()
+
+    def _drain_sync(self, shard: int) -> None:
+        """Drain the queues on the calling thread through the synchronous
+        path: the dead-thread and close-time fallback that keeps "a planned
+        job is never dropped" without a transfer thread."""
+        while True:
+            with self._jobs_cv:
+                q = next((q for q in self._jobs if q), None)
+                if q is None:
+                    return
+                job = q.popleft()
+                self._jobs_cv.notify_all()
+            if isinstance(job, _CallableJob):
+                self._run_callable(job)
+            else:
+                self._commit_sync(shard, job)
+
+    # -- watchdog (the request server calls it on an interval) ----------
+    def watchdog(self, max_job_age_s: Optional[float] = None) -> Tuple[int, int]:
+        """Revive dead shard threads, and count jobs a live thread has held
+        longer than `max_job_age_s` (a stalled link: Python cannot preempt
+        the thread, but the count reaches telemetry). Returns (revived,
+        stalled)."""
+        revived = stalled = 0
+        now = time.perf_counter()
+        for m in range(self.shards):
+            if self._dead[m] and not self._closed:
+                revived += self.revive(m)
+            elif (max_job_age_s is not None and self._current_job[m] is not None
+                  and now - self._job_started[m] > max_job_age_s):
+                stalled += 1
+        return revived, stalled
+
+    def revive(self, shard: int) -> int:
+        """Start a fresh thread for a dead shard and lift degraded mode (on
+        probation: a still-faulty link degrades again after `degrade_after`
+        failures). Returns 1 iff a thread was started."""
+        with self._jobs_cv:
+            if self._closed or not self._dead[shard] or self._threads[shard].is_alive():
+                return 0
+            self._dead[shard] = False
+            self._set_degraded(shard, False)
+            self._fail_streak[shard] = 0
+            self._crash_count[shard] = 0
+            t = self._threads[shard] = self._new_thread(shard)
+            self.stats.thread_restarts += 1
+        t.start()
+        return 1
 
     def _stage(self, buf: Dict[tuple, torch.Tensor], key: tuple, arr: torch.Tensor,
                idx: torch.Tensor) -> torch.Tensor:
         """Gather rows `idx` of a host tensor [G, E, ...] (flat g·E + e)
         straight into this buffer's slab (pinned on the card, grown on
         demand), so every copy reads a stable, reusable host region."""
+        if self.faults is not None:
+            self.faults.inject("host_read")   # a failed host-master read
         n, tail = len(idx), tuple(arr.shape[2:])
         slab = buf.get(key)
         if slab is None or slab.shape[0] < n or tuple(slab.shape[1:]) != tail \
@@ -1436,7 +1817,11 @@ class PrefetchPipeline:
         """Stage, copy and write one sub's upload batch, then fire its
         fences. Hot rows land the int8 / fp masters, warm rows the int4
         masters; every copied byte is counted, and where one batch fills a
-        warm slot twice the last upload is what lands."""
+        warm slot twice the last upload is what lands. An attempt that
+        raises leaves the slab's event recorded (its earlier keys' copies
+        may be in flight) and, past the first write, the slots' events."""
+        if self.faults is not None:
+            self.faults.inject("upload")
         store = self.store
         i = self._buf_i
         self._buf_i = (i + 1) % self.n_staging
@@ -1451,30 +1836,32 @@ class PrefetchPipeline:
         warm = [r for r in rows if r[1] >= store.S8]
         E, dev = store.E, self.device
         staged, nbytes_up = [], 0
-        for part, tier in ((hot, "hot"), (warm, "warm")):
-            if not part:
-                continue
-            idx = torch.tensor([g * E + e for g, _, e, _ in part], dtype=torch.long)
-            if tier == "hot":
-                srcs = [(t, store.host, "") for t in EXPERT_TENSORS]
-                if store.quant == "int8":
-                    srcs += [(t, store.host_scale, "_scale") for t in EXPERT_TENSORS]
-            else:
-                srcs = [(t, store.host4, "_q4") for t in EXPERT_TENSORS]
-                srcs += [(t, store.host4_scale, "_q4_scale") for t in EXPERT_TENSORS]
-            put = {}
-            for t, host, suffix in srcs:
-                view = self._stage(staging, (s, t, suffix), host[f"sub{s}"][t], idx)
-                put[(t, suffix)] = _staged_put(view, dev)
-                nbytes_up += nbytes(view)
-            # the last upload into each (group, slot) lands
-            last = list({r[:2]: k for k, r in enumerate(part)}.values())
-            S_pool, base = (store.S8, 0) if tier == "hot" else (store.S4, store.S8)
-            dst = torch.tensor([part[k][0] * S_pool + part[k][1] - base for k in last],
-                               dtype=torch.long).to(dev, non_blocking=True)
-            keep = torch.tensor(last, dtype=torch.long).to(dev, non_blocking=True)
-            staged.append((tier, put, dst, keep))
-        self._staging_event[i] = self.record_event()
+        try:
+            for part, tier in ((hot, "hot"), (warm, "warm")):
+                if not part:
+                    continue
+                idx = torch.tensor([g * E + e for g, _, e, _ in part], dtype=torch.long)
+                if tier == "hot":
+                    srcs = [(t, store.host, "") for t in EXPERT_TENSORS]
+                    if store.quant == "int8":
+                        srcs += [(t, store.host_scale, "_scale") for t in EXPERT_TENSORS]
+                else:
+                    srcs = [(t, store.host4, "_q4") for t in EXPERT_TENSORS]
+                    srcs += [(t, store.host4_scale, "_q4_scale") for t in EXPERT_TENSORS]
+                put = {}
+                for t, host, suffix in srcs:
+                    view = self._stage(staging, (s, t, suffix), host[f"sub{s}"][t], idx)
+                    put[(t, suffix)] = _staged_put(view, dev)
+                    nbytes_up += nbytes(view)
+                # the last upload into each (group, slot) lands
+                last = list({r[:2]: k for k, r in enumerate(part)}.values())
+                S_pool, base = (store.S8, 0) if tier == "hot" else (store.S4, store.S8)
+                dst = torch.tensor([part[k][0] * S_pool + part[k][1] - base for k in last],
+                                   dtype=torch.long).to(dev, non_blocking=True)
+                keep = torch.tensor(last, dtype=torch.long).to(dev, non_blocking=True)
+                staged.append((tier, put, dst, keep))
+        finally:
+            self._staging_event[i] = self.record_event()
         with self._lock:
             moe_p = store.serve_params["blocks"][f"sub{s}"]["moe"]
 
@@ -1509,13 +1896,27 @@ class PrefetchPipeline:
     # -- lifecycle ------------------------------------------------------
     def close(self) -> None:
         """Drain queued uploads, join the transfer thread and detach from the
-        store. Idempotent; every fence handed out has fired when it returns."""
+        store. Idempotent, and safe after the thread died: a dead shard's
+        leftover jobs are committed here, and any fence still pending (a
+        job a thread died holding) fires poisoned, so every fence and done
+        event handed out has fired when it returns."""
         if self._closed:
             return
         with self._jobs_cv:
             self._closed = True
             self._jobs_cv.notify_all()
-        self._thread.join()
+        for t in self._threads:
+            t.join()
+        if self._error is None:
+            for m in range(self.shards):
+                self._drain_sync(m)
+        with self._lock:
+            for pend in self._pending.values():
+                for slots_ev in pend.values():
+                    for ev in slots_ev.values():
+                        ev.poisoned = True
+                        ev.set()
+                pend.clear()
         if self._cuda:
             self._stream.synchronize()
         self._staging = []

@@ -32,7 +32,9 @@ into expert slots (hot and warm) and K/V pages.
 The port writes pages into the pool in place (the reference returns updated
 copies). A page-in runs inline, or with `pipeline=` (a `PrefetchPipeline`)
 its H2D copy rides the transfer thread's queue and side stream and `sync`
-writes the arrived pages on the caller's stream after their fences. A long
+writes the arrived pages on the caller's stream after their fences; a
+page-in whose job failed or was dropped (its done fence fires all the same)
+is written by `sync` from its host copy, inline. A long
 prompt streams into a lane's pages chunk by chunk
 (`transformer.prefill_chunk_step`, driven by the request server), with
 `prefill_chunk` tokens a chunk. Bookkeeping is numpy, as in the reference;
@@ -161,6 +163,9 @@ class KVPagePool:
         self._fences: List[threading.Event] = []
         # (lane, page_idx, pid) -> ({sub: (k, v) on the device}, CUDA event)
         self._arrived: Dict[Tuple[int, int, int], tuple] = {}
+        # page-ins handed to the pipeline, by key, with their host copies
+        # until `sync` has written them
+        self._inflight: Dict[Tuple[int, int, int], dict] = {}
 
     # -- geometry / accounting -----------------------------------------
     def page_bytes(self) -> int:
@@ -281,22 +286,31 @@ class KVPagePool:
             with self._lock:
                 self._arrived[key] = (staged, ev)
 
+        with self._lock:
+            self._inflight[(lane, page_idx, pid)] = data
         self._fences.append(pipe.submit_job(stage, priority=0))
         return cache
 
     def sync(self, cache: dict) -> dict:
         """Wait the outstanding page-in fences, then write the arrived pages
         into the pools on the caller's stream, after the CUDA event of their
-        copies: the paged analogue of a prefetch ticket's `wait`."""
+        copies: the paged analogue of a prefetch ticket's `wait`. A page-in
+        whose job never staged it (a failed or dropped job still fires its
+        fence) is written here from its host copy instead."""
         if self._fences:
             t0 = time.perf_counter()
             for ev in self._fences:
                 ev.wait()
             self._fences = []
             self.stats.fence_wait_s += time.perf_counter() - t0
-            self.pipeline._raise_if_failed()
+            self.pipeline._raise_if_fatal()
         with self._lock:
             arrived, self._arrived = self._arrived, {}
+            inflight, self._inflight = self._inflight, {}
+        for (_, _, pid), data in ((k, d) for k, d in inflight.items() if k not in arrived):
+            for skey, (k_host, v_host) in data.items():
+                _page_write(cache[skey]["kp"], pid, k_host)
+                _page_write(cache[skey]["vp"], pid, v_host)
         for (_, _, pid), (staged, ev) in arrived.items():
             if ev is not None:
                 cur = torch.cuda.current_stream(self.device)

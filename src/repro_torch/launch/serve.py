@@ -8,7 +8,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine server \\
         --requests 16 --rate 4 --lanes 4 --slots 2 [--no-realtime] \\
-        [--kv-pages 16 --page-size 8 --prefill-chunk 8] [--spec-mode draft --spec-k 3]
+        [--kv-pages 16 --page-size 8 --prefill-chunk 8] [--spec-mode draft --spec-k 3] \\
+        [--tenants "paid:weight=4:pin=0.5,free" --fault-plan "upload:fail,p=0.2"]
 
 Port of `repro/launch/serve.py`, with the same workloads
 (`np.random.default_rng(0)` tokens or Poisson requests), the same hash width
@@ -16,9 +17,10 @@ Port of `repro/launch/serve.py`, with the same workloads
 `serving/config.py::SERVE_FLAGS`, validated by `validate_serve_args`) and
 the same output lines. Trains nothing: random weights from seeded
 `torch.Generator`s (0 for the model, 1 for the hash function). Runs on CUDA
-unless `--device cpu`. The flags of what is not ported yet parse and are
-refused with `NotImplementedError`: `--tenants` and `--fault-plan` (ROADMAP
-A13(b)), `--ep-shards` > 1 and `--rebalance-interval` (A14).
+unless `--device cpu`. With `--tenants` each tenant sends its own Poisson
+stream of `--requests` at `--rate`. The flags of what is not ported yet
+parse and are refused with `NotImplementedError`: `--ep-shards` > 1 and
+`--rebalance-interval` (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -101,11 +103,17 @@ def run_request_server(cfg, params, args, serving_cfg=None, device=None) -> None
         cfg.moe.num_experts, d_h=64, device="cpu", draft=args.spec_mode == "draft",
     )
     srv = RequestServer(cfg, params, hp, serving_cfg, device=device)
-    reqs = poisson_requests(
-        np.random.default_rng(0), args.requests, rate_rps=args.rate,
-        vocab_size=cfg.vocab_size, prompt_len_range=(4, args.seq),
-        max_new_range=(2, args.new_tokens), slo_s=args.slo,
-    )
+    rng = np.random.default_rng(0)
+    # one Poisson stream a tenant, each at --rate, with disjoint rids
+    streams = [(t.name, i * args.requests) for i, t in enumerate(serving_cfg.tenants)] \
+        if serving_cfg.multitenant else [("default", 0)]
+    reqs = []
+    for tenant, rid_base in streams:
+        reqs.extend(poisson_requests(
+            rng, args.requests, rate_rps=args.rate, vocab_size=cfg.vocab_size,
+            prompt_len_range=(4, args.seq), max_new_range=(2, args.new_tokens),
+            slo_s=args.slo, tenant=tenant, rid_base=rid_base,
+        ))
     try:
         srv.run(reqs, realtime=not args.no_realtime)
     finally:

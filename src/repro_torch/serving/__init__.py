@@ -1,11 +1,8 @@
 """Request-level serving (port of `repro/serving/`): continuous batching and
 SLA-aware scheduling over the SiDA hash-ahead pipeline (request lifecycle,
 admission queue, lane batcher, request server, telemetry), behind one
-consolidated config object (`ServingConfig`).
-
-The reference's names, less the multi-tenant front door's `TenantAdmission`
-and `WFQScheduler`, which come with ROADMAP A13(b) (`TenantConfig` and
-`parse_tenants` parse already; the server refuses tenants until then).
+consolidated config object (`ServingConfig`), with the multi-tenant front
+door (`WFQScheduler`, `TenantAdmission`): the reference's names.
 """
 from repro_torch.serving.config import (
     BatchingConfig,
@@ -26,6 +23,8 @@ from repro_torch.serving.scheduler import (
     AdmissionController,
     LaneTable,
     Scheduler,
+    TenantAdmission,
+    WFQScheduler,
     bucket_len,
 )
 from repro_torch.serving.server import RequestServer
@@ -41,6 +40,8 @@ __all__ = [
     "AdmissionController",
     "LaneTable",
     "Scheduler",
+    "TenantAdmission",
+    "WFQScheduler",
     "bucket_len",
     # configuration
     "BatchingConfig",

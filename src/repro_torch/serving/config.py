@@ -16,8 +16,8 @@ imports no JAX: copied as it is, with the port's own `TierConfig`,
 
 The config accepts everything the reference's does. The port's
 `RequestServer` refuses what it does not serve yet, with
-`NotImplementedError`: tenants and fault plans (ROADMAP A13(b)), expert-
-parallel shards and rebalancing (A14).
+`NotImplementedError`: expert-parallel shards and rebalancing (ROADMAP
+A14).
 
 `ServingConfig.from_kwargs` keeps the reference's flat keyword surface
 (`RequestServer(cfg, params, hp, slots_per_layer=..., max_lanes=...)`).

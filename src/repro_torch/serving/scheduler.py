@@ -1,8 +1,7 @@
 """Admission queue + continuous batcher (port of `repro/serving/scheduler.py`,
-which is framework-free: `bucket_len`, `LaneTable`, `Scheduler` and
-`AdmissionController` are copied as they are; the multi-tenant front door,
-`TenantState`, `WFQScheduler` and `TenantAdmission`, comes with ROADMAP
-A13(b)).
+which is framework-free: `bucket_len`, `LaneTable`, `Scheduler`,
+`AdmissionController` and the multi-tenant front door, `TenantState`,
+`WFQScheduler` and `TenantAdmission`, are copied as they are).
 
 Two scheduling decisions live here, both SLA-aware:
 
@@ -25,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.offload import ExpertStore
+from repro_torch.serving.config import TenantConfig
 from repro_torch.serving.request import Request, RequestState
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128)
@@ -263,3 +263,254 @@ class AdmissionController:
             default_slo_s=self.default_slo_s,
             degraded_shrink=self.degraded_shrink,
         )
+
+
+# ----------------------------------------------------------------------
+# multi-tenant front door: weighted fair queueing above EDF + affinity
+# ----------------------------------------------------------------------
+class TenantState:
+    """Runtime scheduling state for one tenant: the DRR deficit counter and
+    the generated-token rate bucket."""
+
+    def __init__(self, cfg: TenantConfig):
+        self.cfg = cfg
+        self.deficit = 0.0
+        # token bucket for the generated-token rate budget; starts full so
+        # a tenant's first burst is not throttled by an empty ledger
+        self.bucket_cap = cfg.burst if cfg.burst > 0 else cfg.token_rate
+        self.tokens = self.bucket_cap
+        self.last_refill: Optional[float] = None
+
+    def refill(self, now: float) -> None:
+        if self.cfg.token_rate <= 0:
+            return
+        if self.last_refill is None:
+            self.last_refill = now
+            return
+        dt = max(0.0, now - self.last_refill)
+        self.tokens = min(self.bucket_cap, self.tokens + dt * self.cfg.token_rate)
+        self.last_refill = now
+
+    def throttled(self, now: float) -> bool:
+        """True when the tenant's generated-token budget is exhausted —
+        its queued requests DEFER (never drop) until the bucket refills."""
+        if self.cfg.token_rate <= 0:
+            return False
+        self.refill(now)
+        return self.tokens <= 0.0
+
+    def debit(self, n_tokens: int, now: float) -> None:
+        """Charge generated tokens against the rate budget. The balance may
+        go negative (a request in flight keeps decoding); the debt defers
+        the tenant's NEXT prefill until refill pays it back."""
+        if self.cfg.token_rate <= 0:
+            return
+        self.refill(now)
+        self.tokens -= float(n_tokens)
+
+
+class WFQScheduler(Scheduler):
+    """Deficit-round-robin weighted fair queueing over per-tenant queues,
+    sitting ABOVE the existing EDF + cache-affinity order.
+
+    Two-level decision: DRR picks WHICH tenant the next prefill batch is
+    drawn from (long-run service proportional to `TenantConfig.weight`,
+    independent of offered load); within the chosen tenant the inherited
+    `_order` ranks requests exactly as the single-tenant scheduler does
+    (deadline bands, then cache affinity). A batch is therefore always
+    single-tenant — bucket padding and attribution stay simple.
+
+    Starvation-freedom: every scheduling round adds `quantum x weight` to
+    each active tenant's deficit counter, so any head request's finite cost
+    (padded prefill tokens + decode budget) is eventually covered no matter
+    how much traffic heavier tenants offer; the round-robin pointer rotates
+    so ties break fairly. A tenant's deficit resets when its queue drains
+    (the DRR rule that prevents banking unused service into a future burst).
+
+    Token-rate budgets: tenants whose generated-token bucket is empty are
+    skipped (their requests defer, never drop) until `debit`-ed tokens are
+    paid back by refill — the server debits per generated token."""
+
+    def __init__(
+        self,
+        tenants: Sequence[TenantConfig],
+        quantum: float = 64.0,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        use_affinity: bool = True,
+        slack_band_s: float = SLACK_BAND_S,
+    ):
+        super().__init__(
+            buckets=buckets, use_affinity=use_affinity, slack_band_s=slack_band_s
+        )
+        self.quantum = quantum
+        self.tenants: Dict[str, TenantState] = {
+            t.name: TenantState(t) for t in tenants
+        }
+        self._queues: Dict[str, List[Request]] = {
+            t.name: [] for t in tenants
+        }
+        self._rr: List[str] = [t.name for t in tenants]
+        self._rr_pos = 0
+
+    # ------------------------------------------------------------------
+    def _ensure(self, name: str) -> TenantState:
+        st = self.tenants.get(name)
+        if st is None:
+            # unknown tenants get a default contract (weight 1, unlimited)
+            # rather than a crash at admission; the registry is advisory
+            st = TenantState(TenantConfig(name=name))
+            self.tenants[name] = st
+            self._queues[name] = []
+            self._rr.append(name)
+        return st
+
+    def enqueue(self, req: Request) -> None:
+        self._ensure(req.tenant)
+        req.state = RequestState.QUEUED
+        self._queues[req.tenant].append(req)
+
+    def pending(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def pending_tenant(self, name: str) -> int:
+        return len(self._queues.get(name, ()))
+
+    def pop_expired(self, now: float) -> List[Request]:
+        expired: List[Request] = []
+        for q in self._queues.values():
+            dead = [r for r in q if r.slack(now) < 0]
+            for r in dead:
+                q.remove(r)
+                r.state = RequestState.REJECTED
+                self._aff_cache.pop(r.rid, None)
+            expired.extend(dead)
+        return expired
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _cost(req: Request, bucket: int) -> float:
+        """DRR service cost of one request: padded prefill tokens plus the
+        decode budget it is entitled to generate."""
+        return float(bucket + req.max_new_tokens)
+
+    def debit(self, tenant: str, n_tokens: int, now: float) -> None:
+        """Charge generated tokens to the tenant's rate bucket (the server
+        calls this once per decode/verify tick with that tick's count)."""
+        self._ensure(tenant).debit(n_tokens, now)
+
+    def next_prefill_batch(
+        self,
+        now: float,
+        max_batch: int,
+        store: Optional[ExpertStore] = None,
+    ) -> Tuple[List[Request], int]:
+        if max_batch <= 0:
+            return [], 0
+        ready: Dict[str, List[Request]] = {}
+        for name, q in self._queues.items():
+            rs = [r for r in q if r.table is not None]
+            if rs:
+                ready[name] = rs
+        if not ready:
+            return [], 0
+        # rate-throttled tenants defer; drop their deficit growth too so an
+        # exhausted budget cannot bank priority for the moment it refills
+        active = [
+            n for n in self._rr
+            if n in ready and not self.tenants[n].throttled(now)
+        ]
+        for name, st in self.tenants.items():
+            if name not in ready:
+                st.deficit = 0.0  # DRR: empty queue forfeits its deficit
+        if not active:
+            return [], 0
+        # rotate so each call gives a different tenant first claim
+        start = self._rr_pos % len(self._rr)
+        order = [n for n in self._rr[start:] + self._rr[:start] if n in active]
+        # per-tenant EDF+affinity heads, computed once
+        heads: Dict[str, Tuple[List[Request], int, float]] = {}
+        for name in order:
+            ranked = self._order(ready[name], now, store)
+            bucket = bucket_len(ranked[0].prompt_len, self.buckets)
+            heads[name] = (ranked, bucket, self._cost(ranked[0], bucket))
+        # each full round adds quantum x weight to every active tenant, so
+        # the cheapest head is reachable within bounded rounds
+        min_gain = min(
+            self.quantum * self.tenants[n].cfg.weight for n in order
+        )
+        max_cost = max(h[2] for h in heads.values())
+        for _ in range(int(max_cost / max(min_gain, 1e-9)) + 2):
+            for name in order:
+                st = self.tenants[name]
+                st.deficit += self.quantum * st.cfg.weight
+                ranked, bucket, cost = heads[name]
+                if st.deficit < cost:
+                    continue
+                batch: List[Request] = []
+                for r in ranked:
+                    if len(batch) >= max_batch:
+                        break
+                    if bucket_len(r.prompt_len, self.buckets) != bucket:
+                        continue
+                    c = self._cost(r, bucket)
+                    if batch and st.deficit < c:
+                        break
+                    st.deficit -= c
+                    batch.append(r)
+                q = self._queues[name]
+                for r in batch:
+                    q.remove(r)
+                    r.state = RequestState.PREFILL
+                    self._aff_cache.pop(r.rid, None)
+                if not q:
+                    st.deficit = 0.0
+                self._rr_pos = (self._rr.index(name) + 1) % len(self._rr)
+                return batch, bucket
+        return [], 0  # unreachable: the round bound covers max_cost
+
+
+class TenantAdmission:
+    """The tenant-aware split of the overload-shedding gate: one
+    `AdmissionController` clone per tenant, so queue-depth estimates and
+    service-time EMAs are tracked per tenant and one tenant's overload
+    sheds ONLY that tenant's requests. Tenants with a `default_slo_s` in
+    their contract shed against that deadline even when individual
+    requests carry none."""
+
+    def __init__(
+        self,
+        template: AdmissionController,
+        tenants: Sequence[TenantConfig] = (),
+    ):
+        self._template = template
+        self._by_tenant: Dict[str, AdmissionController] = {}
+        for t in tenants:
+            ctl = template.clone()
+            if t.default_slo_s is not None:
+                ctl.default_slo_s = t.default_slo_s
+            self._by_tenant[t.name] = ctl
+
+    def controller(self, tenant: str) -> AdmissionController:
+        ctl = self._by_tenant.get(tenant)
+        if ctl is None:
+            ctl = self._template.clone()
+            self._by_tenant[tenant] = ctl
+        return ctl
+
+    def observe(self, tenant: str, service_s: float) -> None:
+        self.controller(tenant).observe(service_s)
+
+    def should_shed(
+        self,
+        tenant: str,
+        depth: int,
+        slack_s: Optional[float],
+        degraded_frac: float = 0.0,
+    ) -> bool:
+        """One admission decision against the TENANT's own queue depth and
+        service-time history."""
+        return self.controller(tenant).should_shed(depth, slack_s, degraded_frac)
+
+    @property
+    def shedding(self) -> bool:
+        return any(c.shedding for c in self._by_tenant.values())

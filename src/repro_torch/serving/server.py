@@ -28,6 +28,15 @@ one ticket, and verifies the block in one `verify_step`. A paged server
 prompts longer than the largest bucket through it in `prefill_chunk`-token
 chunks between decode ticks.
 
+With tenants (`ServingConfig.tenants`) the flat queue becomes weighted fair
+queueing over per-tenant queues (`WFQScheduler`), the shed gate splits per
+tenant (`TenantAdmission`), each tenant's pin quota is registered with the
+store, and every request's metrics also land in its tenant's telemetry
+partition (`tenant_summary`). Without tenants the server keeps the
+single-tenant objects. A `FaultPlan` (`faults=`) injects failures into the
+prefetch pipeline and the hash-ahead admission; the serve loop runs the
+pipeline's `watchdog` every `watchdog_interval_s`.
+
 The reference's `@jax.jit` closures are plain methods on tensors here:
 `_hash_prefill`, `_predict_masked`, `_decode_masked`, `_seed_lanes`,
 `_seed_lanes_paged`, `_chunk_step` and `_verify_masked`. What differs:
@@ -41,13 +50,11 @@ The reference's `@jax.jit` closures are plain methods on tensors here:
   position's own decode writes it. Paged lanes that are masked out write
   to the trash page, as in the reference. A masked lane's `pos` and
   predictor state never move.
-* **Supervision.** The one-shard pipeline has no degraded mode and no
-  supervised restart yet (ROADMAP A13(b)): `degraded_fraction()` is 0.0
-  and the loop runs no watchdog, so its counters stay 0, as in a fault-
-  free reference run.
-* **Refused until ported.** Tenants and fault plans (A13(b)), expert-
-  parallel shards and rebalancing (A14) raise `NotImplementedError`;
-  `tenant_summary` is `{}`.
+* **The predictor's prompt pass** is `hash_fn_prefill`, the LSTM state and
+  ring alone; the reference's `lax.scan` of the full step leaves XLA to
+  drop the attention and heads whose outputs nothing reads.
+* **Refused until ported.** Expert-parallel shards and rebalancing (ROADMAP
+  A14) raise `NotImplementedError`.
 
 Runs on CUDA unless `device` names another device.
 """
@@ -63,6 +70,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decode_engine import (
     draft_unroll_fn,
+    hash_fn_prefill,
     hash_fn_step,
     hash_state_init,
     ids_alpha_to_host,
@@ -82,7 +90,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.request import Request, RequestState
-from repro_torch.serving.scheduler import LaneTable, Scheduler
+from repro_torch.serving.scheduler import LaneTable, Scheduler, TenantAdmission, WFQScheduler
 from repro_torch.serving.telemetry import Telemetry
 
 
@@ -125,12 +133,6 @@ class RequestServer:
                 "RequestServer: pass either a ServingConfig or the legacy "
                 f"flat kwargs, not both (got config= plus {sorted(kwargs)})"
             )
-        if config.multitenant:
-            raise NotImplementedError("multi-tenant serving (WFQ, per-tenant shedding and "
-                                      "pin quotas) is ported in ROADMAP A13(b)")
-        if config.faults.plan is not None:
-            raise NotImplementedError("fault plans need the pipeline's fault tolerance, "
-                                      "ported in ROADMAP A13(b)")
         sharded = config.parallel.sharded
         if (sharded is not None and sharded.enabled) or config.parallel.rebalance_interval:
             raise NotImplementedError("expert-parallel shards and rebalancing are ported in "
@@ -154,10 +156,15 @@ class RequestServer:
             scale_granularity=q.scale_granularity, tier=q.tier,
         )
         self.device = self.store.device
+        self.faults = config.faults.plan
         self.fence_timeout_s = config.prefetch.fence_timeout_s
         self.shed = config.faults.shed
+        self.watchdog_interval_s = config.prefetch.watchdog_interval_s
+        self.watchdog_max_job_age_s = config.prefetch.watchdog_max_job_age_s
+        self._last_watchdog = 0.0
         self.prefetch: Optional[PrefetchPipeline] = PrefetchPipeline.maybe_create(
-            self.store, cfg, config.prefetch.depth, config.prefetch.staging_buffers)
+            self.store, cfg, config.prefetch.depth, config.prefetch.staging_buffers,
+            faults=self.faults)
         # prefetch_depth=0: the engine must not build a second pipeline off
         # cfg.prefetch when the server decided to run synchronously
         self.engine = SiDAEngine(
@@ -199,7 +206,22 @@ class RequestServer:
         self.drop_expired = b.drop_expired
         self.keep_prefill_logits = config.keep_prefill_logits
         self.keep_decode_logits = config.keep_decode_logits
-        self.scheduler = Scheduler(buckets=self.buckets)
+        # the multi-tenant front door: WFQ over per-tenant queues, the shed
+        # gate split per tenant, each tenant's pin quota on the store; with
+        # no tenants the single-tenant objects, unchanged
+        self.tenants = config.tenants
+        self.multitenant = config.multitenant
+        self._shed_mt: Optional[TenantAdmission] = None
+        if self.multitenant:
+            self.scheduler: Scheduler = WFQScheduler(
+                self.tenants, quantum=config.wfq_quantum, buckets=self.buckets)
+            if self.shed is not None:
+                self._shed_mt = TenantAdmission(self.shed, self.tenants)
+            for t in self.tenants:
+                if t.pin_quota < 1.0:
+                    self.store.set_pin_quota(t.name, t.pin_quota)
+        else:
+            self.scheduler = Scheduler(buckets=self.buckets)
         self.lanes = LaneTable(self.max_lanes)
         self.telemetry = telemetry or Telemetry()
         self._lock = threading.Lock()
@@ -245,17 +267,11 @@ class RequestServer:
                       state0: Optional[dict] = None) -> dict:
         """Advance the predictor LSTM through each (padded) prompt, freezing
         every row at its true length: the state the incremental predictor
-        would have reached. `state0` continues a prior call (chunked prefill
-        threads it chunk to chunk). Positions past the longest prompt change
-        no row, so the loop stops there."""
+        would have reached (`hash_fn_prefill`: the LSTMs and the ring only).
+        `state0` continues a prior call (chunked prefill threads it chunk to
+        chunk)."""
         emb = self.embed_table[self._tensor(tokens).long()]            # [n, Sb, d]
-        state = state0 if state0 is not None else hash_state_init(self.hash_params,
-                                                                   tokens.shape[0])
-        lens = self._tensor(lengths)
-        for j in range(int(np.max(lengths))):
-            _, new = hash_fn_step(self.hash_params, emb[:, j], state, self.E)
-            state = _mask_state(lens > j, new, state)
-        return state
+        return hash_fn_prefill(self.hash_params, emb, lengths, state0)
 
     def _predict_masked(self, tokens: np.ndarray, hstate: dict, active: np.ndarray):
         """One predictor step for the `active` lanes: (ids [L, B, k] int32, α
@@ -346,6 +362,8 @@ class RequestServer:
         predicted experts start uploading as a fire-and-forget warming
         prefetch (`protect=False`: a warmed expert may be evicted before the
         request is scheduled; later tickets fence on uploads in flight)."""
+        if self.faults is not None:
+            self.faults.inject("hash")
         req.table = self.engine.build_table(req.rid, req.prompt[None, :])
         if self.prefetch is not None:
             self.prefetch.submit(req.table, protect=False)
@@ -354,6 +372,13 @@ class RequestServer:
     def admit(self, req: Request, now: float) -> None:
         req.t_queued = now
         self.telemetry.counter("requests_arrived").inc()
+        if self.multitenant:
+            # the tenant's contract: a request without its own SLO takes the
+            # tenant's default, which scheduling and shedding then read
+            tcfg = self.config.tenant(req.tenant)
+            if tcfg is not None and req.slo_s is None:
+                req.slo_s = tcfg.default_slo_s
+            self.telemetry.tenant(req.tenant).counter("requests_arrived").inc()
         P = req.prompt_len
         if self.paged is not None and P + req.max_new_tokens > self.cache_len:
             # the page table cannot address positions past cache_len, so the
@@ -367,10 +392,23 @@ class RequestServer:
             with self._lock:
                 self._long_queue.append(req)
             return
-        if self.shed is not None:
+        if self._shed_mt is not None:
+            # tenant-aware shedding: this tenant's queue depth and service
+            # time alone, so one tenant's overload closes only its own gate
+            with self._lock:
+                depth = self.scheduler.pending_tenant(req.tenant) + sum(
+                    1 for r in self._long_queue if r.tenant == req.tenant)
+            degraded = self.prefetch.degraded_fraction() if self.prefetch is not None else 0.0
+            slack = req.slack(now) if req.slo_s is not None else None
+            if self._shed_mt.should_shed(req.tenant, depth, slack, degraded):
+                self.telemetry.tenant(req.tenant).gauge("est_queue_wait_s").set(
+                    self._shed_mt.controller(req.tenant).est_wait_s(depth))
+                return self._reject(req, now, "overloaded")
+        elif self.shed is not None:
             # overload shedding: estimated back-of-queue wait against this
-            # request's remaining deadline slack (degraded shards would
-            # shrink the threshold; the port's pipeline has none)
+            # request's remaining deadline slack; degraded transfer shards
+            # shrink the threshold (synchronous uploads are about to slow
+            # service down)
             with self._lock:
                 depth = self.scheduler.pending() + len(self._long_queue)
             degraded = self.prefetch.degraded_fraction() if self.prefetch is not None else 0.0
@@ -388,6 +426,10 @@ class RequestServer:
         self.rejected.append(req)
         self.telemetry.counter("requests_rejected").inc()
         self.telemetry.counter(f"requests_rejected_{reason}").inc()
+        if self.multitenant:
+            tt = self.telemetry.tenant(req.tenant)
+            tt.counter("requests_rejected").inc()
+            tt.counter(f"requests_rejected_{reason}").inc()
 
     # ------------------------------------------------------------------
     # prefill: length-bucketed batch -> lanes
@@ -435,6 +477,8 @@ class RequestServer:
             r.emit(first)
             self.lane_tokens[lanes[i]] = first
             self.telemetry.histogram("ttft_s").observe(r.ttft_s)
+            if self.multitenant:
+                self.scheduler.debit(r.tenant, 1, now)
         if self.kv_pool is not None:
             # each request's rope'd K/V into its lane's pages (allocating or
             # spilling as needed), then pos and predictor state
@@ -567,6 +611,9 @@ class RequestServer:
                     req.decode_logits.append(logits_np[i, lane].copy())
                 self.lane_tokens[lane] = out_np[lane, i]
                 self.telemetry.counter("tokens_generated").inc()
+                if self.multitenant:
+                    self.telemetry.tenant(req.tenant).counter("tokens_generated").inc()
+                    self.scheduler.debit(req.tenant, 1, now)
                 if req.finished():
                     self._finish(lane)
                     break
@@ -646,6 +693,11 @@ class RequestServer:
                 req.decode_logits.append(logits_np[lane].copy())
             self.lane_tokens[lane] = next_tok[lane]
             self.telemetry.counter("tokens_generated").inc()
+            if self.multitenant:
+                # the token marks the tenant's partition and debits its rate
+                # budget (WFQ defers its next prefill once the bucket is dry)
+                self.telemetry.tenant(req.tenant).counter("tokens_generated").inc()
+                self.scheduler.debit(req.tenant, 1, now)
             if req.finished():
                 self._finish(lane)
 
@@ -672,12 +724,24 @@ class RequestServer:
         self.telemetry.counter("requests_completed").inc()
         self.telemetry.histogram("latency_s").observe(req.latency_s)
         self.telemetry.histogram("decode_tokens").observe(len(req.generated))
-        if req.slo_s is not None and req.latency_s > req.slo_s:
+        missed = req.slo_s is not None and req.latency_s > req.slo_s
+        if missed:
             self.telemetry.counter("deadline_miss").inc()
-        if req.t_prefill >= 0 and self.shed is not None:
+        if self.multitenant:
+            tt = self.telemetry.tenant(req.tenant)
+            tt.counter("requests_completed").inc()
+            tt.histogram("latency_s").observe(req.latency_s)
+            tt.histogram("ttft_s").observe(req.ttft_s)
+            tt.histogram("decode_tokens").observe(len(req.generated))
+            if missed:
+                tt.counter("deadline_miss").inc()
+        if req.t_prefill >= 0:
             # prefill-to-done: the service time the queue-wait estimate
             # multiplies by (queueing delay is what it predicts)
-            self.shed.observe(now - req.t_prefill)
+            if self._shed_mt is not None:
+                self._shed_mt.observe(req.tenant, now - req.t_prefill)
+            elif self.shed is not None:
+                self.shed.observe(now - req.t_prefill)
 
     # ------------------------------------------------------------------
     # chunked prefill: long prompts stream through the paged cache
@@ -771,6 +835,8 @@ class RequestServer:
         req.t_first_token = time.perf_counter() - self._t0
         req.emit(first)
         self.telemetry.histogram("ttft_s").observe(req.ttft_s)
+        if self.multitenant:
+            self.scheduler.debit(req.tenant, 1, now)
         self.telemetry.counter("long_prefills_completed").inc()
         self._chunk_state = None
         if req.finished():
@@ -840,6 +906,15 @@ class RequestServer:
                 self.telemetry.gauge("queue_depth").set(depth)
                 self.telemetry.gauge("active_lanes").set(len(self.lanes.active()))
 
+                if (self.prefetch is not None and self.watchdog_interval_s > 0
+                        and now - self._last_watchdog >= self.watchdog_interval_s):
+                    self._last_watchdog = now
+                    revived, stalled = self.prefetch.watchdog(self.watchdog_max_job_age_s)
+                    if revived:
+                        self.telemetry.counter("watchdog_revives").inc(revived)
+                    if stalled:
+                        self.telemetry.counter("prefetch_stalled_jobs").inc(stalled)
+
                 if long_req is not None:
                     self._start_long(long_req, now)
 
@@ -893,7 +968,8 @@ class RequestServer:
         self.telemetry.counter("expert_evictions").inc(st.evictions)
         self.telemetry.counter("expert_replica_loads").inc(0)   # one shard: no replicas
         for stats in ([self.prefetch.stats] if self.prefetch is not None else []) + (
-                [self.kv_pool.stats] if self.kv_pool is not None else []):
+                [self.kv_pool.stats] if self.kv_pool is not None else []) + (
+                [self.faults] if self.faults is not None else []):
             for key, v in stats.summary().items():
                 c = self.telemetry.counter(key)
                 c.value = 0   # cumulative stats: snapshot, don't double-count
@@ -946,8 +1022,7 @@ class RequestServer:
             "upload_stall_s": stall,
             "upload_overlap_s": overlap,
             "async_prefetch": 1.0 if self.prefetch is not None else 0.0,
-            # the supervision counters: 0 until the pipeline's fault
-            # tolerance is ported (ROADMAP A13(b))
+            # the supervision counters (all 0 in a fault-free run)
             "rejected_overloaded": t.counter("requests_rejected_overloaded").value,
             "rejected_hash_error": t.counter("requests_rejected_hash_error").value,
             "upload_retries": t.counter("prefetch_upload_retries").value,
@@ -972,6 +1047,28 @@ class RequestServer:
         return out
 
     def tenant_summary(self) -> Dict[str, Dict[str, float]]:
-        """Per-tenant summary block: `{}` until multi-tenant serving is
-        ported (ROADMAP A13(b))."""
-        return {}
+        """Per-tenant summary block (`{}` without tenants): arrivals,
+        completions, rejections, tokens, latency percentiles and SLO
+        attainment, the share of the tenant's arrived requests that
+        completed within their deadline (sheds and misses both count
+        against it; without SLOs, completions alone)."""
+        out: Dict[str, Dict[str, float]] = {}
+        for name in self.telemetry.tenant_names():
+            tt = self.telemetry.tenant(name)
+            lat = tt.histogram("latency_s")
+            arrived = tt.counter("requests_arrived").value
+            completed = tt.counter("requests_completed").value
+            missed = tt.counter("deadline_miss").value
+            out[name] = {
+                "arrived": arrived,
+                "completed": completed,
+                "rejected": tt.counter("requests_rejected").value,
+                "rejected_overloaded": tt.counter("requests_rejected_overloaded").value,
+                "deadline_miss": missed,
+                "tokens_generated": tt.counter("tokens_generated").value,
+                "p50_latency_s": lat.percentile(50),
+                "p95_latency_s": lat.percentile(95),
+                "slo_attainment": (completed - missed) / arrived if arrived else 0.0,
+                "pinned_share": self.store.pinned_share(name),
+            }
+        return out

@@ -307,12 +307,19 @@ def test_decode_engine_refuses_unported_modes(e8):
     _, cfg_t, _, _, pt, ht = e8
     with pytest.raises(NotImplementedError, match="A14"):
         td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=2, device="cpu", sharded=object())
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.core.offload import ExpertStore, PrefetchPipeline
 
-    # the async pipeline is ported (A9); its fault injection is not (A13)
+    # the pipeline's fault injection is ported: faults= builds a pipeline
+    # that takes its retry settings from cfg.prefetch
     store = ExpertStore(cfg_t, pt, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        PrefetchPipeline.maybe_create(store, cfg_t, prefetch_depth=2, faults=object())
+    plan = FaultPlan.parse("upload:fail@1")
+    pipe = PrefetchPipeline.maybe_create(store, cfg_t, prefetch_depth=2, faults=plan)
+    assert pipe is not None and pipe.faults is plan and store._prefetcher is pipe
+    pc = cfg_t.prefetch
+    assert (pipe.max_retries, pipe.backoff_s, pipe.degrade_after) == \
+        (pc.max_retries, pc.backoff_s, pc.degrade_after)
+    pipe.close()
     assert store._prefetcher is None
 
 

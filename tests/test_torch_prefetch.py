@@ -234,22 +234,25 @@ def test_close_is_idempotent():
 
 
 def test_transfer_failure_raises_instead_of_hanging(monkeypatch):
-    """An error on the transfer thread reaches the consumer: nothing drops
-    quietly to the synchronous path, and no fence waiter hangs."""
+    """A CUDA error on the transfer thread reaches the consumer: it is not
+    retried, poisoned or degraded away into the synchronous path, and no
+    fence waiter hangs. (Other errors are retried and replanned:
+    tests/test_torch_faults.py.)"""
     cfg, store = _store(2)
 
     def broken(x, device):
-        raise RuntimeError("injected copy failure")
+        raise torch.AcceleratorError("CUDA error: an illegal memory access was encountered")
 
     monkeypatch.setattr(offload, "_staged_put", broken)
     pipe = PrefetchPipeline(store, depth=1)
     try:
         tk = pipe.submit(_table(store.L, [0, 1]))
         tk._job = None                            # leave the job to the thread
-        with pytest.raises(RuntimeError, match="transfer thread failed"):
+        with pytest.raises(RuntimeError, match="CUDA error"):
             tk.wait(timeout=20)
-        with pytest.raises(RuntimeError, match="transfer thread failed"):
+        with pytest.raises(RuntimeError, match="CUDA error"):
             pipe.submit(_table(store.L, [2]))
+        assert pipe.stats.upload_retries == pipe.stats.upload_failures == 0
     finally:
         pipe.close()
 

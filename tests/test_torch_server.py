@@ -7,7 +7,9 @@ a shorter prompt (the port's decode writes a masked ring lane's K/V in place
 at its stale position), and a run on the trained miniature
 `experiments/cache/sys_E8` with its committed draft head, spec on and off,
 synchronous and pre-admitted, where the tokens, the expert loads and
-`bytes_h2d` equal the JAX server's. The `gpu` cases run one server at
+`bytes_h2d` equal the JAX server's, and the LSTM-only prompt pass, whose
+state equals the JAX server's scan of full predictor steps. The `gpu`
+cases run one server at
 phase 9a's settings on the card (JAX is imported only inside the CPU
 differentials' fixtures, so they run where JAX is absent:
 `python -m pytest --noconftest -m gpu tests/test_torch_server.py`).
@@ -254,12 +256,17 @@ def test_server_refuses_what_is_not_ported(tiny):
     from repro_torch.core.offload import ShardedStoreConfig
     from repro_torch.serving import ServingConfig, TenantConfig
 
-    for kw, item in ((dict(tenants=(TenantConfig("a"),)), "A13"),
-                     (dict(faults=FaultPlan.parse("upload:fail@1")), "A13"),
-                     (dict(sharded=ShardedStoreConfig(ep_shards=2)), "A14"),
-                     (dict(rebalance_interval=0.5), "A14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(sharded=ShardedStoreConfig(ep_shards=2)), dict(rebalance_interval=0.5)):
+        with pytest.raises(NotImplementedError, match="A14"):
             RequestServer(cfg_t, pt, ht, device="cpu", **kw)
+    # tenants and fault plans are served: two requests each
+    reqs = [Request(rid=i, prompt=np.arange(4 + i, dtype=np.int32), max_new_tokens=2)
+            for i in range(2)]
+    for kw in (dict(tenants=(TenantConfig("a"),)),
+               dict(faults=FaultPlan.parse("upload:fail@1"), prefetch_depth=2)):
+        srv = serve_port(tiny, reqs, **_ring(cfg_t, 2, **kw))
+        assert sorted(tokens(srv)) == [0, 1] and not srv.rejected
+        assert all(len(g) == 2 for g in tokens(srv).values())
     with pytest.raises(TypeError, match="either"):
         RequestServer(cfg_t, pt, ht, ServingConfig(), max_lanes=2, device="cpu")
     srv = RequestServer(cfg_t, pt, ht, 3, device="cpu")        # legacy positional slots
@@ -304,6 +311,54 @@ def e8(ref):
     hj = {**hj, **dj}
     return (cfg_j, cfg_t, pj, hj, params_from_numpy(jax.tree.map(np.asarray, pj)),
             params_from_numpy(jax.tree.map(np.asarray, hj)))
+
+
+@pytest.mark.parametrize("case", ["ragged", "past-the-ring", "continued"])
+def test_hash_prefill_matches_jax_on_e8(ref, e8, case):
+    """The LSTM-only prompt pass (`hash_fn_prefill`, the server's
+    `_hash_prefill`) against the JAX server's scan of full predictor steps,
+    on sys_E8's predictor: h1, c1, h2, c2, the ring and t within 1e-5, for
+    ragged lengths (one row empty), prompts past the 128-slot ring, and a
+    second chunk continuing from the first one's state (as chunked prefill
+    threads it), whose end state also equals one pass over both chunks."""
+    import jax.numpy as jnp
+
+    from repro_torch.core.decode_engine import hash_fn_prefill
+
+    cfg_j, cfg_t, pj, hj, pt, ht = e8
+    rng = np.random.default_rng(9)
+    lengths = {"ragged": [17, 64, 0, 5], "past-the-ring": [300, 129, 128, 1],
+               "continued": [300, 160, 40, 0]}[case]
+    S = max(max(lengths), 8)
+    tokens = rng.integers(0, cfg_t.vocab_size, (len(lengths), S)).astype(np.int32)
+    jsrv = ref.RequestServer(cfg_j, pj, hj, slots_per_layer=8, max_lanes=1,
+                             max_prefill_batch=1, **RING)
+    tsrv = RequestServer(cfg_t, pt, ht, slots_per_layer=8, max_lanes=1, max_prefill_batch=1,
+                         device="cpu", **RING)
+
+    def jax_pass(tok, lens, state0=None):
+        return jsrv._hash_prefill(hj, pj["embed"], jnp.asarray(tok), jnp.asarray(lens), state0)
+
+    if case == "continued":
+        cut = 150
+        first = np.minimum(lengths, cut).astype(np.int32)
+        second = (np.asarray(lengths) - first).astype(np.int32)
+        want = jax_pass(tokens[:, cut:], second, jax_pass(tokens[:, :cut], first))
+        got = tsrv._hash_prefill(tokens[:, cut:], second,
+                                 tsrv._hash_prefill(tokens[:, :cut], first))
+        whole = hash_fn_prefill(ht, pt["embed"][torch.from_numpy(tokens).long()],
+                                np.asarray(lengths))
+        for name in got:
+            _close(got[name], whole[name])
+    else:
+        want = jax_pass(tokens, np.asarray(lengths, np.int32))
+        got = tsrv._hash_prefill(tokens, np.asarray(lengths, np.int32))
+    assert set(got) == set(want) == {"h1", "c1", "h2", "c2", "ring", "t"}
+    for name in got:
+        _close(got[name], np.asarray(want[name]))
+    np.testing.assert_array_equal(got["t"].numpy(), np.asarray(lengths))
+    tsrv.close()
+    jsrv.close()
 
 
 @pytest.mark.parametrize("spec", [False, True], ids=["vanilla", "spec"])

@@ -5,9 +5,9 @@ inside a slack band and its per-epoch memo, `pop_expired`, `chunk_urgent`),
 `poisson_requests`; the store's and the pipeline's `affinity_epoch`; then the
 flag table: `SERVE_FLAGS`, the serve parser's flags, dests, defaults and
 choices, `from_args` round trips, `from_kwargs`, and the validation messages,
-equal to the reference's. Flags of what is not ported yet (tenants and
-fault plans, ROADMAP A13(b); expert-parallel shards, A14) parse, and the
-server refuses them. Everything compares exactly."""
+equal to the reference's. `--tenants` and `--fault-plan` serve on the CPU;
+the flags of what is not ported yet (expert-parallel shards, ROADMAP A14)
+parse, and the server refuses them. Everything compares exactly."""
 import dataclasses
 
 import numpy as np
@@ -339,9 +339,7 @@ def test_config_errors_and_kwargs_match_the_reference():
         assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("flags,item", [(["--tenants", "a"], "A13"),
-                                        (["--fault-plan", "upload:fail@1"], "A13"),
-                                        (["--ep-shards", "2"], "A14"),
+@pytest.mark.parametrize("flags,item", [(["--ep-shards", "2"], "A14"),
                                         (["--engine", "sida", "--ep-shards", "2"], "A14")])
 def test_unported_flags_parse_and_are_refused(flags, item):
     argv = ["--device", "cpu", "--requests", "1", "--no-realtime", "--seq", "8", *flags]
@@ -350,6 +348,26 @@ def test_unported_flags_parse_and_are_refused(flags, item):
     serve.validate_serve_args(serve.build_parser().parse_args(argv))     # parses and validates
     with pytest.raises(NotImplementedError, match=item):
         serve.main(argv)
+
+
+@pytest.mark.parametrize("flags", [["--tenants", "paid:weight=4:pin=0.5,free"],
+                                   ["--fault-plan", "upload:fail,p=0.3", "--prefetch-depth", "2"]],
+                         ids=["tenants", "fault-plan"])
+def test_tenant_and_fault_flags_serve_on_the_cpu(flags, capsys):
+    """`--tenants` (one Poisson stream a tenant) and `--fault-plan` serve
+    through `--engine server` on the CPU: every request completes, with the
+    tenants' summary blocks or the fault plan's counters."""
+    argv = ["--engine", "server", "--device", "cpu", "--requests", "2", "--rate", "8",
+            "--lanes", "2", "--new-tokens", "3", "--seq", "12", "--no-realtime", *flags]
+    serve.main(argv)
+    out = capsys.readouterr().out
+    n = 4 if "--tenants" in flags else 2
+    assert f"  completed            {n:.4f}" in out
+    assert f"  rejected             {0:.4f}" in out
+    if "--tenants" in flags:
+        assert "  tenant paid:" in out and "  tenant free:" in out
+    else:
+        assert '"fault_ops_upload"' in out and "  upload_retries" in out
 
 
 def test_server_cli_runs_on_the_cpu_and_refuses_without_a_gpu(capsys, monkeypatch):
