@@ -24,7 +24,19 @@
    [8, 256, 256], also with slowly converging rows, and the decode ring's
    [8, 128] with masked entries), each rerun bit-identical. Phase 7's shapes
    too: expert_ffn at Standard's [8, 320] and the tiered batch serve's hot
-   (expert_ffn_q) and warm (expert_ffn_q4) blocks.
+   (expert_ffn_q) and warm (expert_ffn_q4) blocks. Phase 10's shapes too:
+   the GLU (SwiGLU) expert FFN at deepseek-moe-16b's [16, ., 2048 -> 1408]
+   and qwen3-moe's [32, ., 4096 -> 1536] batch and decode blocks and their
+   tiered decode's int8 hot and int4 warm blocks; flash_prefill,
+   flash_decode and flash_decode_paged at every form phase 10 launches them
+   in: qwen3's GQA group 16 and deepseek's 16 / 16 heads at D 128 ([8, 256],
+   8 lanes over 512 keys), chameleon-34b, qwen2-1.5b, smollm-135m and
+   stablelm-12b (head_dim 160) at [2, 512] and a 528-slot ring, gemma2-9b's
+   local (window 4096) and global layers at [1, 5120] (head_dim 256,
+   softcap 50); the library SDPA with enable_gqa, or for a softcapped row a
+   compiled flex_attention (tanh score_mod, block mask), its own error
+   against the plain version printed; a group above 16 and a head_dim
+   outside the set refused.
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -109,6 +121,24 @@
    beside heavy under WFQ, and with no tenants; gates: every light request
    completes, heavy's pinned share is 0.25, one pin refusal a MoE layer;
    the light tenant's SLO attainment is printed.
+10. The MoE attention-family configs at full width, bf16, weights drawn on
+   the card from seeds and kept on the host: (a) deepseek-moe-16b at 4 of
+   28 layers (64 experts top-6, 2 shared experts resident), (b)
+   qwen3-moe-235b-a22b at 2 of 94 (128 experts top-8, GQA 64 / 4), each:
+   the routed experts' host bytes beside MemTotal (too little memory
+   fails), 4 batches of [8, 256] through SiDAEngine at 16 / 32 slots a
+   layer (synchronous, then threaded) against Standard with every expert
+   resident (device bytes, memory_saving exactly 1 - slots / E), then
+   decode, 8 lanes x 32 steps, over a 512-slot ring on bf16 slots and on
+   hot int8 / warm int4 tiers over a paged pool; tok/s, latency, ms a
+   step, loads, launches. (c) each at 1 layer, fp32, 4 lanes x 16 steps,
+   card against CPU: hash ids, slot traces, tokens and loads identical,
+   logits within 1e-3 * max(1, max|logit|). (d) chameleon-34b, gemma2-9b
+   (one local and one global layer, a 5120-token prompt), qwen2-1.5b,
+   smollm-135m and stablelm-12b at 2 layers, bf16: forward over [2, 512]
+   (gemma2 [1, 5120]), 16 greedy decode steps from its K/V over a ring and
+   over pages that a KVPagePool seeds; the card against the CPU path
+   (fp32, the same weights) within 5e-2 * max(1, max|logit|).
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -118,7 +148,12 @@ expert_ffn_q4 at the batch serves' shapes, and sparsemax at the ring's;
 `library_device_ms` are the graph-replayed times; `spec_launches` a decode
 kernel's launches on 5e's speculative runs, null for the batch rows;
 `server_launches` a kernel's launches on each of 9a-9d (null for the shape
-rows); flash_decode_paged's
+rows); the phase-10 rows (`expert_ffn/deepseek-batch`,
+`flash_decode/qwen3-G16`, ...) count their own phase-10 run's launches,
+each attention row its own form's (`ops.launches_by_shape()`; 0 fails),
+`library_max_abs_err` is the library call's own distance from the plain
+version, and `sdpa_nocap_*` time SDPA without the softcap the kernel applies;
+flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
@@ -943,7 +978,7 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.core.offload import quantize_expert_q4
+    from repro_torch.core.offload import quantize_stack_int4
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_gemm import expert_ffn_q4_cuda
     from repro_torch.kernels.flash_decode import (decode_plan, flash_decode_cuda,
@@ -961,8 +996,8 @@ def check_tier_paged_kernels(cfg, lanes: int, cache_len: int, page: int, warm: i
     d, Fh = cfg.d_model, cfg.moe.d_expert
 
     def quantize4(w):
-        q, sc = quantize_expert_q4(w.numpy(), 64)
-        return torch.from_numpy(q).to(dev), torch.from_numpy(sc).to(dev)
+        q, sc = quantize_stack_int4(w, "cpu", 64)
+        return q.to(dev), sc.to(dev)
 
     for E, C in ((warm, c_warm), (4, 640), (warm_b, c_tb)):
         wi_q, wi_s = quantize4(torch.randn((E, d, Fh), generator=gen) * d ** -0.5)
@@ -2143,6 +2178,730 @@ def server_faults_card_vs_cpu(cfg, slots: int, cache_len: int):
         raise SystemExit("chip_smoke: 9e: the two-tenant server disagrees between card and CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the attention-family shapes; phase 10, the attention-family configs
+# ---------------------------------------------------------------------------
+
+# the MoE configs served at full width: (name, depth served, slots a MoE
+# layer). Depth is cut so that the host's init and the call's time stay
+# bounded (the published depths are 28 and 94: 454 GB of qwen3 experts);
+# the width never is.
+MOE_FAMILY = (("deepseek-moe-16b", 4, 16), ("qwen3-moe-235b-a22b", 2, 32))
+# the dense configs, 2 layers each (gemma2: one local and one global layer),
+# and the prompt each forward runs (gemma2's is past its 4096 window)
+DENSE_FAMILY = (("chameleon-34b", (2, 512)), ("gemma2-9b", (1, 5120)), ("qwen2-1.5b", (2, 512)),
+                ("smollm-135m", (2, 512)), ("stablelm-12b", (2, 512)))
+FAMILY_TIER = dict(tier_split=0.5, group_size=64)   # 10a/b's tiered decode
+FAMILY_BATCH = (8, 256)                            # 10a/b's batches, [batch, seq]
+DENSE_STEPS = 16                                   # 10d's decode steps after each prompt
+
+
+def family_config(name: str, depth: int, dtype: str = "bfloat16"):
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(name), n_layers=depth, dtype=dtype)
+
+
+def family_tiers(cfg, slots: int):
+    """(S8, S4) of 10a/b's tiered store: `slots` int8-slot units split 0.5."""
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.offload import tier_geometry
+
+    d, Fh = cfg.d_model, cfg.moe.d_expert
+    return tier_geometry(TierConfig(int4_slots=True, **FAMILY_TIER), slots, cfg.moe.num_experts,
+                         [(d, Fh), (d, Fh), (Fh, d)])
+
+
+def attention_family_cases(lanes: int, cache_len: int):
+    """Every form in which phase 10 launches the attention kernels, each a
+    row of phase 2: (row suffix, config, prefill [B, S], decode lanes, ring
+    slots, paged positions, window, softcap, where its launches come from).
+    10a/b decode `lanes` over a `cache_len` ring and a `cache_len`-position
+    table and serve FAMILY_BATCH; 10d runs each DENSE_FAMILY prompt and
+    DENSE_STEPS steps after it (gemma2: its local layer's ring is its window,
+    its global layer's the whole run)."""
+    cases = [(f"{name.split('-')[0]}-{tag}", name, FAMILY_BATCH, lanes, cache_len, cache_len, 0,
+              0.0, "moe") for name, tag in (("qwen3-moe-235b-a22b", "G16"),
+                                           ("deepseek-moe-16b", "H16"))]
+    tags = {"chameleon-34b": ["G8"], "qwen2-1.5b": ["G6"], "smollm-135m": ["D64"],
+            "stablelm-12b": ["D160"], "gemma2-9b": ["D256", "D256-global"]}
+    for name, (B, S) in DENSE_FAMILY:
+        cfg = family_config(name, 2)
+        n = S + DENSE_STEPS
+        for tag in tags[name]:
+            window = 0 if tag.endswith("global") else cfg.attn.window
+            cases.append((f"{name.split('-')[0]}-{tag}", name, (B, S), B,
+                          min(window, n) if window else n, n, window, cfg.attn.logit_softcap,
+                          "dense"))
+    return cases
+
+
+def flex_library(q, k, v, mask_mod, cap: float, B, Lq: int, Lk: int):
+    """The library call of a softcapped attention row: one compiled
+    `flex_attention` over q [B, H, Lq, D], k/v [B, K, Lk, D], with score_mod
+    cap·tanh(s / cap), the row's mask as a block mask built here (outside
+    the timed call) and GQA through enable_gqa. Eager, and said so, if the
+    compile fails. Returns (call, label)."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    cfg = torch._dynamo.config
+    setattr(cfg, "recompile_limit" if hasattr(cfg, "recompile_limit") else "cache_size_limit", 64)
+    block = create_block_mask(mask_mod, B, None, Lq, Lk, device=q.device)
+
+    def softcap(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    flex = torch.compile(flex_attention, dynamic=False)
+    call = lambda: flex(q, k, v, score_mod=softcap, block_mask=block, enable_gqa=True)
+    try:
+        call()
+        return call, " (flex_attention compiled: tanh score_mod, block mask, enable_gqa)"
+    except Exception as exc:   # the library's compiler, not the port: time it eager
+        print(f"    (flex_attention did not compile, timed eager: {str(exc)[:160]})")
+        call = lambda: flex_attention(q, k, v, score_mod=softcap, block_mask=block,
+                                      enable_gqa=True)
+        return call, " (flex_attention eager: tanh score_mod, block mask, enable_gqa)"
+
+
+def library_check(rec, out, want) -> None:
+    """The library call's own distance from the plain version, printed and
+    kept beside the row (`library_max_abs_err`): it computes the same
+    function, so this is its rounding."""
+    err = (out().float() - want.float()).abs().max().item()
+    rec["library_max_abs_err"] = err
+    print(f"    (the library call against the plain version: max_abs_err={err:.3e})")
+
+
+def check_family_kernels(lanes: int, cache_len: int):
+    """Phase 2, the attention-family shapes. The GLU (SwiGLU) expert FFN at
+    deepseek-moe-16b's and qwen3-moe's batch-serve and decode blocks (bf16
+    slots, against bmm·silu·bmm) and at their tiered decode's hot int8 and
+    warm int4 blocks; flash_decode, flash_decode_paged and flash_prefill at
+    every form phase 10 launches them in (`attention_family_cases`: GQA
+    group 16 and deepseek's 16 / 16 heads at 10a/b's shapes, the dense
+    configs at 10d's, gemma2's local and global layers with softcap 50).
+    Each in bf16 (5e-2) and fp32 (1e-4) against its plain version on the
+    same inputs. The library is SDPA with enable_gqa on the same keys, or
+    for a softcapped row a compiled flex_attention (`flex_library`), SDPA
+    without the softcap beside it (`sdpa_nocap_ms`); the library's own
+    distance from the plain version is kept (`library_max_abs_err`).
+    Returns {row: bf16 record}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.offload import quantize_stack_int4, quantize_stack_int8
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_gemm import (expert_ffn_cuda, expert_ffn_q4_cuda,
+                                                 expert_ffn_q_cuda)
+    from repro_torch.kernels.flash_decode import (decode_plan, flash_decode_cuda,
+                                                  flash_decode_paged_cuda)
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.models.moe import _capacity
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(654)   # gigabytes of weights: drawn on the card
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    records, failed = {}, []
+    peak = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_F32_FLOPS}
+    tols = ((torch.bfloat16, 5e-2), (torch.float32, 1e-4))
+
+    def nocap(rec, sdpa):
+        """SDPA has no softcap: its time without one, beside a capped row."""
+        rec.update(sdpa_nocap_ms=time_ms(sdpa), sdpa_nocap_device_ms=graph_ms(sdpa))
+        print(f"    (SDPA on the same inputs without the softcap: {rec['sdpa_nocap_ms']:.4f} ms, "
+              f"device {rec['sdpa_nocap_device_ms']})")
+
+    # --- the GLU expert FFN: [E, C, d] -> F -> d, silu(x Wg) * (x Wi) Wo
+    for name, depth, slots in MOE_FAMILY:
+        cfg = family_config(name, depth)
+        d, Fh = cfg.d_model, cfg.moe.d_expert
+        hot, warm = family_tiers(cfg, slots)
+        c_dec = _capacity(cfg, lanes, slots)
+        short = name.split("-")[0]
+        cases = ((f"expert_ffn/{short}-batch", "bf16", slots,
+                  batch_capacity(cfg, *FAMILY_BATCH, slots)),
+                 (f"expert_ffn/{short}-decode", "bf16", slots, c_dec),
+                 (f"expert_ffn_q/{short}-decode-hot", "int8", hot, _capacity(cfg, lanes, hot + warm)),
+                 (f"expert_ffn_q4/{short}-decode-warm", "int4", warm,
+                  _capacity(cfg, lanes, hot + warm)))
+        for row, fmt, E, C in cases:
+            ws = [rnd(s, s[1] ** -0.5, torch.float32)
+                  for s in ((E, d, Fh), (E, d, Fh), (E, Fh, d))]      # w_in, w_gate, w_out
+            if fmt == "int8":
+                qs = [quantize_stack_int8(w[None], dev, "channel") for w in ws]
+                wq = [(q[0].to(dev), s[0].to(dev)) for q, s in qs]
+                deq = [ref.dequantize_ref(q, s) for q, s in wq]
+            elif fmt == "int4":
+                qs = [quantize_stack_int4(w[None], dev, 64) for w in ws]
+                wq = [(q[0].to(dev), s[0].to(dev)) for q, s in qs]
+                deq = [ref.dequantize_q4_ref(q, s, k) for (q, s), k in zip(wq, (d, d, Fh))]
+            for dtype, tol in tols:
+                xe = rnd((E, C, d), 1.0, dtype)
+                if fmt == "bf16":
+                    wi, wg, wo = (w.to(dtype) for w in ws)
+                    args, fn, plain = (xe, wi, wg, wo), expert_ffn_cuda, ref.expert_ffn_ref
+                    wbytes = nb(wi, wg, wo)
+                    wi_f, wg_f, wo_f = wi, wg, wo
+                else:
+                    (wi_q, wi_s), (wg_q, wg_s), (wo_q, wo_s) = wq
+                    args = (xe, wi_q, wi_s, wg_q, wg_s, wo_q, wo_s)
+                    fn, plain = ((expert_ffn_q_cuda, ref.expert_ffn_q_ref) if fmt == "int8"
+                                 else (expert_ffn_q4_cuda, ref.expert_ffn_q4_ref))
+                    wbytes = nb(wi_q, wi_s, wg_q, wg_s, wo_q, wo_s)
+                    wi_f, wg_f, wo_f = (w.to(dtype) for w in deq)       # pre-dequantised
+                got = fn(*args, act="silu")
+                torch.cuda.synchronize()
+                want = plain(*args, act="silu")
+
+                def lib(xe=xe, wi_f=wi_f, wg_f=wg_f, wo_f=wo_f):
+                    return torch.bmm(F.silu(torch.bmm(xe, wg_f)) * torch.bmm(xe, wi_f), wo_f)
+
+                kern = lambda fn=fn, args=args: fn(*args, act="silu")
+                bnd = bound_ms(nb(xe, got) + wbytes, 3 * 2 * E * C * d * Fh, peak[dtype])
+                rec = report(failed, row, dtype, (E, C, d, Fh), got, want, tol, time_ms(kern),
+                             time_ms(lambda plain=plain, args=args: plain(*args, act="silu")),
+                             time_ms(lib), bnd,
+                             " (bmm+silu*bmm+bmm" + (", pre-dequantised)" if fmt != "bf16" else ")"),
+                             graph=(kern, lib))
+                if dtype == torch.bfloat16:
+                    records[row] = rec
+
+    # --- attention at every form phase 10 launches: ring decode, paged
+    # decode and prefill; every ring lane past its wrap
+    page = 16
+    for suffix, name, (Bp, Sp), B, S, Spg, window, cap, _ in attention_family_cases(lanes,
+                                                                                   cache_len):
+        cfg = family_config(name, 2)
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for dtype, tol in tols:
+            q = rnd((B, H, D), 1.0, dtype)
+            k = rnd((B, S, K, D), 1.0, dtype)
+            v = rnd((B, S, K, D), 1.0, dtype)
+            p = torch.tensor([S + 1000 + 37 * i for i in range(B)], dtype=torch.int32)
+            s_idx = torch.arange(S, dtype=torch.int32)[None, :]
+            sp = (p[:, None] - ((p[:, None] - s_idx) % S)).to(dev).contiguous()
+            p = p.to(dev)
+            got = flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap)
+            again = flash_decode_cuda(q, k, v, sp, p, window=window, cap=cap)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                failed.append(f"flash_decode/{suffix} {dtype}: a rerun differs")
+            want = ref.flash_decode_ref(q, k, v, sp, p, window=window, cap=cap)
+            n_keys = min(S, window) if window else S
+            bnd = bound_ms(nb(q, k, v, sp, p, got), 4 * B * H * n_keys * D, peak[dtype])
+            kern = lambda q=q, k=k, v=v, sp=sp, p=p: flash_decode_cuda(q, k, v, sp, p,
+                                                                       window=window, cap=cap)
+            qt = q[:, :, None, :]
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+            valid = (sp <= p[:, None]) & (sp >= 0)
+            if window:
+                valid &= sp > p[:, None] - window
+            sdpa = lambda qt=qt, kt=kt, vt=vt, valid=valid[:, None, None, :]: (
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid, enable_gqa=True))
+            if cap:
+                def ring_mask(b, h, qi, ki, sp=sp, p=p):
+                    pos = sp[b, ki]
+                    ok = (pos >= 0) & (pos <= p[b])
+                    return (ok & (pos > p[b] - window)) if window else ok
+                lib, label = flex_library(qt, kt, vt, ring_mask, cap, B, 1, S)
+                lib_out = lambda lib=lib: lib()[:, :, 0]
+            else:
+                lib, label, lib_out = sdpa, " (SDPA, enable_gqa)", lambda: sdpa()[:, :, 0]
+            print(f"    flash_decode/{suffix} plan (splits) = "
+                  f"{decode_plan(B, K, S, H // K, D, dtype)}")
+            rec = report(failed, f"flash_decode/{suffix}", dtype, (B, H, D, S, K), got, want, tol,
+                         time_ms(kern), time_ms(lambda: ref.flash_decode_ref(
+                             q, k, v, sp, p, window=window, cap=cap)),
+                         time_ms(lib), bnd, label, graph=(kern, lib))
+            library_check(rec, lib_out, want)
+            if cap:
+                nocap(rec, sdpa)
+            if dtype == torch.bfloat16:
+                records[f"flash_decode/{suffix}"] = rec
+            del k, v, kt, vt
+
+            # the paged run's table: Spg positions over Mp pages, lane b's
+            # entry i is pool page b·Mp + i, all valid at the last position
+            Mp = -(-Spg // page)
+            kpad, vpad = (torch.cat([rnd((B, Spg, K, D), 1.0, dtype),
+                                     torch.zeros((B, Mp * page - Spg, K, D), dtype=dtype,
+                                                 device=dev)], dim=1) for _ in range(2))
+            kp = torch.cat([kpad.reshape(B * Mp, page, K, D),
+                            rnd((1, page, K, D), 1.0, dtype)]).contiguous()
+            vp = torch.cat([vpad.reshape(B * Mp, page, K, D),
+                            rnd((1, page, K, D), 1.0, dtype)]).contiguous()
+            pt = torch.arange(B * Mp, dtype=torch.int32, device=dev).reshape(B, Mp).contiguous()
+            pl = torch.full((B,), Spg - 1, dtype=torch.int32, device=dev)
+            gotp = flash_decode_paged_cuda(q, kp, vp, pt, pl, window=window, cap=cap)
+            torch.cuda.synchronize()
+            wantp = ref.flash_decode_paged_ref(q, kp, vp, pt, pl, window=window, cap=cap)
+            n_keys = min(Spg, window) if window else Spg
+            bnd = bound_ms(2 * B * -(-n_keys // page) * page * K * D * kp.element_size()
+                           + nb(q, pt, pl, gotp), 4 * B * H * n_keys * D, peak[dtype])
+            kern = lambda q=q, kp=kp, vp=vp, pt=pt, pl=pl: flash_decode_paged_cuda(
+                q, kp, vp, pt, pl, window=window, cap=cap)
+            rec = report(failed, f"flash_decode_paged/{suffix}", dtype, (B, H, D, Mp, page), gotp,
+                         wantp, tol, time_ms(kern), time_ms(lambda: ref.flash_decode_paged_ref(
+                             q, kp, vp, pt, pl, window=window, cap=cap)), None, bnd,
+                         graph=(kern, None))
+            # no PyTorch call reads through a page table: SDPA on the same
+            # keys as a ring beside it (untimed gather), where it computes
+            # the same function
+            if not cap:
+                spl = torch.arange(Mp * page, dtype=torch.int32, device=dev)[None, :]
+                valid = (spl <= pl[:, None]) & ((spl > pl[:, None] - window) if window else True)
+                ktp, vtp = (t.transpose(1, 2).contiguous() for t in (kpad, vpad))
+                gsdpa = lambda qt=qt, ktp=ktp, vtp=vtp, valid=valid[:, None, None, :]: (
+                    F.scaled_dot_product_attention(qt, ktp, vtp, attn_mask=valid,
+                                                   enable_gqa=True))
+                rec.update(gathered_sdpa_ms=time_ms(gsdpa), gathered_sdpa_device_ms=graph_ms(gsdpa))
+                del ktp, vtp
+            if dtype == torch.bfloat16:
+                records[f"flash_decode_paged/{suffix}"] = rec
+            del kpad, vpad, kp, vp
+
+            # prefill over [Bp, Sp]
+            row = f"flash_prefill/{suffix}"
+            q, k, v = (rnd((Bp, Sp, n, D), 1.0, dtype) for n in (H, K, K))
+            got = flash_prefill_cuda(q, k, v, window=window, cap=cap)
+            torch.cuda.synchronize()
+            want = ref.flash_prefill_ref(q, k, v, window=window, cap=cap)
+            i = np.arange(Sp)
+            band = (i[:, None] >= i[None, :]) & ((i[None, :] > i[:, None] - window) if window
+                                                 else True)
+            bnd = bound_ms(nb(q, k, v, got), 4 * Bp * H * D * int(band.sum()), peak[dtype])
+            kern = lambda q=q, k=k, v=v: flash_prefill_cuda(q, k, v, window=window, cap=cap)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            if window:
+                band = torch.from_numpy(band).to(dev)
+                sdpa = lambda qt=qt, kt=kt, vt=vt, band=band: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, enable_gqa=True)
+            else:
+                sdpa = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            if cap:
+                def band_mask(b, h, qi, ki):
+                    ok = qi >= ki
+                    return (ok & (ki > qi - window)) if window else ok
+                lib, label = flex_library(qt, kt, vt, band_mask, cap, None, Sp, Sp)
+            else:
+                lib, label = sdpa, " (SDPA, enable_gqa)"
+            rec = report(failed, row, dtype, tuple(q.shape), got, want, tol, time_ms(kern),
+                         time_ms(lambda: ref.flash_prefill_ref(q, k, v, window, cap, True)),
+                         time_ms(lib), bnd, label, graph=(kern, lib))
+            library_check(rec, lambda lib=lib: lib().transpose(1, 2), want)
+            if cap:
+                nocap(rec, sdpa)
+            if dtype == torch.bfloat16:
+                records[row] = rec
+            del q, k, v, qt, kt, vt, got, want
+
+    # outside the accepted set, the wrappers refuse on the card
+    for fn, shape in ((lambda q: flash_decode_cuda(q, q.new_zeros((1, 8, 2, 128)),
+                                                   q.new_zeros((1, 8, 2, 128)),
+                                                   torch.zeros((1, 8), dtype=torch.int32,
+                                                               device=dev),
+                                                   torch.zeros((1,), dtype=torch.int32,
+                                                               device=dev)), (1, 34, 128)),
+                      (lambda q: flash_prefill_cuda(q, q, q), (1, 8, 2, 96))):
+        try:
+            fn(torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+            failed.append(f"a shape outside the accepted set was not refused: {shape}")
+        except ValueError as exc:
+            print(f"    refused on the card, as it must be: {exc}")
+    if failed:
+        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
+    return records
+
+
+def host_mem_total() -> int:
+    """MemTotal of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    raise SystemExit("chip_smoke: /proc/meminfo has no MemTotal")
+
+
+def card_seeded_model(cfg):
+    """A phase-10 model's weights: drawn on the card from seeded CUDA
+    generators (model seed 0, predictor d_h 64 seed 1) and kept on the host,
+    as `repro_torch.launch.serve` keeps them (the host's generator would
+    take a minute for qwen3's 9.7 GB of experts)."""
+    import torch
+
+    from repro_torch.core.hash_fn import init_hash_fn
+    from repro_torch.models.transformer import init_params, n_moe_layers
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cpu")
+    hp = None
+    if cfg.moe.enabled:
+        hp = init_hash_fn(torch.Generator(device="cuda").manual_seed(1), cfg.d_model,
+                          n_moe_layers(cfg), cfg.moe.num_experts, d_h=64, device="cpu")
+    return params, hp
+
+
+FAMILY_KERNELS = {"sida-sync": ("expert_ffn", "sparsemax", "flash_prefill"),
+                  "sida-threaded": ("expert_ffn", "sparsemax", "flash_prefill"),
+                  "standard": ("expert_ffn", "flash_prefill"),
+                  "decode-bf16": ("flash_decode", "expert_ffn", "sparsemax"),
+                  "decode-tiered-paged": ("flash_decode_paged", "expert_ffn_q", "expert_ffn_q4",
+                                          "sparsemax")}
+
+
+def moe_family_path(name: str, depth: int, slots: int, lanes: int, cache_len: int,
+                    n_batches: int = 4, steps: int = 32):
+    """Phase 10a / 10b: one MoE attention-family config at full width, cut to
+    `depth` layers, bf16, seeded weights. A batch serve of `n_batches` of
+    [batch, seq] through `SiDAEngine` at `slots` a MoE layer (synchronous,
+    then threaded) against `Standard` with every expert resident; then
+    decode, `lanes` x `steps`, over a `cache_len`-slot ring on bf16 slots,
+    then on hot int8 / warm int4 tiers (the same int8-slot budget split 0.5)
+    over a paged pool. Gates: finite logits of the right shape, tokens in
+    the vocab, the SiDA saving exactly 1 - slots / E, each run's kernels
+    launched. Returns ({run: launch counts, "by_shape": {run:
+    `ops.launches_by_shape()`}}, {run: summary numbers})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import TierConfig, get_config
+    from repro_torch.core.baselines import StandardServer
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.engine import SiDAEngine
+    from repro_torch.core.offload import nbytes
+    from repro_torch.core.residency import PagedKVConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import n_moe_layers
+    from repro_torch.tree import tree_leaves
+
+    published = get_config(name)
+    cfg = family_config(name, depth)
+    m = cfg.moe
+    L, E = n_moe_layers(cfg), m.num_experts
+    routed = L * E * 3 * cfg.d_model * m.d_expert * 2
+    mem = host_mem_total()
+    print(f"  ({name}) depth {depth} of {published.n_layers} (cut for the host's init and the "
+          f"call's time), width as published: d_model {cfg.d_model}, {cfg.n_heads} query / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.hd} (group {cfg.n_heads // cfg.n_kv_heads}), "
+          f"{E} experts top-{m.top_k} of d_expert {m.d_expert} ({m.num_shared_experts} shared of "
+          f"{m.d_shared}), {cfg.act} GLU={cfg.glu}, vocab {cfg.vocab_size}; {slots} slots a MoE "
+          f"layer")
+    print(f"    routed experts on the host: {routed} bytes ({routed / 1e9:.2f} GB) beside "
+          f"MemTotal {mem} bytes ({mem / 1e9:.1f} GB)")
+    if mem < 3 * routed:
+        raise SystemExit(f"chip_smoke: phase 10 serves {name} at depth {depth} with "
+                         f"{routed / 1e9:.2f} GB of routed experts and needs about "
+                         f"{3 * routed / 1e9:.1f} GB of host memory; this host has "
+                         f"{mem / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    params, hp = card_seeded_model(cfg)
+    print(f"    seeded init (drawn on the card, kept on the host): {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(10)
+    batch, seq = FAMILY_BATCH
+    batches = [rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+               for _ in range(n_batches)]
+    n_tok = n_batches * batch * seq
+    V, Vp = cfg.vocab_size, cfg.padded_vocab
+    counts, summary = {"by_shape": {}}, {}
+
+    def gate(run, got, shapes):
+        counts[run] = got
+        counts["by_shape"][run] = shapes
+        print(f"    launches {json.dumps(got)}")
+        idle = [k for k in FAMILY_KERNELS[run] if got[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on {name}'s {run} run: {idle}")
+
+    t0 = time.perf_counter()
+    eng = SiDAEngine(cfg, params, hp, slots_per_layer=slots, device="cuda")
+    print(f"    (sida) setup_s={time.perf_counter() - t0:.2f}")
+    eng.serve(batches[:1], threaded=False)        # warm-up
+    eng.store.stats.reset()
+    for run, threaded in (("sida-sync", False), ("sida-threaded", True)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        met = eng.serve(batches, threaded=threaded)
+        got, shapes = ops.launches(), ops.launches_by_shape()
+        for i, r in enumerate(eng.results):
+            if r is None or tuple(r.shape) != (batch, seq, Vp) or not torch.isfinite(
+                    r[..., :V]).all():
+                raise SystemExit(f"chip_smoke: {name} {run} batch {i}: logits "
+                                 f"{None if r is None else tuple(r.shape)} not finite / shape")
+        print(f"    ({run}) {n_batches} x [{batch}, {seq}] tokens={n_tok} "
+              f"throughput_tok_s={met.throughput:.1f} mean_latency_s={met.mean_latency:.5f} "
+              f"hash_time_s={met.hash_time_s:.4f} wall_s={met.wall_s:.4f}")
+        summary[run] = met.throughput
+        gate(run, got, shapes)
+    st = eng.store.stats
+    saving = eng.memory_saving()
+    sida_dev = eng.device_memory_bytes()
+    print(f"    store loads={st.loads} hits={st.hits} evictions={st.evictions} dropped={st.dropped} "
+          f"bytes_h2d={st.bytes_h2d} sync_upload_s={st.prepare_time:.4f}")
+    print(f"    device_memory_bytes={sida_dev} expert_device_bytes={eng.store.device_bytes()} "
+          f"memory_saving full_expert_gb={saving['full_expert_gb']:.4f} "
+          f"resident_expert_gb={saving['resident_expert_gb']:.4f} "
+          f"reduction={saving['reduction']:.4f} (1 - {slots}/{E} = {1 - slots / E:.4f})")
+    if abs(saving["reduction"] - (1 - slots / E)) > 1e-9:
+        raise SystemExit(f"chip_smoke: {name}'s SiDA expert saving {saving['reduction']} is not "
+                         f"1 - slots / E")
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    std = StandardServer(cfg, params, device="cuda")
+    setup = time.perf_counter() - t0
+    std.serve(batches[:1])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    met = std.serve(batches)
+    got, shapes = ops.launches(), ops.launches_by_shape()
+    std_dev = std.device_memory_bytes()
+    print(f"    (standard, all {E} experts resident) setup_s={setup:.2f} "
+          f"throughput_tok_s={met.throughput:.1f} mean_latency_s={met.mean_latency:.5f} "
+          f"wall_s={met.wall_s:.4f} device_memory_bytes={std_dev}")
+    gate("standard", got, shapes)
+    summary["standard"] = met.throughput
+    summary["device_saving"] = 1 - sida_dev / std_dev
+    print(f"    SiDA against Standard: device memory saving {summary['device_saving']:.4f} "
+          f"({sida_dev} of {std_dev} bytes), throughput x{summary['sida-threaded'] / met.throughput:.4f}"
+          f" (threaded), expert saving {saving['reduction']:.4f}")
+    del std
+    torch.cuda.empty_cache()
+
+    start = np.random.default_rng(11).integers(0, V, (lanes,)).astype(np.int32)
+    tier = TierConfig(int4_slots=True, **FAMILY_TIER)
+    paged = PagedKVConfig(page_size=16, kv_pages=256, max_seq=cache_len)
+    for run, kw, gen_kw in (
+            ("decode-bf16", {}, {}),
+            ("decode-tiered-paged", dict(quantized_slots=True, tier=tier), dict(paged=paged))):
+        t0 = time.perf_counter()
+        deng = SiDADecodeEngine(cfg, params, hp, slots_per_layer=slots, device="cuda", **kw)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        toks, dm = deng.generate(start, steps=steps, cache_len=cache_len, **gen_kw)
+        got, shapes = ops.launches(), ops.launches_by_shape()
+        st = deng.store.stats
+        dev_bytes = sum(nbytes(x) for x in tree_leaves(deng.store.serve_params))
+        print(f"    ({run}) slots={slots} (S8={deng.store.S8} S4={deng.store.S4}) lanes={lanes} "
+              f"steps={steps} cache_len={cache_len} setup_s={setup:.2f}")
+        print(f"      tok_s={dm.tok_s:.1f} ms_per_step={1e3 * dm.wall_s / dm.steps:.3f} "
+              f"wall_s={dm.wall_s:.4f} loads first_step={dm.loads_per_step[0]} "
+              f"last_step={dm.loads_per_step[-1]} total={st.loads} evictions={st.evictions} "
+              f"promotions={st.promotions} demotions={st.demotions} bytes_h2d={st.bytes_h2d}")
+        print(f"      device_memory_bytes={dev_bytes} expert_device_bytes={deng.store.device_bytes()}"
+              + (f" kv_pool_bytes={deng.kv_pool.kv_pool_bytes()}" if deng.kv_pool is not None
+                 else ""))
+        if toks.shape != (lanes, steps) or toks.min() < 0 or toks.max() >= V:
+            raise SystemExit(f"chip_smoke: {name} {run} emitted out-of-vocab tokens")
+        if "tier" in kw and (deng.store.S8, deng.store.S4) != family_tiers(cfg, slots):
+            raise SystemExit(f"chip_smoke: {name}'s tiered store has (S8, S4) = "
+                             f"{(deng.store.S8, deng.store.S4)}, phase 2 checked "
+                             f"{family_tiers(cfg, slots)}")
+        gate(run, got, shapes)
+        summary[run] = (dm.tok_s, 1e3 * dm.wall_s / dm.steps)
+        deng.close()
+        del deng
+        torch.cuda.empty_cache()
+    del params
+    return counts, summary
+
+
+def moe_family_card_vs_cpu(name: str, slots: int, lanes: int = 4, steps: int = 16):
+    """Phase 10c: `name` at full width, 1 layer, fp32, `lanes` x `steps` of
+    decode on the card and on the CPU with the same weights: the hash ids
+    and slot trace of every step, the greedy tokens and the per-step loads
+    identical; one fixed table's decode_step logits within
+    1e-3 * max(1, max|logit|)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.hash_table import HashTable
+    from repro_torch.models.transformer import decode_step, init_cache, n_moe_layers
+
+    cfg = family_config(name, 1, "float32")
+    params, hp = card_seeded_model(cfg)
+    L, k = n_moe_layers(cfg), cfg.moe.top_k
+    start = np.random.default_rng(12).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
+    eng = {dev: SiDADecodeEngine(cfg, params, hp, slots_per_layer=slots, device=dev)
+           for dev in ("cuda", "cpu")}
+    # a fixed table of k distinct experts a lane, all within the budget
+    rng = np.random.default_rng(13)
+    ids = np.stack([rng.permutation(slots)[:k] for _ in range(L * lanes)])
+    ids = ids.reshape(L, lanes, 1, k).astype(np.int32)
+    w = np.full((L, lanes, 1, k), 1.0 / k, np.float32)
+    logits = {}
+    with torch.inference_mode():
+        for dev, e in eng.items():
+            trans = e.store.prepare(HashTable(0, ids, w))
+            slot_ids, sw = e.store.translate_device(torch.as_tensor(ids, device=dev),
+                                                    torch.as_tensor(w, device=dev), trans)
+            cache = init_cache(cfg, lanes, 32, device=dev)
+            lg, _ = decode_step(e.store.serve_params, cache, torch.as_tensor(start, device=dev),
+                                cfg, routing_override=(slot_ids[:, :, 0], sw[:, :, 0]))
+            logits[dev] = lg.float().cpu().numpy()[:, :cfg.vocab_size]
+    record = {}
+    for dev, e in eng.items():
+        trace, prepare = [], e.store.prepare
+
+        def rec(table, prepare=prepare, trace=trace):
+            trans = prepare(table)
+            trace.append((np.array(table.expert_ids, copy=True), np.array(trans, copy=True)))
+            return trans
+
+        e.store.prepare = rec
+        record[dev] = trace
+    out = {dev: e.generate(start, steps=steps, cache_len=64) for dev, e in eng.items()}
+    same_tok = bool(np.array_equal(out["cuda"][0], out["cpu"][0]))
+    same_loads = out["cuda"][1].loads_per_step == out["cpu"][1].loads_per_step
+    same_ids = all(np.array_equal(a[0], b[0]) for a, b in zip(record["cuda"], record["cpu"]))
+    same_trace = all(np.array_equal(a[1], b[1]) for a, b in zip(record["cuda"], record["cpu"]))
+    err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    scale = float(np.abs(logits["cpu"]).max())
+    tol = 1e-3 * max(1.0, scale)
+    print(f"  ({name}) fp32 n_layers=1 lanes={lanes} steps={steps}: tokens identical={same_tok} "
+          f"loads identical={same_loads} ({sum(out['cpu'][1].loads_per_step)} loads) hash ids "
+          f"identical={same_ids} slot traces identical={same_trace} ({len(record['cpu'])} steps); "
+          f"decode_step logits max_abs_err={err:.3e} tol={tol:.3e} max|logit|={scale:.3f}")
+    if not (same_tok and same_loads and same_ids and same_trace and len(record["cpu"]) == steps
+            and err <= tol and np.isfinite(logits["cuda"]).all()):
+        raise SystemExit(f"chip_smoke: card and CPU disagree on {name}'s decode path")
+    for e in eng.values():
+        e.close()
+
+
+def seed_ring(cache: dict, kv: dict, S: int) -> None:
+    """A prompt's K/V [G, B, S, K, D] into a ring cache, in place: position
+    p at slot p % Sc, the last Sc positions kept (a windowed layer's ring
+    holds its window; the server's `_seed_lanes` writes a prompt that fits
+    its ring); the lanes continue at position S."""
+    import torch
+
+    for skey, (k, v) in kv.items():
+        entry = cache[skey]
+        Sc = entry["k"].shape[2]
+        keep = torch.arange(max(0, S - Sc), S, device=k.device)
+        entry["k"][:, :, keep % Sc] = k[:, :, keep].to(entry["k"].dtype)
+        entry["v"][:, :, keep % Sc] = v[:, :, keep].to(entry["v"].dtype)
+    cache["pos"] = torch.full_like(cache["pos"], S)
+
+
+def dense_family_path(name: str, shape, steps: int = DENSE_STEPS):
+    """Phase 10d: `name` at full width, 2 layers, bf16, seeded weights:
+    `forward` over `shape` [B, S] with the prompt's K/V, then `steps` greedy
+    `decode_step`s from it over a ring cache and again over a paged cache
+    that a `KVPagePool` seeds (`seed`) and extends (`ensure`) per lane.
+    On the CPU, in fp32 from the same (bf16) weights: the forward and the
+    ring steps (fed the card's tokens). Gates: the card's logits within
+    5e-2 * max(1, max|logit|) of the CPU's (forward and every step), the
+    paged steps within that bound of the ring's, the kernels launched.
+    Returns {"ring": launch counts of forward + ring steps, "paged": of the
+    paged steps, "by_shape": {"ring" / "paged": `ops.launches_by_shape()`}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.residency import KVPagePool, PagedKVConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import decode_step, forward, init_cache
+    from repro_torch.tree import tree_map
+
+    cfg = family_config(name, 2)
+    B, S = shape
+    t0 = time.perf_counter()
+    host, _ = card_seeded_model(cfg)
+    params = tree_map(lambda t: t.to("cuda"), host)
+    toks = np.random.default_rng(14).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    V = cfg.vocab_size
+    windows = sorted({cfg.layer_window(i) for i in range(cfg.n_layers)})
+    print(f"  ({name}) 2 of {get_config(name).n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, "
+          f"windows {windows}, softcap {cfg.attn.logit_softcap}, vocab {V}; forward over "
+          f"[{B}, {S}], then {steps} decode steps (init {time.perf_counter() - t0:.2f} s)")
+    counts = {"by_shape": {}}
+    with torch.inference_mode():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(params, cfg, torch.as_tensor(toks, device="cuda"), collect_kv=True)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        lg_fwd = out["logits"]
+        cache = init_cache(cfg, B, S + steps, device="cuda")
+        seed_ring(cache, out["kv"], S)
+        Mp = -(-(S + steps) // 16)
+        pool = KVPagePool(cfg, PagedKVConfig(page_size=16, kv_pages=B * Mp, max_seq=Mp * 16), B,
+                          device="cuda")
+        paged = pool.init_cache()
+        for b in range(B):
+            paged = pool.seed(paged, b, {skey: (k[:, b], v[:, b])
+                                         for skey, (k, v) in out["kv"].items()}, S)
+            paged = pool.ensure(paged, b, S + steps)
+        paged["page_table"] = pool.device_table()
+        paged["pos"] = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        del out
+        tok = torch.argmax(lg_fwd[:, -1, :V], dim=-1).to(torch.int32)
+        fed, ring_lg = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fed.append(tok)
+            lg, cache = decode_step(params, cache, tok, cfg)
+            ring_lg.append(lg[:, :V].float().cpu())
+            tok = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
+        t_dec = (time.perf_counter() - t0) / steps
+        counts["ring"] = ops.launches()
+        counts["by_shape"]["ring"] = ops.launches_by_shape()
+        ops.reset_launches()
+        paged_err = 0.0
+        for i in range(steps):
+            lg, paged = decode_step(params, paged, fed[i], cfg)
+            paged_err = max(paged_err, (lg[:, :V].float().cpu() - ring_lg[i]).abs().max().item())
+        counts["paged"] = ops.launches()
+        counts["by_shape"]["paged"] = ops.launches_by_shape()
+        lg_fwd = lg_fwd[..., :V].float().cpu()
+    del params, cache, paged
+    torch.cuda.empty_cache()
+    print(f"    card: forward {1e3 * t_fwd:.1f} ms, decode {1e3 * t_dec:.3f} ms a step; launches "
+          f"ring {json.dumps(counts['ring'])} paged {json.dumps(counts['paged'])}")
+    for run, need in (("ring", ("flash_prefill", "flash_decode")),
+                      ("paged", ("flash_decode_paged",))):
+        idle = [k for k in need if counts[run][k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on {name}'s {run} run: {idle}")
+
+    # the CPU path, fp32, from the same bf16 weights; fed the card's tokens
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = tree_map(lambda t: t.float(), host)
+    del host
+    with torch.inference_mode():
+        out = forward(params, cfg32, torch.as_tensor(toks), collect_kv=True)
+        err_f = (lg_fwd - out["logits"][..., :V]).abs().max().item()
+        tol_f = 5e-2 * max(1.0, out["logits"][..., :V].abs().max().item())
+        cache = init_cache(cfg32, B, S + steps, device="cpu")
+        seed_ring(cache, out["kv"], S)
+        del out
+        err_d = tol_d = 0.0
+        for i in range(steps):
+            lg, cache = decode_step(params, cache, fed[i].cpu(), cfg32)
+            err_d = max(err_d, (ring_lg[i] - lg[:, :V]).abs().max().item())
+            tol_d = max(tol_d, 5e-2 * max(1.0, lg[:, :V].abs().max().item()))
+    print(f"    card vs CPU (fp32, {time.perf_counter() - t0:.1f} s): forward max_abs_err="
+          f"{err_f:.3e} tol={tol_f:.3e}; decode steps max_abs_err={err_d:.3e} tol={tol_d:.3e}; "
+          f"paged vs ring steps on the card max_abs_err={paged_err:.3e}")
+    if not (err_f <= tol_f and err_d <= tol_d and paged_err <= tol_d
+            and torch.isfinite(lg_fwd).all()):
+        raise SystemExit(f"chip_smoke: {name}: the card disagrees with the CPU path")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2192,6 +2951,10 @@ def main() -> int:
                                         cfg.moe.num_experts))
     records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
                                             warm, c_tier, warm, c_tb))
+    t0 = time.perf_counter()
+    print(f"  -- the attention-family shapes (GLU experts, GQA group 16, head_dim 160 / 256)")
+    records.update(check_family_kernels(lanes, cache_len))
+    print(f"  (the attention-family shapes took {time.perf_counter() - t0:.1f} s)")
 
     print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -2248,6 +3011,24 @@ def main() -> int:
     t0 = time.perf_counter()
     server_faults_card_vs_cpu(cfg, slots, cache_len)
     print(f"  phase 9e under faults and tenants took {time.perf_counter() - t0:.1f} s")
+    fcounts = {}
+    for name, depth, fslots in MOE_FAMILY:
+        print(f"== phase 10{'ab'[len(fcounts)]}: {name} at full width ({depth} layers, bf16) "
+              f"[{time.perf_counter() - t_start:.1f} s]")
+        t0 = time.perf_counter()
+        fcounts[name], _ = moe_family_path(name, depth, fslots, lanes, cache_len)
+        print(f"  phase 10{'ab'[len(fcounts) - 1]} took {time.perf_counter() - t0:.1f} s")
+    print(f"== phase 10c: the MoE family, card vs CPU (full width, 1 layer, fp32) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    t0 = time.perf_counter()
+    for name, _, fslots in MOE_FAMILY:
+        moe_family_card_vs_cpu(name, fslots)
+    print(f"  phase 10c took {time.perf_counter() - t0:.1f} s")
+    print(f"== phase 10d: the dense attention-family configs at full width (2 layers, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    t0 = time.perf_counter()
+    dense_counts = {name: dense_family_path(name, shape) for name, shape in DENSE_FAMILY}
+    print(f"  phase 10d took {time.perf_counter() - t0:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -2285,6 +3066,39 @@ def main() -> int:
         "expert_ffn_q4/tiered-batch": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                                        "src/repro/kernels/expert_gemm.py:211"),
     }
+    # phase 10's shapes: the GLU expert FFN of the MoE family, every
+    # attention form; each row's launches its own phase-10 run's
+    sources = {
+        "expert_ffn": ("src/repro_torch/csrc/expert_ffn_sm90.cu", "src/repro/kernels/expert_gemm.py:269"),
+        "expert_ffn_q": ("src/repro_torch/csrc/expert_ffn_sm90.cu", "src/repro/kernels/expert_gemm.py:98"),
+        "expert_ffn_q4": ("src/repro_torch/csrc/expert_ffn_sm90.cu", "src/repro/kernels/expert_gemm.py:211"),
+        "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu", "src/repro/kernels/flash_prefill.py:82"),
+        "flash_decode": ("src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode.py:80"),
+        "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu", "src/repro/kernels/flash_decode.py:180"),
+    }
+    family_launches = {}
+    for name, _, _ in MOE_FAMILY:
+        short, c = name.split("-")[0], fcounts[name]
+        family_launches.update({
+            f"expert_ffn/{short}-batch": c["sida-threaded"]["expert_ffn"],
+            f"expert_ffn/{short}-decode": c["decode-bf16"]["expert_ffn"],
+            f"expert_ffn_q/{short}-decode-hot": c["decode-tiered-paged"]["expert_ffn_q"],
+            f"expert_ffn_q4/{short}-decode-warm": c["decode-tiered-paged"]["expert_ffn_q4"]})
+    # each attention row's launches: its own form's (heads, head_dim,
+    # window, softcap) in the phase-10 run that serves it
+    row_runs = {"moe": ("sida-threaded", "decode-bf16", "decode-tiered-paged"),
+            "dense": ("ring", "ring", "paged")}
+    for suffix, name, *_, window, cap, src in attention_family_cases(lanes, cache_len):
+        fcfg = family_config(name, 2)
+        by = (fcounts if src == "moe" else dense_counts)[name]["by_shape"]
+        for kernel, run in zip(("flash_prefill", "flash_decode", "flash_decode_paged"), row_runs[src]):
+            family_launches[f"{kernel}/{suffix}"] = by[run].get(
+                (kernel, fcfg.n_heads, fcfg.n_kv_heads, fcfg.hd, window, float(cap)), 0)
+    idle = [row for row, n in family_launches.items() if n == 0]
+    if idle:
+        raise SystemExit(f"chip_smoke: phase 2 held shapes that phase 10 never launched: {idle}")
+    for row in family_launches:
+        meta[row] = ("cuda", *sources[row.split("/")[0]])
     # each kernel's launches on the path that runs it: the batch serve for
     # the batch kernels, the bf16 decode for flash_decode, sparsemax's ring
     # and expert_ffn at the decode shape, the int8 decode and the int8 and
@@ -2306,6 +3120,7 @@ def main() -> int:
                                  + launches["expert_ffn_q4/tiered-batch"])
     launches["flash_decode_paged"] = dcounts["tiered-paged"]["flash_decode_paged"]
     launches["expert_ffn/spec"] = scounts["spec-bf16"]["expert_ffn"]
+    launches.update(family_launches)
     # each decode kernel's launches on the speculative path (phase 5e): the
     # all-resident bf16 run for the ring kernels, the tiered paged run for
     # the quantised and paged ones; null for the batch serves' rows
@@ -2327,7 +3142,8 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "device_ms": r["device_ms"],
                         "library_device_ms": r["library_device_ms"],
-                        **{k: v for k, v in r.items() if k.startswith("gathered_")}})
+                        **{k: v for k, v in r.items()
+                           if k.startswith(("gathered_", "sdpa_nocap_", "library_max"))}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 A copy of the JAX package's plain dataclasses, so the port imports nothing
 of `repro`. Field for field the same as the reference (a test holds them
-equal); only the Switch family is registered in this slice.
+equal). Registered: the Switch family and the decoder-only attention
+configs; hymba, xlstm and seamless wait for their block kinds (ROADMAP
+A15(b)).
 """
 from __future__ import annotations
 
@@ -379,7 +381,16 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import side-effect registers configs
-    from repro_torch.configs import switch_base  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        chameleon_34b,
+        deepseek_moe_16b,
+        gemma2_9b,
+        qwen2_1_5b,
+        qwen3_moe_235b_a22b,
+        smollm_135m,
+        stablelm_12b,
+        switch_base,
+    )
 
 
 def shape_supported(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:

@@ -20,6 +20,7 @@ reference's `_fresh_moe_params`). Every entry point runs on CUDA unless
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Sequence
 
@@ -31,7 +32,7 @@ from repro_torch.core.engine import ServeMetrics
 from repro_torch.core.offload import ExpertStore, nbytes
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.moe import moe_layer, router_topk
+from repro_torch.models.moe import moe_layer, router_topk, shared_experts
 from repro_torch.models.transformer import (
     _apply_sublayer_full,
     attention_half,
@@ -103,8 +104,8 @@ class _LayerwiseServer:
     def _group_params(self, g: int) -> dict:
         return tree_map(lambda x: x[g], self.store.serve_params["blocks"])
 
-    def _moe_part(self, moe_p, x, h2, slot_ids, w):
-        y, _ = moe_layer(moe_p, h2, self.cfg, routing_override=(slot_ids, w))
+    def _moe_part(self, moe_p, x, h2, slot_ids, w, cfg=None):
+        y, _ = moe_layer(moe_p, h2, cfg or self.cfg, routing_override=(slot_ids, w))
         # the reference's quirk, kept: post_norm is not applied here (only the
         # dense sublayers take it; Switch has none)
         return x + y
@@ -178,6 +179,11 @@ class PrefetchAllServer(_LayerwiseServer):
     def _moe_with_loads(self, l, moe_p, x, h2, ids_np, ids, w):
         E, n_slots = self.store.E, self.store.S
         B, S, _ = h2.shape
+        # the shared experts once, after the waves: the reference runs the
+        # whole `moe_layer` each wave, so it adds them E / slots times
+        # (ROADMAP C14)
+        routed = dataclasses.replace(self.cfg, moe=dataclasses.replace(
+            self.cfg.moe, num_shared_experts=0))
         y_parts = None
         for wave_start in range(0, E, n_slots):
             wave = np.arange(wave_start, min(E, wave_start + n_slots))
@@ -187,6 +193,8 @@ class PrefetchAllServer(_LayerwiseServer):
             w_wave = w * in_wave * (slot_flat >= 0)
             slot_ids = torch.clamp(slot_flat, min=0).reshape(B, S, -1)
             part = self._moe_part(moe_p, torch.zeros_like(x), h2, slot_ids,
-                                  w_wave.reshape(B, S, -1))
+                                  w_wave.reshape(B, S, -1), cfg=routed)
             y_parts = part if y_parts is None else y_parts + part
+        if self.cfg.moe.num_shared_experts:
+            y_parts = y_parts + shared_experts(moe_p, h2, self.cfg)
         return x + y_parts

@@ -4,7 +4,9 @@ the async prefetch pipeline (port of the one-shard case of
 
 The full expert stacks live in host memory as CPU tensors, in the model
 dtype or, with `host_quant="int8"`, as symmetric int8 with fp32 scale planes
-(`quantize_expert`, bit-identical to the reference's numpy). On the device
+(`quantize_stack_int8`, bit-identical to the reference's numpy `quantize_expert`,
+run on the store's device a layer at a time, so a model with gigabytes of
+experts a layer quantises in seconds). On the device
 each MoE layer owns a fixed pool of `S` slots, `[G, S, ...]`: fp slots
 (int8 host rows are dequantised on the device as they land), or with
 `quantized_slots` int8 pools plus `w_*_scale` planes `[G, S, 1, d_out]`
@@ -228,52 +230,6 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def quantize_expert(
-    w: np.ndarray, granularity: str = "channel"
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Symmetric int8 quantisation. w: [..., d_in, d_out].
-
-    granularity="channel": one scale per output channel (absmax over d_in).
-    granularity="tensor": one scale per expert tensor (absmax over both
-    trailing axes). Either way the scale is returned as a [..., 1, d_out]
-    per-channel plane. The reference's numpy, so the masters are
-    bit-identical to its."""
-    if granularity == "tensor":
-        absmax = np.abs(w).max(axis=(-2, -1), keepdims=True).astype(np.float32)
-        absmax = np.broadcast_to(
-            absmax, w.shape[:-2] + (1, w.shape[-1])
-        ).copy()
-    else:
-        if granularity != "channel":
-            raise ValueError(f"unknown scale granularity {granularity!r}")
-        absmax = np.abs(w).max(axis=-2, keepdims=True).astype(np.float32)
-    scale = np.maximum(absmax, 1e-8) / 127.0
-    q = np.clip(np.round(w.astype(np.float32) / scale), -127, 127).astype(np.int8)
-    return q, scale
-
-
-def pack_nibbles(q: np.ndarray) -> np.ndarray:
-    """int4 values (int8 storage, [-8, 7]) [..., K, N] -> nibble-packed
-    uint8 [..., ceil(K/2), N]. Byte i holds contraction rows 2i (low
-    nibble) and 2i+1 (high nibble), two's complement; an odd K pads one
-    zero row. The kernel and `kernels.ref.unpack_int4_ref` read this."""
-    K = q.shape[-2]
-    if K % 2:
-        pad = [(0, 0)] * (q.ndim - 2) + [(0, 1), (0, 0)]
-        q = np.pad(q, pad)
-    u = (q.astype(np.int16) & 0xF).astype(np.uint8)
-    return (u[..., 1::2, :] << 4) | u[..., 0::2, :]
-
-
-def unpack_nibbles(p: np.ndarray, k: int) -> np.ndarray:
-    """Inverse of `pack_nibbles`: uint8 [..., ceil(k/2), n] -> int8 [..., k, n]."""
-    lo = (p & 0xF).astype(np.int8)
-    hi = (p >> 4).astype(np.int8)
-    v = np.stack([lo, hi], axis=-2)
-    v = v.reshape(p.shape[:-2] + (-1, p.shape[-1]))[..., :k, :]
-    return np.where(v >= 8, v - 16, v).astype(np.int8)
-
-
 def _group_of(k: int, group: int) -> int:
     """Effective int4 scale group along a contraction axis of length `k`:
     `group` when it divides `k`, else the whole axis (one group)."""
@@ -281,24 +237,69 @@ def _group_of(k: int, group: int) -> int:
     return g if k % g == 0 else k
 
 
-def quantize_expert_q4(w: np.ndarray, group: int = 64) -> Tuple[np.ndarray, np.ndarray]:
-    """Symmetric int4 quantisation with per-group scales. w: [..., d_in, d_out].
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device: PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal (an ulp off the numpy
+    quotient for some x), division by a tensor does not."""
+    return x / torch.full_like(x, d)
 
-    Each (group of `group` contraction rows, output channel) pair gets one
-    f32 scale = absmax / 7 and values round to [-7, 7]. Returns
-    (packed [..., ceil(d_in/2), d_out] uint8, scale [..., d_in/group, d_out]
-    f32). The reference's numpy, so the masters are bit-identical to its."""
-    k = w.shape[-2]
-    g = _group_of(k, group)
-    ng = k // g
-    wg = w.astype(np.float32).reshape(w.shape[:-2] + (ng, g, w.shape[-1]))
-    absmax = np.abs(wg).max(axis=-2, keepdims=True)
-    scale = np.maximum(absmax, 1e-8) / 7.0
-    q = np.clip(np.round(wg / scale), -7, 7).astype(np.int8)
-    q = q.reshape(w.shape)
-    return pack_nibbles(q), scale[..., 0, :].reshape(
-        w.shape[:-2] + (ng, w.shape[-1])
-    ).astype(np.float32)
+
+def _quantize_layers(full: torch.Tensor, device, quantize) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize` (fp32 [..., d_in, d_out] -> (q, scale)) over an expert
+    stack [L, ..., d_in, d_out] in torch on `device`, one leading index at a
+    time, returned stacked as CPU tensors."""
+    qs, ss = [], []
+    for i in range(full.shape[0]):
+        q, scale = quantize(full[i].to(device=device, dtype=torch.float32))
+        qs.append(q.cpu())
+        ss.append(scale.contiguous().cpu())
+    return torch.stack(qs), torch.stack(ss)
+
+
+def quantize_stack_int8(full: torch.Tensor, device,
+                        granularity: str = "channel") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation of an expert stack [L, ..., d_in, d_out]
+    on `device` (values in [-127, 127]), bit-identical to the reference's
+    numpy `quantize_expert` (the same fp32 abs-max, IEEE fp32 division and
+    round-half-to-even), from fp32 or bf16 weights. `granularity`:
+    "channel" (one scale per output channel, abs-max over d_in) or "tensor"
+    (one per expert tensor); the scale is a [..., 1, d_out] plane."""
+    if granularity not in ("channel", "tensor"):
+        raise ValueError(f"unknown scale granularity {granularity!r}")
+    dims = (-2, -1) if granularity == "tensor" else -2
+
+    def one(w):
+        absmax = w.abs().amax(dim=dims, keepdim=True).expand(*w.shape[:-2], 1, w.shape[-1])
+        scale = _div(torch.clamp(absmax, min=1e-8), 127.0)
+        return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+    return _quantize_layers(full, device, one)
+
+
+def quantize_stack_int4(full: torch.Tensor, device,
+                        group: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int4 quantisation of an expert stack [L, ..., d_in, d_out]
+    on `device`, bit-identical to the reference's numpy
+    `quantize_expert_q4`: one fp32 scale = abs-max / 7 per `group`
+    contraction rows (the whole axis when `group` does not divide it) and
+    output channel, values in [-7, 7], nibble-packed into uint8
+    [..., ceil(d_in / 2), d_out]: byte i holds rows 2i (low nibble) and
+    2i + 1 (high), two's complement, an odd d_in padded with a zero row
+    (`kernels.ref.unpack_int4_ref` reads it); scales [..., d_in / group,
+    d_out]."""
+
+    def one(w):
+        k, n = w.shape[-2], w.shape[-1]
+        g = _group_of(k, group)
+        wg = w.reshape(*w.shape[:-2], k // g, g, n)
+        scale = _div(torch.clamp(wg.abs().amax(dim=-2, keepdim=True), min=1e-8), 7.0)
+        q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int8).reshape(w.shape)
+        if k % 2:
+            q = torch.nn.functional.pad(q, (0, 0, 0, 1))
+        u = (q.to(torch.int16) & 0xF).to(torch.uint8)
+        return (u[..., 1::2, :] << 4) | u[..., 0::2, :], scale[..., 0, :]
+
+    return _quantize_layers(full, device, one)
 
 
 def expert_format_bytes(shapes: List[Tuple[int, int]], fmt: str, group: int = 64) -> int:
@@ -406,17 +407,15 @@ class ExpertStore:
             for d in (self.host, self.host_scale, self.host4, self.host4_scale):
                 d[f"sub{s}"] = {}
             for t in EXPERT_TENSORS:
-                full = moe_p[t]
-                # fp32 numpy of the master: abs-max and division give the
-                # reference's bits for fp32 and bf16 weights alike
-                w = full.detach().to("cpu", torch.float32).numpy() if (
-                    self.quant == "int8" or self.tiered) else None
+                full = moe_p[t].detach()
+                # quantised from the fp32 master on the device: abs-max and
+                # division give the reference's bits for fp32 and bf16 weights
                 if self.quant == "int8":
-                    q, scale = quantize_expert(w, self.scale_granularity)
-                    self.host[f"sub{s}"][t] = torch.from_numpy(q)
-                    self.host_scale[f"sub{s}"][t] = torch.from_numpy(scale)
+                    q, scale = quantize_stack_int8(full, self.device, self.scale_granularity)
+                    self.host[f"sub{s}"][t] = q
+                    self.host_scale[f"sub{s}"][t] = scale
                 else:
-                    self.host[f"sub{s}"][t] = full.detach().to("cpu")
+                    self.host[f"sub{s}"][t] = full.to("cpu")
                 G, k_in, n_out = full.shape[0], full.shape[2], full.shape[3]
                 if self.quantized_slots:
                     # the residency format is the transfer format: int8 rows
@@ -433,9 +432,9 @@ class ExpertStore:
                     )
                 if self.tiered:
                     # warm pools, addressed by (global slot - S8)
-                    q4, s4 = quantize_expert_q4(w, self.tier.group_size)
-                    self.host4[f"sub{s}"][t] = torch.from_numpy(q4)
-                    self.host4_scale[f"sub{s}"][t] = torch.from_numpy(s4)
+                    q4, s4 = quantize_stack_int4(full, self.device, self.tier.group_size)
+                    self.host4[f"sub{s}"][t] = q4
+                    self.host4_scale[f"sub{s}"][t] = s4
                     moe_p[t + "_q4"] = torch.zeros(
                         (G, self.S4, (k_in + 1) // 2, n_out), dtype=torch.uint8, device=self.device,
                     )

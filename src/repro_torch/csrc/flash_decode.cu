@@ -19,16 +19,21 @@
 // Design. One (lane, kv head) is a thread-block cluster of `splits` blocks
 // (grid (KH, B, splits), cluster (1, 1, splits), splits <= 8, from
 // kernels/flash_decode.py::decode_plan). The keys are cut into tiles of
-// 8 KB of K rows (and as many of V); block r of the cluster owns a
+// 8 KB of K rows (at D 160 5 KB in bf16, 10 in fp32; at D 256 in fp32 16;
+// as many of V);
+// block r of the cluster owns a
 // contiguous, balanced run of those tiles. It streams them through a
 // double buffer of two shared-memory stages by cp.async, K and V as they are
 // in HBM (bf16 or fp32, widened only on read), so the loads of the next tile
 // are in flight while a tile is scored; a kv head's row is a contiguous
 // D-element piece at stride KH·D, in the ring cache and in a page alike.
 //
-// Inside a block (four warps) a key row is spread over D / 8 (bf16) or
-// D / 4 (fp32) lanes, 16 bytes each, so a warp holds 32 / that rows at once
-// and reads shared memory in whole rows. Each lane copies its own pieces of
+// Inside a block (four warps) a key row is spread over its 16-byte pieces,
+// D / 8 (bf16) or D / 4 (fp32) of them: over that many lanes when the count
+// divides 32, so a warp holds 32 / that rows at once and reads shared memory
+// in whole rows; else (D 160, and fp32 at D 256) over the whole warp, each
+// lane taking pieces tx, tx + 32, ..., and the lanes past the last piece
+// holding zeros (at D 160 in bf16, 12 of 32 lanes idle: simple, not fast). Each lane copies its own pieces of
 // its own keys into the ring and reads only those back, so the ring needs
 // no barrier between the block's threads: a lane waits for its own copies
 // (a key's position is copied once, by the row's first lane, and passed to
@@ -53,6 +58,12 @@
 // exp(-1e30 - m) = 0; a block with no keys at all has l = 0 and adds
 // nothing. Only keys past the block's run get p = 0 exactly, so any S works
 // (the Pallas kernel asserted S % bs == 0).
+//
+// Groups. A block holds the query heads of its kv head in registers, up to
+// eight (GM = 1, 4 or 8); a larger group (up to 16: qwen3-moe's 64 query
+// heads over 4 kv heads) is cut into blocks of eight, each its own cluster
+// that streams the kv head's keys once more, mostly from L2. The Pallas
+// kernel takes any group in one block of VMEM.
 //
 // Paged variant. Replaces src/repro/kernels/flash_decode.py::
 // flash_decode_paged (body _paged_decode_kernel): the same token reads K/V
@@ -85,23 +96,28 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kKeysPerRow = 4;     // keys each row of lanes takes from a ring stage
 constexpr int kStages = 2;         // the ring's depth: a double buffer
 constexpr int kMaxSplits = 8;      // the portable cluster size
+constexpr int kMaxGroup = 16;      // query heads a kv head, in blocks of at most 8
 constexpr float kNeg = -1e30f;     // the reference's masked logit and m's start
 
-// How a tile of keys spreads over the block: each lane takes one 16-byte
-// piece (VEC elements) of a key row; TX lanes span a row, a warp holds TY
-// rows at once and the block ROWS. A ring stage holds BK keys, KPR for each
-// row of lanes: key u·ROWS + w·TY + ty for warp w's row ty. A lane copies
-// its own pieces of its own keys into the ring and reads only those back,
-// so the ring needs no barrier between the block's threads.
+// How a tile of keys spreads over the block: a key row is P 16-byte pieces
+// (VEC elements each); TX lanes span a row, lane tx taking pieces tx,
+// tx + TX, ... (NP slots, the ones past P empty), a warp holds TY rows at
+// once and the block ROWS. A ring stage holds BK keys, KPR for each row of
+// lanes: key u·ROWS + w·TY + ty for warp w's row ty. A lane copies its own
+// pieces of its own keys into the ring and reads only those back, so the
+// ring needs no barrier between the block's threads.
 template <typename T, int D>
 struct Geo {
   static constexpr int VEC = 16 / (int)sizeof(T);
-  static constexpr int TX = D / VEC;
+  static constexpr int P = D / VEC;
+  static constexpr int TX = (P <= 32 && 32 % P == 0) ? P : 32;
+  static constexpr int NP = (P + TX - 1) / TX;
+  static constexpr int NE = NP * VEC;   // a lane's elements of a row
   static constexpr int TY = 32 / TX;
   static constexpr int ROWS = kWarps * TY;
   static constexpr int KPR = kKeysPerRow;
   static constexpr int BK = ROWS * KPR;
-  static_assert(TX * TY == 32, "geometry");
+  static_assert(D % VEC == 0 && TX * TY == 32, "geometry");
 };
 
 // Shared memory, in bytes (kernels/flash_decode.py::_smem_bytes writes it
@@ -240,10 +256,11 @@ __device__ int build_page_list(const Paged& pg, int b, int p, int window, int* p
   return total == 0 ? pg.Mp : total;
 }
 
-// GM: query heads per kv head rounded up to the instantiated width (G <= GM).
-// PAGED: k / v are the page pool and pg the table; else a ring [B, S, KH, D]
-// with slot_pos. The cluster is the blocks of one (kh, b): blockIdx.z is the
-// rank, gridDim.z the split.
+// GM: the query heads a block holds, the instantiated width (1, 4 or 8); a
+// group above GM runs in ceil(G / GM) blocks of GM heads (blockIdx.x =
+// kh · blocks + which). PAGED: k / v are the page pool and pg the table;
+// else a ring [B, S, KH, D] with slot_pos. The cluster is the blocks of one
+// (kh, head block, b): blockIdx.z is the rank, gridDim.z the split.
 template <typename T, int D, int GM, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -252,12 +269,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int G, int window, float cap, float scale) {
   using Ge = Geo<T, D>;
   using Ly = Layout<T, D, GM, PAGED>;
-  constexpr int VEC = Ge::VEC, TX = Ge::TX, TY = Ge::TY, BK = Ge::BK;
+  constexpr int VEC = Ge::VEC, TX = Ge::TX, TY = Ge::TY, BK = Ge::BK, NP = Ge::NP, NE = Ge::NE;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kh = blockIdx.x, b = blockIdx.y, rank = blockIdx.z, splits = gridDim.z;
-  const int H = KH * G;
+  const int hblocks = (G + GM - 1) / GM;
+  const int kh = blockIdx.x / hblocks, g0 = (blockIdx.x % hblocks) * GM;
+  const int b = blockIdx.y, rank = blockIdx.z, splits = gridDim.z;
+  const int H = KH * G, Gb = min(GM, G - g0);   // this block's heads kh·G + g0 + [0, Gb)
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int tx = lane % TX, ty = lane / TX;
+  // this lane's piece slots: piece tx + i·TX of a row, if there is one
+  bool has[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) has[i] = tx + i * TX < Ge::P;
   float* parts = reinterpret_cast<float*>(smem + Ly::WORK);   // [splits][PART / 4]
   uint64_t* arrived = reinterpret_cast<uint64_t*>(smem + Ly::bar(splits));
   int* pidx = reinterpret_cast<int*>(arrived + 1);                     // paged: [Mp]
@@ -271,15 +294,19 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int p = pos[b];
 
-  // this lane's piece of each query head of the kv head
-  float qr[GM][VEC];
+  // this lane's pieces of each query head of the block (zeros elsewhere)
+  float qr[GM][NE];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G) {
-      Piece<T>::load(q + ((size_t)b * H + kh * G + g) * D + tx * VEC, qr[g]);
-    } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) qr[g][e] = 0.f;
+    for (int i = 0; i < NP; ++i) {
+      if (g < Gb && has[i]) {
+        Piece<T>::load(q + ((size_t)b * H + kh * G + g0 + g) * D + (tx + i * TX) * VEC,
+                       qr[g] + i * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qr[g][i * VEC + e] = 0.f;
+      }
     }
   }
 
@@ -314,23 +341,41 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
           } else if (tx == 0) {
             cp_async4(rt::smem_u32(ps + kk), slot_pos + row);
           }
-          const size_t off = (row * KH + kh) * D + tx * VEC;
-          cp_async16(rt::smem_u32(ks + kk * D + tx * VEC), k + off, 16);
-          cp_async16(rt::smem_u32(vs + kk * D + tx * VEC), v + off, 16);
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            if (!has[i]) continue;
+            const int e0 = (tx + i * TX) * VEC;
+            const size_t off = (row * KH + kh) * D + e0;
+            cp_async16(rt::smem_u32(ks + kk * D + e0), k + off, 16);
+            cp_async16(rt::smem_u32(vs + kk * D + e0), v + off, 16);
+          }
         }
       }
     }
     cp_async_commit();
   };
 
-  float m[GM], l[GM], acc[GM][VEC];
+  float m[GM], l[GM], acc[GM][NE];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = kNeg;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < NE; ++e) acc[g][e] = 0.f;
   }
+
+  // this lane's pieces of ring row kk, widened (zeros in the empty slots)
+  auto row_pieces = [&](const T* base, int kk, float* out) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (has[i]) {
+        Piece<T>::load(base + kk * D + (tx + i * TX) * VEC, out + i * VEC);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) out[i * VEC + e] = 0.f;
+      }
+    }
+  };
 
   for (int t = 0; t < kStages - 1; ++t) fetch(t);
   for (int t = 0; t < n; ++t) {
@@ -348,14 +393,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < Ge::KPR; ++u) {
       const int kk = u * Ge::ROWS + w * TY + ty;
       in[u] = j0 + kk < k_hi;
-      float kf[VEC];
-      Piece<T>::load(ks + kk * D + tx * VEC, kf);
+      float kf[NE];
+      row_pieces(ks, kk, kf);
       float s[GM];
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         s[g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s[g] = fmaf(qr[g][e], kf[e], s[g]);
+        for (int e = 0; e < NE; ++e) s[g] = fmaf(qr[g][e], kf[e], s[g]);
 #pragma unroll
         for (int off = TX / 2; off > 0; off >>= 1) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
       }
@@ -381,19 +426,19 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[g] = m_new;
       l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < NE; ++e) acc[g][e] *= alpha;
     }
 #pragma unroll
     for (int u = 0; u < Ge::KPR; ++u) {
       if (!in[u]) continue;
-      float vf[VEC];
-      Piece<T>::load(vs + (u * Ge::ROWS + w * TY + ty) * D + tx * VEC, vf);
+      float vf[NE];
+      row_pieces(vs, u * Ge::ROWS + w * TY + ty, vf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         const float pr = expf(x[u][g] - m[g]);
         l[g] += pr;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
+        for (int e = 0; e < NE; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e]);
       }
     }
   }
@@ -410,7 +455,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float sa = expf(m[g] - mm), sb = expf(mo - mm);
       l[g] = l[g] * sa + lo * sb;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < NE; ++e) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
         acc[g][e] = acc[g][e] * sa + ao * sb;
       }
@@ -430,7 +475,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         wl[w * GM + g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) wa[(w * GM + g) * D + tx * VEC + e] = acc[g][e];
+      for (int i = 0; i < NP; ++i) {
+        if (!has[i]) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          wa[(w * GM + g) * D + (tx + i * TX) * VEC + e] = acc[g][i * VEC + e];
+      }
     }
   }
   __syncthreads();
@@ -439,7 +489,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   constexpr int PS = Ly::PART / 4;
   float* slot = parts + rank * PS;   // m [GM], l [GM], acc [GM][D]
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gb * D; i += kThreads) {
     const int g = i / D;
     float mb = kNeg;
 #pragma unroll
@@ -462,7 +512,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // rank 0: every partial has arrived; merge them in rank order
   mbar_wait_cluster(arrived);
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gb * D; i += kThreads) {
     const int g = i / D;
     float mg = kNeg;
     for (int r = 0; r < splits; ++r) mg = fmaxf(mg, parts[r * PS + g]);
@@ -472,7 +522,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lg = fmaf(parts[r * PS + GM + g], sc, lg);
       ag = fmaf(parts[r * PS + 2 * GM + i], sc, ag);
     }
-    o[((size_t)b * H + kh * G) * D + i] = rt::from_f32<T>(ag / fmaxf(lg, 1e-30f));
+    o[((size_t)b * H + kh * G + g0) * D + i] = rt::from_f32<T>(ag / fmaxf(lg, 1e-30f));
   }
 }
 
@@ -494,7 +544,7 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   cudaError_t err = rt::allow_smem(reinterpret_cast<const void*>(kern), attr_set);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.KH, a.B, a.splits);
+  cfg.gridDim = dim3(a.KH * ((a.G + GM - 1) / GM), a.B, a.splits);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -523,13 +573,16 @@ template <typename T, bool PAGED>
 cudaError_t dispatch_d(const Args& a, int D, cudaStream_t s) {
   if (D == 32) return dispatch_g<T, 32, PAGED>(a, s);
   if (D == 64) return dispatch_g<T, 64, PAGED>(a, s);
-  return dispatch_g<T, 128, PAGED>(a, s);
+  if (D == 128) return dispatch_g<T, 128, PAGED>(a, s);
+  if (D == 160) return dispatch_g<T, 160, PAGED>(a, s);
+  return dispatch_g<T, 256, PAGED>(a, s);
 }
 
 template <bool PAGED>
 int decode(const Args& a, int H, int D, int dtype, cudaStream_t s) {
   if (a.B <= 0 || a.S <= 0) return static_cast<int>(cudaGetLastError());
-  if (a.splits < 1 || a.splits > kMaxSplits || a.KH <= 0 || H % a.KH || a.G > 8 || (D != 32 && D != 64 && D != 128))
+  if (a.splits < 1 || a.splits > kMaxSplits || a.KH <= 0 || H % a.KH || a.G < 1 ||
+      a.G > kMaxGroup || (D != 32 && D != 64 && D != 128 && D != 160 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = dtype == rt::kBF16 ? dispatch_d<__nv_bfloat16, PAGED>(a, D, s)
                                            : dispatch_d<float, PAGED>(a, D, s);
@@ -540,7 +593,7 @@ int decode(const Args& a, int H, int D, int dtype, cudaStream_t s) {
 
 // o = decode attention(q, k, v): q/o [B, H, D], k/v [B, S, KH, D], slot_pos
 // [B, S] int32, pos [B] int32, all contiguous and q, k, v 16-byte aligned;
-// H % KH == 0, H / KH <= 8, D in {32, 64, 128}, S >= 1; the keys split over
+// H % KH == 0, H / KH <= 16, D in {32, 64, 128, 160, 256}, S >= 1; the keys split over
 // a cluster of `splits` (1..8) blocks (kernels/flash_decode.py::decode_plan).
 extern "C" int rt_flash_decode(const void* q, const void* k, const void* v,
                                const void* slot_pos, const void* pos, void* o, int B, int S,

@@ -32,11 +32,16 @@
 // and the output is rounded once. At this shape the tensor-core work is far
 // under the bytes' bound, so mma.sync suffices; wgmma / TMA
 // (FlashAttention-3) wait for longer prompts, where this kernel trails
-// SDPA (PERF.md §6).
+// SDPA (PERF.md §6). Head dims 32, 64, 128, 160 (stablelm-12b: 10 k-steps
+// of 16) and 256 (gemma2-9b). At 256 the Q fragments (64 registers) and
+// the output accumulators (128) would not fit beside the scores, so Q is
+// staged once in shared memory and its fragments are read from there for
+// each key tile (165 KB of shared memory, one block an SM).
 //
 // fp32 keeps the SIMT kernel: one warp owns one query row and keeps (m, l)
 // in registers and its D/32 slice of acc per lane; a block of kRows warps
-// shares each K/V tile of kTile keys through shared memory. Lane j scores
+// shares each K/V tile of kTile keys through (dynamic: 72 KB at D 256)
+// shared memory. Lane j scores
 // key j of the tile, the warp reduces the tile max / sum with shuffles, and
 // broadcasts each p_j to the lanes for the PV update; probabilities stay
 // fp32, as flash_prefill.py keeps them.
@@ -55,6 +60,12 @@ using rt::cp_async_wait;
 constexpr int kRows = 8;   // query rows (warps) per block
 constexpr int kTile = 32;  // keys per shared-memory tile (one per lane)
 
+// shared memory: q rows [kRows][D], K [kTile][D + 1] (+1: lane j reads row
+// j, conflict-free), V [kTile][D]
+template <int D> struct F32 {
+  static constexpr int BYTES = 4 * (kRows * D + kTile * (D + 1) + kTile * D);
+};
+
 template <int D>
 __global__ void __launch_bounds__(kRows * 32)
 flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -62,9 +73,10 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          int S, int H, int KH, int window, float cap, int causal,
                          float scale) {
   constexpr int DL = D / 32;  // acc values per lane
-  __shared__ float qs[kRows][D];
-  __shared__ float ks[kTile][D + 1];  // +1: lane j reads row j, conflict-free
-  __shared__ float vs[kTile][D];
+  extern __shared__ __align__(16) float fsm[];
+  float (*qs)[D] = reinterpret_cast<float (*)[D]>(fsm);
+  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(fsm + kRows * D);
+  float (*vs)[D] = reinterpret_cast<float (*)[D]>(fsm + kRows * D + kTile * (D + 1));
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
   const int kh = h / (H / KH);
@@ -151,14 +163,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 // K or V tile in shared memory is D values + 8 of padding, so the eight
 // 16-byte rows an ldmatrix reads fall in distinct banks; K/V are double
 // buffered. Blocks an SM the registers are capped for (without spilling):
-// four at D = 32, three at D = 64 (at four it spills), whatever fits at 128.
+// four at D = 32, three at D = 64 (at four it spills), whatever fits at 128
+// and above. QSM: Q lives in shared memory ([QT][LD] after K and V), not in
+// registers (D = 256).
 template <int D> struct Tc {
   static constexpr int THREADS = 128;
   static constexpr int MIN_BLOCKS = D == 32 ? 4 : D == 64 ? 3 : 1;
   static constexpr int LD = D + 8;
   static constexpr int TILE = KT * LD;                 // elements
   static constexpr int STAGES = 2;
-  static constexpr int BYTES = STAGES * 2 * TILE * 2;  // K and V
+  static constexpr bool QSM = D > 160;
+  static constexpr int BYTES = STAGES * 2 * TILE * 2 + (QSM ? QT * LD * 2 : 0);
 };
 
 // 2^x on the MUFU unit (inputs <= 0 here: p and the carry's rescale)
@@ -197,6 +212,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) uint8_t smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][KT][LD]
   bf16* sv = sk + STAGES * TILE;                  // [STAGES][KT][LD]
+  bf16* sq = sv + STAGES * TILE;                  // QSM: [QT][LD]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int kh = h / (H / KH);
@@ -204,19 +220,43 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int row[2] = {q0 + 16 * w + g, q0 + 16 * w + g + 8};   // this thread's two rows
 
-  // Q as mma A fragments, once: a0 (row g, cols 2t..), a1 (row g+8), a2 / a3
-  // the same 8 columns on
+  // Q as mma A fragments: a0 (row g, cols 2t..), a1 (row g+8), a2 / a3 the
+  // same 8 columns on. In registers, loaded once; or (QSM) the block's 64
+  // rows copied once into shared memory (rows >= S zero-filled, in the
+  // first tile's cp.async group) and each fragment read from there
   const size_t rs = (size_t)H * D;
   const bf16* qb = q + ((size_t)b * S * H + h) * D;
-  uint32_t qf[DC][4];
+  uint32_t qf[T::QSM ? 1 : DC][4];
+  if constexpr (T::QSM) {
+    constexpr int CH = D / 8;
+    for (int i = tid; i < QT * CH; i += T::THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = q0 + r < S;
+      cp_async16(rt::smem_u32(sq + r * LD + c), qb + (size_t)(ok ? q0 + r : 0) * rs + c,
+                 ok ? 16 : 0);
+    }
+  } else {
 #pragma unroll
-  for (int c = 0; c < DC; ++c) {
-    const int col = 16 * c + 2 * t;
-    qf[c][0] = ld_pair(qb + row[0] * rs + col, row[0] < S);
-    qf[c][1] = ld_pair(qb + row[1] * rs + col, row[1] < S);
-    qf[c][2] = ld_pair(qb + row[0] * rs + col + 8, row[0] < S);
-    qf[c][3] = ld_pair(qb + row[1] * rs + col + 8, row[1] < S);
+    for (int c = 0; c < DC; ++c) {
+      const int col = 16 * c + 2 * t;
+      qf[c][0] = ld_pair(qb + row[0] * rs + col, row[0] < S);
+      qf[c][1] = ld_pair(qb + row[1] * rs + col, row[1] < S);
+      qf[c][2] = ld_pair(qb + row[0] * rs + col + 8, row[0] < S);
+      qf[c][3] = ld_pair(qb + row[1] * rs + col + 8, row[1] < S);
+    }
   }
+  auto q_frag = [&](int c, uint32_t (&a)[4]) {
+    if constexpr (T::QSM) {
+      const bf16* r0 = sq + (16 * w + g) * LD + 16 * c + 2 * t;
+      a[0] = *reinterpret_cast<const uint32_t*>(r0);
+      a[1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD);
+      a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD + 8);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qf[c][i];
+    }
+  };
 
   // the key tiles any row of this block can see
   const int q_last = min(q0 + QT, S) - 1;
@@ -273,16 +313,19 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
+    for (int c = 0; c < DC; ++c) {
+      uint32_t qa[4];
+      q_frag(c, qa);
 #pragma unroll
       for (int nb = 0; nb < NB; nb += 2) {
         const int mi = lane >> 3;
         const int key = 8 * (nb + (mi >> 1)) + (lane & 7), col = 16 * c + 8 * (mi & 1);
         uint32_t bfr[4];
         ldsm_x4(bfr, rt::smem_u32(kt + key * LD + col));
-        rt::mma_bf16(s[nb], qf[c], bfr[0], bfr[1]);
-        rt::mma_bf16(s[nb + 1], qf[c], bfr[2], bfr[3]);
+        rt::mma_bf16(s[nb], qa, bfr[0], bfr[1]);
+        rt::mma_bf16(s[nb + 1], qa, bfr[2], bfr[3]);
       }
+    }
 
     // to the log2 domain, with the softcap; then the mask, only where the
     // tile straddles a boundary (the diagonal, the window's edge, or S)
@@ -396,32 +439,42 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                        int KH, int window, float cap, int causal, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_prefill_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F32<D>::BYTES);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_prefill_f32_kernel<D><<<grid, kRows * 32, 0, s>>>(
+  flash_prefill_f32_kernel<D><<<grid, kRows * 32, F32<D>::BYTES, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), S, H, KH, window, cap, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                     int KH, int window, float cap, int causal, bool bf, cudaStream_t s) {
+  return bf ? launch_tc<D>(q, k, v, o, B, S, H, KH, window, cap, causal, s)
+            : launch_f32<D>(q, k, v, o, B, S, H, KH, window, cap, causal, s);
+}
+
 }  // namespace
 
 // o = attention(q, k, v): q/o [B, S, H, D], k/v [B, S, KH, D], contiguous,
-// H % KH == 0, D in {32, 64, 128} (checked by the Python wrapper).
+// H % KH == 0, D in {32, 64, 128, 160, 256} (checked by the Python wrapper).
 extern "C" int rt_flash_prefill(const void* q, const void* k, const void* v, void* o,
                                 int B, int S, int H, int KH, int D, int window,
                                 float cap, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  if (KH <= 0 || H % KH) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf = dtype == rt::kBF16;
   cudaError_t err;
-  if (D == 32)
-    err = bf ? launch_tc<32>(q, k, v, o, B, S, H, KH, window, cap, causal, s)
-             : launch_f32<32>(q, k, v, o, B, S, H, KH, window, cap, causal, s);
-  else if (D == 64)
-    err = bf ? launch_tc<64>(q, k, v, o, B, S, H, KH, window, cap, causal, s)
-             : launch_f32<64>(q, k, v, o, B, S, H, KH, window, cap, causal, s);
-  else
-    err = bf ? launch_tc<128>(q, k, v, o, B, S, H, KH, window, cap, causal, s)
-             : launch_f32<128>(q, k, v, o, B, S, H, KH, window, cap, causal, s);
+  switch (D) {
+    case 32: err = launch_d<32>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
+    case 64: err = launch_d<64>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
+    case 128: err = launch_d<128>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
+    case 160: err = launch_d<160>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
+    case 256: err = launch_d<256>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -7,7 +7,9 @@ with sliding window and tanh logit softcap; and of
 `flash_decode.py::flash_decode_paged`, the same read through a page table
 into a shared page pool. The kernel splits each (lane, kv head)'s keys over
 a thread-block cluster and merges the blocks' partials inside it;
-`decode_plan` picks the split. Callers go through `repro_torch.kernels.ops`.
+`decode_plan` picks the split. A block holds up to `GROUP_BLOCK` query
+heads of its kv head; a larger group runs in blocks of that many. Callers
+go through `repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.expert_gemm import SMS
 
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8   # query heads per kv head the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128, 160, 256)
+MAX_GROUP = 16                  # query heads per kv head the kernel takes
+GROUP_BLOCK = 8                 # query heads a block holds in registers
 SMEM_LIMIT = 227 * 1024 - 256   # dynamic shared memory a block may take (less the static)
 WARPS = 4                       # warps a block
 KEYS_PER_ROW = 4                # keys a row of lanes takes from each ring stage
@@ -30,8 +33,8 @@ MIN_BLOCKS = 2 * SMS            # the split aims at two blocks an SM or more
 
 
 def _check_q(fn: str, q: torch.Tensor, K: int) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"{fn}_cuda needs CUDA tensors, got {q.device}")
+    """q's type and shape, then its device, so a CPU tensor meets the shape
+    refusals first."""
     if q.dtype not in build.DTYPE_CODES:
         raise ValueError(f"{fn}: dtype {q.dtype} not supported (float32, bfloat16)")
     if q.dim() != 3:
@@ -42,12 +45,26 @@ def _check_q(fn: str, q: torch.Tensor, K: int) -> None:
     if K == 0 or H % K or H // K > MAX_GROUP:
         raise ValueError(f"{fn}: {H} query heads over {K} kv heads "
                          f"(need a group of 1..{MAX_GROUP})")
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}_cuda needs CUDA tensors, got {q.device}")
+
+
+def _row_lanes(D: int, esize: int) -> int:
+    """Lanes that span a key row (csrc/flash_decode.cu `Geo::TX`): one a
+    16-byte piece when the pieces divide a warp, else the whole warp."""
+    pieces = D * esize // 16
+    return pieces if pieces <= 32 and 32 % pieces == 0 else 32
+
+
+def _head_blocks(G: int) -> int:
+    """Blocks a (lane, kv head) runs its G query heads in."""
+    return -(-G // GROUP_BLOCK)
 
 
 def _tile_keys(D: int, esize: int) -> int:
-    """Keys of one ring stage: KEYS_PER_ROW for each row of 16-byte lanes
-    that a block of WARPS warps holds at once."""
-    return WARPS * (32 // (D * esize // 16)) * KEYS_PER_ROW
+    """Keys of one ring stage: KEYS_PER_ROW for each row of lanes that a
+    block of WARPS warps holds at once."""
+    return WARPS * (32 // _row_lanes(D, esize)) * KEYS_PER_ROW
 
 
 def _smem_bytes(G: int, D: int, esize: int, splits: int, Mp: Optional[int] = None) -> int:
@@ -57,7 +74,7 @@ def _smem_bytes(G: int, D: int, esize: int, splits: int, Mp: Optional[int] = Non
     which reuse it, whichever is larger; the cluster's block partials
     [splits][GM][D + 2] (rank 0's are merged); the 8-byte mbarrier; and for
     the paged kernel (`Mp` entries a table row) the page list, 2 x Mp ints.
-    GM is G rounded up to the instantiated group, 1, 4 or 8."""
+    GM is the heads a block holds, G rounded up to 1, 4 or 8 (8 above 8)."""
     gm = 1 if G == 1 else 4 if G <= 4 else 8
     bk = _tile_keys(D, esize)
     stage = 2 * bk * D * esize + 4 * bk
@@ -71,16 +88,17 @@ def decode_plan(B: int, KH: int, S: int, G: int, D: int,
     """The split of the decode kernel for B lanes x KH kv heads over S keys a
     lane (the ring's slots, or the table's Mp x page), G query heads a kv
     head, head dim D: the blocks of a cluster that share one (lane, kv
-    head)'s keys, 1, 2, 4 or 8. The fewest that give the grid at least two
-    blocks an SM (`MIN_BLOCKS`), while every block of a full ring keeps a
-    tile of its own (2 x splits <= the tiles of S before each doubling). So
-    the served [8 lanes, 12 kv heads] over 512 keys runs 96 x 4 blocks, and
-    a tiny S runs unsplit. G does not change the split; it is asked so that
-    a plan names the whole launch. Memoised: decode asks the same shapes
-    every step."""
+    head, head block)'s keys, 1, 2, 4 or 8. The fewest that give the grid
+    at least two blocks an SM (`MIN_BLOCKS`), while every block of a full
+    ring keeps a tile of its own (2 x splits <= the tiles of S before each
+    doubling). So the served [8 lanes, 12 kv heads] over 512 keys runs
+    96 x 4 blocks, and a tiny S runs unsplit. G counts only through its
+    head blocks (two at G 16). Memoised: decode asks the same shapes every
+    step."""
     tiles = -(-S // _tile_keys(D, 2 if dtype == torch.bfloat16 else 4))
+    units = B * KH * _head_blocks(G)
     splits = 1
-    while splits < MAX_SPLITS and 2 * splits <= tiles and B * KH * splits < MIN_BLOCKS:
+    while splits < MAX_SPLITS and 2 * splits <= tiles and units * splits < MIN_BLOCKS:
         splits *= 2
     return splits
 

@@ -4,7 +4,8 @@
 Port of `repro/kernels/flash_prefill.py::flash_prefill`: full-sequence GQA
 flash attention with causal masking, sliding window and tanh logit softcap.
 bf16 runs on the tensor cores (64 query rows a block, P rounded to bf16
-before P V); fp32 on the CUDA cores, in IEEE fp32.
+before P V; at head_dim 256 Q is read from shared memory); fp32 on the CUDA
+cores, in IEEE fp32.
 Callers go through `repro_torch.kernels.ops.flash_prefill`.
 """
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160, 256)
 
 
 def flash_prefill_cuda(

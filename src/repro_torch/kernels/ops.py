@@ -4,7 +4,9 @@ A CPU tensor goes to the plain version in `kernels.ref`; a CUDA tensor goes
 to the hand-written kernel, which launches or raises — nothing falls back
 from the card to a library call or to the plain version. Each wrapper counts
 its kernel launches (`launches()`, `reset_launches()`), so a run can show
-that its path went through the kernels.
+that its path went through the kernels; the attention wrappers also count
+them by head shape, window and softcap (`launches_by_shape()`), so a model
+whose layers differ (a local and a global layer) shows each form's.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro_torch.kernels.sparsemax import sparsemax_cuda
 KERNELS = ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode", "expert_ffn_q",
            "expert_ffn_q4", "flash_decode_paged")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# (kernel, query heads, kv heads, head_dim, window, softcap) -> launches
+_BY_SHAPE: Dict[tuple, int] = {}
 _count_lock = threading.Lock()   # the hash and inference threads both launch
 
 
@@ -29,6 +33,7 @@ def reset_launches() -> None:
     with _count_lock:
         for name in KERNELS:
             _LAUNCHES[name] = 0
+        _BY_SHAPE.clear()
 
 
 def launches() -> Dict[str, int]:
@@ -36,9 +41,19 @@ def launches() -> Dict[str, int]:
         return dict(_LAUNCHES)
 
 
-def _count(name: str) -> None:
+def launches_by_shape() -> Dict[tuple, int]:
+    """The attention kernels' launches since the last reset, by (kernel,
+    query heads, kv heads, head_dim, window, softcap)."""
+    with _count_lock:
+        return dict(_BY_SHAPE)
+
+
+def _count(name: str, q=None, k=None, window: int = 0, cap: float = 0.0) -> None:
     with _count_lock:
         _LAUNCHES[name] += 1
+        if q is not None:
+            key = (name, q.shape[-2], k.shape[-2], q.shape[-1], int(window), float(cap))
+            _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + 1
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
@@ -99,7 +114,7 @@ def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = Tru
     """q [B, S, H, D], k/v [B, S, K, D] -> [B, S, H, D] in q's dtype."""
     if _on_card(q, "flash_prefill"):
         out = flash_prefill_cuda(q, k, v, window=window, cap=cap, causal=causal)
-        _count("flash_prefill")
+        _count("flash_prefill", q, k, window, cap)
         return out
     return ref.flash_prefill_ref(q, k, v, window=window, cap=cap, causal=causal).to(q.dtype)
 
@@ -109,7 +124,7 @@ def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0):
     global positions `slot_pos` [B, S] (-1 invalid) -> [B, H, D] in q's dtype."""
     if _on_card(q, "flash_decode"):
         out = flash_decode_cuda(q, k, v, slot_pos, pos, window=window, cap=cap)
-        _count("flash_decode")
+        _count("flash_decode", q, k, window, cap)
         return out
     return ref.flash_decode_ref(q, k, v, slot_pos, pos, window=window, cap=cap).to(q.dtype)
 
@@ -119,7 +134,7 @@ def flash_decode_paged(q, kp, vp, page_table, pos, window: int = 0, cap: float =
     through page_table [B, Mp] (-1 = not resident) -> [B, H, D] in q's dtype."""
     if _on_card(q, "flash_decode_paged"):
         out = flash_decode_paged_cuda(q, kp, vp, page_table, pos, window=window, cap=cap)
-        _count("flash_decode_paged")
+        _count("flash_decode_paged", q, kp, window, cap)
         return out
     return ref.flash_decode_paged_ref(q, kp, vp, page_table, pos, window=window,
                                       cap=cap).to(q.dtype)

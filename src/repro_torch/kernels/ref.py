@@ -64,7 +64,7 @@ def unpack_int4_ref(packed: torch.Tensor, k: int) -> torch.Tensor:
     """Nibble-packed uint8 [..., ceil(k/2), n] -> int8 [..., k, n].
 
     Byte i holds contraction rows 2i (low nibble) and 2i+1 (high nibble),
-    two's complement int4 in [-8, 7] (`core.offload.pack_nibbles`)."""
+    two's complement int4 in [-8, 7] (`core.offload.quantize_stack_int4`)."""
     lo = (packed & 0xF).to(torch.int8)
     hi = (packed >> 4).to(torch.int8)
     v = torch.stack([lo, hi], dim=-2)                      # [..., k/2, 2, n]

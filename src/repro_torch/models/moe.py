@@ -26,22 +26,27 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, normal, top_k
+from repro_torch.models.layers import act_fn, dense_init, normal, top_k
 
 
 def init_moe(gen, cfg: ModelConfig, device) -> dict:
     m = cfg.moe
-    if m.num_shared_experts:
-        raise NotImplementedError("shared experts are ported with the other families (ROADMAP A15)")
     d = cfg.d_model
     dtype = getattr(torch, cfg.dtype)
-    return {
+    p = {
         "router": dense_init(gen, d, m.num_experts, torch.float32, device, scale=0.02),
         "w_in": _stack_init(gen, m.num_experts, d, m.d_expert, dtype, device),
         # allocated for non-gated configs too, as the reference does
         "w_gate": _stack_init(gen, m.num_experts, d, m.d_expert, dtype, device),
         "w_out": _stack_init(gen, m.num_experts, m.d_expert, d, dtype, device),
     }
+    if m.num_shared_experts:
+        # the shared experts side by side: [d, n_shared * d_shared] and back
+        ds = m.d_shared * m.num_shared_experts
+        p["shared_w_in"] = dense_init(gen, d, ds, dtype, device)
+        p["shared_w_gate"] = dense_init(gen, d, ds, dtype, device)
+        p["shared_w_out"] = dense_init(gen, ds, d, dtype, device)
+    return p
 
 
 def _stack_init(gen, e, d_in, d_out, dtype, device):
@@ -108,8 +113,6 @@ def moe_layer(
 ):
     """Returns (y [B,S,d], aux) with aux = dict(router_logits, aux_loss, z_loss)."""
     m = cfg.moe
-    if m.num_shared_experts:
-        raise NotImplementedError("shared experts are ported with the other families (ROADMAP A15)")
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -126,6 +129,9 @@ def moe_layer(
         z_loss = router_z_loss(router_logits)
 
     y = _dispatch_combine(params, xt, ids, w, cfg, dispatch)
+    if m.num_shared_experts:
+        # always active, whatever the routing; added to the fp32 combine
+        y = y + shared_experts(params, xt, cfg)
     aux = {
         "router_logits": (
             router_logits.reshape(B, S, m.num_experts) if router_logits is not None else None
@@ -134,6 +140,14 @@ def moe_layer(
         "z_loss": z_loss,
     }
     return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def shared_experts(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The shared experts side by side, act(x Wg) * (x Wi) Wo, in x's dtype
+    (`src/repro/models/moe.py:164-167`)."""
+    h = x @ params["shared_w_in"]
+    g = act_fn(cfg.act)(x @ params["shared_w_gate"])
+    return (g * h) @ params["shared_w_out"]
 
 
 def _dispatch_combine(params, xt, ids, w, cfg, dispatch):

@@ -102,7 +102,20 @@ def test_default_device_is_cuda_and_never_falls_back_to_cpu(monkeypatch):
     assert SiDADecodeEngine(cfg, params, hp, slots_per_layer=2, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", [f"switch-base-{e}" for e in (8, 64, 128, 256)])
+ATTENTION_FAMILY = ["chameleon-34b", "deepseek-moe-16b", "gemma2-9b", "qwen2-1.5b",
+                    "qwen3-moe-235b-a22b", "smollm-135m", "stablelm-12b"]
+
+
+def test_the_port_registers_the_attention_family_and_switch():
+    assert list(list_configs()) == sorted(
+        ATTENTION_FAMILY + [f"switch-base-{e}" for e in (8, 64, 128, 256)])
+    # hybrid, recurrent and encoder-decoder archs wait for their block kinds
+    for name in ("hymba-1.5b", "xlstm-125m", "seamless-m4t-medium"):
+        with pytest.raises(KeyError):
+            get_config(name)
+
+
+@pytest.mark.parametrize("name", ATTENTION_FAMILY + [f"switch-base-{e}" for e in (8, 64, 128, 256)])
 def test_configs_match_jax_field_by_field(name):
     assert name in list_configs()
     t, j = get_config(name), jget_config(name)

@@ -350,6 +350,12 @@ def test_gemm_plan_is_a_valid_launch(M, gated, fmt, group):
     (8, 12, 1, 1, 64, "bfloat16", 1),          # one key: unsplit
     (8, 12, 33, 1, 64, "bfloat16", 1),         # one 64-key tile
     (8, 12, 33, 1, 64, "float32", 2),          # two 32-key tiles, one a rank
+    # the attention-family decode shapes over a 512-slot ring
+    (8, 4, 512, 16, 128, "bfloat16", 8),       # qwen3-moe: G 16 in 2 head blocks, 64 x 8
+    (8, 16, 512, 1, 128, "bfloat16", 4),       # deepseek-moe: 128 x 4
+    (8, 8, 512, 4, 160, "bfloat16", 8),        # stablelm: 16-key tiles (a warp a row)
+    (8, 8, 512, 2, 256, "bfloat16", 8),        # gemma2
+    (8, 8, 512, 2, 256, "float32", 8),
 ])
 def test_decode_plan_at_the_served_shapes(B, KH, S, G, D, dtype, plan):
     assert decode_plan(B, KH, S, G, D, getattr(torch, dtype)) == plan
@@ -358,13 +364,15 @@ def test_decode_plan_at_the_served_shapes(B, KH, S, G, D, dtype, plan):
 def _decode_smem(G, D, esize, splits, Mp=None):
     """The decode kernel's shared memory written out from its layout
     (csrc/flash_decode.cu `Layout`): a key row spans D·esize/16 lanes of 16
-    bytes, each of the two ring stages holds four keys for each of the
-    4 x 32/that rows of the block, as K and V tiles and one int position a
-    key; the warps' fp32 partials [4][GM][D + 2] reuse the ring; beside it
-    the cluster's block partials [splits][GM][D + 2], an 8-byte mbarrier and
-    the paged kernel's page list, 2 x Mp ints."""
+    bytes when that divides 32, else a whole warp, each of the two ring
+    stages holds four keys for each of the 4 x 32/that rows of the block,
+    as K and V tiles and one int position a key; the warps' fp32 partials
+    [4][GM][D + 2] reuse the ring; beside it the cluster's block partials
+    [splits][GM][D + 2], an 8-byte mbarrier and the paged kernel's page
+    list, 2 x Mp ints. GM is the heads a block holds: 1, 4 or 8."""
     gm = 1 if G == 1 else 4 if G <= 4 else 8
     lanes = D * esize // 16
+    lanes = lanes if 32 % lanes == 0 else 32
     keys = 4 * (32 // lanes) * 4
     stage = 2 * keys * D * esize + 4 * keys
     partial = 4 * gm * (D + 2)
@@ -373,11 +381,13 @@ def _decode_smem(G, D, esize, splits, Mp=None):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("D", [32, 64, 128, 160, 256])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 12, 16])
 def test_decode_plan_is_a_valid_launch(G, D, dtype):
     esize = 2 if dtype == "bfloat16" else 4
-    keys = 4 * (32 // (D * esize // 16)) * 4     # a ring stage's keys
+    lanes = D * esize // 16                      # 16-byte pieces of a key row
+    keys = 4 * (32 // (lanes if 32 % lanes == 0 else 32)) * 4     # a ring stage's keys
+    head_blocks = -(-G // 8)                     # query heads in blocks of 8
     for B in (1, 3, 8, 64):
         for KH in (1, 2, 12):
             for S in (1, 7, 33, 64, 300, 512, 4096, 32768):
@@ -387,7 +397,7 @@ def test_decode_plan_is_a_valid_launch(G, D, dtype):
                 tiles = -(-S // keys)
                 assert all((r + 1) * tiles // splits > r * tiles // splits for r in range(splits))
                 # a split only while the grid has fewer than two blocks an SM
-                assert splits == 1 or B * KH * splits // 2 < 2 * 132
+                assert splits == 1 or B * KH * head_blocks * splits // 2 < 2 * 132
                 smem = _smem_bytes(G, D, esize, splits)
                 assert smem == _decode_smem(G, D, esize, splits) <= SMEM_LIMIT
                 # the paged kernel over a table of 16-slot pages holding S keys
@@ -670,11 +680,10 @@ def test_flash_decode_kernel_matches_plain(cuda, B, S, H, K, D, pos, wrap, windo
 
 def _quantized4(arr: np.ndarray, group: int):
     """Per-group symmetric int4 of a [E, d_in, d_out] stack, nibble-packed
-    along d_in (core/offload.py quantize_expert_q4)."""
-    from repro_torch.core.offload import quantize_expert_q4
+    along d_in (core/offload.py quantize_stack_int4)."""
+    from repro_torch.core.offload import quantize_stack_int4
 
-    q, s = quantize_expert_q4(arr, group)
-    return torch.from_numpy(q), torch.from_numpy(s)
+    return quantize_stack_int4(torch.from_numpy(arr), "cpu", group)
 
 
 @pytest.mark.gpu
@@ -875,3 +884,160 @@ def test_flash_decode_paged_kernel_equals_ring_kernel_on_the_same_keys(cuda):
     want = ops.flash_decode(q, k, v, sp, pos)
     torch.cuda.synchronize()
     _close(got.float().cpu(), want.float().cpu(), 1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the attention-family configs' shapes: GQA group 16 (qwen3-moe-235b-a22b),
+# head_dim 160 (stablelm-12b) and 256 (gemma2-9b, window 4096 and softcap
+# 50), and the GLU expert FFN at deepseek-moe-16b's [d 2048, F 1408] and
+# qwen3's [4096, 1536]
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case,match", [
+    ("group 17", "need a group of 1..16"), ("head_dim 96", "head_dim 96"),
+    ("paged group 32", "need a group of 1..16"), ("cpu", "needs CUDA"),
+])
+def test_flash_decode_cuda_refusals(case, match):
+    """Shapes are refused before the device: a group above 16 or a head_dim
+    outside (32, 64, 128, 160, 256) raises a ValueError naming the kernel."""
+    B, S, K, D = 1, 8, 2, 128
+    H = {"group 17": 34, "paged group 32": 64}.get(case, 4)
+    D = 96 if case == "head_dim 96" else D
+    q = torch.zeros(B, H, D, dtype=torch.bfloat16)
+    if case.startswith("paged"):
+        kp = torch.zeros(3, 4, K, D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"flash_decode_paged: .*{match}"):
+            flash_decode_paged_cuda(q, kp, kp, torch.zeros(B, 2, dtype=torch.int32),
+                                    torch.zeros(B, dtype=torch.int32))
+        return
+    k = torch.zeros(B, S, K, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        flash_decode_cuda(q, k, k, torch.zeros(B, S, dtype=torch.int32),
+                          torch.zeros(B, dtype=torch.int32))
+
+
+def test_flash_prefill_refuses_head_dims_outside_the_set():
+    for D in (96, 192, 512):
+        q = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"flash_prefill: head_dim {D}"):
+            flash_prefill_cuda(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,D,window,cap", [
+    (2, 300, 64, 4, 128, 0, 0.0),        # qwen3-moe's GQA 16
+    (2, 200, 32, 8, 160, 0, 0.0),        # stablelm-12b
+    (1, 300, 16, 8, 256, 64, 50.0),      # gemma2-9b's local layer, cut to a 64 window
+    (1, 77, 16, 8, 256, 0, 50.0),        # gemma2-9b's global layer
+    (2, 65, 6, 2, 160, 17, 30.0),
+])
+def test_flash_prefill_kernel_matches_plain_at_family_shapes(cuda, B, S, H, K, D, window, cap,
+                                                             dtype):
+    q, k, v = (_t(_np(s, 60 + i), dtype).to(cuda)
+               for i, s in enumerate([(B, S, H, D), (B, S, K, D), (B, S, K, D)]))
+    got = ops.flash_prefill(q, k, v, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    want = ref.flash_prefill_ref(q, k, v, window, cap, True)
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,D,pos,wrap,window,cap", [
+    (8, 512, 64, 4, 128, [700, 5, 511, 512, 1023, 0, 64, 300], True, 0, 0.0),   # G 16
+    (3, 100, 48, 4, 64, [150, 37, 99], True, 24, 30.0),           # G 12: blocks of 8 and 4
+    (4, 300, 32, 8, 160, [299, 310, 5, 600], True, 0, 0.0),       # D 160
+    (2, 512, 16, 8, 256, [4000, 511], True, 128, 50.0),           # D 256, window + cap
+    (2, 40, 16, 1, 256, [-1, 30], False, 0, 0.0),                 # G 16, D 256, no valid key
+])
+def test_flash_decode_kernel_matches_plain_at_family_shapes(cuda, B, S, H, K, D, pos, wrap, window,
+                                                            cap, dtype):
+    q, k, v, sp, p = _decode_inputs(B, S, H, K, D, pos, wrap, dtype, cuda, seed=70)
+    got = ops.flash_decode(q, k, v, sp, p, window=window, cap=cap)
+    again = ops.flash_decode(q, k, v, sp, p, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ref.flash_decode_ref(q, k, v, sp, p, window, cap)
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,K,D,page,window,cap", [
+    (64, 4, 128, 16, 0, 0.0), (32, 8, 160, 8, 0, 0.0), (16, 8, 256, 4, 6, 50.0),
+    (16, 1, 256, 8, 0, 0.0),
+])
+def test_flash_decode_paged_kernel_matches_plain_at_family_shapes(cuda, H, K, D, page, window,
+                                                                  cap, dtype):
+    n_pages = 12
+    table = [[0, 1, 2, 3, 4], [-1, 5, -1, 6, 7], [8, 9, 10, -1, -1], [-1, -1, -1, -1, 11]]
+    q, kp, vp, pt = _paged_inputs(4, H, K, D, page, n_pages, table, dtype, cuda, seed=80)
+    pos = torch.tensor([5 * page - 1, 4 * page - 2, 7 * page, 2], dtype=torch.int32, device=cuda)
+    got = ops.flash_decode_paged(q, kp, vp, pt, pos, window=window, cap=cap)
+    torch.cuda.synchronize()
+    want = ref.flash_decode_paged_ref(q, kp, vp, pt, pos, window, cap)
+    _close(got.float().cpu(), want.cpu(), F32_TOL if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("E,C,d,F", [
+    (16, 8, 2048, 1408), (6, 96, 2048, 1408),      # deepseek: decode and a batch block
+    (32, 8, 4096, 1536), (4, 200, 4096, 1536),     # qwen3
+])
+def test_glu_expert_ffn_kernels_match_plain_at_family_shapes(cuda, E, C, d, F, fmt):
+    """SwiGLU at the MoE families' widths in bf16, on every slot format. The
+    weights at the models' own init scale, 1/sqrt(fan-in), so that the
+    outputs are O(1) as the served layer's are (the bf16 error of h grows
+    with its magnitude)."""
+    xe = _np((E, C, d), C)
+    wi, wg = _np((E, d, F), C + 1, d ** -0.5), _np((E, d, F), C + 2, d ** -0.5)
+    wo = _np((E, F, d), C + 3, F ** -0.5)
+    x = _t(xe, "bfloat16").to(cuda)
+    if fmt == "bf16":
+        args, fn, pfn = [x] + [_t(a, "bfloat16").to(cuda) for a in (wi, wg, wo)], \
+            ops.expert_ffn, ref.expert_ffn_ref
+    elif fmt == "int8":
+        args = [x]
+        for a in (wi, wg, wo):
+            qa, sa = _quantized(a)
+            args += [qa.to(cuda), sa.to(cuda)]
+        fn, pfn = ops.expert_ffn_q, ref.expert_ffn_q_ref
+    else:
+        args = [x]
+        for a in (wi, wg, wo):
+            qa, sa = _quantized4(a, 64)
+            args += [qa.to(cuda), sa.to(cuda)]
+        fn, pfn = ops.expert_ffn_q4, ref.expert_ffn_q4_ref
+    got = fn(*args, act="silu")
+    torch.cuda.synchronize()
+    want = pfn(*args, act="silu")
+    _close(got.float().cpu(), want.float().cpu(), BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["int8-channel", "int8-tensor", "int4-64"])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)])   # deepseek's w_in / w_gate, w_out
+def test_store_quantisation_on_the_card_equals_the_cpu(cuda, k, n, fmt, dtype):
+    """`ExpertStore` quantises its host masters on its own device: on the
+    card the bytes and scales are the CPU's (and so the reference's numpy,
+    test_torch_quantized / test_torch_tiering), bit for bit, at one MoE
+    layer of deepseek-moe-16b's 64 experts."""
+    from repro_torch.core.offload import quantize_stack_int4, quantize_stack_int8
+
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    full = (torch.randn((1, 64, k, n), generator=gen, device=cuda) * k ** -0.5)
+    full[0, 3, :, 7] = 0.0                                   # an all-zero channel (the 1e-8 floor)
+    full = full.to(getattr(torch, dtype)).cpu()
+    kind, arg = fmt.split("-")
+    if kind == "int8":
+        on_card, on_cpu = (quantize_stack_int8(full, dev, arg) for dev in (cuda, "cpu"))
+    else:
+        on_card, on_cpu = (quantize_stack_int4(full, dev, int(arg)) for dev in (cuda, "cpu"))
+    for got, want in zip(on_card, on_cpu):
+        assert got.device.type == "cpu" and got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)

@@ -1,5 +1,5 @@
 """The port's int8 residency against the JAX package on the CPU:
-`quantize_expert` bit for bit at both granularities, `expert_format_bytes`,
+`quantize_stack_int8` bit for bit at both granularities, `expert_format_bytes`,
 the `expert_ffn_q` oracle (and the Pallas kernel in interpret mode), the
 int8 branch of `apply_expert_stack_blocked`, and `ExpertStore` with int8 host
 masters and with int8-resident slots on one table stream (the same slot
@@ -58,12 +58,12 @@ def test_quantize_expert_is_bit_identical(granularity, dtype):
     w[0, 1, :, 5] = 0.0                                  # an all-zero channel (the 1e-8 floor)
     wj = w.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else w
     qj, sj = jo.quantize_expert(wj, granularity)
-    # the port quantises the fp32 view of its master, as the store does
-    wt = torch.from_numpy(w).to(getattr(torch, dtype)).float().numpy()
-    qt, st = to.quantize_expert(wt, granularity)
-    assert qt.dtype == np.int8 and st.dtype == np.float32 and st.shape == (2, 3, 1, 48)
-    np.testing.assert_array_equal(qt, qj)
-    np.testing.assert_array_equal(st, sj)
+    # the store's torch quantisation of its master, a layer at a time
+    qt, st = to.quantize_stack_int8(torch.from_numpy(w).to(getattr(torch, dtype)), "cpu",
+                                    granularity)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32 and st.shape == (2, 3, 1, 48)
+    np.testing.assert_array_equal(qt.numpy(), qj)
+    np.testing.assert_array_equal(st.numpy(), sj)
 
 
 def test_expert_format_bytes_match_jax():

@@ -55,24 +55,24 @@ def _np(x):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("k,group", [(64, 16), (96, 64), (33, 8), (40, 40)])
-def test_quantize_expert_q4_is_bit_identical(k, group):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,group", [(64, 16), (96, 64), (33, 8), (40, 40), (40, 64)])
+def test_quantize_expert_q4_is_bit_identical(k, group, dtype):
+    """The store's torch int4 quantisation (`quantize_stack_int4`, a layer at a
+    time, on the store's device: the CPU here) gives the reference's numpy
+    masters bit for bit, from fp32 and bf16 weights (the reference
+    quantises the fp32 view of a bf16 master); the packing unpacks to the
+    reference's values."""
     w = (np.random.default_rng(k).standard_normal((2, 3, k, 24)) * 0.05).astype(np.float32)
     w[0, 1, :, 5] = 0.0                                   # an all-zero group (the 1e-8 floor)
-    qt, st = to.quantize_expert_q4(w, group)
-    qj, sj = jo.quantize_expert_q4(w, group)
-    assert qt.dtype == np.uint8 and qt.shape == (2, 3, (k + 1) // 2, 24)
-    np.testing.assert_array_equal(qt, qj)
-    np.testing.assert_array_equal(st, sj)
-    np.testing.assert_array_equal(to.unpack_nibbles(qt, k), jo.unpack_nibbles(qj, k))
-    vals = np.random.default_rng(1).integers(-8, 8, (3, k, 5)).astype(np.int8)
-    np.testing.assert_array_equal(to.pack_nibbles(vals), jo.pack_nibbles(vals))
-    np.testing.assert_array_equal(to.unpack_nibbles(to.pack_nibbles(vals), k), vals)
-    # bf16 masters: the store quantises their fp32 view, as the reference's numpy does
-    wb = w.astype(ml_dtypes.bfloat16)
-    qb, sb = to.quantize_expert_q4(torch.from_numpy(w).bfloat16().float().numpy(), group)
-    np.testing.assert_array_equal(qb, jo.quantize_expert_q4(wb, group)[0])
-    np.testing.assert_array_equal(sb, jo.quantize_expert_q4(wb, group)[1])
+    full = torch.from_numpy(w).to(getattr(torch, dtype))
+    qt, st = to.quantize_stack_int4(full, "cpu", group)
+    wj = w.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else w
+    qj, sj = jo.quantize_expert_q4(wj, group)
+    assert qt.dtype == torch.uint8 and tuple(qt.shape) == (2, 3, (k + 1) // 2, 24)
+    np.testing.assert_array_equal(qt.numpy(), qj)
+    np.testing.assert_array_equal(st.numpy(), sj)
+    np.testing.assert_array_equal(ref.unpack_int4_ref(qt, k).numpy(), jo.unpack_nibbles(qj, k))
 
 
 def _q4_inputs(E, C, d, F, glu, group, seed=0):
