@@ -36,7 +36,14 @@
    softcap 50); the library SDPA with enable_gqa, or for a softcapped row a
    compiled flex_attention (tanh score_mod, block mask), its own error
    against the plain version printed; a group above 16 and a head_dim
-   outside the set refused.
+   outside the set refused. The training shapes too (phase 11's fp32
+   forward over [8, 128] tokens): expert_ffn at [8, 160, 768 -> 3072] and
+   flash_prefill at 12 / 12 heads of 64 (fp32 1e-4), sparsemax at TKD's
+   [8, 128, 128]; each Function's backward (`kernels/autograd.py`) against
+   autograd over the plain version on the same inputs (fp32 within 1e-4 *
+   max(1, max|g|), expert_ffn also in bf16 within 5e-2 * max(1, max|g|)),
+   timed beside autograd over the plain version and over the library call
+   (bmm+gelu+bmm, SDPA), with its bound.
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -139,6 +146,30 @@
    (gemma2 [1, 5120]), 16 greedy decode steps from its K/V over a ring and
    over pages that a KVPagePool seeds; the card against the CPU path
    (fp32, the same weights) within 5e-2 * max(1, max|logit|).
+11. The offline phase on switch-base-8 at full width and depth, fp32,
+   seeded weights, SyntheticLM [8, 128] batches: (a) 30 steps of
+   `repro_torch.launch.train.train` (lr 3e-4, warmup-cosine, remat):
+   param count, peak memory, ms a step (steps 5-30), tok/s, the first and
+   last losses, launches, and the three backwards' share of a step
+   (torch.profiler over 2 more steps; also from phase 2's backward times);
+   gates: finite losses whose last-5 mean is below the first-5 mean, both
+   forward kernels launched. (b) TKD of the predictor (d_h 64, seed 1) from
+   (a)'s frozen model, 150 steps at lr 3e-3, T 8, λ 0.005, then the draft
+   head for 100 steps; ms a step, sparsemax launches, first / last loss,
+   kd, ce, acc, held-out top-1 / top-3 hit rates of the trained and the
+   untrained predictor; gates: the TKD loss falls, the trained top-1 beats
+   chance and the untrained one, the router heads and LSTMs bit-identical
+   through the draft training, a checkpoint round trip bit for bit. (d)
+   (a)'s model in bf16 through SiDAEngine at 4 slots with each predictor,
+   beside Standard: hit rate against the router, the share of tokens whose
+   argmax equals Standard's, throughput, loads, bytes, memory saving (every
+   batch kernel launches). (e) idle experts a sentence and the effective
+   memory utilisation at lengths 16 / 64 / 256 (Figs. 4, 2), ĉ from a
+   token-corruption study (Eq. 2). (c) full width cut to 2 layers, card
+   against CPU: the first batch's gradients of the LM objective and of the
+   TKD loss, each leaf within 1e-3 * max|g_cpu| (zeros where the CPU's are
+   not fail), and 2 train and 2 TKD steps, each loss within 1e-4 *
+   max(1, |loss|).
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -148,7 +179,9 @@ expert_ffn_q4 at the batch serves' shapes, and sparsemax at the ring's;
 `library_device_ms` are the graph-replayed times; `spec_launches` a decode
 kernel's launches on 5e's speculative runs, null for the batch rows;
 `server_launches` a kernel's launches on each of 9a-9d (null for the shape
-rows); the phase-10 rows (`expert_ffn/deepseek-batch`,
+rows); the training rows (`expert_ffn/train`, `flash_prefill/train`,
+`sparsemax/tkd`) count 11a's / 11b's launches and carry their backward's
+`backward_*` times, bound and error over its tolerance; the phase-10 rows (`expert_ffn/deepseek-batch`,
 `flash_decode/qwen3-G16`, ...) count their own phase-10 run's launches,
 each attention row its own form's (`ops.launches_by_shape()`; 0 fails),
 `library_max_abs_err` is the library call's own distance from the plain
@@ -161,6 +194,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -2902,6 +2936,529 @@ def dense_family_path(name: str, shape, steps: int = DENSE_STEPS):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the training shapes; phase 11, the offline phase
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = (8, 128)                     # phase 11's SyntheticLM batches, [batch, seq]
+TRAIN_KERNELS = ("expert_ffn", "flash_prefill")
+TKD_STEPS, DRAFT_STEPS = 150, 100          # the get_system recipe's TKD steps; 11b's draft steps
+# each Function's node in the autograd graph (torch.profiler's row names)
+BACKWARDS = {"expert_ffn": "ExpertFFNBackward", "flash_prefill": "FlashPrefillBackward",
+             "sparsemax": "SparsemaxBackward"}
+
+
+def train_config(cfg, depth: int = 0):
+    """switch-base-8 as phase 11 trains it: fp32 (the reference's bench_cfg
+    recipe trains in fp32), full width, depth cut only where asked (11c)."""
+    return dataclasses.replace(cfg, dtype="float32", n_layers=depth or cfg.n_layers)
+
+
+def check_backward(failed, rec, name, fn, plain, inputs, bwd, tol, bnd, library=None, tag=""):
+    """One Function's backward on the card, added to the phase-2 row `rec`:
+    the gradient of <fn(inputs), ct> through the wrapper (the kernel's
+    Function) against autograd over `plain` on the same inputs, each leaf
+    within tol * max(1, max|g|); then the backward alone timed: `bwd(ct)`
+    (the Function's explicit backward), autograd over the plain version and
+    over `library` (graph built once, retained)."""
+    import torch
+
+    a = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    b = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*a)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    ct = torch.randn(tuple(out.shape), generator=gen).to(out.device, out.dtype)
+    got = torch.autograd.grad(out, [t for t in a if t is not None], ct)
+    want_out = plain(*b)
+    live_b = [t for t in b if t is not None]
+    want = torch.autograd.grad(want_out, live_b, ct, retain_graph=True)
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        e = (g.float() - w.float()).abs().max().item()
+        bound = tol * max(1.0, w.float().abs().max().item())
+        ok &= bool(e <= bound) and bool(torch.isfinite(g.float()).all())
+        err = max(err, e / bound)
+    k_ms = time_ms(lambda: bwd(ct))
+    p_ms = time_ms(lambda: torch.autograd.grad(want_out, live_b, ct, retain_graph=True))
+    l_ms = None
+    if library is not None:
+        c = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+        lib_out = library(*c)
+        live_c = [t for t in c if t is not None]
+        l_ms = time_ms(lambda: torch.autograd.grad(lib_out, live_c, ct, retain_graph=True))
+    print(f"  {name + ' backward' + tag:28s} worst error / bound = {err:.4f} "
+          f"(tol {tol:g} * max(1, max|g|)) {'ok' if ok else 'FAIL'} backward_ms={k_ms:.4f} "
+          f"(share_of_bound={bnd[0] / k_ms:.3f}) plain_backward_ms={p_ms:.4f} "
+          f"library_backward_ms={'null' if l_ms is None else f'{l_ms:.4f}'} "
+          f"backward_bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
+    if not ok:
+        failed.append(f"{name} backward{tag}")
+    key = "backward" + tag.replace(" ", "_")
+    rec.update({f"{key}_err_over_tol": err, f"{key}_ms": k_ms, f"{key}_plain_ms": p_ms,
+                f"{key}_library_ms": l_ms, f"{key}_bound_ms": bnd[0], f"{key}_bound_by": bnd[1]})
+
+
+def check_training_kernels(cfg):
+    """Phase 2, the training forward's shapes (switch-base-8 fp32, [8, 128]
+    tokens): expert_ffn at [8, 160, 768 -> 3072] (capacity 1.25 x 1024 / 8),
+    flash_prefill at 12 / 12 heads of 64, sparsemax at the TKD forward's
+    [8, 128, 128]; each forward against its plain version (fp32 1e-4,
+    sparsemax 1e-5), then its Function's backward against autograd over the
+    plain version (fp32 1e-4, and expert_ffn's in bf16 at 5e-2), each timed
+    with its bound. Returns {row: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import autograd, ops, ref
+    from repro_torch.kernels.expert_gemm import expert_ffn_cuda
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+    from repro_torch.kernels.sparsemax import sparsemax_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(321)
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype=dtype, device=dev)
+
+    records, failed = {}, []
+    B, S = TRAIN_BATCH
+    E, d, Fh = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    C = batch_capacity(train_config(cfg), B, S, E)
+    f32 = torch.float32
+
+    # --- expert_ffn: the training forward's capacity buffer, fp32 (and bf16 backward)
+    for dtype, tol, peak in ((f32, 1e-4, H100_F32_FLOPS), (torch.bfloat16, 5e-2, H100_BF16_FLOPS)):
+        xe = rnd((E, C, d), 1.0, dtype)
+        wi = rnd((E, d, Fh), d ** -0.5, dtype)
+        wo = rnd((E, Fh, d), Fh ** -0.5, dtype)
+        gemm = 2 * E * C * d * Fh
+
+        def lib(x, i, o):
+            return torch.bmm(F.gelu(torch.bmm(x, i), approximate="tanh"), o)
+
+        if dtype == f32:
+            got = expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+            torch.cuda.synchronize()
+            want = ref.expert_ffn_ref(xe, wi, None, wo, act=cfg.act)
+            kern = lambda: expert_ffn_cuda(xe, wi, None, wo, act=cfg.act)
+            rec = report(failed, "expert_ffn/train", dtype, (E, C, d, Fh), got, want, tol,
+                         time_ms(kern), time_ms(lambda: ref.expert_ffn_ref(xe, wi, None, wo, cfg.act)),
+                         time_ms(lambda: lib(xe, wi, wo)),
+                         bound_ms(nb(xe, wi, wo, got), 2 * gemm, peak), " (bmm+gelu+bmm)",
+                         graph=(kern, lambda: lib(xe, wi, wo)))
+        # the backward recomputes the pre-activation: five GEMMs; it reads
+        # x, the weights and dy, and writes dx and the weight gradients
+        check_backward(failed, rec, "expert_ffn/train",
+                       lambda x, i, o: ops.expert_ffn(x, i, None, o, act=cfg.act),
+                       lambda x, i, o: ref.expert_ffn_ref(x, i, None, o, act=cfg.act),
+                       [xe, wi, wo],
+                       lambda dy: autograd.expert_ffn_backward(xe, wi, None, wo, cfg.act, dy),
+                       tol, bound_ms(2 * nb(xe, wi, wo) + nb(xe), 5 * gemm, peak), library=lib,
+                       tag="" if dtype == f32 else " bf16")
+    records["expert_ffn/train"] = rec
+
+    # --- flash_prefill: 12 / 12 heads of 64 over [8, 128], causal, fp32
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (rnd((B, S, n, D), 1.0, f32) for n in (H, K, K))
+    got = flash_prefill_cuda(q, k, v)
+    torch.cuda.synchronize()
+    want = ref.flash_prefill_ref(q, k, v)
+    pairs = S * (S + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    kern = lambda: flash_prefill_cuda(q, k, v)
+    rec = report(failed, "flash_prefill/train", f32, tuple(q.shape), got, want, 1e-4,
+                 time_ms(kern), time_ms(lambda: ref.flash_prefill_ref(q, k, v)), time_ms(sdpa),
+                 bound_ms(nb(q, k, v, got), 4 * B * H * D * pairs, H100_F32_FLOPS), " (SDPA)",
+                 graph=(kern, sdpa))
+    # the backward: S again, dP, dV, dQ, dK (five products over the visible pairs)
+    check_backward(failed, rec, "flash_prefill/train", ops.flash_prefill,
+                   lambda q, k, v: ref.flash_prefill_ref(q, k, v), [q, k, v],
+                   lambda do: autograd.flash_prefill_backward(q, k, v, 0, 0.0, True, do), 1e-4,
+                   bound_ms(2 * nb(q, k, v) + nb(q), 10 * B * H * D * pairs, H100_F32_FLOPS),
+                   library=lambda q, k, v: F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       is_causal=True).transpose(1, 2))
+    records["flash_prefill/train"] = rec
+
+    # --- sparsemax: the TKD forward's scores [8, 128, 128]
+    z = rnd((B, S, S), 3.0, f32)
+    rec = check_sparsemax(failed, "sparsemax/tkd", z)
+    out = sparsemax_cuda(z)
+    check_backward(failed, rec, "sparsemax/tkd", ops.sparsemax, ref.sparsemax_ref, [z],
+                   lambda g: autograd.sparsemax_backward(out, g), 1e-4,
+                   bound_ms(nb(z, z, z), 4 * z.numel(), H100_F32_FLOPS))
+    records["sparsemax/tkd"] = rec
+    if failed:
+        raise SystemExit(f"chip_smoke: training kernels disagree with their plain versions: {failed}")
+    return records
+
+
+def falls(losses) -> bool:
+    """Phase 11's loss gate: every loss finite, and the mean of the last 5
+    below the mean of the first 5."""
+    import numpy as np
+
+    return bool(np.isfinite(losses).all()) and float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+
+
+def backward_profile(cfg_t, params, batches):
+    """Phase 11a's split: two more train steps from the trained weights under
+    torch.profiler (host and device activity). The device time inside each
+    Function's backward node (inclusive), the device's busy time and the
+    wall. Returns {kernel: device ms a step} or None where the profiler
+    recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import adamw_init
+
+    step = make_train_step(cfg_t, lr=3e-4)
+    opt = adamw_init(params)
+    batches = [tuple(torch.from_numpy(a).to(params["embed"].device) for a in b) for b in batches]
+    float(step(params, opt, *batches[0])[2]["lm_loss"])          # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tk, lb in batches:
+            float(step(params, opt, tk, lb)[2]["lm_loss"])
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+
+    def dev_us(e, attr):
+        return getattr(e, f"{attr}device_time_total", None) or getattr(e, f"{attr}cuda_time_total", 0)
+
+    busy = sum(dev_us(e, "self_") for e in rows if str(e.device_type).endswith("CUDA"))
+    if busy <= 0:
+        print("  backward share from the profiler: not measured (no device time recorded)")
+        return None
+    n = len(batches)
+    per_step = {k: max([dev_us(e, "") for e in rows if node in e.key] or [0]) / 1e3 / n
+                for k, node in BACKWARDS.items()}
+    bwd = sum(per_step.values())
+    step_ms = wall * 1e3 / n
+    print(f"  profiled 2 steps: wall ms a step={step_ms:.3f} device busy ms a step="
+          f"{busy / 1e3 / n:.3f} device_idle_share={max(0.0, 1 - busy / 1e6 / wall):.3f}")
+    print(f"  the backwards' device ms a step: " + " ".join(
+        f"{k}={v:.3f}" for k, v in per_step.items()) + f"; share of the step's wall "
+          f"{bwd / step_ms:.4f}, of its device busy time {bwd / (busy / 1e3 / n):.4f}")
+    for e in sorted(rows, key=lambda e: -dev_us(e, "self_"))[:6]:
+        print(f"    {dev_us(e, 'self_') / 1e3 / n:9.3f} ms a step  {e.key[:90]}")
+    return per_step
+
+
+def train_path(cfg, records):
+    """Phase 11a: `repro_torch.launch.train.train` at full width and depth,
+    fp32, 30 steps of SyntheticLM [8, 128] at lr 3e-4 (warmup-cosine).
+    Gates: finite losses, the last 5 steps' mean below the first 5's, both
+    forward kernels launched. Returns (trained params, launch counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import param_count
+
+    B, S = TRAIN_BATCH
+    steps = 30
+    # earlier phases' engines can sit in reference cycles with device
+    # tensors: collect them, so the peak below is training's own
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()           # what earlier phases still hold
+    ops.reset_launches()
+    params, hist = train(cfg.name, steps=steps, batch=B, seq=S, lr=3e-4, reduced=False,
+                         log_every=1, seed=0, device="cuda", dtype="float32")
+    counts = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    el = [h["elapsed_s"] for h in hist]
+    ms = (el[-1] - el[4]) / (steps - 5) * 1e3          # steps 5..29, each ended by its loss read
+    print(f"  param_count={param_count(params)} peak max_memory_allocated={peak} "
+          f"(held before training {held}) "
+          f"ms_a_step={ms:.3f} (mean of steps 5-30) tokens_s={B * S / ms * 1e3:.1f} "
+          f"first_step_s={el[0]:.3f}")
+    print(f"  loss first={losses[0]:.4f} last={losses[-1]:.4f} mean first 5={np.mean(losses[:5]):.4f} "
+          f"last 5={np.mean(losses[-5:]):.4f}")
+    print(f"  launches {json.dumps(counts)}")
+    if not falls(losses):
+        raise SystemExit(f"chip_smoke: 11a's loss did not fall: {losses}")
+    idle = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if idle:
+        raise SystemExit(f"chip_smoke: forward kernels never launched in training: {idle}")
+    cfg_t = train_config(cfg)
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, n_domains=8), seed=9)
+    backward_profile(cfg_t, params, list(data.batches(B, 2)))
+    # the same split from phase 2's backward times: launches a step (one a
+    # MoE layer, one a layer) times each backward's time at this shape
+    est = {"expert_ffn": cfg.n_layers // 2 * records["expert_ffn/train"]["backward_ms"],
+           "flash_prefill": cfg.n_layers * records["flash_prefill/train"]["backward_ms"]}
+    print(f"  the backwards from phase 2's times: " + " ".join(f"{k}={v:.3f} ms" for k, v in est.items())
+          + f"; share of a {ms:.3f} ms step {sum(est.values()) / ms:.4f}")
+    return params, counts
+
+
+def tkd_batches(cfg_t, params, seed: int, lm: bool = False):
+    """Fresh SyntheticLM [8, 128] batches from the frozen model on the card:
+    (token embeddings, router logits [L, B, S, E]) or, with `lm`, (token
+    embeddings, LM logits)."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.models.transformer import forward
+
+    B, S = TRAIN_BATCH
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg_t.vocab_size, seq_len=S, n_domains=8),
+                       seed=seed)
+    dev = params["embed"].device
+    while True:
+        toks = torch.from_numpy(data.sample(B)[0]).long().to(dev)
+        with torch.no_grad():
+            out = forward(params, cfg_t, toks, collect_router_logits=not lm)
+        yield params["embed"][toks], out["logits" if lm else "router_logits"]
+
+
+def tkd_path(cfg, params):
+    """Phase 11b: TKD of the predictor (d_h 64, seed 1, as `seeded_model`
+    makes it) from 11a's frozen model, 150 steps at lr 3e-3, T 8, λ 0.005,
+    fresh batches each step; then the draft head, 100 steps at lr 3e-3.
+    Gates: the TKD loss falls; the trained predictor's held-out top-1 hit
+    rate above chance and above the untrained one's on the same 4 batches;
+    the router heads and LSTMs bit-identical through the draft training;
+    a save / load round trip bit for bit. Returns (trained, untrained
+    predictor, sparsemax launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.hash_fn import hash_fn_param_count, init_draft_head, init_hash_fn
+    from repro_torch.core.tkd import evaluate_hash_fn, train_draft_head, train_hash_fn
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import n_moe_layers
+    from repro_torch.tree import flatten, tree_leaves, tree_map
+
+    cfg_t = train_config(cfg)
+    E = cfg.moe.num_experts
+    hp0 = init_hash_fn(torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg), E,
+                       d_h=64, device="cuda")
+    held = tkd_batches(cfg_t, params, seed=2)
+    held = [next(held) for _ in range(4)]
+
+    def hits(hp):
+        ms = [evaluate_hash_fn(hp, e, rl, top=3) for e, rl in held]
+        return {k: float(np.mean([m[k] for m in ms])) for k in ms[0]}
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hp, hist = train_hash_fn(hp0, tkd_batches(cfg_t, params, seed=1), steps=TKD_STEPS, lr=3e-3,
+                             T=min(30, E), lam=0.005, log_every=1, verbose=False)
+    wall = time.perf_counter() - t0
+    counts = ops.launches()
+    losses = [h["loss"] for h in hist]
+    first, last = hist[0], hist[-1]
+    print(f"  predictor params={hash_fn_param_count(hp)} ms_a_step={wall / TKD_STEPS * 1e3:.3f} "
+          f"(the teacher's forward included) sparsemax launches={counts['sparsemax']}")
+    for tag, h in (("first", first), ("last", last)):
+        print(f"  {tag} step: loss={h['loss']:.4f} kd={h['kd']:.4f} ce={h['ce']:.4f} acc={h['acc']:.4f}")
+    trained, untrained = hits(hp), hits(hp0)
+    print(f"  held-out hit rates (4 x {TRAIN_BATCH}): trained {json.dumps(trained)} "
+          f"untrained seed-1 {json.dumps(untrained)} chance top1={1 / E:.4f}")
+    if not falls(losses):
+        raise SystemExit(f"chip_smoke: 11b's TKD loss did not fall: {losses}")
+    if counts["sparsemax"] == 0:
+        raise SystemExit("chip_smoke: sparsemax never launched in TKD")
+    if not (trained["top1_hit"] > 1 / E and trained["top1_hit"] > untrained["top1_hit"]):
+        raise SystemExit("chip_smoke: the trained predictor does not beat chance and the untrained one")
+
+    hd = init_draft_head(torch.Generator().manual_seed(7), hp, cfg.d_model)
+    t0 = time.perf_counter()
+    out, dh = train_draft_head(hd, params["embed"], tkd_batches(cfg_t, params, seed=3, lm=True),
+                               steps=DRAFT_STEPS, num_experts=E, lr=3e-3)
+    print(f"  draft head: {DRAFT_STEPS} steps, ms_a_step={(time.perf_counter() - t0) / DRAFT_STEPS * 1e3:.3f} "
+          f"ce first={dh[0]['loss']:.4f} last={dh[-1]['loss']:.4f} "
+          f"argmax_match first={dh[0]['acc']:.4f} last={dh[-1]['acc']:.4f}")
+    before, after = flatten(hd), flatten(out)
+    moved = [k for k in before if k != "draft_proj" and not torch.equal(before[k], after[k])]
+    if moved:
+        raise SystemExit(f"chip_smoke: the draft training moved the predictor's {moved}")
+    ck = os.path.join(ROOT, "build", "chip_smoke_predictor")
+    save_checkpoint(ck, out, step=TKD_STEPS, extra={"arch": cfg.name})
+    back, _ = load_checkpoint(ck, device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(out), tree_leaves(back)))
+    if not same or sorted(flatten(back)) != sorted(after):
+        raise SystemExit("chip_smoke: the predictor's checkpoint round trip is not bit for bit")
+    print(f"  router heads and LSTMs bit-identical through the draft training; checkpoint "
+          f"round trip bit for bit ({ck})")
+    return out, tree_map(lambda t: t.cpu(), hp0), counts
+
+
+def offline_card_vs_cpu(cfg):
+    """Phase 11c, the gradient gate: switch-base-8 at full width cut to 2
+    layers (one dense, one MoE), fp32, seeded weights and 2 SyntheticLM
+    [8, 128] batches on both devices. The first batch's gradients of the LM
+    objective and of the TKD loss, every leaf within 1e-3 * max|g_cpu| (a
+    card gradient of zeros where the CPU's is not fails); then 2 train steps
+    and 2 TKD steps, each step's loss within 1e-4 * max(1, |loss|)."""
+    import torch
+
+    from repro_torch.core.hash_fn import hash_fn_apply, init_hash_fn
+    from repro_torch.core.tkd import tkd_loss, train_hash_fn
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.launch.steps import leaf_grads, loss_and_grads, make_train_step, requiring_grad
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import flatten, tree_map
+
+    cfg2 = train_config(cfg, depth=2)
+    E = cfg.moe.num_experts
+    host = init_params(torch.Generator().manual_seed(0), cfg2, device="cpu")
+    hp_host = init_hash_fn(torch.Generator().manual_seed(1), cfg.d_model, 1, E, d_h=64,
+                           device="cpu")
+    B, S = TRAIN_BATCH
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, n_domains=8), seed=5)
+    batches = [tuple(torch.from_numpy(a).long() for a in b) for b in data.batches(B, 2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        params = tree_map(lambda t: t.to(dev), host)
+        bt = [(t.to(dev), l.to(dev)) for t, l in batches]
+        _, _, g_lm = loss_and_grads(cfg2, params, *bt[0])
+        with torch.no_grad():
+            tk = [(params["embed"][t], forward(params, cfg2, t, collect_router_logits=True)
+                   ["router_logits"]) for t, _ in bt]
+        hp = tree_map(lambda t: t.to(dev), hp_host)
+        p = requiring_grad(hp)
+        loss, _ = tkd_loss(hash_fn_apply(p, tk[0][0], E), tk[0][1], T=min(30, E), lam=0.005)
+        g_tkd = leaf_grads(loss, p)
+        step, opt, lm_losses = make_train_step(cfg2, lr=3e-4), adamw_init(params), []
+        for t, l in bt:
+            params, opt, m = step(params, opt, t, l)
+            lm_losses.append(float(m["total_loss"]))
+        _, hist = train_hash_fn(hp, iter(tk), steps=2, lr=3e-3, T=min(30, E), lam=0.005,
+                                log_every=1, verbose=False)
+        runs[dev] = (flatten(g_lm), flatten(g_tkd), lm_losses, [h["loss"] for h in hist])
+        print(f"  ({dev}) {time.perf_counter() - t0:.1f} s: train losses {lm_losses}, "
+              f"TKD losses {runs[dev][3]}")
+    card, cpu = runs["cuda"], runs["cpu"]
+    bad = []
+    for which, i in (("train", 0), ("tkd", 1)):
+        worst = 0.0
+        for key, gc in cpu[i].items():
+            gg = card[i][key].cpu()
+            scale = gc.abs().max().item()
+            err = (gg - gc).abs().max().item()
+            if scale == 0:
+                ok = err == 0
+            else:
+                ok = err <= 1e-3 * scale and not (gg == 0).all()
+                worst = max(worst, err / (1e-3 * scale))
+            if not ok:
+                bad.append(f"{which}:{key} err={err:.3e} max|g_cpu|={scale:.3e}")
+        print(f"  {which} gradients, {len(cpu[i])} leaves: worst error / bound = {worst:.4f} (need <= 1)")
+    for which, i in (("train", 2), ("tkd", 3)):
+        for j, (a, b) in enumerate(zip(card[i], cpu[i])):
+            if not abs(a - b) <= 1e-4 * max(1.0, abs(b)):
+                bad.append(f"{which} step {j} loss {a} vs {b}")
+    if bad:
+        raise SystemExit(f"chip_smoke: 11c, the card's training disagrees with the CPU's: {bad}")
+    print("  gate: the card's gradients and losses equal the CPU's within tolerance")
+
+
+def serve_trained_path(cfg, params, hp_trained, hp_untrained, slots: int):
+    """Phase 11d: 11a's model in bf16 served through SiDAEngine at phase 3's
+    slot budget on 4 held-out [8, 128] batches, with 11b's predictor and
+    with the untrained seed-1 one, each beside Standard (every expert
+    resident): the hash hit rate against the model's router, the share of
+    tokens whose argmax equals Standard's (the paper's fidelity), throughput,
+    loads, bytes and memory saving. Gate: every batch kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import StandardServer
+    from repro_torch.core.engine import SiDAEngine
+    from repro_torch.core.tkd import evaluate_hash_fn
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward
+    from repro_torch.tree import flatten, unflatten
+
+    B, S = TRAIN_BATCH
+    V = cfg.vocab_size
+    # the serving dtypes: bf16, the router fp32 (as `init_moe` makes it)
+    host = unflatten({k: t.detach().cpu() if k.endswith("/router") else
+                      t.detach().to(torch.bfloat16).cpu() for k, t in flatten(params).items()})
+    data = SyntheticLM(SyntheticConfig(vocab_size=V, seq_len=S, n_domains=8), seed=6)
+    batches = [data.sample(B)[0] for _ in range(5)]            # a warm-up batch, then 4
+    std = StandardServer(cfg, host, device="cuda")
+    std.serve(batches[:1])
+    m_std = std.serve(batches[1:])
+    ref_tok, teacher = [], []
+    with torch.inference_mode():
+        for toks in batches[1:]:
+            t = torch.as_tensor(toks, device="cuda").long()
+            out = forward(std.params, cfg, t, collect_router_logits=True)
+            ref_tok.append(out["logits"][..., :V].argmax(-1).cpu())
+            teacher.append((std.params["embed"][t], out["router_logits"]))
+    print(f"  (standard) throughput_tok_s={m_std.throughput:.1f} mean_latency_s={m_std.mean_latency:.5f} "
+          f"device_memory_bytes={std.device_memory_bytes()}")
+    del std
+    for name, hp in (("trained", hp_trained), ("untrained", hp_untrained)):
+        eng = SiDAEngine(cfg, host, hp, slots_per_layer=slots, device="cuda")
+        eng.serve(batches[:1], threaded=False)
+        eng.store.stats.reset()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        m = eng.serve(batches[1:], threaded=True)
+        counts = ops.launches()
+        hits = [evaluate_hash_fn(eng.hash_params, e, rl, top=3) for e, rl in teacher]
+        hit = {k: float(np.mean([h[k] for h in hits])) for k in hits[0]}
+        fid = float(np.mean([(r[..., :V].float().argmax(-1) == t).float().mean().item()
+                             for r, t in zip(eng.results, ref_tok)]))
+        st = eng.store.stats
+        print(f"  ({name} predictor) hit rate vs the router {json.dumps(hit)} "
+              f"argmax_equal_to_standard={fid:.4f}")
+        print(f"    throughput_tok_s={m.throughput:.1f} mean_latency_s={m.mean_latency:.5f} "
+              f"loads={st.loads} bytes_h2d={st.bytes_h2d} "
+              f"memory_saving={eng.memory_saving()['reduction']:.4f} launches {json.dumps(counts)}")
+        idle = [k for k in BATCH_KERNELS if counts[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched serving the {name} predictor: {idle}")
+        eng.close()
+        del eng
+
+
+def sparsity_path(cfg, params):
+    """Phase 11e: the paper's motivating measurements on 11a's model: the
+    idle-expert ratio a sentence (Fig. 4) and the effective memory
+    utilisation it gives (Fig. 2) at sentence lengths 16, 64 and 256, and ĉ
+    (Eq. 2 inverted over a token-corruption study, Fig. 7)."""
+    from repro_torch.core.sparsity import (corruption_study, effective_memory_utilization,
+                                           estimate_c, routing_ids, sentence_sparsity)
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+
+    cfg_t = train_config(cfg)
+    E = cfg.moe.num_experts
+    for L in (16, 64, 256):
+        data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=L, n_domains=8), seed=4)
+        idle = float(sentence_sparsity(routing_ids(params, cfg_t, data.sample(8)[0]), E).mean())
+        mem = effective_memory_utilization(cfg, idle)
+        print(f"  sentence length {L:3d}: idle expert ratio={idle:.4f} (Fig. 4) "
+              f"effective_utilization={mem['effective_utilization']:.4f} "
+              f"ineffective_gb={mem['ineffective_gb']:.4f} of total_gb={mem['total_gb']:.4f} "
+              f"(Fig. 2, bf16)")
+    L, ps = 64, [0.05, 0.1, 0.2, 0.4]
+    toks = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=L, n_domains=8),
+                       seed=5).sample(4)[0]
+    phat = corruption_study(params, cfg_t, toks, ps, n_positions=4, n_trials=2, mode="token")
+    c = estimate_c(ps, [phat[p] for p in ps], L)
+    print(f"  corruption study (L {L}, token mode): p_hat {json.dumps(phat)} -> c_hat={c} "
+          f"(the paper: 1 to 4)")
+
+
 def main() -> int:
     import torch
 
@@ -2951,6 +3508,8 @@ def main() -> int:
                                         cfg.moe.num_experts))
     records.update(check_tier_paged_kernels(cfg, lanes, cache_len, runs[2][2]["paged"].page_size,
                                             warm, c_tier, warm, c_tb))
+    print(f"  -- the training shapes (fp32 [8, 128] tokens; each Function's backward)")
+    records.update(check_training_kernels(cfg))
     t0 = time.perf_counter()
     print(f"  -- the attention-family shapes (GLU experts, GQA group 16, head_dim 160 / 256)")
     records.update(check_family_kernels(lanes, cache_len))
@@ -3029,6 +3588,24 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_counts = {name: dense_family_path(name, shape) for name, shape in DENSE_FAMILY}
     print(f"  phase 10d took {time.perf_counter() - t0:.1f} s")
+    t11 = time.perf_counter()
+    print(f"== phase 11a: LM training (launch.train, switch-base-8 full width and depth, fp32) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    trained, tcounts = train_path(cfg, records)
+    print(f"== phase 11b: TKD of the predictor and the draft head from 11a's model "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    hp_trained, hp_untrained, kcounts = tkd_path(cfg, trained)
+    print(f"== phase 11d: serving what was trained (bf16, SiDA at {slots} slots vs Standard) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    serve_trained_path(cfg, trained, hp_trained, hp_untrained, slots)
+    print(f"== phase 11e: sparsity of 11a's model [{time.perf_counter() - t_start:.1f} s]")
+    sparsity_path(cfg, trained)
+    del trained, hp_trained
+    torch.cuda.empty_cache()
+    print(f"== phase 11c: training card vs CPU (full width, 2 layers, fp32) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    offline_card_vs_cpu(cfg)
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -3065,6 +3642,14 @@ def main() -> int:
                                       "src/repro/kernels/expert_gemm.py:98"),
         "expert_ffn_q4/tiered-batch": ("cuda", "src/repro_torch/csrc/expert_ffn_sm90.cu",
                                        "src/repro/kernels/expert_gemm.py:211"),
+        # the training forward's shapes (phase 11a) and the TKD scores (11b),
+        # each row with its Function's backward
+        "expert_ffn/train": ("cuda", "src/repro_torch/csrc/expert_ffn.cu",
+                             "src/repro/kernels/expert_gemm.py:269"),
+        "flash_prefill/train": ("cuda", "src/repro_torch/csrc/flash_prefill.cu",
+                                "src/repro/kernels/flash_prefill.py:82"),
+        "sparsemax/tkd": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
+                          "src/repro/kernels/sparsemax.py:43"),
     }
     # phase 10's shapes: the GLU expert FFN of the MoE family, every
     # attention form; each row's launches its own phase-10 run's
@@ -3120,6 +3705,9 @@ def main() -> int:
                                  + launches["expert_ffn_q4/tiered-batch"])
     launches["flash_decode_paged"] = dcounts["tiered-paged"]["flash_decode_paged"]
     launches["expert_ffn/spec"] = scounts["spec-bf16"]["expert_ffn"]
+    launches["expert_ffn/train"] = tcounts["expert_ffn"]
+    launches["flash_prefill/train"] = tcounts["flash_prefill"]
+    launches["sparsemax/tkd"] = kcounts["sparsemax"]
     launches.update(family_launches)
     # each decode kernel's launches on the speculative path (phase 5e): the
     # all-resident bf16 run for the ring kernels, the tiered paged run for
@@ -3143,7 +3731,8 @@ def main() -> int:
                         "device_ms": r["device_ms"],
                         "library_device_ms": r["library_device_ms"],
                         **{k: v for k, v in r.items()
-                           if k.startswith(("gathered_", "sdpa_nocap_", "library_max"))}})
+                           if k.startswith(("gathered_", "sdpa_nocap_", "library_max",
+                                            "backward"))}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

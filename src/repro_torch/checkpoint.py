@@ -1,15 +1,16 @@
-"""Reader of the JAX package's checkpoints and the weight carry into the port.
+"""Checkpoints in the JAX package's format, and the weight carry into the port.
 
 The format (`repro/checkpoint/io.py`) is one `arrays.npz` whose keys are the
 pytree paths joined by "/", plus `manifest.json` with each key's shape and
-original dtype; bf16 leaves are stored upcast to fp32. Reading needs numpy
-alone.
+original dtype; bf16 leaves are stored upcast to fp32 (lossless). Reading and
+writing need numpy alone, and each package reads what the other writes.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+import tempfile
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,3 +56,24 @@ def load_checkpoint(path: str, device="cpu") -> Tuple[Dict[str, Any], dict]:
         if list(flat[k].shape) != list(meta["shape"]):
             raise ValueError(f"{k}: shape {tuple(flat[k].shape)} != manifest {meta['shape']}")
     return unflatten(flat), manifest
+
+
+def save_checkpoint(path: str, params: Dict[str, Any], step: int = 0,
+                    extra: Optional[dict] = None) -> None:
+    """Write `params` (a dict tree of tensors) to `path/{arrays.npz,
+    manifest.json}`; the arrays go to a temporary file renamed into place."""
+    os.makedirs(path, exist_ok=True)
+    flat = {k: t.detach().cpu() for k, t in flatten(params).items()}
+    arrays = {k: (t.float() if t.dtype == torch.bfloat16 else t).numpy() for k, t in flat.items()}
+    manifest = {
+        "step": step,
+        "keys": {k: {"shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", "")}
+                 for k, t in flat.items()},
+        "extra": extra or {},
+    }
+    fd, tmp = tempfile.mkstemp(dir=path, suffix=".tmp.npz")
+    os.close(fd)
+    np.savez(tmp, **arrays)
+    os.replace(tmp, os.path.join(path, "arrays.npz"))
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)

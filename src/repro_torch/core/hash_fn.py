@@ -19,6 +19,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, top_k
+from repro_torch.tree import tree_leaves
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -153,6 +154,19 @@ def hash_fn_apply_segmented(
         z, c1, c2 = _hash_segment(params, emb[:, s0:s0 + seg_len], c1, c2)
         outs.append(z @ params["heads"])
     return torch.cat(outs, dim=1).reshape(B, S, L, num_experts)
+
+
+def hash_fn_param_count(params: dict) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def hash_hit_rate(pred_logits: torch.Tensor, teacher_ids: torch.Tensor, top: int = 3) -> torch.Tensor:
+    """Top-`top` hit rate (the paper's Table 5): the share of (layer, token)
+    whose teacher expert is among the predictor's top `top`, ties to the
+    lower index. pred_logits [B, S, L, E]; teacher_ids [L, B, S]."""
+    _, pred = top_k(pred_logits, top)
+    hit = (pred.movedim(2, 0) == teacher_ids[..., None]).any(-1)
+    return hit.float().mean()
 
 
 def predict_topk(logits: torch.Tensor, k: int):

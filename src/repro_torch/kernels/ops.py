@@ -7,6 +7,13 @@ its kernel launches (`launches()`, `reset_launches()`), so a run can show
 that its path went through the kernels; the attention wrappers also count
 them by head shape, window and softcap (`launches_by_shape()`), so a model
 whose layers differ (a local and a global layer) shows each form's.
+
+Under grad mode, with an input that requires grad, `expert_ffn`,
+`flash_prefill` and `sparsemax` go through their `kernels.autograd`
+Functions (the same forward, an explicit PyTorch backward) on both devices;
+the other four wrappers have no backward, since the reference never trains
+through them, and raise a ValueError there rather than return a result cut
+off from the graph.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.autograd import ExpertFFN, FlashPrefill, Sparsemax
 from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda
 from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
 from repro_torch.kernels.flash_prefill import flash_prefill_cuda
@@ -64,8 +72,23 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _no_backward(name: str, *ts) -> None:
+    if _wants_grad(*ts):
+        raise ValueError(f"{name}: the kernel has no backward; call it under torch.no_grad()")
+
+
 def expert_ffn(xe, w_in, w_gate: Optional[torch.Tensor], w_out, act: str = "silu"):
     """xe [E, C, d] -> [E, C, d] through each slot's (G)LU FFN."""
+    if _wants_grad(xe, w_in, w_gate, w_out):
+        return ExpertFFN.apply(_expert_ffn, xe, w_in, w_gate, w_out, act)
+    return _expert_ffn(xe, w_in, w_gate, w_out, act=act)
+
+
+def _expert_ffn(xe, w_in, w_gate, w_out, act):
     if _on_card(xe, "expert_ffn"):
         out = expert_ffn_cuda(xe, w_in, w_gate, w_out, act=act)
         _count("expert_ffn")
@@ -78,6 +101,7 @@ def expert_ffn_q(xe, w_in_q, w_in_scale, w_gate_q: Optional[torch.Tensor],
                  act: str = "silu"):
     """xe [E, C, d] -> [E, C, d] through each slot's FFN over int8 weights
     with per-output-channel fp32 scales."""
+    _no_backward("expert_ffn_q", xe, w_in_scale, w_gate_scale, w_out_scale)
     if _on_card(xe, "expert_ffn_q"):
         out = expert_ffn_q_cuda(xe, w_in_q, w_in_scale, w_gate_q, w_gate_scale,
                                 w_out_q, w_out_scale, act=act)
@@ -92,6 +116,7 @@ def expert_ffn_q4(xe, w_in_q4, w_in_scale, w_gate_q4: Optional[torch.Tensor],
                   act: str = "silu"):
     """xe [E, C, d] -> [E, C, d] through each slot's FFN over nibble-packed
     int4 weights with per-group fp32 scales (the warm tier)."""
+    _no_backward("expert_ffn_q4", xe, w_in_scale, w_gate_scale, w_out_scale)
     if _on_card(xe, "expert_ffn_q4"):
         out = expert_ffn_q4_cuda(xe, w_in_q4, w_in_scale, w_gate_q4, w_gate_scale,
                                  w_out_q4, w_out_scale, act=act)
@@ -103,6 +128,12 @@ def expert_ffn_q4(xe, w_in_q4, w_in_scale, w_gate_q4: Optional[torch.Tensor],
 
 def sparsemax(z: torch.Tensor) -> torch.Tensor:
     """z [..., L] -> simplex projection along the last axis."""
+    if _wants_grad(z):
+        return Sparsemax.apply(_sparsemax, z)
+    return _sparsemax(z)
+
+
+def _sparsemax(z):
     if _on_card(z, "sparsemax"):
         out = sparsemax_cuda(z)
         _count("sparsemax")
@@ -112,6 +143,12 @@ def sparsemax(z: torch.Tensor) -> torch.Tensor:
 
 def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = True):
     """q [B, S, H, D], k/v [B, S, K, D] -> [B, S, H, D] in q's dtype."""
+    if _wants_grad(q, k, v):
+        return FlashPrefill.apply(_flash_prefill, q, k, v, window, cap, causal)
+    return _flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
+
+
+def _flash_prefill(q, k, v, window, cap, causal):
     if _on_card(q, "flash_prefill"):
         out = flash_prefill_cuda(q, k, v, window=window, cap=cap, causal=causal)
         _count("flash_prefill", q, k, window, cap)
@@ -122,6 +159,7 @@ def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = Tru
 def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0):
     """q [B, H, D] over a ring cache k/v [B, S, K, D] whose slots hold the
     global positions `slot_pos` [B, S] (-1 invalid) -> [B, H, D] in q's dtype."""
+    _no_backward("flash_decode", q, k, v)
     if _on_card(q, "flash_decode"):
         out = flash_decode_cuda(q, k, v, slot_pos, pos, window=window, cap=cap)
         _count("flash_decode", q, k, window, cap)
@@ -132,6 +170,7 @@ def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0):
 def flash_decode_paged(q, kp, vp, page_table, pos, window: int = 0, cap: float = 0.0):
     """q [B, H, D] over a shared page pool kp/vp [P+1, page, K, D] read
     through page_table [B, Mp] (-1 = not resident) -> [B, H, D] in q's dtype."""
+    _no_backward("flash_decode_paged", q, kp, vp)
     if _on_card(q, "flash_decode_paged"):
         out = flash_decode_paged_cuda(q, kp, vp, page_table, pos, window=window, cap=cap)
         _count("flash_decode_paged", q, kp, window, cap)

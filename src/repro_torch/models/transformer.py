@@ -1,6 +1,7 @@
 """Config-driven transformer, attention + MoE block kinds (port of
-`repro/models/transformer.py`: the full-sequence forward, the ring K/V
-cache and the one-token `decode_step`).
+`repro/models/transformer.py`: the full-sequence forward, with activation
+checkpointing for training (`remat`), `lm_loss`, the ring K/V cache and
+the one-token `decode_step`).
 
 Layers are grouped into repeating periods (Switch's dense/MoE pair) and each
 sublayer's params are stacked over the groups, as in the reference; its
@@ -19,6 +20,8 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -31,7 +34,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
 from repro_torch.models.moe import init_moe, moe_decode, moe_layer
-from repro_torch.tree import tree_map, tree_stack
+from repro_torch.tree import tree_leaves, tree_map, tree_stack
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -147,7 +150,9 @@ def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    # F.embedding, not indexing: its backward sums a repeated token's rows
+    # in a fixed order (indexing's accumulating scatter does not on the CPU)
+    x = F.embedding(tokens.long(), params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
@@ -163,6 +168,22 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool):
+    """One period group of sublayers: (x, aux_loss, z_loss, router logits
+    of its MoE sublayers, {sub: (k, v)})."""
+    aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    router_logits, kv_g = [], {}
+    for s in range(period(cfg)):
+        x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ros.get(s), collect_kv)
+        if "kv" in aux:
+            kv_g[f"sub{s}"] = aux.pop("kv")
+        if "aux_loss" in aux:
+            aux_loss = aux_loss + aux["aux_loss"]
+            z_loss = z_loss + aux["z_loss"]
+            router_logits.append(aux["router_logits"])
+    return x, aux_loss, z_loss, router_logits, kv_g
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -170,31 +191,33 @@ def forward(
     routing_override=None,                # (ids [L_moe,B,S,k], w [L_moe,B,S,k]) or None
     collect_router_logits: bool = False,
     collect_kv: bool = False,
+    remat: bool = False,
 ) -> Dict[str, Any]:
     """Full forward. Returns dict(logits, aux_loss, z_loss, router_logits?,
-    kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]."""
+    kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]. With `remat`, each
+    layer group runs under non-reentrant activation checkpointing and is
+    recomputed in the backward (the reference's `jax.checkpoint` of its scan
+    body); the values and gradients are those without it."""
     _check_supported(cfg)
     per = period(cfg)
     moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
     x = embed_tokens(params, cfg, tokens)
-    n_groups = cfg.n_layers // per
     aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     router_logits, kvs = [], []
-    for g in range(n_groups):
+    for g in range(cfg.n_layers // per):
         gp = tree_map(lambda t: t[g], params["blocks"])
-        kv_g = {}
-        for s in range(per):
-            ro = None
-            if routing_override is not None and s in moe_subs:
-                li = g * len(moe_subs) + moe_subs.index(s)
-                ro = (routing_override[0][li], routing_override[1][li])
-            x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ro, collect_kv)
-            if "kv" in aux:
-                kv_g[f"sub{s}"] = aux.pop("kv")
-            if s in moe_subs:
-                aux_loss = aux_loss + aux["aux_loss"]
-                z_loss = z_loss + aux["z_loss"]
-                router_logits.append(aux["router_logits"])
+        ros = {}
+        if routing_override is not None:
+            for j, s in enumerate(moe_subs):
+                li = g * len(moe_subs) + j
+                ros[s] = (routing_override[0][li], routing_override[1][li])
+        if remat:
+            out = checkpoint(_group_full, gp, x, cfg, ros, collect_kv, use_reentrant=False)
+        else:
+            out = _group_full(gp, x, cfg, ros, collect_kv)
+        x, al, zl, rl, kv_g = out
+        aux_loss, z_loss = aux_loss + al, z_loss + zl
+        router_logits += rl
         kvs.append(kv_g)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out: Dict[str, Any] = {
@@ -205,6 +228,19 @@ def forward(
     if collect_kv:
         out["kv"] = tree_stack(kvs)
     return out
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy in fp32; labels [B, S] with -100 = ignore."""
+    valid = labels >= 0 if mask is None else mask
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return -(ll * valid).sum() / torch.clamp(valid.sum(), min=1)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------

@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.residency", "repro_torch.core.baselines",
         "repro_torch.data.synthetic", "repro_torch.serving", "repro_torch.serving.server",
         "repro_torch.serving.config", "repro_torch.serving.scheduler",
-        "repro_torch.core.faults",
+        "repro_torch.core.faults", "repro_torch.kernels.autograd", "repro_torch.optim.adamw",
+        "repro_torch.optim.schedule", "repro_torch.launch.steps", "repro_torch.launch.train",
+        "repro_torch.core.tkd", "repro_torch.core.sparsity",
     ]
     code = (
         "import sys\n"
@@ -68,7 +70,8 @@ def test_port_sources_cover_the_decode_slice():
                 "core/offload.py", "models/attention.py", "core/baselines.py",
                 "data/synthetic.py", "serving/server.py", "serving/config.py",
                 "serving/scheduler.py", "serving/request.py", "serving/telemetry.py",
-                "core/faults.py"):
+                "core/faults.py", "kernels/autograd.py", "optim/adamw.py", "optim/schedule.py",
+                "launch/steps.py", "launch/train.py", "core/tkd.py", "core/sparsity.py"):
         assert mod in names, mod
 
 

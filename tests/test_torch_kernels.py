@@ -1041,3 +1041,64 @@ def test_store_quantisation_on_the_card_equals_the_cpu(cuda, k, n, fmt, dtype):
     for got, want in zip(on_card, on_cpu):
         assert got.device.type == "cpu" and got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the backwards of the training kernels on the card: each Function's
+# gradient against autograd over the plain version on the same inputs, at
+# the training forward's shapes (switch-base-8, [8, 128] tokens) and in bf16
+# ---------------------------------------------------------------------------
+
+
+def _card_vs_plain_grads(fn, plain, inputs, dtype, seed=9):
+    """Gradients of <fn(inputs), ct> through the wrapper (the kernel's
+    Function) and through autograd over `plain`, each leaf within
+    tol * max(1, max|g_plain|) (fp32 1e-4, bf16 5e-2)."""
+    a = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    b = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*a)
+    assert out.grad_fn is not None
+    ct = torch.from_numpy(_np(tuple(out.shape), seed)).to(out.device, out.dtype)
+    got = torch.autograd.grad(out, [t for t in a if t is not None], ct)
+    want = torch.autograd.grad(plain(*b), [t for t in b if t is not None], ct)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= tol * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,d,F,glu,act,dtype", [
+    (8, 160, 768, 3072, False, "gelu", "float32"),    # switch-base-8's training forward
+    (8, 160, 768, 3072, False, "gelu", "bfloat16"),
+    (3, 77, 128, 512, True, "silu", "float32"),
+])
+def test_expert_ffn_backward_on_the_card_matches_plain(cuda, E, C, d, F, glu, act, dtype):
+    t = [None if a is None else _t(a, dtype).to(cuda) for a in _ffn_inputs(E, C, d, F, glu)]
+    _card_vs_plain_grads(lambda *x: ops.expert_ffn(*x, act=act),
+                         lambda *x: ref.expert_ffn_ref(*x, act=act), t, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,window,cap,dtype", [
+    (8, 128, 12, 12, 0, 0.0, "float32"),              # switch-base-8's training forward
+    (8, 128, 12, 12, 0, 0.0, "bfloat16"),
+    (2, 96, 8, 2, 32, 30.0, "float32"),
+])
+def test_flash_prefill_backward_on_the_card_matches_plain(cuda, B, S, H, K, window, cap, dtype):
+    q, k, v = (_t(_np(s, i), dtype).to(cuda) for i, s in enumerate(
+        ((B, S, H, 64), (B, S, K, 64), (B, S, K, 64))))
+    _card_vs_plain_grads(
+        lambda q, k, v: ops.flash_prefill(q, k, v, window=window, cap=cap),
+        lambda q, k, v: ref.flash_prefill_ref(q, k, v, window=window, cap=cap).to(q.dtype),
+        [q, k, v], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+def test_sparsemax_backward_on_the_card_matches_plain(cuda, masked):
+    z = torch.from_numpy(_np((8, 128, 128), 0, 3.0))       # the TKD forward's scores
+    if masked:
+        z = torch.where(torch.ones(128, 128, dtype=torch.bool).tril(), z, torch.tensor(-1e30))
+    _card_vs_plain_grads(ops.sparsemax, ref.sparsemax_ref, [z.to(cuda).contiguous()], "float32")
