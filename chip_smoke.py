@@ -3308,10 +3308,10 @@ def offline_card_vs_cpu(cfg):
     from repro_torch.core.hash_fn import hash_fn_apply, init_hash_fn
     from repro_torch.core.tkd import tkd_loss, train_hash_fn
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
-    from repro_torch.launch.steps import leaf_grads, loss_and_grads, make_train_step, requiring_grad
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
     from repro_torch.models.transformer import forward, init_params
     from repro_torch.optim.adamw import adamw_init
-    from repro_torch.tree import flatten, tree_map
+    from repro_torch.tree import flatten, leaf_grads, requiring_grad, tree_map
 
     cfg2 = train_config(cfg, depth=2)
     E = cfg.moe.num_experts

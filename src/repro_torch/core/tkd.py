@@ -14,8 +14,8 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 from repro_torch.core.hash_fn import hash_fn_apply, hash_hit_rate
-from repro_torch.launch.steps import leaf_grads, requiring_grad
 from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.tree import leaf_grads, requiring_grad
 
 
 def tkd_loss(

@@ -12,25 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import decode_step, forward, lm_loss
 from repro_torch.optim.adamw import adamw_update
-from repro_torch.tree import tree_leaves, tree_map
-
-
-def leaf_grads(loss: torch.Tensor, params):
-    """d loss / d each leaf of `params` (leaves that require grad), as a tree
-    of the same structure; a leaf the loss does not reach gets zeros, as
-    `jax.grad` gives it (the non-gated configs' allocated `w_gate`)."""
-    leaves = tree_leaves(params)
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-    return tree_map(lambda p: _or_zeros(next(grads), p), params)
-
-
-def _or_zeros(g, p):
-    return torch.zeros_like(p) if g is None else g
-
-
-def requiring_grad(params):
-    """The same storage, detached from any graph, each leaf requiring grad."""
-    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+from repro_torch.tree import leaf_grads, requiring_grad
 
 
 def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = True):

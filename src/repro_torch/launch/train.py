@@ -1,7 +1,7 @@
 """Training launcher (port of `repro/launch/train.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch switch-base-8 \\
-        --steps 30 --batch 8 --seq 128 [--dtype float32] [--ckpt DIR]
+        --steps 30 --batch 8 --seq 128 [--ckpt DIR]
 
 runs on the CUDA device; `--device cpu` with `--reduced` trains the
 laptop-sized variant on the CPU. Weights come from a seeded CPU generator
@@ -87,11 +87,10 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--dtype", default=None, help="override the config's dtype (float32, bfloat16)")
     args = ap.parse_args(argv)
     train(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-        reduced=args.reduced, ckpt=args.ckpt, device=args.device, dtype=args.dtype,
+        reduced=args.reduced, ckpt=args.ckpt, device=args.device,
     )
 
 

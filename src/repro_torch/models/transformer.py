@@ -34,7 +34,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
 from repro_torch.models.moe import init_moe, moe_decode, moe_layer
-from repro_torch.tree import tree_leaves, tree_map, tree_stack
+from repro_torch.tree import tree_leaves, tree_map, tree_stack, tree_unstack
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -204,8 +204,7 @@ def forward(
     x = embed_tokens(params, cfg, tokens)
     aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     router_logits, kvs = [], []
-    for g in range(cfg.n_layers // per):
-        gp = tree_map(lambda t: t[g], params["blocks"])
+    for g, gp in enumerate(tree_unstack(params["blocks"])):
         ros = {}
         if routing_override is not None:
             for j, s in enumerate(moe_subs):

@@ -33,6 +33,35 @@ def tree_stack(trees: List[Any]) -> Any:
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def tree_unstack(tree: Any) -> List[Any]:
+    """The inverse of `tree_stack`: one tree per index of the leading axis.
+    Each leaf is split once (`unbind`), so under autograd its gradient is
+    stacked once, not summed from one full-size zero-padded tensor per index."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    out = []
+    for i in range(len(parts[0])):
+        it = iter([p[i] for p in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
+def leaf_grads(loss: torch.Tensor, params: Any) -> Any:
+    """d loss / d each leaf of `params` (leaves that require grad), as a tree
+    of the same structure; a leaf the loss does not reach gets zeros, as
+    `jax.grad` gives it (the non-gated configs' allocated `w_gate`)."""
+    grads = iter(torch.autograd.grad(loss, tree_leaves(params), allow_unused=True))
+    return tree_map(lambda p: _or_zeros(next(grads), p), params)
+
+
+def _or_zeros(g, p):
+    return torch.zeros_like(p) if g is None else g
+
+
+def requiring_grad(params: Any) -> Any:
+    """The same storage, detached from any graph, each leaf requiring grad."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+
 def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     """{"a": {"b": x}} -> {"a/b": x} (the checkpoint manifest's keys)."""
     flat: Dict[str, Any] = {}

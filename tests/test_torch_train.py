@@ -26,7 +26,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import steps, train
 from repro_torch.models import transformer as ttr
 from repro_torch.optim import adamw, schedule
-from repro_torch.tree import flatten, tree_leaves
+from repro_torch.tree import (
+    flatten, leaf_grads, requiring_grad, tree_leaves, tree_map, tree_stack, tree_unstack,
+)
 
 torch.set_num_threads(2)
 CTX = ShardingCtx()
@@ -240,6 +242,31 @@ def test_remat_gradients_are_bit_equal(bench):
         assert torch.equal(x, y)
 
 
+def test_tree_unstack_inverts_tree_stack_and_stacks_its_gradient():
+    """`tree_unstack` (the forward's per-group split of the stacked blocks)
+    gives the leading-axis slices, and the gradient through it is the
+    per-slice gradients stacked: that of indexing each slice."""
+    g = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(3, 4, 5, generator=g), "b": {"c": torch.randn(3, 2, generator=g)}}
+    parts = tree_unstack(tree)
+    assert len(parts) == 3
+    for a, b in zip(tree_leaves(tree_stack(parts)), tree_leaves(tree)):
+        assert torch.equal(a, b)
+    w = [torch.randn(4, 5, generator=g) for _ in range(3)]
+
+    def loss(split):
+        p = requiring_grad(tree)
+        gs = split(p)
+        total = sum((gs[i]["a"] * w[i]).sum() + gs[i]["b"]["c"].square().sum() * i
+                    for i in range(3))
+        return leaf_grads(total, p)
+
+    by_unbind = loss(tree_unstack)
+    by_index = loss(lambda p: [tree_map(lambda t: t[i], p) for i in range(3)])
+    for a, b in zip(tree_leaves(by_unbind), tree_leaves(by_index)):
+        assert torch.equal(a, b)
+
+
 def test_loss_trajectory_matches_jax(bench):
     """20 steps of each package from the same weights and batches: every
     step's lm_loss within 1e-3 relative (params are not compared: AdamW's
@@ -335,9 +362,9 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     for a, b in zip(tree_leaves(params), tree_leaves(back)):
         assert torch.equal(a, b)
     train.main(["--arch", "switch-base-8", "--reduced", "--steps", "2", "--batch", "2",
-                "--seq", "8", "--device", "cpu", "--dtype", "bfloat16"])
+                "--seq", "8", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "dtype=bfloat16" in out and "step     1" in out
+    assert f"dtype={get_config('switch-base-8').reduced().dtype}" in out and "step     1" in out
 
 
 def test_prefill_and_serve_steps():
