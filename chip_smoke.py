@@ -43,7 +43,14 @@
    autograd over the plain version on the same inputs (fp32 within 1e-4 *
    max(1, max|g|), expert_ffn also in bf16 within 5e-2 * max(1, max|g|)),
    timed beside autograd over the plain version and over the library call
-   (bmm+gelu+bmm, SDPA), with its bound.
+   (bmm+gelu+bmm, SDPA), with its bound. The expert-parallel shapes too
+   (phase 12's per-shard launches): expert_ffn, expert_ffn_q and
+   expert_ffn_q4 over the last shard's slice of a slot pool (a view at an
+   offset into the pool and its scale planes, never a copy), bit-identical
+   to the kernel over a copy of the slice: [2, 8], [2, 640], [1, 8] (B1,
+   12a EP-2 / EP-4 over 4 slots), [2, 8] (B5, 12a EP-4 over 8 int8 slots),
+   [1, 8] hot and warm (B5 / B6, 12a's EP-2 tiers), [4, 8], [2, 8], [3, 8]
+   (12d's switch-base-64 at EP-4).
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -170,6 +177,27 @@
    TKD loss, each leaf within 1e-3 * max|g_cpu| (zeros where the CPU's are
    not fail), and 2 train and 2 TKD steps, each loss within 1e-4 *
    max(1, |loss|).
+12. Expert parallelism on one card (every shard on it, one process driving
+   them: one expert-FFN launch a shard a MoE layer, the partials summed in
+   shard order). (a) Phase 9's 24 Poisson requests in real time through
+   `RequestServer` at full width and depth, bf16, async (depth 2),
+   re-homing every 0.5 s: 4 bf16 slots at EP-2 and EP-4 with one replica a
+   hot expert, 8 int8 slots at EP-4 with replicas, 5c's tiers at EP-2;
+   `summary()` with the shard fields, `uploads_by_shard`, ms a decode tick
+   beside 9a's, launches; gates: every request completes, every shard's
+   queue uploads, re-homing runs (and moves a primary), each expert-FFN
+   kernel launches exactly shards x dispatches, no one-device dispatch,
+   slots and replicas hold their masters. (b) Every expert resident (8
+   slots), fp32: EP-2 and EP-4 server and decode tokens identical to one
+   device's; bf16: a fixed table's logits within 5e-2 * max(1, max|logit|),
+   tokens printed. (c) Card vs CPU, fp32, 2 layers, EP-2, a replica a hot
+   expert, 6 slots: the server re-homing every iteration (tokens, loads,
+   replica loads, moves, residency identical) and the decode engine through
+   the per-shard queues with a re-homing between two generates (plus
+   `uploads_by_shard`). (d) switch-base-64 at full width, 4 layers, EP-4
+   (16 homes a shard) over 16 slots, decode on bf16 slots and on tiers
+   through the queues: tok/s, loads a step, per-shard uploads, device bytes
+   against Standard's.
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -185,7 +213,8 @@ rows); the training rows (`expert_ffn/train`, `flash_prefill/train`,
 `flash_decode/qwen3-G16`, ...) count their own phase-10 run's launches,
 each attention row its own form's (`ops.launches_by_shape()`; 0 fails),
 `library_max_abs_err` is the library call's own distance from the plain
-version, and `sdpa_nocap_*` time SDPA without the softcap the kernel applies;
+version, the expert-parallel rows (`expert_ffn/ep2-decode`, ...) count their
+phase-12 run's launches of their kernel, and `sdpa_nocap_*` time SDPA without the softcap the kernel applies;
 flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}. Imports
@@ -606,9 +635,10 @@ def baseline_runs(cfg, slots: int, tier_slots: int):
 
 
 def resident_equals_host(store) -> int:
-    """Every resident slot of `store` against its host master, byte for byte
-    (the fp / int8 rows and scale planes, the warm tier's int4 rows and group
-    scales). Returns the number of slots checked; raises on a mismatch."""
+    """Every resident slot of `store` (primaries and replicas) against its
+    host master, byte for byte (the fp / int8 rows and scale planes, the warm
+    tier's int4 rows and group scales). Returns the number of slots checked;
+    raises on a mismatch."""
     import torch
 
     from repro_torch.core.offload import EXPERT_TENSORS
@@ -617,7 +647,9 @@ def resident_equals_host(store) -> int:
     for l in range(store.L):
         g, s = store.layer_to_gs(l)
         moe_p = store.serve_params["blocks"][f"sub{s}"]["moe"]
-        for e, slot in store.resident[(g, s)].items():
+        copies = [(e, slot) for e, slot in store.resident[(g, s)].items()]
+        copies += [(e, slot) for e, by in store.replicas[(g, s)].items() for slot in by.values()]
+        for e, slot in copies:
             for t in EXPERT_TENSORS:
                 if slot >= store.S8:
                     pairs = ((moe_p[t + "_q4"][g, slot - store.S8], store.host4[f"sub{s}"][t]),
@@ -1763,7 +1795,8 @@ def server_path(cfg, params, hp, runs, ms_5a: float):
     streams through the pages in six 256-token chunks. Prints each run's
     `summary()`, ms a decode tick beside phase 5a's ms/step, and each
     kernel's launches; gates completion, 9c's chunks and every kernel of a
-    run's path launched. Returns {run name: launch counts}."""
+    run's path launched. Returns ({run name: launch counts}, {run name: ms
+    a decode tick})."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1773,7 +1806,7 @@ def server_path(cfg, params, hp, runs, ms_5a: float):
             "p95_latency_s", "p50_ttft_s", "p95_ttft_s", "cache_hit_rate", "h2d_mb",
             "upload_stall_s", "upload_overlap_s", "max_queue_depth", "spec_acceptance_rate",
             "spec_accepted_per_step")
-    out_counts = {}
+    out_counts, tick_ms_of = {}, {}
     for name, kw, long_len in runs:
         reqs = server_requests(cfg, 24, 8.0, (16, 256), (8, 64), long_len)
         hp_run = with_draft_head(cfg, hp) if kw.get("spec_mode") == "draft" else hp
@@ -1844,11 +1877,12 @@ def server_path(cfg, params, hp, runs, ms_5a: float):
             raise SystemExit(f"chip_smoke: kernels never launched on the server {name} path: "
                              f"{idle}")
         out_counts[name] = counts
+        tick_ms_of[name] = tick_ms
         del srv
     unused = [k for k in out_counts["9a"] if not any(c[k] for c in out_counts.values())]
     if unused:
         raise SystemExit(f"chip_smoke: kernels never launched on the server paths: {unused}")
-    return out_counts
+    return out_counts, tick_ms_of
 
 
 def server_card_vs_cpu(cfg, slots: int, tier_slots: int, K: int, cache_len: int):
@@ -2210,6 +2244,484 @@ def server_faults_card_vs_cpu(cfg, slots: int, cache_len: int):
           f"and CPU = {same} (need all True)")
     if not all(same):
         raise SystemExit("chip_smoke: 9e: the two-tenant server disagrees between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the expert-parallel shapes; phase 12, expert parallelism on one card
+# ---------------------------------------------------------------------------
+
+EP_REBALANCE_S = 0.5      # 12a's re-homing interval: several rounds a run
+E64_SHARDS, E64_SLOTS, E64_DEPTH = 4, 16, 4   # 12d: 16 homes a shard over 4 slots a shard
+
+
+def ep_server_runs(cfg, slots: int, int8_slots: int, tier_slots: int, cache_len: int):
+    """Phase 12a's runs: (name, RequestServer kwargs, expert-FFN kernels of
+    the path, shards). 9a's ring and slot budget through the async pipeline
+    (depth 2) with re-homing every `EP_REBALANCE_S`: bf16 slots at EP-2 and
+    EP-4 with one replica a hot expert may hold, 5b's 8 int8 slots at EP-4
+    with replicas, and 5c's tiers (hot int8 / warm int4, split 0.5) at EP-2,
+    where both tiers' counts divide over the shards (no replicas: tiers and
+    replicas exclude each other)."""
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.offload import ShardedStoreConfig
+
+    ring = dict(max_lanes=8, max_prefill_batch=8, buckets=SERVER_BUCKETS, cache_len=cache_len,
+                prefetch_depth=2, staging_buffers=2, rebalance_interval=EP_REBALANCE_S)
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    sharded = lambda m, r: ShardedStoreConfig(ep_shards=m, replicate_hot=r)   # noqa: E731
+    return (("12a-ep2", dict(ring, slots_per_layer=slots, sharded=sharded(2, 1)),
+             ("expert_ffn",), 2),
+            ("12a-ep4", dict(ring, slots_per_layer=slots, sharded=sharded(4, 1)),
+             ("expert_ffn",), 4),
+            ("12a-int8-ep4", dict(ring, slots_per_layer=int8_slots, quantized_slots=True,
+                                  sharded=sharded(4, 1)), ("expert_ffn_q",), 4),
+            ("12a-tiered-ep2", dict(ring, slots_per_layer=tier_slots, quantized_slots=True,
+                                    tier=tier, sharded=sharded(2, 0)),
+             ("expert_ffn_q", "expert_ffn_q4"), 2))
+
+
+def ep_kernel_cases(cfg, lanes: int, slots: int, int8_slots: int, tiers, e64_tiers, c_prefill):
+    """Phase 2's expert-parallel rows: (row, format, pool slots S, shards,
+    capacity C) for each per-shard shape phase 12 launches; the row's
+    kernel runs over the last shard's slice of an [S, ...] pool, a view at
+    a non-zero offset. The capacity is the global one (the EP dispatch
+    builds each shard's table at the one-device C)."""
+    from repro_torch.models.moe import _capacity
+
+    hot, warm = tiers
+    hot64, warm64 = e64_tiers
+    dec = lambda S: _capacity(cfg, lanes, S)   # noqa: E731  one token a lane
+    return (("expert_ffn/ep2-decode", "fp", slots, 2, dec(slots)),
+            ("expert_ffn/ep2-prefill", "fp", slots, 2, c_prefill),
+            ("expert_ffn/ep4-decode", "fp", slots, 4, dec(slots)),
+            ("expert_ffn_q/ep4-decode", "int8", int8_slots, 4, dec(int8_slots)),
+            ("expert_ffn_q/ep2-tiered-hot", "int8", hot, 2, dec(hot + warm)),
+            ("expert_ffn_q4/ep2-tiered-warm", "int4", warm, 2, dec(hot + warm)),
+            ("expert_ffn/e64-ep4-decode", "fp", E64_SLOTS, E64_SHARDS, dec(E64_SLOTS)),
+            ("expert_ffn_q/e64-ep4-hot", "int8", hot64, E64_SHARDS, dec(hot64 + warm64)),
+            ("expert_ffn_q4/e64-ep4-warm", "int4", warm64, E64_SHARDS, dec(hot64 + warm64)))
+
+
+def check_ep_kernels(cfg, cases):
+    """Phase 2, the expert-parallel shapes: B1 / B5 / B6 over the last
+    shard's slice of a slot pool (weights, int8 scale planes, int4 packed
+    and group-scale planes: views at an offset of (shards - 1) x S_loc slots,
+    no copy), at bf16 5e-2 and fp32 1e-4 against the plain version on the
+    same slice, and bit-identical to the kernel over a contiguous copy of
+    the slice (its address changes nothing). Timed beside the plain version
+    and bmm+gelu+bmm over the slice's weights dequantised ahead of time.
+    Returns {row: record of the bf16 case}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.offload import quantize_stack_int4, quantize_stack_int8
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_gemm import (
+        expert_ffn_cuda,
+        expert_ffn_q4_cuda,
+        expert_ffn_q_cuda,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    d, Fh = cfg.d_model, cfg.moe.d_expert
+    records, failed = {}, []
+    kern_of = {"fp": expert_ffn_cuda, "int8": expert_ffn_q_cuda, "int4": expert_ffn_q4_cuda}
+    plain_of = {"fp": ref.expert_ffn_ref, "int8": ref.expert_ffn_q_ref,
+                "int4": ref.expert_ffn_q4_ref}
+    for row, fmt, S, shards, C in cases:
+        n, m = S // shards, shards - 1
+        w_in = torch.randn((1, S, d, Fh), generator=gen) * d ** -0.5
+        w_out = torch.randn((1, S, Fh, d), generator=gen) * Fh ** -0.5
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+            if fmt == "fp":
+                pools = [w_in[0].to(dev, dtype), None, w_out[0].to(dev, dtype)]
+            else:
+                quant = ((lambda w: quantize_stack_int8(w, dev)) if fmt == "int8"
+                         else (lambda w: quantize_stack_int4(w, dev, 64)))
+                (qi, si), (qo, so) = quant(w_in), quant(w_out)
+                pools = [qi[0].to(dev), si[0].to(dev), None, None, qo[0].to(dev), so[0].to(dev)]
+            view = [None if p is None else p[m * n:(m + 1) * n] for p in pools]
+            offset_ok = all(v.untyped_storage().data_ptr() == p.untyped_storage().data_ptr()
+                            and v.data_ptr() == p.data_ptr()
+                            + m * n * p.stride(0) * p.element_size()
+                            for p, v in zip(pools, view) if p is not None)
+            xe = (torch.randn((n, C, d), generator=gen)).to(dev, dtype)
+            kern = lambda: kern_of[fmt](xe, *view, act=cfg.act)   # noqa: E731
+            got = kern()
+            copied = kern_of[fmt](xe, *[None if v is None else v.clone() for v in view],
+                                  act=cfg.act)
+            torch.cuda.synchronize()
+            if not offset_ok or not torch.equal(got, copied):
+                failed.append(f"{row} {dtype}: offset view ok={offset_ok}, equal to the kernel "
+                              f"over a copy={torch.equal(got, copied)}")
+            want = plain_of[fmt](xe, *view, act=cfg.act)
+            wi_f = (view[0] if fmt == "fp" else
+                    ref.dequantize_ref(view[0], view[1]) if fmt == "int8" else
+                    ref.dequantize_q4_ref(view[0], view[1], d)).to(dtype)
+            wo_f = (view[2] if fmt == "fp" else
+                    ref.dequantize_ref(view[4], view[5]) if fmt == "int8" else
+                    ref.dequantize_q4_ref(view[4], view[5], Fh)).to(dtype)
+
+            def lib():
+                return torch.bmm(F.gelu(torch.bmm(xe, wi_f), approximate="tanh"), wo_f)
+
+            peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+            bnd = bound_ms(nb(xe, got, *[v for v in view if v is not None]),
+                           2 * 2 * n * C * d * Fh, peak)
+            rec = report(failed, row, dtype, (n, C, d, Fh), got, want, tol, time_ms(kern),
+                         time_ms(lambda: plain_of[fmt](xe, *view, act=cfg.act)), time_ms(lib),
+                         bnd, " (bmm+gelu+bmm" + (", pre-dequantised)" if fmt != "fp" else ")"),
+                         graph=(kern, lib))
+            if dtype == torch.bfloat16:
+                records[row] = dict(rec, pool_slots=S, shards=shards, shard=m)
+        print(f"    {row}: shard {m} of {shards}, slots [{m * n}, {(m + 1) * n}) of {S}, "
+              f"views at their offset (no copy) = {offset_ok}")
+    if failed:
+        raise SystemExit(f"chip_smoke: expert-parallel kernel rows disagree: {failed}")
+    return records
+
+
+class DispatchCounter:
+    """Counts `models.moe`'s dispatches while installed: `ep` the
+    expert-parallel ones (one a MoE layer a forward), `all` every one."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.ep, self.all = moe, 0, 0
+        self._ep, self._all = moe._dispatch_combine_ep, moe._dispatch_combine
+
+    def __enter__(self):
+        def ep(*a, **k):
+            self.ep += 1
+            return self._ep(*a, **k)
+
+        def every(*a, **k):
+            self.all += 1
+            return self._all(*a, **k)
+
+        self.moe._dispatch_combine_ep, self.moe._dispatch_combine = ep, every
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch_combine_ep, self.moe._dispatch_combine = self._ep, self._all
+
+
+def check_per_shard_launches(name: str, counts, disp, kernels, shards: int) -> None:
+    """Gate: every dispatch went expert-parallel, and each expert-FFN kernel
+    of the path launched once a shard a dispatch (shards x the one-device
+    count)."""
+    want = shards * disp.ep
+    got = {k: counts[k] for k in kernels}
+    print(f"    dispatches: expert-parallel {disp.ep} of {disp.all}; launches {got}, "
+          f"need {want} each (shards {shards} x dispatches)")
+    if disp.ep == 0 or disp.ep != disp.all or any(v != want for v in got.values()):
+        raise SystemExit(f"chip_smoke: {name}: not one expert-FFN launch a shard a dispatch "
+                         f"(expert-parallel dispatches {disp.ep} of {disp.all}, launches {got}, "
+                         f"need {want})")
+
+
+def ep_server_path(cfg, params, hp, runs, ms_9a: float):
+    """Phase 12a: `RequestServer.run` at full width and depth, bf16, phase
+    9's 24 Poisson requests at 8 req/s in real time, on each run of
+    `ep_server_runs` (every shard on the one card). Prints each run's
+    `summary()` with its shard fields, the store's replica and rebalance
+    counters, `uploads_by_shard`, ms a decode tick beside 9a's, and each
+    kernel's launches. Gates: every request completes, none rejected, no
+    supervision event; every shard's queue uploaded; the server re-homed at
+    least once a run (`rebalance_homes` called) and, over the runs without
+    tiers, moved a primary; each expert-FFN kernel of the path launched
+    once a shard a dispatch; the resident slots and replicas hold their
+    masters. Returns ({run: launch counts}, {run: the store's (S8, S4)})."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RequestServer
+
+    keys = ("completed", "throughput_tok_s", "decode_tok_s", "p50_latency_s", "p95_latency_s",
+            "p50_ttft_s", "cache_hit_rate", "h2d_mb", "upload_stall_s", "replicate_hot",
+            "replica_loads", "rebalance_moves", "shard_upload_max_over_mean")
+    out_counts, geometry, moves = {}, {}, 0
+    for name, kw, kernels, shards in runs:
+        reqs = server_requests(cfg, 24, 8.0, (16, 256), (8, 64))
+        t0 = time.perf_counter()
+        srv = RequestServer(cfg, params, hp, device="cuda", **kw)
+        setup = time.perf_counter() - t0
+        calls = {"n": 0}
+        rebalance = srv.store.rebalance_homes
+
+        def counted(rebalance=rebalance, calls=calls):
+            calls["n"] += 1
+            return rebalance()
+
+        srv.store.rebalance_homes = counted
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with DispatchCounter() as disp:
+            try:
+                srv.run(reqs, realtime=True)
+            finally:
+                srv.close()
+        counts = ops.launches()
+        s, t, st = srv.summary(), srv.telemetry, srv.store.stats
+        steps = t.counter("decode_steps").value
+        tick_ms = 1e3 * t.counter("decode_tick_s_total").value / max(steps, 1)
+        ups = dict(sorted(srv.prefetch.stats.uploads_by_shard.items()))
+        print(f"  ({name}) ep_shards={shards} slots={kw['slots_per_layer']} (S8={srv.store.S8} "
+              f"S4={srv.store.S4}, S_loc={srv.store.S_loc}) replicate_hot="
+              f"{kw['sharded'].replicate_hot} rebalance_interval={kw['rebalance_interval']} "
+              f"requests={len(reqs)} setup_s={setup:.2f} wall_s={t.wall_s():.3f}")
+        print("    " + " ".join(f"{k}={s[k]:.4f}" for k in keys))
+        print(f"    decode_steps={int(steps)} ms_per_decode_tick={tick_ms:.3f} (phase 9a "
+              f"ms_per_decode_tick={ms_9a:.3f}) prefill_batches="
+              f"{int(t.counter('prefill_batches').value)} rebalance_calls={calls['n']} "
+              f"rebalance_rounds={int(t.counter('rebalance_rounds').value)}")
+        print(f"    store loads={st.loads} hits={st.hits} evictions={st.evictions} "
+              f"replica_loads={st.replica_loads} rebalance_moves={st.rebalance_moves} "
+              f"promotions={st.promotions} demotions={st.demotions} bytes_h2d={st.bytes_h2d} "
+              f"uploads_by_shard={json.dumps(ups)} homes={srv.store.home.tolist()}")
+        print(f"    launches {json.dumps(counts)}")
+        check_served(srv, reqs, cfg, name)
+        check_fault_free(srv, name)
+        check_per_shard_launches(name, counts, disp, kernels, shards)
+        n_slots = resident_equals_host(srv.store)
+        print(f"    resident slots and replicas checked against their masters: {n_slots}")
+        if sorted(k for k, v in ups.items() if v) != list(range(shards)):
+            raise SystemExit(f"chip_smoke: {name}: not every shard's queue uploaded {ups}")
+        if calls["n"] < 1:
+            raise SystemExit(f"chip_smoke: {name}: no rebalance round ran")
+        moves += st.rebalance_moves if "tier" not in kw else 0
+        out_counts[name] = counts
+        geometry[name] = (srv.store.S8, srv.store.S4)
+        del srv
+    if moves == 0:
+        raise SystemExit("chip_smoke: 12a: no rebalance round moved a primary")
+    return out_counts, geometry
+
+
+def ep_all_resident(cfg, params, hp, lanes: int, cache_len: int):
+    """Phase 12b: every expert resident (slots = E = 8), full width and depth,
+    fp32 (phase 9's bf16 weights widened), capacity factor 100, 8 requests
+    pre-admitted (one schedule): the EP-2 and EP-4 servers' tokens equal the
+    one-device server's, request by request, and the EP-2 / EP-4 decode
+    engines' tokens the one-device engine's (the reference's invariant: each
+    token's expert FFN runs on the shard that holds its slot, the partials
+    add exact zeros). Then bf16, the weights as served: one fixed table's
+    prefill logits through EP-2 and EP-4 within 5e-2 * max(1, max|logit|)
+    of the one-device forward, and the bf16 decode tokens' agreement
+    printed (not gated: the decode tile's split may differ with the slot
+    count)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.hash_table import HashTable
+    from repro_torch.core.offload import ShardedStoreConfig
+    from repro_torch.models.transformer import forward, n_moe_layers
+    from repro_torch.serving import RequestServer
+    from repro_torch.tree import tree_map
+
+    E = cfg.moe.num_experts
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+    p32 = tree_map(lambda t: t.float(), params)
+    start = np.random.default_rng(3).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
+    sharded = lambda m: ShardedStoreConfig(ep_shards=m) if m > 1 else None   # noqa: E731
+    srv_tokens, dec_tokens = {}, {}
+    for m in (1, 2, 4):
+        reqs = server_requests(cfg, 8, 1e6, (16, 96), (8, 16), seed=5)
+        srv = RequestServer(cfg32, p32, hp, device="cuda", slots_per_layer=E, max_lanes=lanes,
+                            max_prefill_batch=lanes, buckets=(128,), cache_len=cache_len,
+                            sharded=sharded(m))
+        serve_pre_admitted(srv, reqs)
+        check_served(srv, reqs, cfg, f"12b ep{m}")
+        srv_tokens[m] = {r.rid: list(r.generated) for r in srv.completed}
+        del srv
+        eng = SiDADecodeEngine(cfg32, p32, hp, slots_per_layer=E, device="cuda",
+                               sharded=sharded(m))
+        dec_tokens[m] = eng.generate(start, 16, cache_len=cache_len)[0]
+        eng.close()
+        del eng
+    same_srv = {m: srv_tokens[m] == srv_tokens[1] for m in (2, 4)}
+    same_dec = {m: bool(np.array_equal(dec_tokens[m], dec_tokens[1])) for m in (2, 4)}
+    print(f"  (12b fp32, every expert resident) server tokens equal the one-device server's: "
+          f"EP-2 {same_srv[2]}, EP-4 {same_srv[4]} ({sum(map(len, srv_tokens[1].values()))} "
+          f"tokens); decode engine tokens equal: EP-2 {same_dec[2]}, EP-4 {same_dec[4]} "
+          f"({dec_tokens[1].size} tokens)")
+    if not all(same_srv.values()) or not all(same_dec.values()):
+        raise SystemExit("chip_smoke: 12b: expert-parallel tokens differ from the one-device "
+                         "path with every expert resident")
+    del p32
+
+    # bf16, as served: one fixed table's logits, and the decode tokens printed
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    L = n_moe_layers(cfg)
+    ids = rng.integers(0, E, (L, 2, 128, 1)).astype(np.int32)
+    w = rng.random((L, 2, 128, 1)).astype(np.float32)
+    logits, toks = {}, {}
+    for m in (1, 2, 4):
+        eng = SiDADecodeEngine(cfg, params, hp, slots_per_layer=E, device="cuda",
+                               sharded=sharded(m))
+        table = HashTable(0, ids, w)
+        slot_ids, ww = eng.store.translate(table, eng.store.prepare(table))
+        with torch.inference_mode():
+            logits[m] = forward(eng.store.serve_params, cfg, torch.as_tensor(tokens, device="cuda"),
+                                routing_override=(torch.as_tensor(slot_ids, device="cuda"),
+                                                  torch.as_tensor(ww, device="cuda")),
+                                ctx=eng.ctx)["logits"][..., :cfg.vocab_size].float().cpu()
+        toks[m] = eng.generate(start, 16, cache_len=cache_len)[0]
+        eng.close()
+        del eng
+    for m in (2, 4):
+        err = (logits[m] - logits[1]).abs().max().item()
+        tol = 5e-2 * max(1.0, logits[1].abs().max().item())
+        agree = float((toks[m] == toks[1]).mean())
+        print(f"  (12b bf16 EP-{m}) fixed table's logits max_abs_err={err:.4e} tol={tol:.4e} "
+              f"{'ok' if err <= tol else 'FAIL'}; decode tokens agreeing with one device "
+              f"{agree:.4f} (printed, not gated)")
+        if not err <= tol:
+            raise SystemExit(f"chip_smoke: 12b: bf16 EP-{m} logits off by {err}")
+
+
+def ep_card_vs_cpu(cfg, lanes: int = 2):
+    """Phase 12c: card against CPU, fp32, full width cut to 2 layers, EP-2
+    with one replica a hot expert may hold, 6 slots of 8, 2 lanes (a tick's
+    few experts leave other shards free slots for replicas, and replicas a
+    target for moves; at 8 lanes the 6 slots stay full of primaries and
+    neither happens). (i) The server,
+    synchronous, re-homing on every loop iteration (rebalance_interval
+    1e-6), 8 requests pre-admitted: every request's tokens, the store's
+    loads, replica loads, re-homing moves, residency, replicas and homes
+    identical. (ii) The decode engine through the per-shard queues: 12
+    steps, `rebalance_homes` (its moves ride the queues; drained), 12 more:
+    tokens, loads a step, replica loads, moves and `uploads_by_shard`
+    identical. Each run must place a replica and move a primary."""
+    import numpy as np
+
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.offload import ShardedStoreConfig
+    from repro_torch.serving import RequestServer
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
+    params, hp = seeded_model(cfg2)
+    sharded = ShardedStoreConfig(ep_shards=2, replicate_hot=1)
+    start = np.random.default_rng(6).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        reqs = server_requests(cfg2, 8, 1e6, (16, 96), (4, 12), seed=2)
+        srv = RequestServer(cfg2, params, hp, device=dev, slots_per_layer=6, max_lanes=lanes,
+                            max_prefill_batch=lanes, buckets=(128,), cache_len=256,
+                            sharded=sharded, rebalance_interval=1e-6)
+        serve_pre_admitted(srv, reqs)
+        check_served(srv, reqs, cfg2, f"12c on {dev}")
+        st = srv.store
+        server = ({r.rid: list(r.generated) for r in srv.completed},
+                  (st.stats.loads, st.stats.hits, st.stats.evictions, st.stats.replica_loads,
+                   st.stats.rebalance_moves, st.stats.bytes_h2d),
+                  (st.resident, st.replicas, st.home.tolist()))
+        eng = SiDADecodeEngine(cfg2, params, hp, slots_per_layer=6, device=dev,
+                               sharded=sharded, prefetch_depth=2)
+        t1, m1 = eng.generate(start, 12, cache_len=64)
+        moved = eng.store.rebalance_homes()
+        pf = eng.prefetcher
+        with eng.store._lock:         # the moves' fences, on their shards' queues
+            fences = [ev for pend in pf._pending.values() for by in pend.values()
+                      for ev in by.values()]
+        if not all(ev.wait(60) for ev in fences):
+            raise SystemExit(f"chip_smoke: 12c on {dev}: the moves' uploads never landed")
+        t2, m2 = eng.generate(start, 12, cache_len=64)
+        es = eng.store.stats
+        decode = (np.concatenate([t1, t2], axis=1).tolist(), m1.loads_per_step + m2.loads_per_step,
+                  (es.loads, es.replica_loads, es.rebalance_moves, moved),
+                  dict(sorted(pf.stats.uploads_by_shard.items())),
+                  eng.store.resident, eng.store.replicas, eng.store.home.tolist())
+        resident_equals_host(eng.store)
+        eng.close()
+        got[dev] = (server, decode)
+        del srv, eng
+    (sc, dc), (sh, dh) = got["cuda"], got["cpu"]
+    same = {"server tokens": sc[0] == sh[0], "server counters": sc[1] == sh[1],
+            "server residency": sc[2] == sh[2], "decode tokens": dc[0] == dh[0],
+            "decode loads a step": dc[1] == dh[1], "decode counters": dc[2] == dh[2],
+            "uploads_by_shard": dc[3] == dh[3], "decode residency": dc[4:] == dh[4:]}
+    print(f"  (12c fp32 EP-2, 2 layers, {lanes} lanes, replicate_hot 1, 6 slots) server: loads, hits, "
+          f"evictions, replica_loads, rebalance_moves, bytes = {sc[1]}; decode: loads, "
+          f"replica_loads, rebalance_moves, moved = {dc[2]}, uploads_by_shard = "
+          f"{json.dumps(dc[3])}; identical on card and CPU: {same} (need all True)")
+    if not all(same.values()) or min(sc[1][3], sc[1][4], dc[2][1], dc[2][2]) == 0:
+        raise SystemExit(f"chip_smoke: 12c: card and CPU disagree, or no replica / move: {same}")
+
+
+def ep_e64_path(lanes: int, cache_len: int, steps: int = 32):
+    """Phase 12d: switch-base-64 at full width, `E64_DEPTH` layers (2 MoE
+    layers), bf16, weights drawn on the card and kept on the host, served
+    through `SiDADecodeEngine` at EP-4 (16 homes a shard) over 16 slots (4 a
+    shard: the partition binds), through the per-shard queues: on bf16 slots
+    and on hot int8 / warm int4 tiers (split 0.5). Prints tok/s, ms a step,
+    loads a step, `uploads_by_shard`, the device bytes beside Standard's
+    (every expert resident); gates: in-vocab tokens, every shard uploaded,
+    one launch a shard a dispatch, the slots hold their masters. Returns
+    ({run: launch counts}, the tiered store's (S8, S4))."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import TierConfig, get_config
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.core.offload import ShardedStoreConfig, nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("switch-base-64"), n_layers=E64_DEPTH)
+    t0 = time.perf_counter()
+    params, hp = card_seeded_model(cfg)
+    standard = sum(nbytes(x) for x in tree_leaves(params))   # StandardServer holds all of it
+    print(f"  switch-base-64: {cfg.n_layers} layers, d_model {cfg.d_model}, d_expert "
+          f"{cfg.moe.d_expert}, {cfg.moe.num_experts} experts; seeded init (drawn on the card, "
+          f"kept on the host) {time.perf_counter() - t0:.2f} s")
+    start = np.random.default_rng(0).integers(0, cfg.vocab_size, (lanes,)).astype(np.int32)
+    tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    runs = (("e64-ep4-bf16", dict(slots_per_layer=E64_SLOTS), ("expert_ffn",)),
+            ("e64-ep4-tiered", dict(slots_per_layer=E64_SLOTS, quantized_slots=True, tier=tier),
+             ("expert_ffn_q", "expert_ffn_q4")))
+    out_counts, tiers = {}, None
+    for name, kw, kernels in runs:
+        eng = SiDADecodeEngine(cfg, params, hp, device="cuda", prefetch_depth=2,
+                               sharded=ShardedStoreConfig(ep_shards=E64_SHARDS), **kw)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with DispatchCounter() as disp:
+            toks, m = eng.generate(start, steps=steps, cache_len=cache_len)
+        counts = ops.launches()
+        st, ps = eng.store, eng.prefetcher.stats
+        ups = dict(sorted(ps.uploads_by_shard.items()))
+        dev_bytes = sum(nbytes(x) for x in tree_leaves(st.serve_params))
+        print(f"  ({name}) ep_shards={E64_SHARDS} slots={kw['slots_per_layer']} (S8={st.S8} "
+              f"S4={st.S4}, {st.S_loc} a shard) homes a shard={cfg.moe.num_experts // E64_SHARDS} "
+              f"lanes={lanes} steps={steps}")
+        print(f"    tok_s={m.tok_s:.1f} ms_per_step={1e3 * m.wall_s / m.steps:.3f} "
+              f"stall_s={m.stall_s:.4f} loads_per_step_mean={np.mean(m.loads_per_step):.3f} "
+              f"(first {m.loads_per_step[0]}, last {m.loads_per_step[-1]}) loads={st.stats.loads} "
+              f"evictions={st.stats.evictions} promotions={st.stats.promotions} demotions="
+              f"{st.stats.demotions} uploads_by_shard={json.dumps(ups)}")
+        print(f"    device_memory_bytes={dev_bytes} expert_device_bytes={st.device_bytes()} "
+              f"against Standard's {standard} (every expert resident): "
+              f"{dev_bytes / standard:.4f} of it")
+        print(f"    launches {json.dumps(counts)}")
+        if toks.shape != (lanes, steps) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise SystemExit(f"chip_smoke: 12d ({name}) emitted out-of-vocab tokens")
+        check_per_shard_launches(name, counts, disp, kernels, E64_SHARDS)
+        if sorted(k for k, v in ups.items() if v) != list(range(E64_SHARDS)):
+            raise SystemExit(f"chip_smoke: 12d ({name}): not every shard uploaded {ups}")
+        resident_equals_host(st)
+        if "tier" in kw:
+            tiers = (st.S8, st.S4)
+        out_counts[name] = counts
+        eng.close()
+        del eng
+    return out_counts, tiers
 
 
 # ---------------------------------------------------------------------------
@@ -3468,8 +3980,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.offload import tier_geometry
+    from repro_torch.configs.base import TierConfig, get_config
+    from repro_torch.core.offload import sharded_tier_geometry, tier_geometry
     from repro_torch.kernels import build
     from repro_torch.models.moe import _capacity
 
@@ -3510,6 +4022,14 @@ def main() -> int:
                                             warm, c_tier, warm, c_tb))
     print(f"  -- the training shapes (fp32 [8, 128] tokens; each Function's backward)")
     records.update(check_training_kernels(cfg))
+    print(f"  -- the expert-parallel shapes (B1 / B5 / B6 over one shard's slice of a pool)")
+    shapes = [(d, Fh), (d, Fh), (Fh, d)]
+    ep_tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
+    ep_tiers = sharded_tier_geometry(ep_tier, tier_slots, cfg.moe.num_experts, shapes, 2)
+    e64_tiers = sharded_tier_geometry(ep_tier, E64_SLOTS, 64, shapes, E64_SHARDS)
+    records.update(check_ep_kernels(cfg, ep_kernel_cases(
+        cfg, lanes, slots, int8_slots, ep_tiers, e64_tiers,
+        batch_capacity(cfg, 8, SERVER_BUCKETS[-1], slots))))
     t0 = time.perf_counter()
     print(f"  -- the attention-family shapes (GLU experts, GQA group 16, head_dim 160 / 256)")
     records.update(check_family_kernels(lanes, cache_len))
@@ -3542,8 +4062,8 @@ def main() -> int:
                         spec_runs(cfg, tier_slots, cache_len), (hot, warm))
     print(f"== phase 9: request server (RequestServer, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
-    svcounts = server_path(cfg, params, hp, server_runs(cfg, slots, tier_slots, spec_k, cache_len),
-                           dms["bf16"])
+    svcounts, tick_ms_of = server_path(
+        cfg, params, hp, server_runs(cfg, slots, tier_slots, spec_k, cache_len), dms["bf16"])
     print(f"== phase 9f: request server under faults (switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
     t0 = time.perf_counter()
@@ -3554,6 +4074,19 @@ def main() -> int:
     t0 = time.perf_counter()
     tenants_path(cfg, params, hp, slots, cache_len)
     print(f"  phase 9g took {time.perf_counter() - t0:.1f} s")
+    t12 = time.perf_counter()
+    print(f"== phase 12a: expert-parallel request server, every shard on this card "
+          f"(switch-base-8 full width and depth, bf16) [{time.perf_counter() - t_start:.1f} s]")
+    ecounts, egeom = ep_server_path(cfg, params, hp,
+                                    ep_server_runs(cfg, slots, int8_slots, tier_slots, cache_len),
+                                    tick_ms_of["9a"])
+    if egeom["12a-tiered-ep2"] != ep_tiers:
+        raise SystemExit(f"chip_smoke: 12a's tiered store has (S8, S4) = "
+                         f"{egeom['12a-tiered-ep2']}, phase 2 checked {ep_tiers}")
+    print(f"== phase 12b: every expert resident, EP against one device "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    ep_all_resident(cfg, params, hp, lanes, cache_len)
+    print(f"  phase 12a-b took {time.perf_counter() - t12:.1f} s")
     del params
 
     print(f"== phase 6: decode card vs CPU [{time.perf_counter() - t_start:.1f} s]")
@@ -3570,6 +4103,17 @@ def main() -> int:
     t0 = time.perf_counter()
     server_faults_card_vs_cpu(cfg, slots, cache_len)
     print(f"  phase 9e under faults and tenants took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"== phase 12c: expert parallelism card vs CPU (fp32, 2 layers, EP-2, replicas, "
+          f"re-homing) [{time.perf_counter() - t_start:.1f} s]")
+    ep_card_vs_cpu(cfg)
+    print(f"== phase 12d: switch-base-64 at full width ({E64_DEPTH} layers), EP-{E64_SHARDS} "
+          f"decode [{time.perf_counter() - t_start:.1f} s]")
+    e64counts, e64_store_tiers = ep_e64_path(lanes, cache_len)
+    if e64_store_tiers != e64_tiers:
+        raise SystemExit(f"chip_smoke: 12d's tiered store has (S8, S4) = {e64_store_tiers}, "
+                         f"phase 2 checked {e64_tiers}")
+    print(f"  phase 12c-d took {time.perf_counter() - t0:.1f} s")
     fcounts = {}
     for name, depth, fslots in MOE_FAMILY:
         print(f"== phase 10{'ab'[len(fcounts)]}: {name} at full width ({depth} layers, bf16) "
@@ -3709,6 +4253,19 @@ def main() -> int:
     launches["flash_prefill/train"] = tcounts["flash_prefill"]
     launches["sparsemax/tkd"] = kcounts["sparsemax"]
     launches.update(family_launches)
+    # the expert-parallel rows: each its phase-12 run's launches of its kernel
+    ep_rows = {"expert_ffn/ep2-decode": ecounts["12a-ep2"]["expert_ffn"],
+               "expert_ffn/ep2-prefill": ecounts["12a-ep2"]["expert_ffn"],
+               "expert_ffn/ep4-decode": ecounts["12a-ep4"]["expert_ffn"],
+               "expert_ffn_q/ep4-decode": ecounts["12a-int8-ep4"]["expert_ffn_q"],
+               "expert_ffn_q/ep2-tiered-hot": ecounts["12a-tiered-ep2"]["expert_ffn_q"],
+               "expert_ffn_q4/ep2-tiered-warm": ecounts["12a-tiered-ep2"]["expert_ffn_q4"],
+               "expert_ffn/e64-ep4-decode": e64counts["e64-ep4-bf16"]["expert_ffn"],
+               "expert_ffn_q/e64-ep4-hot": e64counts["e64-ep4-tiered"]["expert_ffn_q"],
+               "expert_ffn_q4/e64-ep4-warm": e64counts["e64-ep4-tiered"]["expert_ffn_q4"]}
+    for row, n in ep_rows.items():
+        meta[row] = ("cuda", *sources[row.split("/")[0]])
+        launches[row] = n
     # each decode kernel's launches on the speculative path (phase 5e): the
     # all-resident bf16 run for the ring kernels, the tiered paged run for
     # the quantised and paged ones; null for the batch serves' rows

@@ -30,7 +30,10 @@ tied-embedding draft head proposes K - 1 tokens after the last accepted one
 (`draft_unroll_fn`), the union of the K positions' predicted experts is
 loaded as one ticket, `transformer.verify_step` runs the K positions and
 rolls the rejected ones back, and each lane keeps its accepted prefix.
-Expert-parallel shards (ROADMAP A14) are not ported yet and raise.
+
+With `sharded` (`ShardedStoreConfig`, `ep_shards` > 1) the slot pools are
+expert-parallel and each step runs under the store's expert-parallel
+context (`sharding/policy.py::store_ctx`).
 """
 from __future__ import annotations
 
@@ -45,12 +48,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hash_fn import draft_logits_from_state
 from repro_torch.core.hash_table import HashTable
-from repro_torch.core.offload import ExpertStore, PrefetchPipeline
+from repro_torch.core.offload import ExpertStore, PrefetchPipeline, ShardedStoreConfig
 from repro_torch.core.residency import KVPagePool
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
+from repro_torch.models.attention import ShardingCtx
 from repro_torch.models.layers import top_k
 from repro_torch.models.transformer import decode_step, init_cache, n_moe_layers, verify_step
+from repro_torch.sharding.policy import store_ctx
 from repro_torch.tree import tree_map
 
 HISTORY = 128  # SparseMax attention ring length
@@ -320,8 +325,9 @@ class SiDADecodeEngine:
         tier=None,
         spec_mode: Optional[str] = None,   # "off" | "draft"; None => cfg.spec
         spec_k: Optional[int] = None,
-        sharded=None,
+        sharded: Optional[ShardedStoreConfig] = None,   # expert-parallel slot pools
         device: DeviceLike = None,
+        ctx: Optional[ShardingCtx] = None,          # None: the store's own (`store_ctx`)
     ):
         mode = spec_mode if spec_mode is not None else cfg.spec.mode
         if mode not in ("off", "draft"):
@@ -331,15 +337,15 @@ class SiDADecodeEngine:
         if self.spec and "draft_proj" not in hash_params:
             raise ValueError("spec_mode='draft' needs a hash function with a draft head "
                              "(init_hash_fn(draft=True) or init_draft_head)")
-        if sharded is not None:
-            raise NotImplementedError("expert-parallel shards are ported in ROADMAP A14")
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
         self.store = ExpertStore(
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
-            scale_granularity=scale_granularity, tier=tier,
+            scale_granularity=scale_granularity, tier=tier, sharded=sharded,
+            mesh=ctx.mesh if ctx is not None else None,
         )
+        self.ctx = store_ctx(self.store, ctx)
         self.device = self.store.device
         # the reference's precedence: explicit depth > cfg.prefetch > off; a
         # caller's pipeline is shared as it is
@@ -370,6 +376,7 @@ class SiDADecodeEngine:
     def _step(self, cache: dict, tokens: torch.Tensor, slot_ids, w):
         logits, cache = decode_step(
             self.store.serve_params, cache, tokens, self.cfg, routing_override=(slot_ids, w),
+            ctx=self.ctx,
         )
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
@@ -379,6 +386,7 @@ class SiDADecodeEngine:
         from each lane's last accepted model token."""
         out, n_acc, _, cache = verify_step(
             self.store.serve_params, cache, tokens_blk, self.cfg, routing_override=(slot_ids, w),
+            ctx=self.ctx,
         )
         nxt = torch.gather(out, 1, (n_acc.long() - 1)[:, None])[:, 0]
         return out, n_acc, nxt, cache

@@ -18,6 +18,11 @@ j+1's copies run on the transfer stream while batch j's forward runs, and
 the inference thread only clears ready fences. A ticket is released once
 its forward has finished on the device, since the slots are written in
 place.
+
+With `sharded` (a `ShardedStoreConfig` with `ep_shards` > 1) the store's
+slot pools are expert-parallel and every forward runs under the store's
+expert-parallel context (`sharding/policy.py::store_ctx`): one expert-FFN
+launch a shard a MoE layer.
 """
 from __future__ import annotations
 
@@ -37,9 +42,17 @@ from repro_torch.core.hash_fn import (
     predict_topk,
 )
 from repro_torch.core.hash_table import HashTable, HashTableQueue
-from repro_torch.core.offload import ExpertStore, PrefetchPipeline, PrefetchTicket, nbytes
+from repro_torch.core.offload import (
+    ExpertStore,
+    PrefetchPipeline,
+    PrefetchTicket,
+    ShardedStoreConfig,
+    nbytes,
+)
 from repro_torch.device import DeviceLike
+from repro_torch.models.attention import ShardingCtx
 from repro_torch.models.transformer import forward
+from repro_torch.sharding.policy import store_ctx
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -90,6 +103,8 @@ class SiDAEngine:
         staging_buffers: Optional[int] = None,      # host staging slabs of the pipeline
         prefetcher: Optional[PrefetchPipeline] = None,
         store: Optional[ExpertStore] = None,        # share a caller's store as it is
+        sharded: Optional[ShardedStoreConfig] = None,   # expert-parallel slot pools
+        ctx: Optional[ShardingCtx] = None,          # None: the store's own (`store_ctx`)
     ):
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
@@ -98,8 +113,10 @@ class SiDAEngine:
         self.store = store if store is not None else ExpertStore(
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
-            scale_granularity=scale_granularity, tier=tier,
+            scale_granularity=scale_granularity, tier=tier, sharded=sharded,
+            mesh=ctx.mesh if ctx is not None else None,
         )
+        self.ctx = store_ctx(self.store, ctx)
         self.device = self.store.device
         # async prefetch: explicit args > cfg.prefetch > off; a caller's
         # pipeline is shared as it is
@@ -152,7 +169,7 @@ class SiDAEngine:
         out = forward(
             self.store.serve_params, self.cfg,
             torch.as_tensor(tokens, device=self.device),
-            routing_override=(slot_ids, w), collect_kv=collect_kv,
+            routing_override=(slot_ids, w), collect_kv=collect_kv, ctx=self.ctx,
         )
         if ticket is not None:
             # the slots stay eviction-protected until the forward has read them

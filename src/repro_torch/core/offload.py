@@ -1,6 +1,5 @@
 """Expert offloading: host-resident expert store + device slot cache, and
-the async prefetch pipeline (port of the one-shard case of
-`repro/core/offload.py`).
+the async prefetch pipeline (port of `repro/core/offload.py`).
 
 The full expert stacks live in host memory as CPU tensors, in the model
 dtype or, with `host_quant="int8"`, as symmetric int8 with fp32 scale planes
@@ -26,11 +25,24 @@ coldest hot resident past `promote_margin`, and a hot tier whose residents
 are all protected overflows into the warm tier. Every move re-uploads the
 host master of the target format; nothing is transcoded on the device.
 
+Expert parallelism (`ShardedStoreConfig`, `ep_shards` > 1): each pool is
+cut into `ep_shards` contiguous slot ranges, one a shard (tiered: a hot
+range `[m·S8_loc, (m+1)·S8_loc)` and a warm one `[S8 + m·S4_loc, ...)`).
+An expert has a home shard and loads only into its range, with the shard's
+own free list and eviction policy, so no eviction crosses a shard. Slot ids
+stay global: the pools keep the reference's `[G, S, ...]` layout on the
+store's device, and the expert-parallel dispatch (`models/moe.py`) runs one
+expert-FFN launch a shard over the shard's slice of the pool. With
+`replicate_hot` an α-hot expert also takes up to that many extra copies in
+free slots of other shards (`replicas`), translation spreads its tokens
+round-robin over the copies, and `rebalance_homes` re-homes experts by
+greedy LPT over the α EMA, the old primary slot kept as a replica.
+
 `PrefetchPipeline` moves the uploads off the forward path: `submit` plans
-the slots at once and a transfer thread gathers the rows into pinned
-staging slabs and copies them on a side CUDA stream, behind per-expert
-ready fences (see the class). The pools are written in place on either
-stream, so every write waits on the CUDA event of the slot's previous
+the slots at once and a transfer thread a shard gathers the rows into its
+pinned staging slabs and copies them on its own side CUDA stream, behind
+per-upload ready fences (see the class). The pools are written in place on
+any stream, so every write waits on the CUDA event of the slot's previous
 write, and every reader on the events of the slots it reads.
 
 The pipeline is supervised as the reference's is: an upload batch that
@@ -42,10 +54,8 @@ thread restarts in place, and one that crashes too often is revived by the
 sites. A CUDA error is never retried: it is kept and re-raised to the
 consumers.
 
-One shard and no replicas: expert-parallel shards and their per-shard
-queues are ROADMAP A14 (the supervision state is already kept a shard, as
-lists of length one). The slot bookkeeping is the reference's, so the same
-table stream gives the same resident sets, tier moves, evictions, hits,
+The slot bookkeeping is the reference's, so the same table stream gives the
+same resident sets, replicas, homes, tier moves, evictions, hits,
 translations and byte counts.
 """
 from __future__ import annotations
@@ -55,7 +65,7 @@ import contextlib
 import sys
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -68,29 +78,48 @@ from repro_torch.models.transformer import n_moe_layers, period, sub_kind
 from repro_torch.tree import tree_map
 
 EXPERT_TENSORS = ("w_in", "w_gate", "w_out")
-# per-table decay of the α-mass EMA that ranks tier moves (the reference's
-# ShardedStoreConfig.alpha_decay default)
-ALPHA_DECAY = 0.9
 
 
 @dataclass(frozen=True)
 class ShardedStoreConfig:
-    """Expert-parallel partitioning of the serving slot pools, as the
-    reference's `ShardedStoreConfig` spells it. Only the configuration is
-    ported (the serving flag table builds it): the port's store has one
-    shard, and a server asked for `ep_shards > 1` raises until the shard
-    pools, replication and rebalancing are ported (ROADMAP A14)."""
+    """Expert-parallel partitioning of the serving slot pools.
+
+    With `ep_shards` > 1 every (group, sub) slot pool splits into
+    `ep_shards` contiguous partitions: each expert has a home shard
+    (`placement`) and takes new slots only in that shard's range, under the
+    shard's own eviction policy, free list and pin protection. Slot ids stay
+    global (`shard * slots_per_shard + local`), so translation tables,
+    tickets and routing overrides are unchanged; the expert-parallel dispatch
+    derives each shard's local ids from the global id's range.
+
+    `replicate_hot` > 0 lets α-hot experts hold up to that many extra copies
+    on other shards, in free slots only (a replica never evicts a primary);
+    translation spreads a replicated expert's tokens round-robin over its
+    copies, least-loaded shard first. `hot_alpha` is the decayed-α share
+    above which an expert is hot (default 2 / E); `alpha_decay` is the
+    per-table decay of the α EMA that also drives
+    `ExpertStore.rebalance_homes`."""
 
     ep_shards: int = 1
     model_axis: str = "model"
     placement: str = "mod"            # "mod": e -> e % shards | "block": e -> e // (E/shards)
     replicate_hot: int = 0            # extra copies a hot expert may hold
     hot_alpha: Optional[float] = None  # hot threshold as a share of total α
-    alpha_decay: float = ALPHA_DECAY  # per-table decay of the α-mass EMA
+    alpha_decay: float = 0.9          # per-table decay of the α-mass EMA
 
     @property
     def enabled(self) -> bool:
         return self.ep_shards > 1
+
+    def home_shards(self, num_experts: int) -> np.ndarray:
+        """[E] expert -> home shard under the configured placement."""
+        e = np.arange(num_experts)
+        if self.placement == "block":
+            blk = max(num_experts // self.ep_shards, 1)
+            return np.minimum(e // blk, self.ep_shards - 1).astype(np.int32)
+        if self.placement != "mod":
+            raise ValueError(f"unknown placement {self.placement!r}")
+        return (e % self.ep_shards).astype(np.int32)
 
 
 class EvictionPolicy:
@@ -215,6 +244,8 @@ class TransferStats:
     hits: int = 0
     dropped: int = 0               # planned loads dropped (every victim protected)
     prepare_time: float = 0.0      # synchronous upload time inside the forward path
+    replica_loads: int = 0         # extra-copy uploads of hot experts (also in loads)
+    rebalance_moves: int = 0       # primaries migrated by rebalance_homes
     promotions: int = 0            # warm (int4) -> hot (int8) tier moves
     demotions: int = 0             # hot (int8) -> warm (int4) tier moves
     pin_quota_refusals: int = 0    # tenant pins refused at the quota cap
@@ -222,6 +253,7 @@ class TransferStats:
     def reset(self):
         self.bytes_h2d = self.loads = self.evictions = self.hits = self.dropped = 0
         self.prepare_time = 0.0
+        self.replica_loads = self.rebalance_moves = 0
         self.promotions = self.demotions = 0
         self.pin_quota_refusals = 0
 
@@ -333,11 +365,29 @@ def tier_geometry(tier, slots_per_layer: int, E: int,
     return int(S8), int(min(max(0, ((slots_per_layer - S8) * b8) // b4), E - S8))
 
 
+def sharded_tier_geometry(tier, slots_per_layer: int, E: int,
+                          shapes: List[Tuple[int, int]], shards: int) -> Tuple[int, int]:
+    """`tier_geometry` rounded to `shards` (the reference's rounding): each
+    tier's count a whole number of slots a shard, the hot tier at least one
+    a shard."""
+    S8, S4 = tier_geometry(tier, slots_per_layer, E, shapes)
+    if shards > 1:
+        S8 = max((S8 // shards) * shards, shards)
+        S4 = (S4 // shards) * shards
+    return S8, S4
+
+
 class ExpertStore:
     """Host store + device slot cache for every MoE layer of a model.
 
     `params` may live on any device: the expert stacks are copied to host
-    masters, every other leaf is moved to `device`, routers are dropped."""
+    masters, every other leaf is moved to `device`, routers are dropped.
+
+    `sharded` partitions the pools expert-parallel (`ShardedStoreConfig`):
+    `slots_per_layer` stays the total a layer, split evenly into per-shard
+    partitions with their own eviction and pin bookkeeping. `mesh` (an
+    `launch.mesh.EPMesh`, optional) names the shards' device; every shard's
+    range lives in the one pool tensor on that device."""
 
     def __init__(
         self,
@@ -350,6 +400,8 @@ class ExpertStore:
         quantized_slots: Optional[bool] = None,    # None => cfg.quant
         scale_granularity: Optional[str] = None,   # None => cfg.quant
         tier: Optional[TierConfig] = None,         # None => cfg.quant.tier
+        sharded: Optional[ShardedStoreConfig] = None,
+        mesh=None,
     ):
         if not cfg.moe.enabled:
             raise ValueError("ExpertStore requires an MoE config")
@@ -364,6 +416,8 @@ class ExpertStore:
         if self.quantized_slots:
             host_quant = "int8"  # int8 residency requires the int8 host tier
         self.quant = host_quant
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.cfg = cfg
         self.per = period(cfg)
@@ -371,7 +425,35 @@ class ExpertStore:
         self.moe_subs = [s for s in range(self.per) if sub_kind(cfg, s)["moe"]]
         self.L = n_moe_layers(cfg)
         self.E = cfg.moe.num_experts
-        self.S = min(slots_per_layer, self.E)
+        self.sharded = sharded or ShardedStoreConfig()
+        self.shards = self.sharded.ep_shards
+        if self.shards < 1:
+            raise ValueError(f"ep_shards must be >= 1, got {self.shards}")
+        # one slot per expert copy at most: E without replication, E x the
+        # copies a hot expert may hold with it (one a shard)
+        copies = (min(self.shards, 1 + max(0, self.sharded.replicate_hot))
+                  if self.shards > 1 else 1)
+        self.S = min(slots_per_layer, self.E * copies)
+        if self.shards > 1:
+            if self.E % self.shards:
+                raise ValueError(f"experts ({self.E}) must divide over ep_shards ({self.shards})")
+            if self.S < self.shards:
+                raise ValueError(f"need >= 1 slot per shard (slots={self.S}, "
+                                 f"shards={self.shards})")
+            self.S = (self.S // self.shards) * self.shards   # an even split
+        self.S_loc = self.S // self.shards
+        # expert -> home shard: where new primaries load (rebalance_homes
+        # re-assigns it from the α EMA)
+        self.home = self.sharded.home_shards(self.E)
+        self.R = copies                 # copies a hot expert may hold
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.shape.get(self.sharded.model_axis) != self.shards:
+                raise ValueError(f"the mesh's {self.sharded.model_axis!r} axis "
+                                 f"({mesh.shape}) must have ep_shards={self.shards} entries")
+            if resolve_device(mesh.device) != self.device:
+                raise ValueError(f"the mesh's device {mesh.device} is not the store's "
+                                 f"{self.device}")
         self.eviction = eviction
         self.stats = TransferStats()
 
@@ -382,13 +464,20 @@ class ExpertStore:
         moe_p0 = params["blocks"][f"sub{self.moe_subs[0]}"]["moe"]
         self._expert_shapes = [tuple(moe_p0[t].shape[2:]) for t in EXPERT_TENSORS]
         self.S8, self.S4 = self.S, 0
+        self.S8_loc, self.S4_loc = self.S_loc, 0
         if self.tiered:
             if not self.quantized_slots:
                 raise ValueError("the int4 warm tier layers on int8-resident slots "
                                  "(--int4-slots requires --quantized-slots)")
-            self.S8, self.S4 = tier_geometry(self.tier, slots_per_layer, self.E,
-                                             self._expert_shapes)
-            self.S = self.S8 + self.S4
+            if self.sharded.replicate_hot:
+                raise ValueError("hot-expert replication and residency tiering are mutually "
+                                 "exclusive (a replica's tier would be ambiguous)")
+            S8, S4 = sharded_tier_geometry(self.tier, slots_per_layer, self.E,
+                                           self._expert_shapes, self.shards)
+            self.S8, self.S4 = S8, S4
+            self.S = S8 + S4
+            self.S8_loc, self.S4_loc = S8 // self.shards, S4 // self.shards
+            self.S_loc = self.S8_loc + self.S4_loc
             # no warm slots: behave exactly as the untiered quantized store
             self.tiered = self.S4 > 0
 
@@ -445,29 +534,41 @@ class ExpertStore:
             moe_p.pop("router", None)  # routers never participate in the forward
         self.serve_params = tree_map(lambda x: x.to(self.device), serve_params)
 
-        # per (group, sub): expert -> global slot, and each tier's policy and
-        # free list (hot slots [0, S8), warm slots [S8, S8 + S4))
+        # per (group, sub): expert -> global slot (`resident`, primaries),
+        # and per shard each tier's policy and free list (hot slots
+        # [m·S8_loc, (m+1)·S8_loc), warm [S8 + m·S4_loc, ...)): replacement
+        # never crosses a shard
         self.resident: Dict[Tuple[int, int], Dict[int, int]] = {}
-        self.policy: Dict[Tuple[int, int], EvictionPolicy] = {}
-        self.free: Dict[Tuple[int, int], List[int]] = {}
-        self.policy4: Dict[Tuple[int, int], EvictionPolicy] = {}
-        self.free4: Dict[Tuple[int, int], List[int]] = {}
+        self.policy: Dict[Tuple[int, int], List[EvictionPolicy]] = {}
+        self.free: Dict[Tuple[int, int], List[List[int]]] = {}
+        self.policy4: Dict[Tuple[int, int], List[EvictionPolicy]] = {}
+        self.free4: Dict[Tuple[int, int], List[List[int]]] = {}
         self.pinned: Dict[Tuple[int, int], Set[int]] = {}
+        # extra copies: expert -> {shard: global slot}; the primary stays in
+        # `resident`, and each shard's policy tracks only the primaries it hosts
+        self.replicas: Dict[Tuple[int, int], Dict[int, Dict[int, int]]] = {}
         self.alpha_ema: Dict[Tuple[int, int], np.ndarray] = {}   # decayed α mass per expert
         for g in range(self.n_groups):
             for s in self.moe_subs:
                 self.resident[(g, s)] = {}
-                self.policy[(g, s)] = EVICTION_POLICIES[eviction]()
-                self.free[(g, s)] = list(range(self.S8))
-                self.policy4[(g, s)] = EVICTION_POLICIES[eviction]()
-                self.free4[(g, s)] = list(range(self.S8, self.S8 + self.S4))
+                self.policy[(g, s)] = [EVICTION_POLICIES[eviction]() for _ in range(self.shards)]
+                self.free[(g, s)] = [list(range(m * self.S8_loc, (m + 1) * self.S8_loc))
+                                     for m in range(self.shards)]
+                self.policy4[(g, s)] = [EVICTION_POLICIES[eviction]() for _ in range(self.shards)]
+                self.free4[(g, s)] = [list(range(self.S8 + m * self.S4_loc,
+                                                 self.S8 + (m + 1) * self.S4_loc))
+                                      for m in range(self.shards)]
                 self.pinned[(g, s)] = set()
+                self.replicas[(g, s)] = {}
                 self.alpha_ema[(g, s)] = np.zeros((self.E,), np.float64)
         # tenant pins: (group, sub) -> expert -> owning tenant, and each
         # tenant's cap as a share of a layer's slots (`set_pin_quota`)
         self.pin_owner: Dict[Tuple[int, int], Dict[int, str]] = {
             gs: {} for gs in self.resident}
         self.pin_quota: Dict[str, float] = {}
+        # decayed α mass dispatched a home shard (the load half of
+        # `shard_load_score`; the other half is the uploads a shard made)
+        self._shard_alpha = np.zeros((self.shards,), np.float64)
         self._lock = threading.RLock()
         self._prefetcher: Optional["PrefetchPipeline"] = None
         self._epoch = 0   # residency version (`affinity_epoch`)
@@ -484,11 +585,41 @@ class ExpertStore:
         j = l % len(self.moe_subs)
         return l // len(self.moe_subs), self.moe_subs[j]
 
-    # ------------------------------------------------------------------
+    # -- expert-parallel shard geometry ----------------------------------
+    def shard_of(self, e: int) -> int:
+        """Current home shard of expert `e`, where new primary loads go; a
+        replica or a promoted primary may sit on another shard."""
+        return int(self.home[e])
+
+    def shard_slots(self, shard: int) -> range:
+        """Global hot slot ids of `shard` (a contiguous range); its warm
+        slots are [S8 + shard·S4_loc, S8 + (shard + 1)·S4_loc)."""
+        return range(shard * self.S8_loc, (shard + 1) * self.S8_loc)
+
+    def slot_shard(self, slot: int) -> int:
+        """The shard hosting a global slot id, hot or warm."""
+        if self.S4 and slot >= self.S8:
+            return (int(slot) - self.S8) // self.S4_loc
+        return int(slot) // self.S8_loc
+
     def slot_tier(self, slot: int) -> str:
         """'hot' (int8 pool) or 'warm' (int4 pool) for a global slot id."""
         return "warm" if (self.S4 and slot >= self.S8) else "hot"
 
+    def local_trans(self, trans: np.ndarray) -> np.ndarray:
+        """Global translation table [L, E] -> each slot's id in its shard's
+        local space (misses stay -1): hot slots [0, S8_loc), then warm slots
+        [S8_loc, S8_loc + S4_loc). Derived from the slot, not the home: a
+        primary may sit off its home shard. The dispatch derives the same
+        on the device from the global ids."""
+        if self.S4:
+            warm = trans >= self.S8
+            local = np.where(warm, self.S8_loc + (trans - self.S8) % self.S4_loc,
+                             trans % self.S8_loc)
+            return np.where(trans >= 0, local, -1).astype(np.int32)
+        return np.where(trans >= 0, trans % self.S_loc, -1).astype(np.int32)
+
+    # ------------------------------------------------------------------
     def device_bytes(self) -> int:
         """Bytes of expert slot pools resident on the device (the paper's
         metric), scale planes included when the slots are int8, and the warm
@@ -558,7 +689,8 @@ class ExpertStore:
 
     def pin_experts(self, l: int, experts, tenant: Optional[str] = None) -> Set[int]:
         """Mark experts at MoE layer `l` as never-evictable. They still load
-        through the normal prepare path; they just cannot be victims.
+        through the normal prepare path; they just cannot be victims, in
+        whichever shard hosts them.
 
         With `tenant`, each pin is attributed to it and counted against its
         `set_pin_quota` cap: pins past `floor(quota x S)` a layer, and pins
@@ -607,24 +739,31 @@ class ExpertStore:
         """Cache bookkeeping for one layer; returns pending (g, slot, e) loads.
 
         `mass` ([E], optional) is the α mass the table routes to each expert,
-        fed to the eviction policy and, when tiered, to the α EMA that ranks
-        tier moves. `extra_protected` experts survive eviction and, like
-        pinned ones, never move between tiers (a translation in flight may
-        point at their slot)."""
+        fed to the eviction policy and, sharded or tiered, to the α EMA that
+        ranks tier moves, picks hot experts to replicate and drives
+        `rebalance_homes`. `extra_protected` experts survive eviction and,
+        like pinned ones, never move between tiers (a translation in flight
+        may point at their slot). A new expert loads on its home shard: a
+        free slot, else a replica's slot reclaimed, else the shard policy's
+        victim (a victim with a replica promotes it instead of leaving)."""
         g, s = self.layer_to_gs(l)
         res = self.resident[(g, s)]
-        policy = self.policy[(g, s)]
+        policies = self.policy[(g, s)]
         free = self.free[(g, s)]
-        protected = {int(e) for e in needed} | self.pinned[(g, s)]
+        needed_set = {int(e) for e in needed}
+        protected = needed_set | self.pinned[(g, s)]
         move_blocked = set(self.pinned[(g, s)])
         if extra_protected:
             protected |= extra_protected
             move_blocked |= extra_protected
-        if mass is not None and self.tiered:
-            # one full table pass decays the EMA by ALPHA_DECAY overall
+        if mass is not None and (self.shards > 1 or self.tiered):
+            # one full table pass decays the EMAs by alpha_decay overall
+            d = self.sharded.alpha_decay ** (1.0 / max(self.L, 1))
             ema = self.alpha_ema[(g, s)]
-            ema *= ALPHA_DECAY ** (1.0 / max(self.L, 1))
+            ema *= d
             ema += mass
+            self._shard_alpha *= d
+            self._shard_alpha += np.bincount(self.home, weights=mass, minlength=self.shards)
         pending: List[Tuple[int, int, int]] = []
         for e in needed:
             e = int(e)
@@ -636,68 +775,90 @@ class ExpertStore:
                     continue
                 self._touch(g, s, e, res[e], w)
                 continue
-            if free:
-                slot = free.pop()
+            sh = int(self.home[e])
+            policy = policies[sh]
+            if free[sh]:
+                slot = free[sh].pop()
             else:
+                # replicas are opportunistic: their slots go before a primary
+                slot = self._reclaim_replica(g, s, sh, protected)
+            if slot is None:
                 victim = policy.pick_victim(protected)
                 if victim is None:
                     # hot tier full of protected residents: load into a warm
                     # slot instead of dropping (combined capacity S8 + S4)
-                    wslot = self._take_warm_slot(g, s, protected) if self.tiered else None
+                    wslot = self._take_warm_slot(g, s, sh, protected) if self.tiered else None
                     if wslot is None:
                         self.stats.dropped += 1  # everything resident is protected
                         continue
                     res[e] = wslot
-                    self.policy4[(g, s)].admit(e, w)
+                    self.policy4[(g, s)][sh].admit(e, w)
                     pending.append((g, wslot, e))
                     self.stats.loads += 1
                     continue
                 slot = res.pop(victim)
+                v_reps = self.replicas[(g, s)].get(victim)
                 wslot = None
-                if self.tiered and victim not in move_blocked:
+                if v_reps:
+                    # a live copy elsewhere: promote it to primary, only this
+                    # shard's slot is reclaimed
+                    m = min(v_reps)
+                    res[victim] = v_reps.pop(m)
+                    if not v_reps:
+                        del self.replicas[(g, s)][victim]
+                    policies[m].admit(victim, 0.0)
+                elif self.tiered and victim not in move_blocked:
                     # demote instead of evict: the victim stays resident in a
                     # warm slot, re-uploaded from its int4 host master
-                    wslot = self._take_warm_slot(g, s, protected)
-                if wslot is not None:
-                    res[victim] = wslot
-                    self.policy4[(g, s)].admit(victim, float(self.alpha_ema[(g, s)][victim]))
-                    pending.append((g, wslot, victim))
-                    self.stats.demotions += 1
-                    self.stats.loads += 1
+                    wslot = self._take_warm_slot(g, s, sh, protected)
+                    if wslot is not None:
+                        res[victim] = wslot
+                        self.policy4[(g, s)][sh].admit(
+                            victim, float(self.alpha_ema[(g, s)][victim]))
+                        pending.append((g, wslot, victim))
+                        self.stats.demotions += 1
+                        self.stats.loads += 1
+                    else:
+                        self.stats.evictions += 1
                 else:
                     self.stats.evictions += 1
             res[e] = slot
             policy.admit(e, w)
             pending.append((g, slot, e))
             self.stats.loads += 1
+        if self.R > 1 and mass is not None:
+            pending.extend(self._plan_replicas(g, s, needed_set, protected))
         if pending:
             # every residency change (load, eviction, tier move) plans an upload
             self._epoch += 1
         return pending
 
     def _touch(self, g: int, s: int, e: int, slot: int, w: float) -> None:
-        """Route a reference to the policy of the tier holding `slot`."""
-        (self.policy4 if self.slot_tier(slot) == "warm" else self.policy)[(g, s)].touch(e, w)
+        """Route a reference to the policy of the tier and shard holding
+        `slot` (a promoted or re-homed primary may sit off its home)."""
+        pols = self.policy4 if self.slot_tier(slot) == "warm" else self.policy
+        pols[(g, s)][self.slot_shard(slot)].touch(e, w)
 
-    def _take_warm_slot(self, g: int, s: int, protected: Set[int]) -> Optional[int]:
-        """A warm slot: a free one, else the warm policy's victim evicted to
-        the host. None when every warm resident is protected."""
-        free4 = self.free4[(g, s)]
+    def _take_warm_slot(self, g: int, s: int, sh: int, protected: Set[int]) -> Optional[int]:
+        """A warm slot on shard `sh`: a free one, else the shard's warm
+        policy victim evicted to the host. None when every warm resident
+        there is protected."""
+        free4 = self.free4[(g, s)][sh]
         if free4:
             return free4.pop()
-        v4 = self.policy4[(g, s)].pick_victim(protected)
+        v4 = self.policy4[(g, s)][sh].pick_victim(protected)
         if v4 is None:
             return None
         self.stats.evictions += 1
         return self.resident[(g, s)].pop(v4)
 
-    def _peek_hot_victim(self, g: int, s: int, excluded: Set[int]) -> Optional[int]:
-        """The hot resident with the least decayed α mass outside
-        `excluded`, without touching the policy's books."""
+    def _peek_hot_victim(self, g: int, s: int, sh: int, excluded: Set[int]) -> Optional[int]:
+        """The hot resident of shard `sh` with the least decayed α mass
+        outside `excluded`, without touching the policy's books."""
         ema = self.alpha_ema[(g, s)]
         best = None
         for e2, slot in self.resident[(g, s)].items():
-            if slot >= self.S8 or e2 in excluded:
+            if slot >= self.S8 or self.slot_shard(slot) != sh or e2 in excluded:
                 continue
             if best is None or ema[e2] < ema[best]:
                 best = e2
@@ -705,42 +866,116 @@ class ExpertStore:
 
     def _promote(self, g: int, s: int, e: int, w: float, excluded: Set[int],
                  pending: List[Tuple[int, int, int]]) -> bool:
-        """Move warm-resident `e` into the hot tier: into a free hot slot,
-        else by swapping with the coldest movable hot resident when e's
-        decayed α mass beats it by `tier.promote_margin` (hysteresis). The
-        moved experts are re-uploaded from their host masters. Returns True
-        iff a move happened."""
+        """Move warm-resident `e` into its shard's hot tier: into a free hot
+        slot, else by swapping with the coldest movable hot resident when
+        e's decayed α mass beats it by `tier.promote_margin` (hysteresis).
+        The moved experts are re-uploaded from their host masters. Returns
+        True iff a move happened."""
         res = self.resident[(g, s)]
         ema = self.alpha_ema[(g, s)]
         wslot = res[e]
-        free = self.free[(g, s)]
+        sh = self.slot_shard(wslot)
+        free = self.free[(g, s)][sh]
         if free:
             hot_slot = free.pop()
-            self.free4[(g, s)].append(wslot)
-            self.policy4[(g, s)].forget(e)
+            self.free4[(g, s)][sh].append(wslot)
+            self.policy4[(g, s)][sh].forget(e)
             res[e] = hot_slot
-            self.policy[(g, s)].admit(e, w)
+            self.policy[(g, s)][sh].admit(e, w)
             pending.append((g, hot_slot, e))
             self.stats.promotions += 1
             self.stats.loads += 1
             return True
-        v = self._peek_hot_victim(g, s, excluded)
+        v = self._peek_hot_victim(g, s, sh, excluded)
         if v is None or float(ema[e]) <= 0.0:
             return False
         if float(ema[e]) < self.tier.promote_margin * float(ema[v]):
             return False
         hot_slot = res[v]
         res[e], res[v] = hot_slot, wslot
-        self.policy[(g, s)].forget(v)
-        self.policy4[(g, s)].forget(e)
-        self.policy[(g, s)].admit(e, w)
-        self.policy4[(g, s)].admit(v, float(ema[v]))
+        self.policy[(g, s)][sh].forget(v)
+        self.policy4[(g, s)][sh].forget(e)
+        self.policy[(g, s)][sh].admit(e, w)
+        self.policy4[(g, s)][sh].admit(v, float(ema[v]))
         pending.append((g, hot_slot, e))
         pending.append((g, wslot, v))
         self.stats.promotions += 1
         self.stats.demotions += 1
         self.stats.loads += 2
         return True
+
+    def _reclaim_replica(self, g: int, s: int, sh: int, protected: Set[int]) -> Optional[int]:
+        """Free one replica slot on shard `sh`, the replica of least decayed
+        α mass first, skipping protected experts' (a pending fence may
+        target that slot). Returns the freed global slot, or None."""
+        reps = self.replicas[(g, s)]
+        ema = self.alpha_ema[(g, s)]
+        best = None
+        for e, by_shard in reps.items():
+            if e in protected or sh not in by_shard:
+                continue
+            if best is None or ema[e] < ema[best]:
+                best = e
+        if best is None:
+            return None
+        slot = reps[best].pop(sh)
+        if not reps[best]:
+            del reps[best]
+        self._epoch += 1
+        return slot
+
+    def _plan_replicas(self, g: int, s: int, needed: Set[int],
+                       protected: Set[int]) -> List[Tuple[int, int, int]]:
+        """Extra copies for the α-hot needed experts: up to `R` copies each,
+        in free slots only (replication never evicts), least-loaded shards
+        first. Caller holds the lock; returns the (g, slot, e) uploads."""
+        res = self.resident[(g, s)]
+        reps = self.replicas[(g, s)]
+        free = self.free[(g, s)]
+        ema = self.alpha_ema[(g, s)]
+        tot = float(ema.sum())
+        if tot <= 0.0:
+            return []
+        share = self.sharded.hot_alpha if self.sharded.hot_alpha is not None else 2.0 / self.E
+        thr = share * tot
+        score = self.shard_load_score()
+        hot = sorted((e for e in needed if e in res and float(ema[e]) >= thr),
+                     key=lambda e: -float(ema[e]))
+        out: List[Tuple[int, int, int]] = []
+        for e in hot:
+            by_shard = reps.get(e)
+            have = {res[e] // self.S_loc} | set(by_shard or ())
+            for m in sorted(range(self.shards), key=lambda m: (score[m], m)):
+                if len(have) >= self.R:
+                    break
+                if m in have or not free[m]:
+                    continue
+                slot = free[m].pop()
+                if by_shard is None:
+                    by_shard = reps.setdefault(e, {})
+                by_shard[m] = slot
+                have.add(m)
+                out.append((g, slot, e))
+                self.stats.loads += 1
+                self.stats.replica_loads += 1
+        return out
+
+    def shard_load_score(self) -> np.ndarray:
+        """[shards] relative load: the normalised decayed α mass a home
+        shard dispatched, plus half the normalised uploads each shard's
+        transfer queue made (`uploads_by_shard`, with a pipeline). Lower is
+        less loaded; replica placement and the replica pick order by it."""
+        load = self._shard_alpha.copy()
+        tot = load.sum()
+        load = load / tot if tot > 0 else np.zeros_like(load)
+        pf = self._prefetcher
+        if pf is not None:
+            ups = np.array([float(pf.stats.uploads_by_shard.get(m, 0))
+                            for m in range(self.shards)], np.float64)
+            utot = ups.sum()
+            if utot > 0:
+                load = load + 0.5 * ups / utot
+        return load
 
     def commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
         """Batched host -> device writes for sub-slot `s` (one per tensor).
@@ -749,12 +984,13 @@ class ExpertStore:
         as they are (quantized slots); int8 rows + scales uploaded and
         dequantised on the device into fp slots (`host_quant="int8"`, half
         the H2D bytes of bf16); fp rows. Loads into warm slots land the
-        int4 masters (`_commit_warm`).
+        int4 masters (`_commit_warm`). Slot ids are global, so a shard's
+        range and a replica take the same write.
 
         The pools are written in place (`index_copy_`) on the caller's
         stream, which is ordered before every later forward on it. With a
         prefetch pipeline attached, the writes also wait on the CUDA event of
-        each slot's last write on the transfer stream, and record their own
+        each slot's last write on a transfer stream, and record their own
         (`PrefetchPipeline._ordered_write`)."""
         pf = self._prefetcher
         with (pf._ordered_write(s, items) if pf is not None else contextlib.nullcontext()):
@@ -812,18 +1048,31 @@ class ExpertStore:
     def rollback_upload(self, g: int, s: int, slot: int, e: int) -> bool:
         """Withdraw the residency published at plan time for one abandoned
         upload (caller holds the lock): the slot goes back to its tier's
-        free list, so no translation built after this points at a slot
-        whose bytes never landed. A mapping that moved on since (an evict
-        and reload raced the failure) is left to its newer upload. One
-        shard holds no replicas. Returns True iff a mapping was rolled
-        back."""
+        and shard's free list, so no translation built after this points at
+        a slot whose bytes never landed. A replica is dropped; a primary
+        with a live replica promotes it. A mapping that moved on since (an
+        evict and reload raced the failure) is left to its newer upload.
+        Returns True iff a mapping was rolled back."""
+        sh = self.slot_shard(slot)
         res = self.resident[(g, s)]
-        if res.get(e) != slot:
-            return False
-        del res[e]
+        reps = self.replicas[(g, s)].get(e)
         warm = self.slot_tier(slot) == "warm"
-        (self.policy4 if warm else self.policy)[(g, s)].forget(e)
-        (self.free4 if warm else self.free)[(g, s)].append(slot)
+        if reps is not None and reps.get(sh) == slot:
+            del reps[sh]
+            if not reps:
+                del self.replicas[(g, s)][e]
+        elif res.get(e) == slot:
+            del res[e]
+            (self.policy4 if warm else self.policy)[(g, s)][sh].forget(e)
+            if reps:
+                m = min(reps)
+                res[e] = reps.pop(m)
+                if not reps:
+                    del self.replicas[(g, s)][e]
+                self.policy[(g, s)][m].admit(e, 0.0)
+        else:
+            return False
+        (self.free4 if warm else self.free)[(g, s)][sh].append(slot)
         self._epoch += 1
         return True
 
@@ -833,6 +1082,14 @@ class ExpertStore:
         for e, slot in self.resident[(g, s)].items():
             row[e] = slot
         return row
+
+    def copies_of(self, g: int, s: int, e: int) -> List[int]:
+        """Every slot holding expert `e` at (g, s): its primary, then its
+        replicas (empty when it is not resident)."""
+        slot = self.resident[(g, s)].get(e)
+        if slot is None:
+            return []
+        return [slot, *self.replicas[(g, s)].get(e, {}).values()]
 
     def prepare_layer(self, l: int, needed: np.ndarray) -> np.ndarray:
         """Synchronously load `needed` experts for one layer (OnDemand path)."""
@@ -860,8 +1117,10 @@ class ExpertStore:
         for l in range(self.L):
             needed = table.active_experts(l)
             mass = None
-            # tiered stores take the mass too: the α EMA ranks tier moves
-            if len(needed) > self.S or self.eviction == "alpha" or self.tiered:
+            # sharded and tiered stores always take the mass: the α EMA
+            # feeds replication, rebalancing and tier moves
+            if (len(needed) > self.S or self.eviction == "alpha"
+                    or self.shards > 1 or self.tiered):
                 mass = table.activation_mass(l, self.E)
             if len(needed) > self.S:
                 # tighter budget than the active set: keep the highest-α-mass
@@ -920,16 +1179,42 @@ class ExpertStore:
                     hits += int(int(e) in res or int(e) in fly)
         return hits / max(tot, 1)
 
+    def replica_cand(self, trans: np.ndarray) -> np.ndarray:
+        """The translation table [L, E] as candidate slots [L, E, R]: each
+        expert's live copies (primary and replicas), least-loaded hosting
+        shard first, tiled cyclically to R, so the per-token round-robin
+        pick spreads a replicated expert's tokens over its copies. Without
+        replication (R = 1) it is the table itself."""
+        if self.R <= 1:
+            return trans.reshape(self.L, self.E, 1).astype(np.int32)
+        cand = np.repeat(trans[:, :, None], self.R, axis=2).astype(np.int32)
+        with self._lock:
+            score = self.shard_load_score()
+            for l in range(self.L):
+                g, s = self.layer_to_gs(l)
+                for e, by_shard in self.replicas[(g, s)].items():
+                    if trans[l, e] < 0 or not by_shard:
+                        continue
+                    copies = [int(trans[l, e])] + [int(sl) for sl in by_shard.values()]
+                    copies.sort(key=lambda sl: (score[self.slot_shard(sl)], sl))
+                    for r in range(self.R):
+                        cand[l, e, r] = copies[r % len(copies)]
+        return cand
+
     def translate(self, table: HashTable, trans: np.ndarray):
         """(slot_ids [L,B,S,k] int32, weights [L,B,S,k] f32).
 
-        Predicted experts that missed residency get slot 0 and weight 0, and
-        each token's surviving weights are renormalised to the α mass the
-        hash function predicted; a token whose every expert missed keeps
-        weight 0."""
+        Each routed (token, k) lane of flat index i picks copy i % R of its
+        expert (`replica_cand`): every copy holds the same weights. Predicted
+        experts that missed residency get slot 0 and weight 0, and each
+        token's surviving weights are renormalised to the α mass the hash
+        function predicted; a token whose every expert missed keeps weight 0."""
         L, B, S, k = table.expert_ids.shape
+        cand = self.replica_cand(trans)                               # [L, E, R]
         flat = table.expert_ids.reshape(L, -1)
-        slots = np.take_along_axis(trans, flat, axis=1).reshape(L, B, S, k)
+        s_all = np.take_along_axis(cand, flat[:, :, None], axis=1)    # [L, T, R]
+        rr = (np.arange(flat.shape[1]) % cand.shape[2])[None, :, None]
+        slots = np.take_along_axis(s_all, rr, axis=2)[..., 0].reshape(L, B, S, k)
         w = table.weights * (slots >= 0)
         orig = table.weights.sum(axis=-1, keepdims=True)
         surv = w.sum(axis=-1, keepdims=True)
@@ -941,17 +1226,97 @@ class ExpertStore:
         """`translate` on the device, for the decode loop: the predictor's
         still-resident ids / α [L, B, S, k] plus the host-planned table
         [L, E] -> (slot_ids int32, weights fp32) on ids' device, with the
-        same miss zeroing and renormalisation. One shard, no replicas: each
-        expert has one candidate slot (the reference's R = 1)."""
+        same replica pick, miss zeroing and renormalisation."""
         L = ids.shape[0]
-        cand = torch.from_numpy(trans).to(ids.device)
-        slots = torch.gather(cand, 1, ids.reshape(L, -1).long()).reshape(ids.shape)
+        cand = torch.from_numpy(self.replica_cand(trans)).to(ids.device)   # [L, E, R]
+        R = cand.shape[2]
+        flat = ids.reshape(L, -1).long()
+        s_all = torch.gather(cand, 1, flat[:, :, None].expand(-1, -1, R))  # [L, T, R]
+        rr = (torch.arange(flat.shape[1], device=ids.device) % R)[None, :, None].expand(L, -1, 1)
+        slots = torch.gather(s_all, 2, rr)[..., 0].reshape(ids.shape)
         wz = w.float()
         masked = wz * (slots >= 0)
         orig = wz.sum(dim=-1, keepdim=True)
         surv = masked.sum(dim=-1, keepdim=True)
         scale = torch.where(surv > 0, orig / torch.clamp(surv, min=1e-12), torch.ones_like(surv))
         return torch.clamp(slots, min=0).to(torch.int32), masked * scale
+
+    # ------------------------------------------------------------------
+    def rebalance_homes(self) -> int:
+        """Online load-aware placement: re-assign home shards by greedy LPT
+        over the summed decayed α EMA (heaviest expert first onto the
+        lightest shard, E / shards each), then move resident primaries to
+        their new homes. A moved primary's old slot becomes a replica (still
+        readable until a later plan reclaims it); the new copy takes over a
+        replica already on the target shard, or uploads into a free or
+        reclaimed slot through the pipeline's queues (`submit_loads`) or
+        inline. Every translation taken before, during or after a move names
+        slots that hold the expert. Returns the number of primaries moved."""
+        if self.shards <= 1 or self.tiered:
+            # a tiered store places by tier moves; a moved primary's tier
+            # would have to be re-derived per shard
+            return 0
+        pf = self._prefetcher
+        moved = 0
+        with self._lock:
+            ema = np.zeros((self.E,), np.float64)
+            for arr in self.alpha_ema.values():
+                ema += arr
+            if ema.sum() <= 0.0:
+                return 0
+            cap = self.E // self.shards
+            load = np.zeros((self.shards,), np.float64)
+            count = np.zeros((self.shards,), np.int64)
+            new_home = np.empty((self.E,), np.int32)
+            for e in np.argsort(-ema, kind="stable"):
+                m = min((m for m in range(self.shards) if count[m] < cap),
+                        key=lambda m: (load[m], m))
+                new_home[e] = m
+                load[m] += ema[e]
+                count[m] += 1
+            if np.array_equal(new_home, self.home):
+                return 0
+            self.home = new_home
+            pending: Dict[int, List[Tuple[int, int, int]]] = {s: [] for s in self.moe_subs}
+            for (g, s), res in self.resident.items():
+                reps = self.replicas[(g, s)]
+                policies = self.policy[(g, s)]
+                free = self.free[(g, s)]
+                protected = set(self.pinned[(g, s)])
+                if pf is not None:
+                    protected |= pf.protected_experts(g, s)
+                for e in list(res.keys()):
+                    tgt = int(new_home[e])
+                    cur = res[e] // self.S_loc
+                    if cur == tgt:
+                        continue
+                    by_shard = reps.setdefault(e, {})
+                    if tgt in by_shard:
+                        new_slot = by_shard.pop(tgt)      # a copy is there: no bytes move
+                    else:
+                        new_slot = (free[tgt].pop() if free[tgt]
+                                    else self._reclaim_replica(g, s, tgt, protected))
+                        if new_slot is None:
+                            # the target is full of primaries: a later pass may move it
+                            if not by_shard:
+                                del reps[e]
+                            continue
+                        pending[s].append((g, new_slot, e))
+                        self.stats.loads += 1
+                    by_shard[cur] = res[e]                # the old primary stays readable
+                    res[e] = new_slot
+                    policies[cur].forget(e)
+                    policies[tgt].admit(e, float(ema[e]))
+                    moved += 1
+            if moved:
+                self._epoch += 1
+                self.stats.rebalance_moves += moved
+            if pf is not None:
+                pf.submit_loads(pending, priority=1)
+            else:
+                for s, items in pending.items():
+                    self.commit_loads(s, items)
+        return moved
 
 
 # ---------------------------------------------------------------------------
@@ -1005,6 +1370,10 @@ class PrefetchStats:
     sync_fallbacks: int = 0     # uploads committed through the synchronous path
     job_errors: int = 0         # callable-job (K/V page-in) exceptions caught
     degraded: int = 0           # shards now in degraded (synchronous) mode
+    # uploads a transfer shard made (its queue, steals and sync commits of
+    # its jobs); `shards` makes the summary list every shard, idle ones too
+    shards: int = 1
+    uploads_by_shard: Dict[int, int] = field(default_factory=dict)
 
     @property
     def overlap_s(self) -> float:
@@ -1018,9 +1387,14 @@ class PrefetchStats:
         self.sync_fallbacks = self.job_errors = 0
         # `degraded` is a count of shards now, not of events: a reset keeps it
         self.stall_s = self.transfer_s = 0.0
+        self.uploads_by_shard = {}
+
+    def count_uploads(self, shard: int, n: int) -> None:
+        self.uploads += n
+        self.uploads_by_shard[shard] = self.uploads_by_shard.get(shard, 0) + n
 
     def summary(self) -> Dict[str, float]:
-        return {
+        out = {
             "prefetch_submitted": float(self.submitted),
             "prefetch_uploads": float(self.uploads),
             "prefetch_stall_s": self.stall_s,
@@ -1038,6 +1412,10 @@ class PrefetchStats:
             "prefetch_job_errors": float(self.job_errors),
             "prefetch_degraded_shards": float(self.degraded),
         }
+        if self.shards > 1:
+            for m in range(self.shards):
+                out[f"prefetch_uploads_shard{m}"] = float(self.uploads_by_shard.get(m, 0))
+        return out
 
 
 class _CallableJob:
@@ -1071,7 +1449,8 @@ class PrefetchTicket:
         self.needed = needed                  # layer -> expert ids planned
         self._fences = fences                 # ((g, s, e), fence) to clear
         self._protect = protect
-        self._job: Optional[Dict[int, List[tuple]]] = None   # queued upload job (stealable)
+        # queued upload jobs, [(shard, {sub: rows})] (stealable)
+        self._job: Optional[List[Tuple[int, Dict[int, List[tuple]]]]] = None
         self.released = False
         # set once a fence of this ticket was poisoned (its upload abandoned);
         # the replan in wait() has healed `trans` by then
@@ -1124,17 +1503,25 @@ class PrefetchTicket:
 class PrefetchPipeline:
     """Async double-buffered expert prefetch over one ExpertStore.
 
-    A background transfer thread takes planned load batches off a
-    three-class priority queue (0 urgent consumer, 1 pre-submitted
+    A background transfer thread a shard takes planned load batches off its
+    shard's three-class priority queue (0 urgent consumer, 1 pre-submitted
     lookahead, 2 warming), gathers the host rows (int8 + scales under
-    `host_quant="int8"`, the int4 masters for warm slots) into one of
+    `host_quant="int8"`, the int4 masters for warm slots) into one of its
     `staging_buffers` reusable host slabs, copies each slab to the device
     and writes the slot pools. Slot planning happens at `submit` under the
     store lock, so the ticket carries the final translation; only the bytes
     move later.
 
+    Over an expert-parallel store (`store.shards` > 1) each ticket fans out
+    by destination slot (`store.slot_shard`): one job a shard, on that
+    shard's queue, thread, staging ring and CUDA stream, so a backlogged
+    shard never holds up another's uploads. Fences are per upload: a hot
+    expert may have its primary and replicas in flight at once, each with
+    its own fence, and a consumer waits for every copy. K/V page-ins ride
+    shard 0's queue.
+
     On the card the slabs are pinned (`pin_memory=True`), grown on demand
-    and reused round-robin; the thread owns one side `torch.cuda.Stream`
+    and reused round-robin; each thread owns one side `torch.cuda.Stream`
     and issues every copy (`non_blocking=True`) and every pool write (the
     int8 slots, the dequant-at-write of int8 host masters into fp slots,
     the warm int4 slots) on it, then records one CUDA event per upload
@@ -1151,22 +1538,22 @@ class PrefetchPipeline:
         alone orders nothing on the device). A fence set with `poisoned`
         says the bytes never landed: its waiter replans and never reads
         that slot's CUDA event as a ready mark;
-      * each slot's last write (on either stream, failed attempts too)
-        leaves its CUDA event in `_slot_event`: the next write to the slot
-        waits on it (no two writes race), and a consumer's stream waits on
-        the events of the slots it is about to read;
+      * each slot's last write (on any stream, failed attempts too) leaves
+        its CUDA event in `_slot_event`: the next write to the slot waits on
+        it (no two writes race), and a consumer's stream waits on the
+        events of the slots it is about to read, replicas included;
       * a staging slab is reused only after the CUDA event of the copies
         out of it, recorded on every exit from an upload attempt, has
         completed (the double-buffer fence, `staging_waits`).
 
-    Supervision (the reference's): an upload batch is retried up to
-    `max_retries` times with exponential backoff, then abandoned
+    Supervision (the reference's), per shard: an upload batch is retried up
+    to `max_retries` times with exponential backoff, then abandoned
     (`_fail_rows`: rolled back, fences poisoned); `degrade_after`
     consecutive abandonments switch the shard to synchronous commits
     (`_commit_sync`); a transfer-loop crash restarts the loop in place,
-    and past `max_thread_restarts` the shard is dead (producers commit
-    inline) until `watchdog` revives it. A CUDA error is none of these: it
-    is kept and re-raised by every later submit, wait and fence."""
+    and past `max_thread_restarts` the shard is dead (producers commit its
+    jobs inline) until `watchdog` revives it. A CUDA error is none of these:
+    it is kept and re-raised by every later submit, wait and fence."""
 
     # CPython's default switch interval (5 ms) starves the transfer thread's
     # short ops behind the serving loop's Python work; the interval is
@@ -1215,7 +1602,7 @@ class PrefetchPipeline:
         if store._prefetcher is not None:
             raise ValueError("the store already has a prefetch pipeline")
         self.store = store
-        self.shards = 1
+        self.shards = store.shards
         self.depth = max(1, depth)
         self.n_staging = max(1, staging_buffers)
         self.faults = faults                      # Optional[FaultPlan]
@@ -1223,13 +1610,17 @@ class PrefetchPipeline:
         self.backoff_s = backoff_s                # base of the exponential backoff
         self.degrade_after = max(1, degrade_after)
         self.max_thread_restarts = max(0, max_thread_restarts)
-        self.stats = PrefetchStats()
+        self.stats = PrefetchStats(shards=self.shards)
         self._lock = store._lock
         self.device = store.device
         self._cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        shards = range(self.shards)
+        self._streams = [torch.cuda.Stream(self.device) for _ in shards] if self._cuda else None
+        # one condition guards every shard's three queues; each thread
+        # drains only its own
         self._jobs_cv = threading.Condition()
-        self._jobs: List[collections.deque] = [collections.deque() for _ in range(3)]
+        self._jobs: List[List[collections.deque]] = [
+            [collections.deque() for _ in range(3)] for _ in shards]
         # (g, s) -> expert -> {dest slot: fence} for uploads still in flight
         self._pending: Dict[Tuple[int, int], Dict[int, Dict[int, threading.Event]]] = (
             collections.defaultdict(dict))
@@ -1238,17 +1629,20 @@ class PrefetchPipeline:
             collections.defaultdict(collections.Counter))
         # (g, s, global slot) -> CUDA event of the slot's last write
         self._slot_event: Dict[Tuple[int, int, int], torch.cuda.Event] = {}
-        # per staging buffer: key -> host slab, and the event of the copies
-        # out of it (the slab is reused once that event has completed)
-        self._staging: List[Dict[tuple, torch.Tensor]] = [{} for _ in range(self.n_staging)]
-        self._staging_event: List[Optional[torch.cuda.Event]] = [None] * self.n_staging
-        self._buf_i = 0
+        # per shard and staging buffer: key -> host slab, and the event of
+        # the copies out of it (the slab is reused once that event has
+        # completed); each shard's thread owns its ring
+        self._staging: List[List[Dict[tuple, torch.Tensor]]] = [
+            [{} for _ in range(self.n_staging)] for _ in shards]
+        self._staging_event: List[List[Optional[torch.cuda.Event]]] = [
+            [None] * self.n_staging for _ in shards]
+        self._buf_i = [0] * self.shards
         self._closed = False
         self._error: Optional[BaseException] = None   # a CUDA error, kept for consumers
-        # supervision state, a list entry per shard (one shard), guarded by
-        # _jobs_cv: degraded (uploads commit synchronously), dead (the thread
-        # exhausted its restarts; producers commit inline), and the job each
-        # thread holds and since when (crash poisoning, the watchdog)
+        # supervision state a shard, guarded by _jobs_cv: degraded (uploads
+        # commit synchronously), dead (the thread exhausted its restarts;
+        # producers commit inline), and the job each thread holds and since
+        # when (crash poisoning, the watchdog)
         self._degraded = [False] * self.shards
         self._dead = [False] * self.shards
         self._fail_streak = [0] * self.shards
@@ -1257,7 +1651,7 @@ class PrefetchPipeline:
         self._job_started = [0.0] * self.shards
         self._acquire_switch_interval()
         store._prefetcher = self
-        self._threads = [self._new_thread(m) for m in range(self.shards)]
+        self._threads = [self._new_thread(m) for m in shards]
         for t in self._threads:
             t.start()
 
@@ -1267,7 +1661,7 @@ class PrefetchPipeline:
 
     @property
     def _thread(self) -> threading.Thread:
-        """The (one) transfer thread."""
+        """Shard 0's transfer thread."""
         return self._threads[0]
 
     # -- device ordering ------------------------------------------------
@@ -1305,21 +1699,20 @@ class PrefetchPipeline:
 
     def _device_wait(self, needed: Dict[int, np.ndarray]) -> None:
         """Make the current stream wait on the last write of every slot that
-        holds an expert of `needed` (layer -> ids): the device half of each
-        ready fence, and of uploads already retired whose copies may still
-        be in flight on the side stream."""
+        holds an expert of `needed` (layer -> ids), its replicas included:
+        the device half of each ready fence, and of uploads already retired
+        whose copies may still be in flight on a side stream."""
         if not self._cuda:
             return
         evs = {}
         with self._lock:
             for l, ids in needed.items():
                 g, s = self.store.layer_to_gs(l)
-                res = self.store.resident[(g, s)]
                 for e in ids:
-                    slot = res.get(int(e))
-                    ev = None if slot is None else self._slot_event.get((g, s, slot))
-                    if ev is not None:
-                        evs[id(ev)] = ev
+                    for slot in self.store.copies_of(g, s, int(e)):
+                        ev = self._slot_event.get((g, s, slot))
+                        if ev is not None:
+                            evs[id(ev)] = ev
         cur = torch.cuda.current_stream(self.device)
         for ev in evs.values():
             cur.wait_event(ev)
@@ -1337,8 +1730,9 @@ class PrefetchPipeline:
         return prot
 
     def events_for(self, needed: Dict[int, np.ndarray]):
-        """Ready fences covering `needed` (layer -> expert ids): one entry a
-        needed expert with an upload in flight. Caller holds the lock."""
+        """Ready fences covering `needed` (layer -> expert ids): one entry an
+        upload in flight of a needed expert (a replicated expert gives every
+        copy's). Caller holds the lock."""
         fences = []
         for l, ids in needed.items():
             g, s = self.store.layer_to_gs(l)
@@ -1369,32 +1763,51 @@ class PrefetchPipeline:
         request server's shed gate shrinks its threshold by it."""
         return sum(self._degraded) / self.shards
 
+    def _fan_out(self, pending: Dict[int, List[Tuple[int, int, int]]]):
+        """Register a fence for each planned load and group the loads by
+        destination shard: {shard: {sub: [(g, slot, e, fence)]}}. Caller
+        holds the lock."""
+        jobs: Dict[int, Dict[int, List[tuple]]] = {}
+        for s, items in pending.items():
+            for g, slot, e in items:
+                ev = threading.Event()
+                self._pending[(g, s)].setdefault(e, {})[slot] = ev
+                sh = self.store.slot_shard(slot)
+                jobs.setdefault(sh, {}).setdefault(s, []).append((g, slot, e, ev))
+        return jobs
+
     def submit(self, table: HashTable, protect: bool = True,
                priority: Optional[int] = None) -> Optional[PrefetchTicket]:
-        """Plan slots for `table` now; enqueue its uploads for the transfer
-        thread. `protect=False` submits a fire-and-forget warming prefetch:
-        nothing is pinned, so a warmed expert may be evicted before use, and
-        with the warming queue at `depth` it returns None without planning.
-        `priority` (default 0 protected, 2 warming) picks the transfer class;
-        a protected submit waits while its class holds `depth` jobs. A dead
-        shard's uploads are committed here, inline."""
+        """Plan slots for `table` now; enqueue its uploads on their shards'
+        transfer queues. `protect=False` submits a fire-and-forget warming
+        prefetch: nothing is pinned, so a warmed expert may be evicted
+        before use, and when the warming queue of a shard the table's
+        experts call home holds `depth` jobs it returns None without
+        planning. `priority` (default 0 protected, 2 warming) picks the
+        transfer class; a protected submit waits while its class holds
+        `depth` jobs on a shard it uploads to. A dead shard's uploads are
+        committed here, inline."""
         if self._closed:
             raise RuntimeError("the prefetch pipeline is closed")
         self._raise_if_fatal()
         prio = priority if priority is not None else (0 if protect else 2)
         if not protect:
+            # back-pressure only from the shards this table would upload to
+            # (its experts' homes): a backlogged shard does not stop warming
+            # for the idle ones
+            if self.shards == 1:
+                dests = {0}
+            else:
+                ids = np.unique(table.expert_ids)
+                dests = ({int(m) for m in np.unique(self.store.home[ids])}
+                         if ids.size else set(range(self.shards)))
             with self._jobs_cv:
-                if len(self._jobs[2]) >= self.depth:
+                if any(len(self._jobs[m][2]) >= self.depth for m in dests):
                     self.stats.warm_skipped += 1
                     return None
         with self._lock:
             trans, pending, needed = self.store.plan(table, protect_fn=self.protected_experts)
-            job: Dict[int, List[tuple]] = {}
-            for s, items in pending.items():
-                for g, slot, e in items:
-                    ev = threading.Event()
-                    self._pending[(g, s)].setdefault(e, {})[slot] = ev
-                    job.setdefault(s, []).append((g, slot, e, ev))
+            jobs = self._fan_out(pending)
             if protect:
                 for l, ids in needed.items():
                     self._refs[self.store.layer_to_gs(l)].update(int(e) for e in ids)
@@ -1403,42 +1816,68 @@ class PrefetchPipeline:
             fences = self.events_for(needed)
             self.stats.submitted += 1
         ticket = PrefetchTicket(self, trans, needed, fences, protect)
-        if job:
+        if jobs:
             # outside the store lock: the put may wait at `depth`; a planned
             # job is never dropped, its slots are already assigned
-            ticket._job = job
+            ticket._job = list(jobs.items())
+            inline = []
             with self._jobs_cv:
-                # a dead shard's queue never drains: the wait breaks on it
-                while (protect and len(self._jobs[prio]) >= self.depth and not self._dead[0]
-                       and not self._closed and self._error is None):
-                    self._jobs_cv.wait()
-                self._raise_if_fatal()    # no thread would ever run the job
-                inline = self._dead[0]
-                if not inline:
-                    self._jobs[prio].append(job)
-                    self._jobs_cv.notify_all()
-            if inline:
-                ticket._job = None
-                self._commit_sync(0, job)
+                for sh, job in jobs.items():
+                    # a dead shard's queue never drains: the wait breaks on it
+                    while (protect and len(self._jobs[sh][prio]) >= self.depth
+                           and not self._dead[sh] and not self._closed
+                           and self._error is None):
+                        self._jobs_cv.wait()
+                    self._raise_if_fatal()    # no thread would ever run the job
+                    if self._dead[sh]:
+                        inline.append((sh, job))
+                    else:
+                        self._jobs[sh][prio].append(job)
+                self._jobs_cv.notify_all()
+            for sh, job in inline:
+                self._commit_sync(sh, job)
         return ticket
 
-    def submit_job(self, fn: Callable[[], None], priority: int = 1) -> threading.Event:
-        """Enqueue a transfer callable at `priority` and return its done
-        fence (the K/V page pool's page-ins ride the pipeline this way). On
-        a dead shard it runs here, inline."""
+    def submit_job(self, fn: Callable[[], None], shard: int = 0,
+                   priority: int = 1) -> threading.Event:
+        """Enqueue a transfer callable on `shard`'s queue at `priority` and
+        return its done fence (the K/V page pool's page-ins ride shard 0
+        this way). On a dead shard it runs here, inline."""
         if self._closed:
             raise RuntimeError("the prefetch pipeline is closed")
         self._raise_if_fatal()
         job = _CallableJob(fn)
         with self._jobs_cv:
             self._raise_if_fatal()
-            dead = self._dead[0]
+            dead = self._dead[shard]
             if not dead:
-                self._jobs[priority].append(job)
+                self._jobs[shard][priority].append(job)
                 self._jobs_cv.notify_all()
         if dead:
             self._run_callable(job)
         return job.done
+
+    def submit_loads(self, pending: Dict[int, List[Tuple[int, int, int]]],
+                     priority: int = 1) -> None:
+        """Enqueue pre-planned {sub: [(g, slot, e)]} uploads (the store's
+        `rebalance_homes` moves ride this): each gets a pending fence and
+        lands on its destination slot's shard queue. No back-pressure: the
+        caller holds the store lock, and a rebalance must never park the
+        serve loop against its own transfer threads."""
+        if self._closed:
+            raise RuntimeError("the prefetch pipeline is closed")
+        self._raise_if_fatal()
+        jobs = self._fan_out(pending)
+        inline = []
+        with self._jobs_cv:
+            for sh, job in jobs.items():
+                if self._dead[sh]:
+                    inline.append((sh, job))
+                else:
+                    self._jobs[sh][priority].append(job)
+            self._jobs_cv.notify_all()
+        for sh, job in inline:
+            self._commit_sync(sh, job)   # nests under the caller's (reentrant) lock
 
     def _upload_done(self, g: int, s: int, slot: int, e: int, ev: threading.Event) -> None:
         """Retire one written upload's pending entry (caller holds the lock;
@@ -1451,32 +1890,39 @@ class PrefetchPipeline:
                 del pend[e]
 
     def _steal(self, ticket: PrefetchTicket) -> None:
-        """If the ticket's upload job is still queued when its fence is
-        reached, take it off the queue and write it inline on the consumer's
-        stream: the fence was about to pay for the whole transfer anyway, so
-        a starved transfer thread never makes the async path slower than
-        synchronous uploads."""
-        job, ticket._job = ticket._job, None
-        if job is None:
+        """If any of the ticket's shard jobs is still queued when its fence
+        is reached, take it off the queue and write it inline on the
+        consumer's stream: the fence was about to pay for the whole transfer
+        anyway, so a starved transfer thread never makes the async path
+        slower than synchronous uploads. A job a thread already holds is
+        left to its fence."""
+        entries, ticket._job = ticket._job, None
+        if entries is None:
             return
+        stolen = []
         with self._jobs_cv:
-            for q in self._jobs:
-                if any(item is job for item in q):
-                    q.remove(job)
-                    self._jobs_cv.notify_all()   # a producer may wait for this queue slot
-                    break
-            else:
-                return
+            for sh, job in entries:
+                for q in self._jobs[sh]:
+                    if any(item is job for item in q):
+                        q.remove(job)
+                        stolen.append((sh, job))
+                        break
+            if stolen:
+                self._jobs_cv.notify_all()   # a producer may wait for these queue slots
+        if not stolen:
+            return
         with self._lock:
-            for s, rows in job.items():
-                self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
-                for g, sl, e, ev in rows:
-                    self._upload_done(g, s, sl, e, ev)
-            self.stats.uploads += sum(len(r) for r in job.values())
+            for sh, job in stolen:
+                for s, rows in job.items():
+                    self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
+                    for g, sl, e, ev in rows:
+                        self._upload_done(g, s, sl, e, ev)
+                self.stats.count_uploads(sh, sum(len(r) for r in job.values()))
             self.stats.stolen += 1
-        for rows in job.values():
-            for *_, ev in rows:
-                ev.set()
+        for _, job in stolen:
+            for rows in job.values():
+                for *_, ev in rows:
+                    ev.set()
 
     def _refresh(self, ticket: PrefetchTicket, timeout: Optional[float] = None) -> bool:
         """Consume-time reconciliation for one ticket (see `wait`): loop until
@@ -1550,11 +1996,11 @@ class PrefetchPipeline:
                 for e in [e for e, c in refs.items() if c <= 0]:
                     del refs[e]
 
-    # -- transfer side (the background thread) --------------------------
-    def _next_job(self):
+    # -- transfer side (a background thread a shard) --------------------
+    def _next_job(self, shard: int):
         with self._jobs_cv:
             while True:
-                q = next((q for q in self._jobs if q), None)
+                q = next((q for q in self._jobs[shard] if q), None)
                 if q is not None:
                     job = q.popleft()
                     self._jobs_cv.notify_all()
@@ -1575,8 +2021,8 @@ class PrefetchPipeline:
         the thread and is kept for the consumers."""
         try:
             if self._cuda:
-                torch.cuda.set_device(self._stream.device)
-                ctx = torch.cuda.stream(self._stream)
+                torch.cuda.set_device(self._streams[shard].device)   # an indexed device
+                ctx = torch.cuda.stream(self._streams[shard])
             else:
                 ctx = contextlib.nullcontext()
             with ctx, torch.no_grad():
@@ -1616,7 +2062,7 @@ class PrefetchPipeline:
 
     def _transfer_loop(self, shard: int) -> None:
         while True:
-            job = self._next_job()
+            job = self._next_job(shard)
             if job is None:
                 return
             self._job_started[shard] = time.perf_counter()
@@ -1656,7 +2102,7 @@ class PrefetchPipeline:
             attempt = 0
             while True:
                 try:
-                    self._upload(s, rows)
+                    self._upload(shard, s, rows)
                     with self._jobs_cv:
                         self._fail_streak[shard] = 0
                     break
@@ -1714,9 +2160,10 @@ class PrefetchPipeline:
         each consumer re-raises it."""
         with self._jobs_cv:
             self._error = exc
-            queued = [j for q in self._jobs for j in q]
-            for q in self._jobs:
-                q.clear()
+            queued = [j for qs in self._jobs for q in qs for j in q]
+            for qs in self._jobs:
+                for q in qs:
+                    q.clear()
             self._jobs_cv.notify_all()
         for j in queued + ([job] if job is not None else []):
             if isinstance(j, _CallableJob):
@@ -1742,18 +2189,18 @@ class PrefetchPipeline:
                     self._upload_done(g, s, sl, e, ev)
                     evs.append(ev)
             n = sum(len(r) for r in job.values())
-            self.stats.uploads += n
+            self.stats.count_uploads(shard, n)
             self.stats.sync_fallbacks += n
         for ev in evs:
             ev.set()
 
     def _drain_sync(self, shard: int) -> None:
-        """Drain the queues on the calling thread through the synchronous
-        path: the dead-thread and close-time fallback that keeps "a planned
-        job is never dropped" without a transfer thread."""
+        """Drain `shard`'s queues on the calling thread through the
+        synchronous path: the dead-thread and close-time fallback that keeps
+        "a planned job is never dropped" without a transfer thread."""
         while True:
             with self._jobs_cv:
-                q = next((q for q in self._jobs if q), None)
+                q = next((q for q in self._jobs[shard] if q), None)
                 if q is None:
                     return
                 job = q.popleft()
@@ -1812,25 +2259,26 @@ class PrefetchPipeline:
         torch.index_select(arr.reshape((-1,) + tail), 0, idx, out=view)
         return view
 
-    def _upload(self, s: int, rows: List[tuple]) -> None:
-        """Stage, copy and write one sub's upload batch, then fire its
-        fences. Hot rows land the int8 / fp masters, warm rows the int4
-        masters; every copied byte is counted, and where one batch fills a
-        warm slot twice the last upload is what lands. An attempt that
-        raises leaves the slab's event recorded (its earlier keys' copies
-        may be in flight) and, past the first write, the slots' events."""
+    def _upload(self, shard: int, s: int, rows: List[tuple]) -> None:
+        """Stage, copy and write one sub's upload batch on `shard`'s ring
+        and stream, then fire its fences. Hot rows land the int8 / fp
+        masters, warm rows the int4 masters; every copied byte is counted,
+        and where one batch fills a warm slot twice the last upload is what
+        lands. An attempt that raises leaves the slab's event recorded (its
+        earlier keys' copies may be in flight) and, past the first write,
+        the slots' events."""
         if self.faults is not None:
             self.faults.inject("upload")
         store = self.store
-        i = self._buf_i
-        self._buf_i = (i + 1) % self.n_staging
-        ev = self._staging_event[i]
+        i = self._buf_i[shard]
+        self._buf_i[shard] = (i + 1) % self.n_staging
+        ev = self._staging_event[shard][i]
         if ev is not None:   # double-buffer fence: the copies out of slab i
             if not ev.query():
                 with self._jobs_cv:
                     self.stats.staging_waits += 1
             ev.synchronize()
-        staging = self._staging[i]
+        staging = self._staging[shard][i]
         hot = [r for r in rows if r[1] < store.S8]
         warm = [r for r in rows if r[1] >= store.S8]
         E, dev = store.E, self.device
@@ -1860,7 +2308,7 @@ class PrefetchPipeline:
                 keep = torch.tensor(last, dtype=torch.long).to(dev, non_blocking=True)
                 staged.append((tier, put, dst, keep))
         finally:
-            self._staging_event[i] = self.record_event()
+            self._staging_event[shard][i] = self.record_event()
         with self._lock:
             moe_p = store.serve_params["blocks"][f"sub{s}"]["moe"]
 
@@ -1888,13 +2336,13 @@ class PrefetchPipeline:
             # is observable)
             for g, slot, e, fence in rows:
                 self._upload_done(g, s, slot, e, fence)
-            self.stats.uploads += len(rows)
+            self.stats.count_uploads(shard, len(rows))
         for *_, fence in rows:
             fence.set()
 
     # -- lifecycle ------------------------------------------------------
     def close(self) -> None:
-        """Drain queued uploads, join the transfer thread and detach from the
+        """Drain queued uploads, join the transfer threads and detach from the
         store. Idempotent, and safe after the thread died: a dead shard's
         leftover jobs are committed here, and any fence still pending (a
         job a thread died holding) fires poisoned, so every fence and done
@@ -1917,7 +2365,8 @@ class PrefetchPipeline:
                         ev.set()
                 pend.clear()
         if self._cuda:
-            self._stream.synchronize()
+            for stream in self._streams:
+                stream.synchronize()
         self._staging = []
         self._staging_event = []
         self.store._prefetcher = None

@@ -9,7 +9,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --engine server \\
         --requests 16 --rate 4 --lanes 4 --slots 2 [--no-realtime] \\
         [--kv-pages 16 --page-size 8 --prefill-chunk 8] [--spec-mode draft --spec-k 3] \\
-        [--tenants "paid:weight=4:pin=0.5,free" --fault-plan "upload:fail,p=0.2"]
+        [--tenants "paid:weight=4:pin=0.5,free" --fault-plan "upload:fail,p=0.2"] \\
+        [--ep-shards 2 --replicate-hot 1 --rebalance-interval 0.5]
 
 Port of `repro/launch/serve.py`, with the same workloads
 (`np.random.default_rng(0)` tokens or Poisson requests), the same hash width
@@ -18,9 +19,9 @@ Port of `repro/launch/serve.py`, with the same workloads
 the same output lines. Trains nothing: random weights from seeded
 `torch.Generator`s (0 for the model, 1 for the hash function). Runs on CUDA
 unless `--device cpu`. With `--tenants` each tenant sends its own Poisson
-stream of `--requests` at `--rate`. The flags of what is not ported yet
-parse and are refused with `NotImplementedError`: `--ep-shards` > 1 and
-`--rebalance-interval` (ROADMAP A14).
+stream of `--requests` at `--rate`. `--ep-shards` > 1 serves SiDA (the
+batch engine or the server) expert-parallel (`ep_setup`), every shard on
+the one device; the baselines ignore it, as the reference's do.
 """
 from __future__ import annotations
 
@@ -33,16 +34,32 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.baselines import OnDemandServer, PrefetchAllServer, StandardServer
 from repro_torch.core.engine import SiDAEngine
 from repro_torch.core.hash_fn import init_hash_fn
+from repro_torch.core.offload import ShardedStoreConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_ep_mesh
+from repro_torch.models.attention import ShardingCtx
 from repro_torch.models.transformer import init_params, n_moe_layers
+from repro_torch.sharding.policy import serve_ctx
 from repro_torch.serving import RequestServer, poisson_requests
 from repro_torch.serving.config import ServingConfig, ServingConfigError, add_serving_args
+
+
+def ep_setup(ep_shards: int, replicate_hot: int = 0, device=None):
+    """(ctx, sharded) for --ep-shards: the expert-parallel serving context
+    over a 1-D "model" mesh of `ep_shards` shards on `device`, and the
+    store's `ShardedStoreConfig` (`replicate_hot` extra copies a hot expert
+    may hold); the one-device defaults when ep_shards <= 1."""
+    if ep_shards <= 1:
+        return ShardingCtx(), None
+    return (serve_ctx(make_ep_mesh(ep_shards, device)),
+            ShardedStoreConfig(ep_shards=ep_shards, replicate_hot=replicate_hot))
 
 
 def build_engine(engine: str, cfg, params, slots: int, eviction: str = "fifo", device=None,
                  prefetch_depth: int = 0, staging_buffers: int = 2,
                  host_quant: str = "none", quantized_slots: bool = False,
-                 scale_granularity: str = "channel", tier=None):
+                 scale_granularity: str = "channel", tier=None, ep_shards: int = 1,
+                 replicate_hot: int = 0):
     if engine == "standard":
         return StandardServer(cfg, params, device=device)
     if engine == "ondemand":
@@ -53,10 +70,12 @@ def build_engine(engine: str, cfg, params, slots: int, eviction: str = "fifo", d
         torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
         cfg.moe.num_experts, d_h=64, device="cpu",
     )
+    ctx, sharded = ep_setup(ep_shards, replicate_hot, device)
     return SiDAEngine(
         cfg, params, hp, slots_per_layer=slots, eviction=eviction, device=device,
-        prefetch_depth=prefetch_depth, staging_buffers=staging_buffers, host_quant=host_quant, quantized_slots=quantized_slots,
-        scale_granularity=scale_granularity, tier=tier,
+        prefetch_depth=prefetch_depth, staging_buffers=staging_buffers, host_quant=host_quant,
+        quantized_slots=quantized_slots, scale_granularity=scale_granularity, tier=tier,
+        sharded=sharded, ctx=ctx,
     )
 
 
@@ -102,7 +121,8 @@ def run_request_server(cfg, params, args, serving_cfg=None, device=None) -> None
         torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg),
         cfg.moe.num_experts, d_h=64, device="cpu", draft=args.spec_mode == "draft",
     )
-    srv = RequestServer(cfg, params, hp, serving_cfg, device=device)
+    ctx, _ = ep_setup(args.ep_shards, args.replicate_hot, device)
+    srv = RequestServer(cfg, params, hp, serving_cfg, device=device, ctx=ctx)
     rng = np.random.default_rng(0)
     # one Poisson stream a tenant, each at --rate, with disjoint rids
     streams = [(t.name, i * args.requests) for i, t in enumerate(serving_cfg.tenants)] \
@@ -179,8 +199,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     serving_cfg = validate_serve_args(args)
-    if args.ep_shards > 1:
-        raise NotImplementedError("expert-parallel serving is ported in ROADMAP A14")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
@@ -200,7 +218,8 @@ def main(argv=None):
     srv = build_engine(args.engine, cfg, params, args.slots, args.eviction, device,
                        args.prefetch_depth, args.staging_buffers,
                        host_quant=args.host_quant, quantized_slots=args.quantized_slots,
-                       scale_granularity=args.scale_granularity, tier=serving_cfg.quant.tier)
+                       scale_granularity=args.scale_granularity, tier=serving_cfg.quant.tier,
+                       ep_shards=args.ep_shards, replicate_hot=args.replicate_hot)
     del params   # the engine holds what it serves
     metrics = srv.serve(batches)
     print(f"engine={args.engine} slots={args.slots} quantized_slots={args.quantized_slots} "
@@ -214,6 +233,7 @@ def main(argv=None):
         st = srv.store.stats
         print(f"  loads={st.loads} hits={st.hits} evictions={st.evictions} "
               f"promotions={st.promotions} demotions={st.demotions} "
+              f"replica_loads={st.replica_loads} "
               f"h2d_mb={st.bytes_h2d/1e6:.2f} sync_upload_s={st.prepare_time:.4f}")
         if srv.prefetcher is not None:
             for k, v in srv.prefetcher.stats.summary().items():

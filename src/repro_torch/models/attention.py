@@ -11,13 +11,16 @@ is the same token over a shared page pool read through a page table
 reference's gather and the plain path on the CPU. `attend_prefill_chunk`
 advances one paged lane by a prompt chunk; the reference computes it in
 plain `jnp` (no Pallas kernel), so on every device it is the plain
-`_attend_chunk` over the gathered pages. The mesh-sharded paths come with
-expert parallelism (ROADMAP A14), cross-attention with the encoder-decoder
-families (A15).
+`_attend_chunk` over the gathered pages. `ShardingCtx` carries the
+expert-parallel serving context through the model to the MoE layers;
+attention itself stays replicated under it. The decode K/V sharded over a
+mesh axis (`decode_seq_axis`, the dry run's) comes with the XLA tools, and
+cross-attention with the encoder-decoder families (ROADMAP A15).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -29,6 +32,29 @@ from repro_torch.models.layers import apply_rope, dense_init, init_rmsnorm, rmsn
 
 NEG_INF = -1e30
 Q_CHUNK = 1024  # query chunking for long prefill on the CPU path
+
+
+@dataclass(frozen=True)
+class ShardingCtx:
+    """The mesh roles the model reads; the default is one device.
+
+    `expert_axis` names the mesh axis that the MoE slot pools and the
+    expert FFN shard over in expert-parallel serving
+    (`sharding/policy.py::serve_ctx`); attention, the residual stream and
+    every other weight stay replicated, so the sharded forward equals the
+    one-device forward (the expert combine's partials are exact). `mesh`
+    is an `launch.mesh.EPMesh`. The reference's training and dry-run roles
+    (batch, model and decode-sequence axes) are not part of the port."""
+
+    mesh: Optional[object] = None
+    expert_axis: Optional[str] = None
+
+    @property
+    def ep_shards(self) -> int:
+        """Shards of the expert axis (1 without a mesh or an expert axis)."""
+        if self.mesh is None or self.expert_axis is None:
+            return 1
+        return self.mesh.shape.get(self.expert_axis, 1)
 
 
 def init_attention(gen, cfg: ModelConfig, device) -> dict:

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer, single device (port of `repro/models/moe.py`).
+"""Mixture-of-Experts layer (port of `repro/models/moe.py`).
 
 Top-k routing with per-block capacity, or SiDA's `routing_override` (ids and
 weights from the hash table, translated to slot ids), and two dispatch
@@ -13,8 +13,18 @@ The expert compute always goes through `kernels.ops`: `expert_ffn` over fp
 slot stacks, `expert_ffn_q` over int8-resident ones and `expert_ffn_q4` over
 the warm tier's int4 slots (the hand-written kernels for CUDA tensors, the
 plain versions for CPU tensors). `moe_decode` is the one-token-per-lane form
-the decode step calls. Shared experts and expert-parallel dispatch come in
-later slices (ROADMAP A15, A14).
+the decode step calls. Shared experts are added once, after the combine.
+
+Expert-parallel serving (`ctx` with an expert axis of M > 1 shards, and a
+routing override, the reference's `served`): `_dispatch_combine_ep` runs
+the reference's shard_map body once a shard in one process. Shard m masks
+the global slot ids to its range (hot `[m·S8_loc, (m+1)·S8_loc)` and, when
+tiered, warm `[S8 + m·S4_loc, ...)`), builds its capacity table at the
+global C, runs one expert-FFN launch over its slice of the pool (a view,
+no copy), and combines in the model dtype; the partials are summed in
+shard order for the reference's psum. A token's contributions come from the
+one shard that holds its slot, zeros elsewhere, so at top-1 the sum equals
+the one-device combine.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.attention import ShardingCtx
 from repro_torch.models.layers import act_fn, dense_init, normal, top_k
 
 
@@ -110,6 +121,7 @@ def moe_layer(
     cfg: ModelConfig,
     routing_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # ids/w [B,S,k]
     dispatch: str = "auto",
+    ctx: Optional[ShardingCtx] = None,
 ):
     """Returns (y [B,S,d], aux) with aux = dict(router_logits, aux_loss, z_loss)."""
     m = cfg.moe
@@ -128,7 +140,8 @@ def moe_layer(
         aux_loss = load_balance_loss(router_logits, ids, m.num_experts)
         z_loss = router_z_loss(router_logits)
 
-    y = _dispatch_combine(params, xt, ids, w, cfg, dispatch)
+    y = _dispatch_combine(params, xt, ids, w, cfg, dispatch, ctx,
+                          served=routing_override is not None)
     if m.num_shared_experts:
         # always active, whatever the routing; added to the fp32 combine
         y = y + shared_experts(params, xt, cfg)
@@ -150,11 +163,13 @@ def shared_experts(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     return (g * h) @ params["shared_w_out"]
 
 
-def _dispatch_combine(params, xt, ids, w, cfg, dispatch):
+def _dispatch_combine(params, xt, ids, w, cfg, dispatch, ctx=None, served=False):
     """Token-blocked dispatch -> expert compute -> combine (see module doc).
 
     E is the slot count of the weight stack, not `num_experts`: SiDA serving
-    passes slot pools with S_slots << num_experts and slot-translated ids."""
+    passes slot pools with S_slots << num_experts and slot-translated ids.
+    Under an expert-parallel `ctx` a served forward (or a gather dispatch)
+    always takes `_dispatch_combine_ep`, the reference's condition."""
     T, d = xt.shape
     E, K = params["w_in"].shape[0], ids.shape[-1]
     if expert_params_tiered(params):
@@ -165,6 +180,12 @@ def _dispatch_combine(params, xt, ids, w, cfg, dispatch):
     C = _capacity(cfg, blk, E)
     if dispatch == "auto":
         dispatch = "einsum" if blk * E * C <= (1 << 24) else "gather"
+    shards = ctx.ep_shards if ctx is not None else 1
+    if shards > 1 and (dispatch == "gather" or served):
+        if E % shards:
+            # a sharded store's pools always divide; never fall back to one shard
+            raise ValueError(f"{E} slots do not divide over {shards} expert-parallel shards")
+        return _dispatch_combine_ep(params, xt, ids, w, cfg, blk, n, C, shards)
 
     ids_b = ids.reshape(n, blk, K)
     w_b = w.reshape(n, blk, K)
@@ -208,6 +229,75 @@ def _dispatch_combine(params, xt, ids, w, cfg, dispatch):
     comb = torch.einsum("nbkec,nbk->nbec", oh, w_b.to(xt.dtype))
     y = torch.einsum("necd,nbec->nbd", ye, comb).float()
     return y.reshape(T, d)
+
+
+def _dispatch_combine_ep(params, xt, ids, w, cfg, blk, n, C, shards):
+    """Expert-parallel dispatch / combine (the reference's shard_map body,
+    once a shard; see the module doc). Returns y [T, d] in xt's dtype."""
+    T, d = xt.shape
+    K = ids.shape[-1]
+    S8 = params["w_in"].shape[0]
+    tiered = expert_params_tiered(params)
+    S4 = params["w_in_q4"].shape[0] if tiered else 0
+    S8_loc, S4_loc = S8 // shards, S4 // shards
+    E_loc = S8_loc + S4_loc
+    dev = xt.device
+    ids_b, w_b = ids.reshape(n, blk, K), w.reshape(n, blk, K)
+    x_pad = torch.cat([xt.reshape(n, blk, d), xt.new_zeros((n, 1, d))], dim=1)
+    rows = torch.arange(n, device=dev)[:, None, None]
+    tok = torch.arange(blk, device=dev)[None, :, None].expand(n, blk, K).reshape(n, -1)
+    y = None
+    for m in range(shards):
+        if tiered:
+            # two global ranges a shard, hot then warm, onto the local
+            # stack [0, S8_loc) ++ [S8_loc, S8_loc + S4_loc)
+            hot_l = ids_b - m * S8_loc
+            is_hot = (ids_b < S8) & (hot_l >= 0) & (hot_l < S8_loc)
+            warm_l = ids_b - S8 - m * S4_loc
+            is_warm = (ids_b >= S8) & (warm_l >= 0) & (warm_l < S4_loc)
+            local = is_hot | is_warm
+            idsl = torch.where(is_warm, S8_loc + warm_l, hot_l)
+        else:
+            idsl = ids_b - m * E_loc
+            local = (idsl >= 0) & (idsl < E_loc)
+        idsl_c = idsl.clamp(0, E_loc - 1)
+        oh = F.one_hot(torch.where(local, idsl_c, torch.full_like(idsl_c, E_loc)),
+                       E_loc + 1)[..., :E_loc]                       # [n, blk, K, E_loc]
+        pos = (oh.reshape(n, blk * K, E_loc).cumsum(dim=1) - 1).reshape(n, blk, K, E_loc)
+        pos = torch.gather(pos, -1, idsl_c[..., None])[..., 0]
+        keep = local & (pos < C)
+        slot = torch.where(keep, idsl_c * C + pos, torch.full_like(pos, E_loc * C)).reshape(n, -1)
+        # the local capacity table at the global C; column E_loc*C takes the
+        # overflow, empty entries point at the zero pad row `blk`
+        table = torch.full((n, E_loc * C + 1), blk, dtype=torch.long, device=dev)
+        table.scatter_(1, slot, tok)
+        table = table[:, : E_loc * C].reshape(n, E_loc, C)
+        ye = apply_expert_stack_blocked(shard_slice(params, m, S8_loc, S4_loc),
+                                        x_pad[rows, table], cfg)     # [n, E_loc, C, d]
+        gate = torch.zeros((n, E_loc * C + 1), dtype=torch.float32, device=dev)
+        gate.scatter_add_(1, slot, (w_b * keep).float().reshape(n, -1))
+        gate = gate[:, : E_loc * C].reshape(n, E_loc, C)
+        # combine in the model dtype, as the reference's shard does
+        contrib = (ye.float() * gate[..., None]).to(xt.dtype).reshape(n, E_loc * C, d)
+        y0 = torch.zeros((n, blk + 1, d), dtype=xt.dtype, device=dev)
+        y0.scatter_add_(1, table.reshape(n, E_loc * C, 1).expand(n, E_loc * C, d), contrib)
+        y = y0[:, :blk] if y is None else y + y0[:, :blk]          # the psum, in shard order
+    return y.reshape(T, d)
+
+
+def shard_slice(params: dict, m: int, S8_loc: int, S4_loc: int) -> dict:
+    """Shard m's slice of a slot stack: the int8 / fp pools and their scale
+    planes at [m·S8_loc, (m+1)·S8_loc), the warm int4 pools and planes at
+    [m·S4_loc, (m+1)·S4_loc) of their own axis. Views of the pools (a slice
+    of the leading axis of a contiguous tensor is contiguous), never
+    copies."""
+    out = {}
+    for k, v in params.items():
+        if not k.startswith("w_"):
+            continue
+        n = S4_loc if "_q4" in k else S8_loc
+        out[k] = v[m * n:(m + 1) * n]
+    return out
 
 
 def expert_params_quantized(p: dict) -> bool:
@@ -275,9 +365,10 @@ def moe_decode(
     x: torch.Tensor,                 # [B, d]
     cfg: ModelConfig,
     routing_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # ids/w [B,k]
+    ctx: Optional[ShardingCtx] = None,
 ) -> torch.Tensor:
     ro = None
     if routing_override is not None:
         ro = (routing_override[0][:, None], routing_override[1][:, None])
-    y, _ = moe_layer(params, x[:, None, :], cfg, routing_override=ro)
+    y, _ = moe_layer(params, x[:, None, :], cfg, routing_override=ro, ctx=ctx)
     return y[:, 0]

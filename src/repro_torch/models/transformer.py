@@ -11,7 +11,9 @@ branch of `decode_step` keep K/V in shared page pools read through a page
 table (`core/residency.py`). `verify_step` runs a speculative draft block
 and rolls the rejected positions back. `prefill_chunk_step` advances one
 paged lane through a prompt chunk (the request server's chunked prefill).
-Recurrent / hybrid blocks and encoder-decoder stacks are ported with the
+Each of the four takes the reference's `ctx` (`attention.ShardingCtx`) and
+passes it to the MoE layers: under expert-parallel serving they dispatch a
+shard at a time (`models/moe.py`). Recurrent / hybrid blocks and encoder-decoder stacks are ported with the
 other families (ROADMAP A15).
 """
 from __future__ import annotations
@@ -134,11 +136,11 @@ def attention_half(bp, x, cfg, sub, aux: Optional[dict] = None):
     return x, rmsnorm(bp["ln2"], x, cfg.norm_eps)
 
 
-def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv):
+def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv, ctx=None):
     aux: dict = {}
     x, h = attention_half(bp, x, cfg, sub, aux if collect_kv else None)
     if sub_kind(cfg, sub)["moe"]:
-        y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override)
+        y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
         aux.update(moe_aux)
     elif "mlp" in bp:
         y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
@@ -168,13 +170,13 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool):
+def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool, ctx=None):
     """One period group of sublayers: (x, aux_loss, z_loss, router logits
     of its MoE sublayers, {sub: (k, v)})."""
     aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     router_logits, kv_g = [], {}
     for s in range(period(cfg)):
-        x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ros.get(s), collect_kv)
+        x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ros.get(s), collect_kv, ctx)
         if "kv" in aux:
             kv_g[f"sub{s}"] = aux.pop("kv")
         if "aux_loss" in aux:
@@ -192,6 +194,7 @@ def forward(
     collect_router_logits: bool = False,
     collect_kv: bool = False,
     remat: bool = False,
+    ctx=None,                             # attention.ShardingCtx (expert-parallel serving)
 ) -> Dict[str, Any]:
     """Full forward. Returns dict(logits, aux_loss, z_loss, router_logits?,
     kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]. With `remat`, each
@@ -211,9 +214,9 @@ def forward(
                 li = g * len(moe_subs) + j
                 ros[s] = (routing_override[0][li], routing_override[1][li])
         if remat:
-            out = checkpoint(_group_full, gp, x, cfg, ros, collect_kv, use_reentrant=False)
+            out = checkpoint(_group_full, gp, x, cfg, ros, collect_kv, ctx, use_reentrant=False)
         else:
-            out = _group_full(gp, x, cfg, ros, collect_kv)
+            out = _group_full(gp, x, cfg, ros, collect_kv, ctx)
         x, al, zl, rl, kv_g = out
         aux_loss, z_loss = aux_loss + al, z_loss + zl
         router_logits += rl
@@ -299,7 +302,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, paged, device: DeviceLike = N
 
 
 def _apply_sublayer_decode(bp, kv, x, pos, cfg, sub, routing_override,
-                           page_table=None, active=None):
+                           page_table=None, active=None, ctx=None):
     """One sublayer for one token. `kv` is the group's (k, v) ring [B, Sc,
     K, D] or, with `page_table`, its (kp, vp) page pools; either is written
     in place."""
@@ -314,7 +317,7 @@ def _apply_sublayer_decode(bp, kv, x, pos, cfg, sub, routing_override,
     x = x + a
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
     if sub_kind(cfg, sub)["moe"]:
-        y = moe_decode(bp["moe"], h, cfg, routing_override=routing_override)
+        y = moe_decode(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
     elif "mlp" in bp:
         y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
     else:
@@ -331,6 +334,7 @@ def decode_step(
     cfg: ModelConfig,
     routing_override=None,     # (ids [L_moe,B,k], w [L_moe,B,k]) or None
     active: Optional[torch.Tensor] = None,   # [B] bool; paged: inactive lanes write trash
+    ctx=None,
 ):
     """One serve step: next-token logits [B, V] and the cache. The K/V
     tensors (ring or page pools) are updated in place (see
@@ -353,7 +357,7 @@ def decode_step(
             entry = cache[f"sub{s}"]
             kv = (entry[names[0]][g], entry[names[1]][g])
             x = _apply_sublayer_decode(gp[f"sub{s}"], kv, x, pos, cfg, s, ro,
-                                       page_table=page_table, active=active)
+                                       page_table=page_table, active=active, ctx=ctx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     new_cache = dict(cache)
@@ -395,6 +399,7 @@ def verify_step(
     cfg: ModelConfig,
     routing_override=None,     # (ids [kb, L_moe, B, k], w [kb, L_moe, B, k]) or None
     active: Optional[torch.Tensor] = None,   # [B] bool; False => lane fully rolled back
+    ctx=None,
 ):
     """Verify a speculative draft block: `kb` sequential `decode_step`s, so
     each position's math is the one-token step's and greedy outputs equal
@@ -435,7 +440,8 @@ def verify_step(
     for i in range(kb):
         ro = None if routing_override is None else (routing_override[0][i],
                                                     routing_override[1][i])
-        lg, c = decode_step(params, c, tokens[:, i], cfg, routing_override=ro, active=active)
+        lg, c = decode_step(params, c, tokens[:, i], cfg, routing_override=ro, active=active,
+                            ctx=ctx)
         logits.append(lg)
         outs.append(torch.argmax(lg, dim=-1).to(torch.int32))
     out = torch.stack(outs, dim=1)                           # [B, kb]
@@ -459,7 +465,7 @@ def verify_step(
 # ---------------------------------------------------------------------------
 
 
-def _apply_sublayer_chunk(bp, kv, x, pos0, page_table, cfg, sub, routing_override):
+def _apply_sublayer_chunk(bp, kv, x, pos0, page_table, cfg, sub, routing_override, ctx=None):
     """`_apply_sublayer_full` for a [1, T] chunk that continues at absolute
     position pos0 against the paged cache; `kv` is the group's (kp, vp)
     pools, written in place."""
@@ -470,7 +476,7 @@ def _apply_sublayer_chunk(bp, kv, x, pos0, page_table, cfg, sub, routing_overrid
     x = x + a
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
     if sub_kind(cfg, sub)["moe"]:
-        y, _ = moe_layer(bp["moe"], h, cfg, routing_override=routing_override)
+        y, _ = moe_layer(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
     elif "mlp" in bp:
         y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
     else:
@@ -486,6 +492,7 @@ def prefill_chunk_step(
     tokens: torch.Tensor,      # [1, T] one chunk of one lane's prompt
     cfg: ModelConfig,
     routing_override=None,     # (ids [L_moe, 1, T, k], w) as the full forward takes
+    ctx=None,
 ):
     """Advance one paged lane through a prompt chunk: the full forward's
     math over [1, T] at absolute positions pos0 .. pos0 + T - 1, writing K/V
@@ -509,7 +516,7 @@ def prefill_chunk_step(
                 ro = (routing_override[0][li], routing_override[1][li])
             entry = cache[f"sub{s}"]
             x = _apply_sublayer_chunk(gp[f"sub{s}"], (entry["kp"][g], entry["vp"][g]), x, pos0,
-                                      page_table, cfg, s, ro)
+                                      page_table, cfg, s, ro, ctx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     new_cache = dict(cache)

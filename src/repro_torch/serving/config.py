@@ -14,10 +14,11 @@ imports no JAX: copied as it is, with the port's own `TierConfig`,
   `tests/test_torch_serving.py` holds the two against each other.
 * `TenantConfig` is the multi-tenant front door's registry entry.
 
-The config accepts everything the reference's does. The port's
-`RequestServer` refuses what it does not serve yet, with
-`NotImplementedError`: expert-parallel shards and rebalancing (ROADMAP
-A14).
+The config accepts everything the reference's does, and the port's
+`RequestServer` serves all of it. The help texts are the reference's own,
+so `--ep-shards` still speaks of a mesh of devices and `shard_map`: the
+port drives every shard from one process on one device
+(`launch/mesh.py`).
 
 `ServingConfig.from_kwargs` keeps the reference's flat keyword surface
 (`RequestServer(cfg, params, hp, slots_per_layer=..., max_lanes=...)`).

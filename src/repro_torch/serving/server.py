@@ -37,6 +37,16 @@ single-tenant objects. A `FaultPlan` (`faults=`) injects failures into the
 prefetch pipeline and the hash-ahead admission; the serve loop runs the
 pipeline's `watchdog` every `watchdog_interval_s`.
 
+Expert parallelism (`ServingConfig.parallel.sharded`, `ep_shards` > 1): the
+one shared store's slot pools split into shards (with `replicate_hot`, hot
+experts copied onto other shards), prefill, decode ticks, chunks and
+verify blocks run the expert-parallel dispatch (`sharding/policy.py::store_ctx`,
+or the `ctx` given), the prefetch pipeline fans tickets out to per-shard
+transfer queues, and every `rebalance_interval` seconds the serve loop
+re-homes experts from the α EMA (`ExpertStore.rebalance_homes`; the moves
+ride the transfer queues). One process drives every shard, all on the
+store's device.
+
 The reference's `@jax.jit` closures are plain methods on tensors here:
 `_hash_prefill`, `_predict_masked`, `_decode_masked`, `_seed_lanes`,
 `_seed_lanes_paged`, `_chunk_step` and `_verify_masked`. What differs:
@@ -53,9 +63,6 @@ The reference's `@jax.jit` closures are plain methods on tensors here:
 * **The predictor's prompt pass** is `hash_fn_prefill`, the LSTM state and
   ring alone; the reference's `lax.scan` of the full step leaves XLA to
   drop the attention and heads whose outputs nothing reads.
-* **Refused until ported.** Expert-parallel shards and rebalancing (ROADMAP
-  A14) raise `NotImplementedError`.
-
 Runs on CUDA unless `device` names another device.
 """
 from __future__ import annotations
@@ -81,6 +88,7 @@ from repro_torch.core.hash_table import HashTable
 from repro_torch.core.offload import ExpertStore, PrefetchPipeline
 from repro_torch.core.residency import KVPagePool, ResidencyManager
 from repro_torch.models.layers import top_k
+from repro_torch.sharding.policy import store_ctx
 from repro_torch.models.transformer import (
     decode_step,
     init_cache,
@@ -118,11 +126,13 @@ class RequestServer:
         """`config` is the consolidated `ServingConfig` (serving/config.py);
         the reference's flat keyword surface (`slots_per_layer=...,
         max_lanes=...`) is accepted through `ServingConfig.from_kwargs`, and
-        an int in `config`'s place is `slots_per_layer`. `device` and
-        `telemetry` are runtime keywords in both styles; mixing a
+        an int in `config`'s place is `slots_per_layer`. `device`,
+        `telemetry` and `ctx` (an `attention.ShardingCtx`; by default the
+        store's own) are runtime keywords in both styles; mixing a
         ServingConfig with config keywords is a TypeError."""
         device = kwargs.pop("device", None)
         telemetry = kwargs.pop("telemetry", None)
+        ctx = kwargs.pop("ctx", None)
         if isinstance(config, int):
             kwargs["slots_per_layer"] = config
             config = None
@@ -133,10 +143,6 @@ class RequestServer:
                 "RequestServer: pass either a ServingConfig or the legacy "
                 f"flat kwargs, not both (got config= plus {sorted(kwargs)})"
             )
-        sharded = config.parallel.sharded
-        if (sharded is not None and sharded.enabled) or config.parallel.rebalance_interval:
-            raise NotImplementedError("expert-parallel shards and rebalancing are ported in "
-                                      "ROADMAP A14")
         if cfg.block_kind != "attn" or cfg.enc_dec or not cfg.moe.enabled:
             raise ValueError("the request server serves attention-family decoder-only MoE archs")
         self.config = config
@@ -154,7 +160,9 @@ class RequestServer:
             cfg, params, config.slots_per_layer, eviction=config.eviction, device=device,
             host_quant=q.host_quant, quantized_slots=q.quantized_slots,
             scale_granularity=q.scale_granularity, tier=q.tier,
+            sharded=config.parallel.sharded, mesh=ctx.mesh if ctx is not None else None,
         )
+        self.ctx = store_ctx(self.store, ctx)
         self.device = self.store.device
         self.faults = config.faults.plan
         self.fence_timeout_s = config.prefetch.fence_timeout_s
@@ -169,7 +177,7 @@ class RequestServer:
         # cfg.prefetch when the server decided to run synchronously
         self.engine = SiDAEngine(
             cfg, params, hash_params, config.slots_per_layer, serve_top_k=config.serve_top_k,
-            store=self.store, prefetcher=self.prefetch, prefetch_depth=0,
+            store=self.store, prefetcher=self.prefetch, prefetch_depth=0, ctx=self.ctx,
         )
         self.hash_params = self.engine.hash_params
         self.embed_table = self.store.serve_params["embed"]
@@ -201,6 +209,10 @@ class RequestServer:
                 raise ValueError("windowed layers need window >= cache_len for "
                                  "prefill-seeded lanes")
 
+        # online re-homing every `rebalance_interval` seconds (sharded only)
+        self.rebalance_interval = (
+            config.parallel.rebalance_interval if self.store.shards > 1 else 0.0)
+        self._last_rebalance = 0.0
         self.max_lanes = b.max_lanes
         self.max_prefill_batch = b.max_prefill_batch
         self.drop_expired = b.drop_expired
@@ -296,7 +308,7 @@ class RequestServer:
         logits, new_cache = decode_step(
             self.store.serve_params, self.cache, self._tensor(tokens), self.cfg,
             routing_override=(slot_ids, w),
-            active=act if self.paged is not None else None,
+            active=act if self.paged is not None else None, ctx=self.ctx,
         )
         new_cache["pos"] = torch.where(act, new_cache["pos"], pos)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, new_cache
@@ -333,7 +345,7 @@ class RequestServer:
         sub["page_table"] = self.cache["page_table"][lane:lane + 1]
         logits, new_sub = prefill_chunk_step(
             self.store.serve_params, sub, self._tensor(tokens), self.cfg,
-            routing_override=(slot_ids, w),
+            routing_override=(slot_ids, w), ctx=self.ctx,
         )
         pos = self.cache["pos"].clone()
         pos[lane] = new_sub["pos"][0]
@@ -347,7 +359,7 @@ class RequestServer:
         state after its last accepted input (a masked lane keeps its own)."""
         out, n_acc, logits, self.cache = verify_step(
             self.store.serve_params, self.cache, tokens_blk, self.cfg,
-            routing_override=(slot_ids, w), active=active,
+            routing_override=(slot_ids, w), active=active, ctx=self.ctx,
         )
         self.hstate = select_accepted_state(states, n_acc, self.hstate)
         return out, n_acc, logits
@@ -915,6 +927,14 @@ class RequestServer:
                     if stalled:
                         self.telemetry.counter("prefetch_stalled_jobs").inc(stalled)
 
+                if (self.rebalance_interval > 0
+                        and now - self._last_rebalance >= self.rebalance_interval):
+                    self._last_rebalance = now
+                    moved = self.store.rebalance_homes()
+                    if moved:
+                        self.telemetry.counter("rebalance_moves").inc(moved)
+                        self.telemetry.counter("rebalance_rounds").inc()
+
                 if long_req is not None:
                     self._start_long(long_req, now)
 
@@ -966,7 +986,7 @@ class RequestServer:
         self.telemetry.counter("expert_loads").inc(st.loads)
         self.telemetry.counter("expert_hits").inc(st.hits)
         self.telemetry.counter("expert_evictions").inc(st.evictions)
-        self.telemetry.counter("expert_replica_loads").inc(0)   # one shard: no replicas
+        self.telemetry.counter("expert_replica_loads").inc(st.replica_loads)
         for stats in ([self.prefetch.stats] if self.prefetch is not None else []) + (
                 [self.kv_pool.stats] if self.kv_pool is not None else []) + (
                 [self.faults] if self.faults is not None else []):
@@ -1035,6 +1055,16 @@ class RequestServer:
             "watchdog_revives": t.counter("watchdog_revives").value,
             "degraded_shards": t.counter("prefetch_degraded_shards").value,
         }
+        if self.store.shards > 1:
+            out["replicate_hot"] = float(self.store.sharded.replicate_hot)
+            out["replica_loads"] = float(st.replica_loads)
+            out["rebalance_moves"] = float(st.rebalance_moves)
+            if self.prefetch is not None:
+                # max / mean of the uploads a shard: 1.0 is an even fleet
+                ups = [float(self.prefetch.stats.uploads_by_shard.get(m, 0))
+                       for m in range(self.store.shards)]
+                mean = sum(ups) / len(ups)
+                out["shard_upload_max_over_mean"] = max(ups) / mean if mean > 0 else 1.0
         if self.residency is not None:
             out.update(self.residency.summary())
             out["paged_kv"] = 1.0

@@ -305,10 +305,26 @@ def test_decode_engine_matches_jax_on_e8(e8, quant):
 
 def test_decode_engine_refuses_unported_modes(e8):
     _, cfg_t, _, _, pt, ht = e8
-    with pytest.raises(NotImplementedError, match="A14"):
-        td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=2, device="cpu", sharded=object())
     from repro_torch.core.faults import FaultPlan
-    from repro_torch.core.offload import ExpertStore, PrefetchPipeline
+    from repro_torch.core.offload import ExpertStore, PrefetchPipeline, ShardedStoreConfig
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.sharding.policy import serve_ctx
+
+    # a real ShardedStoreConfig serves: with every expert resident, EP-2's
+    # tokens equal the one-device engine's (fp32, top-1)
+    start = np.array([3, 5], np.int32)
+    outs = []
+    for sharded in (None, ShardedStoreConfig(ep_shards=2)):
+        eng = td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=8, device="cpu", sharded=sharded)
+        outs.append(eng.generate(start, steps=4, cache_len=16)[0])
+        eng.close()
+    assert eng.ctx.ep_shards == eng.store.shards == 2
+    np.testing.assert_array_equal(outs[1], outs[0])
+    # only shards on distinct devices are refused (ROADMAP A14(c))
+    with pytest.raises(NotImplementedError, match=r"A14\(c\)"):
+        td.SiDADecodeEngine(cfg_t, pt, ht, slots_per_layer=2, device="cpu",
+                            sharded=ShardedStoreConfig(ep_shards=2),
+                            ctx=serve_ctx(make_ep_mesh(2, devices=["cpu", "meta"])))
 
     # the pipeline's fault injection is ported: faults= builds a pipeline
     # that takes its retry settings from cfg.prefetch

@@ -706,6 +706,48 @@ def test_expert_ffn_q4_kernel_matches_plain(cuda, E, C, d, F, glu, act, group, d
     _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [8, 640])
+@pytest.mark.parametrize("fmt", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("S,shards,m", [(4, 2, 1), (8, 4, 3), (8, 2, 1)])
+def test_expert_ffn_kernels_on_a_shard_slice(cuda, S, shards, m, fmt, C, dtype):
+    """Expert-parallel serving launches B1 / B5 / B6 over shard m's slice of
+    a [S, ...] slot pool: views at a non-zero offset into the pool (and into
+    its scale planes), never copies. Each is held against the plain version
+    of the slice and is bit-identical to the kernel over a contiguous copy
+    of it (the address does not change the result)."""
+    n = S // shards
+    arrs = _served_ffn(S, C, False, seed=S + m)
+    xe = _t(arrs[0][m * n:(m + 1) * n], dtype).to(cuda)
+    pools = []
+    for a in arrs[1:]:
+        if a is None:
+            pools += [None] if fmt == "fp" else [None, None]
+        elif fmt == "fp":
+            pools.append(_t(a, dtype).to(cuda))
+        else:
+            pools += [t.to(cuda) for t in (_quantized(a) if fmt == "int8" else _quantized4(a, 64))]
+    view = [None if p is None else p[m * n:(m + 1) * n] for p in pools]
+    for p, v in zip(pools, view):
+        if p is not None:
+            assert v.untyped_storage().data_ptr() == p.untyped_storage().data_ptr()
+            assert v.is_contiguous()
+            assert v.data_ptr() == p.data_ptr() + m * n * p.stride(0) * p.element_size()
+    fn = {"fp": ops.expert_ffn, "int8": ops.expert_ffn_q, "int4": ops.expert_ffn_q4}[fmt]
+    before = ops.launches()[{"fp": "expert_ffn", "int8": "expert_ffn_q",
+                             "int4": "expert_ffn_q4"}[fmt]]
+    got = fn(xe, *view, act="gelu")
+    copied = fn(xe, *[None if v is None else v.clone() for v in view], act="gelu")
+    torch.cuda.synchronize()
+    assert ops.launches()[{"fp": "expert_ffn", "int8": "expert_ffn_q",
+                           "int4": "expert_ffn_q4"}[fmt]] == before + 2
+    want = {"fp": ref.expert_ffn_ref, "int8": ref.expert_ffn_q_ref,
+            "int4": ref.expert_ffn_q4_ref}[fmt](xe, *view, act="gelu")
+    assert torch.equal(got, copied)
+    _close(got.float().cpu(), want.float().cpu(), F32_TOL if dtype == "float32" else BF16_TOL)
+
+
 def _served_ffn(E, C, glu, seed, d=768, F=3072):
     """Full-width FFN inputs with weights at the served init scale (d^-1/2,
     F^-1/2, as chip_smoke.py phase 2 draws them), so outputs are O(1)."""

@@ -340,8 +340,8 @@ def _staging_counts(n_staging, device):
             tk.wait(timeout=20)
             _assert_resident_matches_host(store)
             tk.release()
-        assert len(pipe._staging) == n_staging
-        slabs = [slab for b in pipe._staging for slab in b.values()]
+        assert [len(ring) for ring in pipe._staging] == [n_staging]   # one shard's ring
+        slabs = [slab for ring in pipe._staging for b in ring for slab in b.values()]
         # pinned on the card (the copies are asynchronous), pageable on the CPU
         assert slabs and all(slab.is_pinned() == (torch.device(device).type == "cuda")
                              for slab in slabs)

@@ -256,17 +256,26 @@ def test_server_refuses_what_is_not_ported(tiny):
     from repro_torch.core.offload import ShardedStoreConfig
     from repro_torch.serving import ServingConfig, TenantConfig
 
-    for kw in (dict(sharded=ShardedStoreConfig(ep_shards=2)), dict(rebalance_interval=0.5)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            RequestServer(cfg_t, pt, ht, device="cpu", **kw)
-    # tenants and fault plans are served: two requests each
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.sharding.policy import serve_ctx
+
+    # tenants, fault plans and expert-parallel shards (with replicas and
+    # rebalancing) are served: two requests each
     reqs = [Request(rid=i, prompt=np.arange(4 + i, dtype=np.int32), max_new_tokens=2)
             for i in range(2)]
     for kw in (dict(tenants=(TenantConfig("a"),)),
-               dict(faults=FaultPlan.parse("upload:fail@1"), prefetch_depth=2)):
+               dict(faults=FaultPlan.parse("upload:fail@1"), prefetch_depth=2),
+               dict(sharded=ShardedStoreConfig(ep_shards=2, replicate_hot=1),
+                    rebalance_interval=1e-6, prefetch_depth=2)):
         srv = serve_port(tiny, reqs, **_ring(cfg_t, 2, **kw))
         assert sorted(tokens(srv)) == [0, 1] and not srv.rejected
         assert all(len(g) == 2 for g in tokens(srv).values())
+    assert srv.store.shards == srv.ctx.ep_shards == 2 and srv.summary()["replicate_hot"] == 1.0
+    assert len(srv.prefetch._threads) == 2
+    # only shards on distinct devices are refused (ROADMAP A14(c))
+    with pytest.raises(NotImplementedError, match=r"A14\(c\)"):
+        RequestServer(cfg_t, pt, ht, device="cpu", sharded=ShardedStoreConfig(ep_shards=2),
+                      ctx=serve_ctx(make_ep_mesh(2, devices=["cpu", "meta"])))
     with pytest.raises(TypeError, match="either"):
         RequestServer(cfg_t, pt, ht, ServingConfig(), max_lanes=2, device="cpu")
     srv = RequestServer(cfg_t, pt, ht, 3, device="cpu")        # legacy positional slots

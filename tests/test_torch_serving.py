@@ -5,9 +5,9 @@ inside a slack band and its per-epoch memo, `pop_expired`, `chunk_urgent`),
 `poisson_requests`; the store's and the pipeline's `affinity_epoch`; then the
 flag table: `SERVE_FLAGS`, the serve parser's flags, dests, defaults and
 choices, `from_args` round trips, `from_kwargs`, and the validation messages,
-equal to the reference's. `--tenants` and `--fault-plan` serve on the CPU;
-the flags of what is not ported yet (expert-parallel shards, ROADMAP A14)
-parse, and the server refuses them. Everything compares exactly."""
+equal to the reference's. `--tenants`, `--fault-plan` and `--ep-shards`
+serve on the CPU; only shards on distinct devices are refused (ROADMAP
+A14(c)). Everything compares exactly."""
 import dataclasses
 
 import numpy as np
@@ -339,15 +339,23 @@ def test_config_errors_and_kwargs_match_the_reference():
         assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("flags,item", [(["--ep-shards", "2"], "A14"),
-                                        (["--engine", "sida", "--ep-shards", "2"], "A14")])
-def test_unported_flags_parse_and_are_refused(flags, item):
+@pytest.mark.parametrize("flags,item", [(["--ep-shards", "2"], "ep_shards=2"),
+                                        (["--engine", "sida", "--ep-shards", "2"],
+                                         "replica_loads=")])
+def test_unported_flags_parse_and_are_refused(flags, item, capsys):
+    """`--ep-shards` (ROADMAP A14, ported) parses, validates and serves on
+    the CPU, through the request server and the batch engine; what is still
+    refused is shards on distinct devices (A14(c))."""
+    from repro_torch.launch.mesh import make_ep_mesh
+
     argv = ["--device", "cpu", "--requests", "1", "--no-realtime", "--seq", "8", *flags]
     if "--engine" not in flags:
         argv = ["--engine", "server", *argv]
     serve.validate_serve_args(serve.build_parser().parse_args(argv))     # parses and validates
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(argv)
+    serve.main(argv)
+    assert item in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match=r"A14\(c\)"):
+        make_ep_mesh(2, devices=["cpu", "meta"])
 
 
 @pytest.mark.parametrize("flags", [["--tenants", "paid:weight=4:pin=0.5,free"],

@@ -178,11 +178,11 @@ def _table(st, needed, step=0):
 
 
 def _free(st, key):
-    return st.free[key][0] if isinstance(st, jo.ExpertStore) else st.free[key]
+    return st.free[key][0]          # shard 0's free list (both stores keep one a shard)
 
 
 def _policy(st, key):
-    return st.policy[key][0] if isinstance(st, jo.ExpertStore) else st.policy[key]
+    return st.policy[key][0]
 
 
 def _tiers(st, layer=0):
@@ -200,7 +200,7 @@ def check_tier_invariants(st):
         warm = [sl for sl in slots if sl >= st.S8]
         assert all(st.S8 <= sl < st.S8 + st.S4 for sl in warm)
         assert len(hot) * b["hot"] + len(warm) * b["warm"] <= st.S8 * b["hot"] + st.S4 * b["warm"]
-        free = set(st.free[key]) | set(st.free4[key])
+        free = {sl for part in st.free[key] + st.free4[key] for sl in part}
         assert not free & set(slots) and free | set(slots) == set(range(st.S))
 
 
@@ -209,7 +209,7 @@ def _assert_same(sj, st):
     for f in ("loads", "hits", "evictions", "promotions", "demotions", "dropped", "bytes_h2d"):
         assert getattr(st.stats, f) == getattr(sj.stats, f), f
     for key in st.resident:
-        assert st.free[key] == sj.free[key][0] and st.free4[key] == sj.free4[key][0]
+        assert st.free[key] == sj.free[key] and st.free4[key] == sj.free4[key]
         np.testing.assert_allclose(st.alpha_ema[key], sj.alpha_ema[key], rtol=1e-12)
     for s in st.moe_subs:
         pool_t = st.serve_params["blocks"][f"sub{s}"]["moe"]
