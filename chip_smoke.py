@@ -50,7 +50,13 @@
    to the kernel over a copy of the slice: [2, 8], [2, 640], [1, 8] (B1,
    12a EP-2 / EP-4 over 4 slots), [2, 8] (B5, 12a EP-4 over 8 int8 slots),
    [1, 8] hot and warm (B5 / B6, 12a's EP-2 tiers), [4, 8], [2, 8], [3, 8]
-   (12d's switch-base-64 at EP-4).
+   (12d's switch-base-64 at EP-4). Phase 13's forms too: flash_prefill at
+   hymba-1.5b's GQA group 5 (25 / 5 heads of 64) with its 2048 window over
+   [2, 4096], over seamless-m4t-medium's encoder ([2, 512], not causal)
+   and in its cross-attention (64 queries over 512 encoder keys, a key
+   length of its own, with that form's backward), flash_decode at hymba's
+   group 5 over its 2048-slot ring and in seamless's cross form (512
+   encoder slots at position 0); SDPA with enable_gqa the library.
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -198,6 +204,30 @@
    (16 homes a shard) over 16 slots, decode on bf16 slots and on tiers
    through the queues: tok/s, loads a step, per-shard uploads, device bytes
    against Standard's.
+13. The hybrid, recurrent and encoder-decoder families (seeded weights drawn
+   on the card; their recurrences are plain PyTorch, no kernel of their
+   own). (a) hymba-1.5b at full width and depth, bf16: `forward` over
+   [2, 4096] (twice its window), 2 lanes x 128 greedy `decode_step`s from
+   an empty 2048-slot ring whose last logits match a forward over the same
+   tokens (5e-2 * max(1, max|logit|)), `verify_step` (kb 4) whose K/V and
+   Mamba state equal the accepted prefix stepped alone, bit for bit; ms a
+   prefill and a step, tok/s, peak memory, the device idle share of a
+   step and the Mamba updates' share. (b) xlstm-125m, full, fp32: forward
+   over [4, 1024] in "assoc" and "scan" mode (1e-4 relative), 4 x 128
+   decode steps against forward (5e-3 relative), no kernel launched. (c)
+   seamless-m4t-medium, full, bf16: the encoder over [2, 512] stub frames
+   and the decoder over [2, 64] tokens (flash_prefill causal, non-causal
+   and cross), cross caches from `_encode`, 2 x 64 greedy steps (flash_decode
+   over the ring and the 512 encoder slots) against forward (5e-2). (d)
+   card vs CPU, full width, 2 layers, fp32: forward logits within 1e-3 *
+   max(1, max|logit|), 16 greedy steps' tokens identical, hymba again with
+   its window cut to 64 over 96 steps (its ring wraps), hymba's verify
+   block (n_acc, tokens), seamless through its cross caches. (e) each
+   family's LM-loss gradients at 2 layers, card against CPU (each leaf
+   within 1e-3 * max|g_cpu|, floored at 1e-3 of the largest leaf's), then
+   `launch.train.train` 10 steps at full width on [4, 256], 4 layers
+   (seamless 4 + 4), fp32: losses finite and falling, flash_prefill
+   launched in hymba's and seamless's training (its cross form too).
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -213,7 +243,9 @@ rows); the training rows (`expert_ffn/train`, `flash_prefill/train`,
 `flash_decode/qwen3-G16`, ...) count their own phase-10 run's launches,
 each attention row its own form's (`ops.launches_by_shape()`; 0 fails),
 `library_max_abs_err` is the library call's own distance from the plain
-version, the expert-parallel rows (`expert_ffn/ep2-decode`, ...) count their
+version, the phase-13 rows (`flash_prefill/hymba-G5`, `/seamless-enc`,
+`/seamless-cross`, `flash_decode/hymba-G5`, `/seamless-cross`) count their
+own form's launches in their phase-13 run, the expert-parallel rows (`expert_ffn/ep2-decode`, ...) count their
 phase-12 run's launches of their kernel, and `sdpa_nocap_*` time SDPA without the softcap the kernel applies;
 flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
@@ -305,14 +337,19 @@ def nb(*ts) -> int:
 def report(failed, name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd, lib_label="",
            graph=None):
     """Print one kernel-vs-plain case; append it to `failed` if it disagrees.
-    `graph` is (kernel call, library call or None), timed again on the device
+    `tol` bounds max_abs_err, or is a tensor of `want`'s shape that bounds
+    each element's error (the worst error / bound is printed). `graph` is (kernel call, library call or None), timed again on the device
     alone by `graph_ms`. Beside each kernel time: its rate in the unit of what
     bounds it (TFLOP/s or GB/s) and the share of the bound it reaches.
     Returns the case's record for the kernels' JSON line."""
     import torch
 
-    err = (got.float() - want.float()).abs().max().item()
-    ok = bool(err <= tol) and bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    over = (diff / tol).max().item() if torch.is_tensor(tol) else err / tol
+    ok = bool(over <= 1) and bool(torch.isfinite(got.float()).all())
+    tol_txt = (f"tol=elementwise (worst error / bound {over:.4f})" if torch.is_tensor(tol)
+               else f"tol={tol:g}")
     k_dev = l_dev = None
     if graph is not None:
         k_dev = graph_ms(graph[0])
@@ -330,11 +367,11 @@ def report(failed, name, dtype, shape, got, want, tol, k_ms, p_ms, lib_ms, bnd, 
            f" device_ms={rate(k_dev)} library_device_ms="
            f"{'null' if l_dev is None else f'{l_dev:.4f}'}")
     print(f"  {name:20s} {str(dtype).replace('torch.', ''):8s} {shape} max_abs_err={err:.3e} "
-          f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={rate(k_ms)} plain_ms={p_ms:.4f} "
+          f"{tol_txt} {'ok' if ok else 'FAIL'} kernel_ms={rate(k_ms)} plain_ms={p_ms:.4f} "
           f"library_ms={lib} bound_ms={bnd[0]:.4f} ({bnd[1]}){dev}", flush=True)
     if not ok:
         failed.append(f"{name} {dtype} {shape}")
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bnd[0], bound_by=bnd[1],
+    return dict(max_abs_err=err, err_over_tol=over, ms=k_ms, plain_ms=p_ms, bound_ms=bnd[0], bound_by=bnd[1],
                 library_ms=lib_ms, device_ms=k_dev, library_device_ms=l_dev)
 
 
@@ -2742,10 +2779,19 @@ FAMILY_BATCH = (8, 256)                            # 10a/b's batches, [batch, se
 DENSE_STEPS = 16                                   # 10d's decode steps after each prompt
 
 
-def family_config(name: str, depth: int, dtype: str = "bfloat16"):
+def family_config(name: str, depth: int = 0, dtype: str = "bfloat16", **attn):
+    """A published config at `dtype`, its depth cut to `depth` where given
+    (an encoder-decoder keeps as many encoder layers), attention fields
+    replaced where asked."""
     from repro_torch.configs.base import get_config
 
-    return dataclasses.replace(get_config(name), n_layers=depth, dtype=dtype)
+    cfg = dataclasses.replace(get_config(name), dtype=dtype)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth,
+                                  n_enc_layers=depth if cfg.enc_dec else cfg.n_enc_layers)
+    if attn:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, **attn))
+    return cfg
 
 
 def family_tiers(cfg, slots: int):
@@ -3808,6 +3854,34 @@ def tkd_path(cfg, params):
     return out, tree_map(lambda t: t.cpu(), hp0), counts
 
 
+def grads_close(card: dict, cpu: dict, roundoff: float = 0.0):
+    """The card-vs-CPU gradient gate of 11c and 13e, leaf by leaf: within
+    1e-3 * max|g_cpu| of the leaf, and a card leaf of zeros where the CPU's
+    is not fails; a CPU leaf of zeros needs zeros on the card. With
+    `roundoff`, a CPU leaf no larger than roundoff * the largest leaf's is
+    zero to rounding and must be so on the card too (13e: the xLSTM cells'
+    input-gate biases b_i, whose gradient is zero in exact arithmetic: the
+    stabiliser m follows b_i's shift, so the gates i', f' and the states C,
+    n and h are unchanged). Returns (worst error / bound over the other
+    leaves, failures, the leaves held as roundoff)."""
+    top = max(g.abs().max().item() for g in cpu.values())
+    worst, bad, tiny = 0.0, [], []
+    for key, gc in cpu.items():
+        gg = card[key].cpu()
+        scale, err = gc.abs().max().item(), (gg - gc).abs().max().item()
+        if scale == 0:
+            ok = err == 0
+        elif scale <= roundoff * top:
+            ok = gg.abs().max().item() <= roundoff * top
+            tiny.append(f"{key} (max|g_cpu| {scale:.3e}, max|g_card| {gg.abs().max().item():.3e})")
+        else:
+            ok = err <= 1e-3 * scale and bool(gg.any())
+            worst = max(worst, err / (1e-3 * scale))
+        if not ok:
+            bad.append(f"{key} err={err:.3e} max|g_cpu|={scale:.3e}")
+    return worst, bad, tiny
+
+
 def offline_card_vs_cpu(cfg):
     """Phase 11c, the gradient gate: switch-base-8 at full width cut to 2
     layers (one dense, one MoE), fp32, seeded weights and 2 SyntheticLM
@@ -3858,18 +3932,8 @@ def offline_card_vs_cpu(cfg):
     card, cpu = runs["cuda"], runs["cpu"]
     bad = []
     for which, i in (("train", 0), ("tkd", 1)):
-        worst = 0.0
-        for key, gc in cpu[i].items():
-            gg = card[i][key].cpu()
-            scale = gc.abs().max().item()
-            err = (gg - gc).abs().max().item()
-            if scale == 0:
-                ok = err == 0
-            else:
-                ok = err <= 1e-3 * scale and not (gg == 0).all()
-                worst = max(worst, err / (1e-3 * scale))
-            if not ok:
-                bad.append(f"{which}:{key} err={err:.3e} max|g_cpu|={scale:.3e}")
+        worst, failed, _ = grads_close(card[i], cpu[i])
+        bad += [f"{which}:{f}" for f in failed]
         print(f"  {which} gradients, {len(cpu[i])} leaves: worst error / bound = {worst:.4f} (need <= 1)")
     for which, i in (("train", 2), ("tkd", 3)):
         for j, (a, b) in enumerate(zip(card[i], cpu[i])):
@@ -3971,6 +4035,644 @@ def sparsity_path(cfg, params):
           f"(the paper: 1 to 4)")
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the hybrid, recurrent and encoder-decoder forms; phase 13
+# ---------------------------------------------------------------------------
+
+HYMBA_PROMPT, HYMBA_STEPS = (2, 4096), 128      # 13a: a prompt twice the 2048 window; greedy steps
+XLSTM_PROMPT, XLSTM_STEPS = (4, 1024), 128      # 13b
+SEAMLESS_ENC, SEAMLESS_DEC = (2, 512), (2, 64)  # 13c: encoder frames, decoder tokens
+SEAMLESS_STEPS = 64
+VERIFY_KB = 4                                   # 13a / 13d's speculative block
+CPU_STEPS = 16                                  # 13d's greedy steps, card against CPU
+WRAP_WINDOW, WRAP_STEPS = 64, 96                # 13d: hymba's window cut so that its ring wraps
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_DEPTH, TRAIN_FAMILY_STEPS = (4, 256), 4, 10   # 13e's train()
+GRAD_BATCH = (2, 64)                            # 13e's card-vs-CPU gradient batch
+RECURRENT_FAMILY = ("hymba-1.5b", "xlstm-125m", "seamless-m4t-medium")
+
+
+def recurrent_rows():
+    """Phase 2's rows at phase 13's new attention forms: (row, config,
+    kernel, B, S, S_kv or ring slots, window, causal, launch-key form, the
+    phase-13 run that launches it)."""
+    hy, sm = family_config("hymba-1.5b"), family_config("seamless-m4t-medium")
+    W = hy.attn.window
+    return (("flash_prefill/hymba-G5", hy, "flash_prefill", *HYMBA_PROMPT, HYMBA_PROMPT[1], W,
+             True, None, "13a-prefill"),
+            ("flash_prefill/seamless-enc", sm, "flash_prefill", *SEAMLESS_ENC, SEAMLESS_ENC[1], 0,
+             False, "noncausal", "13c-prefill"),
+            ("flash_prefill/seamless-cross", sm, "flash_prefill", *SEAMLESS_DEC, SEAMLESS_ENC[1],
+             0, False, "cross", "13c-prefill"),
+            ("flash_decode/hymba-G5", hy, "flash_decode", HYMBA_PROMPT[0], 1, W, W, True, None,
+             "13a-decode"),
+            ("flash_decode/seamless-cross", sm, "flash_decode", SEAMLESS_DEC[0], 1,
+             SEAMLESS_ENC[1], 0, False, "cross", "13c-decode"))
+
+
+def bf16_attention_bound(want, mag):
+    """Each element's bound for bf16 attention against its fp32 plain
+    version: 2^-7 * (P|V| + |want|), twice the rounding of P and of the
+    output to bf16 (unit roundoff 2^-8), and never above the absolute 5e-2
+    of the other bf16 rows; `mag` is the plain version over |v|. It scales
+    with what is compared: where a softmax spreads over hundreds of keys it
+    is ~6e-3, where 5e-2 alone is as large as a typical output."""
+    return (2.0 ** -7 * (mag.float() + want.float().abs())).clamp(max=5e-2)
+
+
+def check_recurrent_family_kernels():
+    """Phase 2, phase 13's new attention forms, each against its plain
+    version on the same inputs, bf16 within `bf16_attention_bound` of each
+    element and fp32 within 1e-4: flash_prefill at
+    hymba's group of 5 (25 / 5 heads of 64) with its 2048 window over a
+    4096-token prompt, over seamless's encoder (16 / 16 heads, not causal)
+    and in seamless's cross-attention (64 queries over 512 encoder keys, a
+    key length of its own), with that form's backward against autograd over
+    the plain version; flash_decode at hymba's group of 5 over its
+    2048-slot ring and in seamless's cross form (512 encoder slots at
+    position 0). The library is SDPA with enable_gqa (a boolean mask for the
+    window, none where nothing is masked). Returns {row: bf16 record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import autograd, ops, ref
+    from repro_torch.kernels.flash_decode import decode_plan, flash_decode_cuda
+    from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(765)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    records, failed = {}, []
+    peak = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_F32_FLOPS}
+    for row, cfg, kernel, B, S, Skv, window, causal, _, _ in recurrent_rows():
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for dtype in (torch.bfloat16, torch.float32):
+            if kernel == "flash_prefill":
+                q, k, v = rnd((B, S, H, D), dtype), rnd((B, Skv, K, D), dtype), rnd((B, Skv, K, D), dtype)
+                got = flash_prefill_cuda(q, k, v, window=window, causal=causal)
+                torch.cuda.synchronize()
+                want = ref.flash_prefill_ref(q, k, v, window, 0.0, causal)
+                mag = ref.flash_prefill_ref(q, k, v.abs(), window, 0.0, causal)
+                mask = ref.prefill_mask(S, Skv, window, causal, dev)
+                pairs = int(mask.sum())
+                bnd = bound_ms(nb(q, k, v, got), 4 * B * H * D * pairs, peak[dtype])
+                kern = lambda q=q, k=k, v=v: flash_prefill_cuda(q, k, v, window=window,
+                                                                causal=causal)
+                plain = lambda q=q, k=k, v=v: ref.flash_prefill_ref(q, k, v, window, 0.0, causal)
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                kw = ({"attn_mask": mask} if window else {"is_causal": True} if causal else {})
+                lib = lambda qt=qt, kt=kt, vt=vt, kw=kw: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, **kw)
+                label = " (SDPA, enable_gqa" + (", boolean band mask)" if window else
+                                                ", is_causal)" if causal else ", unmasked)")
+                lib_out = lambda lib=lib: lib().transpose(1, 2)
+                shape = (B, S, Skv, H, K, D)
+            else:
+                q, k, v = rnd((B, H, D), dtype), rnd((B, Skv, K, D), dtype), rnd((B, Skv, K, D), dtype)
+                if causal:      # hymba's ring, every lane past its wrap
+                    p = torch.tensor([Skv + 1000 + 37 * i for i in range(B)], dtype=torch.int32)
+                    s_idx = torch.arange(Skv, dtype=torch.int32)[None, :]
+                    sp = (p[:, None] - ((p[:, None] - s_idx) % Skv)).to(dev).contiguous()
+                    p = p.to(dev)
+                else:           # the cross form: every encoder slot at position 0
+                    p = torch.zeros(B, dtype=torch.int32, device=dev)
+                    sp = torch.zeros((B, Skv), dtype=torch.int32, device=dev)
+                got = flash_decode_cuda(q, k, v, sp, p, window=window)
+                torch.cuda.synchronize()
+                want = ref.flash_decode_ref(q, k, v, sp, p, window=window)
+                mag = ref.flash_decode_ref(q, k, v.abs(), sp, p, window=window)
+                bnd = bound_ms(nb(q, k, v, sp, p, got), 4 * B * H * Skv * D, peak[dtype])
+                kern = lambda q=q, k=k, v=v, sp=sp, p=p: flash_decode_cuda(q, k, v, sp, p,
+                                                                           window=window)
+                plain = lambda q=q, k=k, v=v, sp=sp, p=p: ref.flash_decode_ref(q, k, v, sp, p,
+                                                                               window=window)
+                qt = q[:, :, None, :]
+                kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+                valid = ((sp >= 0) & (sp <= p[:, None]) & (sp > p[:, None] - window))[:, None, None]
+                kw = {"attn_mask": valid} if window else {}
+                lib = lambda qt=qt, kt=kt, vt=vt, kw=kw: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, **kw)
+                label = " (SDPA, enable_gqa" + (", boolean mask)" if window else ", unmasked)")
+                lib_out = lambda lib=lib: lib()[:, :, 0]
+                shape = (B, H, D, Skv, K)
+                print(f"    {row} plan (splits) = {decode_plan(B, K, Skv, H // K, D, dtype)}")
+            bf16 = dtype == torch.bfloat16
+            tol = bf16_attention_bound(want, mag) if bf16 else 1e-4
+            rec = report(failed, row, dtype, shape, got, want, tol, time_ms(kern), time_ms(plain),
+                         time_ms(lib), bnd, label, graph=(kern, lib))
+            library_check(rec, lib_out, want)
+            if bf16:
+                records[row] = rec
+            if row == "flash_prefill/seamless-cross":
+                # the form's backward: S again, dP, dV, dQ, dK over every pair
+                check_backward(
+                    failed, records[row], row,
+                    lambda q, k, v: ops.flash_prefill(q, k, v, causal=False, cross=True),
+                    lambda q, k, v: ref.flash_prefill_ref(q, k, v, causal=False).to(q.dtype),
+                    [q, k, v],
+                    lambda do, q=q, k=k, v=v: autograd.flash_prefill_backward(
+                        q, k, v, 0, 0.0, False, do),
+                    5e-2 if bf16 else 1e-4,
+                    bound_ms(2 * nb(q, k, v) + nb(q), 10 * B * H * D * pairs, peak[dtype]),
+                    library=lambda q, k, v: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        enable_gqa=True).transpose(1, 2),
+                    tag=" bf16" if bf16 else "")
+            del q, k, v, got, want, mag, tol
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: the phase-13 forms disagree with their plain versions: "
+                         f"{failed}")
+    return records
+
+
+def seed_cross(params, cfg, cache, enc):
+    """An encoder-decoder cache's cross-attention K/V, in place: each decoder
+    group's `xattn` projection of `_encode`'s output over `enc`, as the
+    reference's tests/test_decode_consistency.py seeds them."""
+    from repro_torch.models.attention import _project_kv
+    from repro_torch.models.transformer import _encode
+    from repro_torch.tree import tree_map
+
+    enc_out = _encode(params, cfg, enc)
+    for g in range(cfg.n_layers):
+        k, v = _project_kv(tree_map(lambda t: t[g], params["blocks"])["sub0"]["xattn"], enc_out,
+                           cfg)
+        cache["sub0"]["cross_k"][g], cache["sub0"]["cross_v"][g] = k, v
+
+
+def greedy(params, cfg, cache, tok, steps: int, keep_logits: bool = False):
+    """`steps` greedy decode_steps from `tok` [B]: (tokens fed [B, steps],
+    the last step's logits, every step's logits on the host if asked, the
+    cache). The tokens stay on the device: nothing waits for the card."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step
+
+    V = cfg.vocab_size
+    fed, kept = [], []
+    for _ in range(steps):
+        fed.append(tok)
+        lg, cache = decode_step(params, cache, tok, cfg)
+        if keep_logits:
+            kept.append(lg[:, :V].float().cpu())
+        tok = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
+    return torch.stack(fed, dim=1), lg, kept, cache
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| over max(1, max|want|), in fp32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+def verify_block(params, cfg, cache, last, kb: int, seed: int):
+    """A speculative block after `last` [B]: lane 0's first two drafts are
+    the model's greedy tokens (stepped on a clone of `cache`), the rest
+    random. Returns [B, kb] int32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    probe = tree_map(lambda t: t.clone(), cache)
+    own, _, _, _ = greedy(params, cfg, probe, last, kb - 1)
+    del probe
+    B = last.shape[0]
+    rnd = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, kb - 1)).astype(np.int32)
+    drafts = torch.as_tensor(rnd, device=last.device)
+    drafts[0, :2] = own[0, 1:3]
+    return torch.cat([last[:, None], drafts], dim=1)
+
+
+def check_rollback(params, cfg, cache, block, name: str):
+    """verify_step over `block` from `cache`, then each lane's accepted
+    prefix stepped alone from a clone of the same cache: every K/V and
+    state leaf of the lane bit-equal. Returns (n_acc, out tokens)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, verify_step
+    from repro_torch.tree import flatten, tree_map
+
+    before = tree_map(lambda t: t.clone(), cache)
+    out, n_acc, _, vc = verify_step(params, cache, block, cfg)
+    vflat = {k: flatten(vc[k]) for k in vc if k.startswith("sub")}
+    bad = []
+    for lane in range(block.shape[0]):
+        ref = tree_map(lambda t: t.clone(), before)
+        for i in range(int(n_acc[lane])):
+            _, ref = decode_step(params, ref, block[:, i], cfg)
+        for skey, leaves in vflat.items():
+            for key, t in leaves.items():
+                if not torch.equal(t[:, lane], flatten(ref[skey])[key][:, lane]):
+                    bad.append(f"lane {lane} {skey}/{key}")
+        if int(vc["pos"][lane]) != int(before["pos"][lane]) + int(n_acc[lane]):
+            bad.append(f"lane {lane} pos")
+        del ref
+    print(f"    {name} verify_step (kb {block.shape[1]}): n_acc {n_acc.tolist()}; every K/V and "
+          f"state leaf bit-equal to the accepted prefix stepped alone: {not bad}")
+    if bad:
+        raise SystemExit(f"chip_smoke: {name}'s verify_step rollback differs from the accepted "
+                         f"prefix: {bad[:8]}")
+    return n_acc.cpu(), out.cpu()
+
+
+def step_idle_share(params, cfg, cache, tok, steps: int):
+    """Over `steps` decode steps (torch.profiler, device activity only, as
+    5a): (device idle share, device busy ms a step, device operations a
+    step: the kernels and copies the profiler counts), or None where it
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        greedy(params, cfg, cache, tok, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = [(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0),
+               e.count) for e in prof.key_averages()]
+    busy = sum(us for us, _ in dev_us) / 1e6
+    n_ops = sum(n for us, n in dev_us if us > 0)
+    return None if busy <= 0 else (max(0.0, 1 - busy / wall), busy / steps * 1e3, n_ops / steps)
+
+
+def idle_text(idle) -> str:
+    """`step_idle_share`'s result as a line's words."""
+    if idle is None:
+        return "decode step device_idle_share=not measured"
+    return (f"decode step device_idle_share={idle[0]:.3f} (device busy {idle[1]:.3f} ms and "
+            f"{idle[2]:.1f} device operations a step)")
+
+
+def hymba_path():
+    """Phase 13a: hymba-1.5b at full width and depth, bf16, seeded weights
+    drawn on the card: `forward` over a [2, 4096] prompt (twice the
+    window), then 2 lanes x 128 greedy `decode_step`s from an empty
+    2048-slot ring, the last step's logits against a `forward` over the
+    same tokens (5e-2 * max(1, max|logit|)), then `verify_step` (kb 4) whose
+    K/V and Mamba state equal the accepted prefix stepped alone, bit for
+    bit. Prints ms a prefill and a decode step, tok/s, peak memory, the
+    device idle share of a decode step and the Mamba updates' share of one.
+    Returns {"13a-prefill" / "13a-decode": launches_by_shape}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import forward, init_cache, init_params, param_count
+    from repro_torch.tree import tree_map
+
+    cfg = family_config("hymba-1.5b")
+    B, S = HYMBA_PROMPT
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    V = cfg.vocab_size
+    print(f"  {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads "
+          f"of {cfg.hd}, window {cfg.attn.window}, Mamba state {cfg.ssm.state_dim} (d_inner "
+          f"{cfg.ssm.expand * cfg.d_model}), d_ff {cfg.d_ff}, vocab {V}, {cfg.dtype}; "
+          f"{param_count(params)} params (init {time.perf_counter() - t0:.2f} s)")
+    toks = torch.as_tensor(np.random.default_rng(21).integers(0, V, (B, S)).astype(np.int32),
+                           device="cuda")
+    counts = {}
+    with torch.inference_mode():
+        forward(params, cfg, toks[:, :64])                        # warm
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = forward(params, cfg, toks)["logits"]
+        torch.cuda.synchronize()
+        ms_prefill = (time.perf_counter() - t0) * 1e3
+        counts["13a-prefill"] = ops.launches_by_shape()
+        ok = bool(torch.isfinite(logits[..., :V]).all()) and tuple(logits.shape) == (B, S, cfg.padded_vocab)
+        del logits
+        print(f"    forward [{B}, {S}]: {ms_prefill:.1f} ms ({B * S / ms_prefill * 1e3:.0f} tok/s), "
+              f"finite logits of shape [{B}, {S}, {cfg.padded_vocab}]: {ok}")
+        if not ok:
+            raise SystemExit("chip_smoke: 13a's prefill logits are not finite or misshapen")
+
+        cache = init_cache(cfg, B, cfg.attn.window, device="cuda")
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed, lg, _, cache = greedy(params, cfg, cache, toks[:, 0], HYMBA_STEPS)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / HYMBA_STEPS
+        counts["13a-decode"] = ops.launches_by_shape()
+        ref = forward(params, cfg, fed)["logits"][:, -1, :V]
+        err = rel_err(lg[:, :V], ref)
+        print(f"    decode {B} lanes x {HYMBA_STEPS} steps over a {cache['sub0']['k'].shape[2]}-slot "
+              f"ring: {ms_step:.3f} ms a step, {B / ms_step * 1e3:.1f} tok/s; last logits vs "
+              f"forward over the same tokens: max_abs_err / max(1, max|logit|) = {err:.3e} "
+              f"(tol 5e-2)")
+        if not err <= 5e-2:
+            raise SystemExit(f"chip_smoke: 13a's decode disagrees with its forward: {err}")
+        last = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
+        block = verify_block(params, cfg, cache, last, VERIFY_KB, seed=22)
+        check_rollback(params, cfg, cache, block, "13a")
+        peak = torch.cuda.max_memory_allocated()
+        idle = step_idle_share(params, cfg, init_cache(cfg, B, cfg.attn.window, device="cuda"),
+                               toks[:, 0], 16)
+        # the recurrences alone: the 32 layers' Mamba decode updates of a step
+        mp = [tree_map(lambda t: t[g], params["blocks"]["sub0"]["mamba"])
+              for g in range(cfg.n_layers)]
+        st = ssm.mamba_init_state(cfg, B, params["embed"].dtype, "cuda")
+        h = torch.randn((B, cfg.d_model), device="cuda").to(params["embed"].dtype)
+        ms_mamba = time_ms(lambda: [ssm.mamba_decode(p, h, st, cfg) for p in mp], reps=10)
+    print(f"    peak max_memory_allocated={peak}; {idle_text(idle)}; the {cfg.n_layers} Mamba decode updates alone {ms_mamba:.3f} ms a step, "
+          f"{ms_mamba / ms_step:.3f} of a decode step")
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def xlstm_path():
+    """Phase 13b: xlstm-125m at full width and depth (12 blocks, m / s
+    alternating, 4 heads), fp32, seeded weights: `forward` over [4, 1024] in
+    "assoc" and in "scan" mode, equal within 1e-4 relative (the reference's
+    bound), then 4 lanes x 128 greedy decode steps whose last logits match a
+    forward over the same tokens within 5e-3 relative. No attention kernel
+    lies on this path: every launch count must stay 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward, init_cache, init_params, param_count
+
+    cfg = family_config("xlstm-125m", dtype="float32")
+    B, S = XLSTM_PROMPT
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    V = cfg.vocab_size
+    toks = torch.as_tensor(np.random.default_rng(23).integers(0, V, (B, S)).astype(np.int32),
+                           device="cuda")
+    print(f"  {cfg.n_layers} blocks {cfg.ssm.xlstm_pattern}, d_model {cfg.d_model}, "
+          f"{cfg.ssm.xlstm_heads} heads, vocab {V}, {cfg.dtype}; {param_count(params)} params")
+    ops.reset_launches()
+    with torch.inference_mode():
+        ms, out = {}, {}
+        for mode in ("assoc", "scan"):
+            forward(params, cfg, toks[:, :64], scan_mode=mode)      # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[mode] = forward(params, cfg, toks, scan_mode=mode)["logits"][..., :V]
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+        err_modes = ((out["assoc"] - out["scan"]).abs().max() / out["scan"].abs().max()).item()
+        del out
+        cache = init_cache(cfg, B, XLSTM_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed, lg, _, cache = greedy(params, cfg, cache, toks[:, 0], XLSTM_STEPS)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / XLSTM_STEPS
+        ref = forward(params, cfg, fed)["logits"][:, -1, :V]
+        err_dec = ((lg[:, :V] - ref).abs().max() / ref.abs().max()).item()
+        idle = step_idle_share(params, cfg, init_cache(cfg, B, 16, device="cuda"), toks[:, 0], 16)
+    launched = {k: n for k, n in ops.launches().items() if n}
+    print(f"    forward [{B}, {S}]: assoc {ms['assoc']:.1f} ms, scan {ms['scan']:.1f} ms; "
+          f"max|assoc - scan| / max|scan| = {err_modes:.3e} (tol 1e-4)")
+    print(f"    decode {B} lanes x {XLSTM_STEPS} steps: {ms_step:.3f} ms a step, "
+          f"{B / ms_step * 1e3:.1f} tok/s; last logits vs forward: {err_dec:.3e} relative (tol 5e-3); "
+          f"{idle_text(idle)}")
+    print(f"    kernel launches in 13b: {launched or 'none'} (xLSTM has no attention: its "
+          f"recurrences are plain PyTorch on the card)")
+    if not (err_modes <= 1e-4 and err_dec <= 5e-3 and not launched):
+        raise SystemExit(f"chip_smoke: 13b failed: assoc vs scan {err_modes}, decode vs forward "
+                         f"{err_dec}, launches {launched}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def seamless_path():
+    """Phase 13c: seamless-m4t-medium at full width and depth (12 encoder +
+    12 decoder layers), bf16, seeded weights and stub frames: the encoder
+    over [2, 512] frames and the decoder's `forward` over [2, 64] tokens
+    (flash_prefill non-causal over the encoder, causal, and in the cross
+    form at 64 queries over 512 keys); cross caches seeded from `_encode`,
+    then 2 x 64 greedy decode steps (flash_decode over the self ring and
+    over the 512 encoder slots), the last logits against a forward over the
+    same tokens within 5e-2 * max(1, max|logit|). Returns {"13c-prefill" /
+    "13c-decode": launches_by_shape}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward, init_cache, init_params, param_count
+
+    cfg = family_config("seamless-m4t-medium")
+    (B, E), (_, S) = SEAMLESS_ENC, SEAMLESS_DEC
+    dt = getattr(torch, cfg.dtype)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    V = cfg.vocab_size
+    rng = np.random.default_rng(24)
+    enc = torch.as_tensor(rng.normal(size=(B, E, cfg.d_model)), device="cuda").to(dt)
+    toks = torch.as_tensor(rng.integers(0, V, (B, S)).astype(np.int32), device="cuda")
+    print(f"  {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, vocab {V}, {cfg.dtype}; {param_count(params)} params")
+    counts = {}
+    with torch.inference_mode():
+        forward(params, cfg, toks[:, :8], enc_input=enc[:, :8])    # warm
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = forward(params, cfg, toks, enc_input=enc)["logits"][..., :V]
+        torch.cuda.synchronize()
+        ms_fwd = (time.perf_counter() - t0) * 1e3
+        counts["13c-prefill"] = ops.launches_by_shape()
+        ok = bool(torch.isfinite(logits).all())
+        del logits
+        cache = init_cache(cfg, B, SEAMLESS_STEPS, device="cuda", enc_len=E)
+        seed_cross(params, cfg, cache, enc)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fed, lg, _, cache = greedy(params, cfg, cache, toks[:, 0], SEAMLESS_STEPS)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / SEAMLESS_STEPS
+        counts["13c-decode"] = ops.launches_by_shape()
+        ref = forward(params, cfg, fed, enc_input=enc)["logits"][:, -1, :V]
+        err = rel_err(lg[:, :V], ref)
+        cache = init_cache(cfg, B, 16, device="cuda", enc_len=E)
+        seed_cross(params, cfg, cache, enc)
+        idle = step_idle_share(params, cfg, cache, toks[:, 0], 16)
+    print(f"    encoder [{B}, {E}] + decoder forward [{B}, {S}]: {ms_fwd:.1f} ms, finite logits: "
+          f"{ok}; decode {B} lanes x {SEAMLESS_STEPS} steps (cross over {E} slots): "
+          f"{ms_step:.3f} ms a step, {B / ms_step * 1e3:.1f} tok/s; last logits vs forward: "
+          f"{err:.3e} of max(1, max|logit|) (tol 5e-2); {idle_text(idle)}")
+    print(f"    launches by form: prefill {counts['13c-prefill']}; decode {counts['13c-decode']}")
+    if not (ok and err <= 5e-2):
+        raise SystemExit(f"chip_smoke: 13c failed: finite {ok}, decode vs forward {err}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_run(params, cfg, dev: str, toks, enc, steps: int, window_cfg=None, block=None):
+    """One device's side of 13d: forward logits (host, fp32), `steps` greedy
+    decode tokens from a fresh cache (cross caches seeded); with
+    `window_cfg` the same from its cut ring over WRAP_STEPS steps, so the
+    ring wraps, then a VERIFY_KB block on that wrapped ring (the card's
+    own, checked against the accepted prefix; the CPU runs the card's
+    `block`)."""
+    import torch
+
+    from repro_torch.models.transformer import forward, init_cache, verify_step
+    from repro_torch.tree import tree_map
+
+    V = cfg.vocab_size
+    p = tree_map(lambda t: t.to(dev), params)
+    toks = toks.to(dev)
+    enc = None if enc is None else enc.to(dev)
+    res = {}
+    with torch.inference_mode():
+        res["logits"] = forward(p, cfg, toks, enc_input=enc)["logits"][..., :V].float().cpu()
+        cache = init_cache(cfg, toks.shape[0], steps, device=dev,
+                           enc_len=enc.shape[1] if cfg.enc_dec else 0)
+        if cfg.enc_dec:
+            seed_cross(p, cfg, cache, enc)
+        res["tokens"] = greedy(p, cfg, cache, toks[:, 0], steps)[0].cpu()
+        if window_cfg is not None:
+            wc = init_cache(window_cfg, toks.shape[0], WRAP_WINDOW, device=dev)
+            fed, lg, _, wc = greedy(p, window_cfg, wc, toks[:, 0], WRAP_STEPS)
+            res["wrap_tokens"] = fed.cpu()
+            if block is None:
+                last = torch.argmax(lg[:, :V], dim=-1).to(torch.int32)
+                block = verify_block(p, window_cfg, wc, last, VERIFY_KB, seed=25)
+                res["block"] = block.cpu()
+                res["n_acc"], res["out"] = check_rollback(
+                    p, window_cfg, wc, block, f"13d {cfg.name} (wrapped {WRAP_WINDOW}-slot ring)")
+            else:
+                out, n_acc, _, _ = verify_step(p, wc, block.to(dev), window_cfg)
+                res["n_acc"], res["out"] = n_acc.cpu(), out.cpu()
+    del p
+    return res
+
+
+def recurrent_card_vs_cpu():
+    """Phase 13d: each family at full width cut to 2 layers (seamless 2 + 2),
+    fp32, the same seeded weights on the card and the CPU: `forward` logits
+    within 1e-3 * max(1, max|logit|) ([2, 64] tokens; seamless over 32 stub
+    frames), 16 greedy decode steps' tokens identical (seamless through its
+    cross caches); hymba again with its window cut to 64 over 96 steps, so
+    its 64-slot ring wraps, tokens identical, then verify_step (kb 4) on
+    that wrapped ring: the card's rollback bit-equal to the accepted
+    prefix, n_acc and tokens identical to the CPU's."""
+    import numpy as np
+    import torch
+
+    for name in RECURRENT_FAMILY:
+        t0 = time.perf_counter()
+        cfg = family_config(name, 2, "float32")
+        params, _ = card_seeded_model(cfg)
+        rng = np.random.default_rng(26)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        enc = (torch.as_tensor(rng.normal(size=(2, 32, cfg.d_model)), dtype=torch.float32)
+               if cfg.enc_dec else None)
+        hymba = cfg.block_kind == "hymba"
+        wcfg = family_config(name, 2, "float32", window=WRAP_WINDOW) if hymba else None
+        card = family_run(params, cfg, "cuda", toks, enc, CPU_STEPS, wcfg)
+        cpu = family_run(params, cfg, "cpu", toks, enc, CPU_STEPS, wcfg, block=card.get("block"))
+        err = rel_err(card["logits"], cpu["logits"])
+        same = {k: bool(torch.equal(card[k], cpu[k]))
+                for k in ("tokens", "wrap_tokens", "n_acc", "out") if k in card}
+        print(f"    {name} (2 layers, fp32, {time.perf_counter() - t0:.1f} s): forward max_abs_err "
+              f"/ max(1, max|logit|) = {err:.3e} (tol 1e-3); identical: {same}")
+        if not (err <= 1e-3 and all(same.values())):
+            raise SystemExit(f"chip_smoke: 13d, {name} on the card disagrees with the CPU: "
+                             f"{err}, {same}")
+        del params
+        torch.cuda.empty_cache()
+    print(f"  (13d cut hymba's window to {WRAP_WINDOW} for the wrap run and its verify block: "
+          f"{WRAP_STEPS} steps over a {WRAP_WINDOW}-slot ring)")
+
+
+def recurrent_training():
+    """Phase 13e: (i) each family at full width cut to 2 layers, fp32, the
+    first SyntheticLM [2, 64] batch's LM-loss gradients (`loss_and_grads`:
+    remat, "assoc"; seamless's encoder over train()'s stub frames) on the
+    card and the CPU, each leaf within `grads_close`'s bound (b_i's
+    roundoff held below 1e-6 of the largest leaf); (ii)
+    `launch.train.train` 10 steps at full width on [4, 256], cut to 4
+    layers (seamless 4 + 4), fp32: its `get_config` returns the cut
+    config while it runs. Gates: losses finite and the last below
+    the first; flash_prefill launched in hymba's and seamless's training,
+    seamless's in its cross form too. Returns {name: launches_by_shape}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.tree import flatten, tree_map
+
+    B, S = GRAD_BATCH
+    for name in RECURRENT_FAMILY:
+        t0 = time.perf_counter()
+        cfg = family_config(name, 2, "float32")
+        host, _ = card_seeded_model(cfg)
+        data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, n_domains=8),
+                           seed=0)
+        toks, labels = (torch.from_numpy(a).long() for a in next(iter(data.batches(B, 1))))
+        enc = (torch.from_numpy(np.random.default_rng(0).normal(size=(B, 16, cfg.d_model))).float()
+               if cfg.enc_dec else None)
+        grads, losses = {}, {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(dev), host)
+            total, _, g = loss_and_grads(cfg, p, toks.to(dev), labels.to(dev),
+                                         enc_input=None if enc is None else enc.to(dev))
+            grads[dev], losses[dev] = {k: t.cpu() for k, t in flatten(g).items()}, float(total)
+            del p, g
+        worst, bad, tiny = grads_close(grads["cuda"], grads["cpu"], roundoff=1e-6)
+        lerr = abs(losses["cuda"] - losses["cpu"]) / max(1.0, abs(losses["cpu"]))
+        print(f"    {name} (2 layers, fp32, {time.perf_counter() - t0:.1f} s): loss card "
+              f"{losses['cuda']:.6f} cpu {losses['cpu']:.6f}; {len(grads['cpu'])} gradient "
+              f"leaves, worst error / bound = {worst:.4f} (need <= 1); zero to rounding on "
+              f"both (<= 1e-6 of the largest leaf): {tiny or 'none'}")
+        if bad or not lerr <= 1e-4:
+            raise SystemExit(f"chip_smoke: 13e, {name}'s gradients on the card disagree with the "
+                             f"CPU's: loss {lerr}, {bad[:8]}")
+        del host, grads
+        torch.cuda.empty_cache()
+
+    Bt, St = TRAIN_FAMILY_BATCH
+    counts = {}
+    for name in RECURRENT_FAMILY:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        cut = family_config(name, TRAIN_FAMILY_DEPTH, "float32")
+        published, launcher.get_config = launcher.get_config, lambda arch: cut
+        try:
+            _, hist = launcher.train(name, steps=TRAIN_FAMILY_STEPS, batch=Bt, seq=St, lr=3e-4,
+                                     reduced=False, log_every=1, seed=0, device="cuda")
+        finally:
+            launcher.get_config = published
+        counts[name] = ops.launches_by_shape()
+        losses = [h["loss"] for h in hist]
+        el = [h["elapsed_s"] for h in hist]
+        ms = (el[-1] - el[1]) / (len(el) - 2) * 1e3
+        prefill = {k[-1] if len(k) == 7 else "causal": n for k, n in counts[name].items()
+                   if k[0] == "flash_prefill"}
+        print(f"    train {name} ({TRAIN_FAMILY_DEPTH} layers, fp32, [{Bt}, {St}]): "
+              f"{time.perf_counter() - t0:.1f} s, {ms:.1f} ms a step (steps 2-{len(el)}), loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; flash_prefill launches by form {prefill}")
+        need = {"hymba-1.5b": ("causal",), "seamless-m4t-medium": ("causal", "noncausal", "cross"),
+                "xlstm-125m": ()}[name]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and all(prefill.get(f, 0) > 0 for f in need)):
+            raise SystemExit(f"chip_smoke: 13e, training {name} failed: losses {losses}, "
+                             f"flash_prefill by form {prefill}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4034,6 +4736,11 @@ def main() -> int:
     print(f"  -- the attention-family shapes (GLU experts, GQA group 16, head_dim 160 / 256)")
     records.update(check_family_kernels(lanes, cache_len))
     print(f"  (the attention-family shapes took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    print(f"  -- phase 13's forms (hymba's GQA group 5 and window, seamless's encoder and "
+          f"cross-attention)")
+    records.update(check_recurrent_family_kernels())
+    print(f"  (phase 13's forms took {time.perf_counter() - t0:.1f} s)")
 
     print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -4150,6 +4857,24 @@ def main() -> int:
           f"[{time.perf_counter() - t_start:.1f} s]")
     offline_card_vs_cpu(cfg)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+    t13 = time.perf_counter()
+    rcounts = {}
+    print(f"== phase 13a: hymba-1.5b at full width and depth (bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    rcounts.update(hymba_path())
+    print(f"== phase 13b: xlstm-125m at full width and depth (fp32) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    xlstm_path()
+    print(f"== phase 13c: seamless-m4t-medium at full width and depth (bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    rcounts.update(seamless_path())
+    print(f"== phase 13d: the three families, card vs CPU (full width, 2 layers, fp32) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    recurrent_card_vs_cpu()
+    print(f"== phase 13e: training the three families (gradients card vs CPU; train() at "
+          f"{TRAIN_FAMILY_DEPTH} layers) [{time.perf_counter() - t_start:.1f} s]")
+    tfcounts = recurrent_training()
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -4266,6 +4991,17 @@ def main() -> int:
     for row, n in ep_rows.items():
         meta[row] = ("cuda", *sources[row.split("/")[0]])
         launches[row] = n
+    # phase 13's forms: each row's launches of its own form in its run
+    for row, rcfg, kernel, *_, window, _, form, run in recurrent_rows():
+        key = (kernel, rcfg.n_heads, rcfg.n_kv_heads, rcfg.hd, window, 0.0) + ((form,) if form else ())
+        meta[row] = ("cuda", *sources[kernel])
+        launches[row] = rcounts[run].get(key, 0)
+    idle = [row for row, _, *_ in recurrent_rows() if launches[row] == 0]
+    if idle:
+        raise SystemExit(f"chip_smoke: phase 2 held forms that phase 13 never launched: {idle}")
+    train_cross = sum(n for k, n in tfcounts["seamless-m4t-medium"].items() if k[-1] == "cross")
+    print(f"  phase 13e's seamless training launched flash_prefill in the cross form "
+          f"{train_cross} times")
     # each decode kernel's launches on the speculative path (phase 5e): the
     # all-resident bf16 run for the ring kernels, the tiered paged run for
     # the quantised and paged ones; null for the batch serves' rows

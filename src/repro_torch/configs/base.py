@@ -2,9 +2,9 @@
 
 A copy of the JAX package's plain dataclasses, so the port imports nothing
 of `repro`. Field for field the same as the reference (a test holds them
-equal). Registered: the Switch family and the decoder-only attention
-configs; hymba, xlstm and seamless wait for their block kinds (ROADMAP
-A15(b)).
+equal). Registered: the Switch family, the decoder-only attention
+configs, the hybrid hymba, the recurrent xlstm and the encoder-decoder
+seamless.
 """
 from __future__ import annotations
 
@@ -385,11 +385,14 @@ def _ensure_loaded() -> None:
         chameleon_34b,
         deepseek_moe_16b,
         gemma2_9b,
+        hymba_1_5b,
         qwen2_1_5b,
         qwen3_moe_235b_a22b,
+        seamless_m4t_medium,
         smollm_135m,
         stablelm_12b,
         switch_base,
+        xlstm_125m,
     )
 
 

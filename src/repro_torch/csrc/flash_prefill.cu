@@ -14,9 +14,13 @@
 // becomes a loop inside the block, which only visits the key tiles its rows
 // can see (the causal upper bound, the window's lower bound) and masks only
 // the tiles that straddle a boundary (the diagonal, the window's edge, or
-// keys >= S). A tile with no visible key for a row leaves its carry
+// keys >= S_kv). A tile with no visible key for a row leaves its carry
 // untouched — the Pallas kernel's zeroing of fully-masked tiles. Any S works:
-// rows and keys are masked against S (the Pallas kernel asserted S % bq == 0).
+// rows are masked against S and keys against S_kv (the Pallas kernel asserted
+// S % bq == 0). The key side has a length of its own, S_kv, for
+// cross-attention over an encoder's output; it differs from S only unmasked
+// (not causal, no window: the Python wrapper refuses the rest), so a key-side
+// bound reads S_kv and a mask compares positions only where S_kv == S.
 //
 // bf16: FlashAttention-2's register layout on the tensor cores. A block
 // owns 64 query rows of one (batch, head), four warps of 16 rows; its Q
@@ -70,7 +74,7 @@ template <int D>
 __global__ void __launch_bounds__(kRows * 32)
 flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int S, int H, int KH, int window, float cap, int causal,
+                         int S, int Skv, int H, int KH, int window, float cap, int causal,
                          float scale) {
   constexpr int DL = D / 32;  // acc values per lane
   extern __shared__ __align__(16) float fsm[];
@@ -91,7 +95,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 
   // key range any row of this block can see
   const int q_last = min(q0 + kRows, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
 
   float m = -INFINITY, l = 0.f, acc[DL];
@@ -103,8 +107,8 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int i = tid; i < kTile * D; i += kRows * 32) {
       const int r = i / D, c = i % D;
       float kv = 0.f, vv = 0.f;
-      if (t0 + r < S) {
-        const size_t off = (((size_t)b * S + t0 + r) * KH + kh) * D + c;
+      if (t0 + r < Skv) {
+        const size_t off = (((size_t)b * Skv + t0 + r) * KH + kh) * D + c;
         kv = k[off];
         vv = v[off];
       }
@@ -202,8 +206,8 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p, bool ok) {
 template <int D>
 __global__ void __launch_bounds__(Tc<D>::THREADS, Tc<D>::MIN_BLOCKS)
 flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KH,
-                        int window, float cap, int causal, float scale) {
+                        const bf16* __restrict__ v, bf16* __restrict__ o, int S, int Skv, int H,
+                        int KH, int window, float cap, int causal, float scale) {
   using T = Tc<D>;
   constexpr int LD = T::LD, TILE = T::TILE, STAGES = T::STAGES;
   constexpr int DC = D / 16;   // 16-wide contraction chunks of Q K^T
@@ -260,21 +264,21 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // the key tiles any row of this block can see
   const int q_last = min(q0 + QT, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Skv;
   const int t_begin = window > 0 ? (max(0, q0 - window + 1) / KT) * KT : 0;
   const int n_tiles = (k_end - t_begin + KT - 1) / KT;
 
   // K/V tile rows t0 .. t0 + KT - 1 into ring slot `buf`, one cp.async
-  // group; keys >= S read zeros
+  // group; keys >= S_kv read zeros
   const size_t ks_ = (size_t)KH * D;
-  const bf16* kb = k + ((size_t)b * S * KH + kh) * D;
-  const bf16* vb = v + ((size_t)b * S * KH + kh) * D;
+  const bf16* kb = k + ((size_t)b * Skv * KH + kh) * D;
+  const bf16* vb = v + ((size_t)b * Skv * KH + kh) * D;
   auto load_tile = [&](int buf, int t0) {
     constexpr int CH = D / 8;   // 16-byte chunks a row
 #pragma unroll
     for (int i = tid; i < KT * CH; i += T::THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = t0 + r < S;
+      const bool ok = t0 + r < Skv;
       const size_t off = (size_t)(ok ? t0 + r : 0) * ks_ + c;
       const int so = buf * TILE + r * LD + c;
       cp_async16(rt::smem_u32(sk + so), kb + off, ok ? 16 : 0);
@@ -328,7 +332,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // to the log2 domain, with the softcap; then the mask, only where the
-    // tile straddles a boundary (the diagonal, the window's edge, or S)
+    // tile straddles a boundary (the diagonal, the window's edge, or S_kv)
     if (cap > 0.f) {
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
@@ -340,13 +344,13 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[nb][i] *= sl2;
     }
-    if ((causal && t0 + KT - 1 > q0) || (window > 0 && t0 <= q_last - window) || t0 + KT > S) {
+    if ((causal && t0 + KT - 1 > q0) || (window > 0 && t0 <= q_last - window) || t0 + KT > Skv) {
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int j = t0 + 8 * nb + 2 * t + (i & 1), r = row[i >> 1];
-          if (j >= S || (causal && j > r) || (window > 0 && j <= r - window))
+          if (j >= Skv || (causal && j > r) || (window > 0 && j <= r - window))
             s[nb][i] = -INFINITY;
         }
     }
@@ -423,8 +427,9 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                      int KH, int window, float cap, int causal, cudaStream_t s) {
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S,
+                      int Skv, int H, int KH, int window, float cap, int causal,
+                      cudaStream_t s) {
   using T = Tc<D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_prefill_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::BYTES);
@@ -432,48 +437,51 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   const dim3 grid((S + QT - 1) / QT, H, B);
   flash_prefill_tc_kernel<D><<<grid, T::THREADS, T::BYTES, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, H, KH, window, cap, causal, 1.0f / sqrtf((float)D));
+      static_cast<bf16*>(o), S, Skv, H, KH, window, cap, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                       int KH, int window, float cap, int causal, cudaStream_t s) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                       int Skv, int H, int KH, int window, float cap, int causal,
+                       cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_prefill_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F32<D>::BYTES);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_prefill_f32_kernel<D><<<grid, kRows * 32, F32<D>::BYTES, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, KH, window, cap, causal, 1.0f / sqrtf((float)D));
+      static_cast<float*>(o), S, Skv, H, KH, window, cap, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                     int KH, int window, float cap, int causal, bool bf, cudaStream_t s) {
-  return bf ? launch_tc<D>(q, k, v, o, B, S, H, KH, window, cap, causal, s)
-            : launch_f32<D>(q, k, v, o, B, S, H, KH, window, cap, causal, s);
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv,
+                     int H, int KH, int window, float cap, int causal, bool bf, cudaStream_t s) {
+  return bf ? launch_tc<D>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, s)
+            : launch_f32<D>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, s);
 }
 
 }  // namespace
 
-// o = attention(q, k, v): q/o [B, S, H, D], k/v [B, S, KH, D], contiguous,
-// H % KH == 0, D in {32, 64, 128, 160, 256} (checked by the Python wrapper).
+// o = attention(q, k, v): q/o [B, S, H, D], k/v [B, Skv, KH, D], contiguous,
+// H % KH == 0, D in {32, 64, 128, 160, 256}, Skv == S unless unmasked
+// (checked by the Python wrapper).
 extern "C" int rt_flash_prefill(const void* q, const void* k, const void* v, void* o,
-                                int B, int S, int H, int KH, int D, int window,
+                                int B, int S, int Skv, int H, int KH, int D, int window,
                                 float cap, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  if (KH <= 0 || H % KH) return static_cast<int>(cudaErrorInvalidValue);
+  if (KH <= 0 || H % KH || Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Skv != S && (causal || window > 0)) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf = dtype == rt::kBF16;
   cudaError_t err;
   switch (D) {
-    case 32: err = launch_d<32>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
-    case 64: err = launch_d<64>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
-    case 128: err = launch_d<128>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
-    case 160: err = launch_d<160>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
-    case 256: err = launch_d<256>(q, k, v, o, B, S, H, KH, window, cap, causal, bf, s); break;
+    case 32: err = launch_d<32>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, bf, s); break;
+    case 64: err = launch_d<64>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, bf, s); break;
+    case 128: err = launch_d<128>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, bf, s); break;
+    case 160: err = launch_d<160>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, bf, s); break;
+    case 256: err = launch_d<256>(q, k, v, o, B, S, Skv, H, KH, window, cap, causal, bf, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

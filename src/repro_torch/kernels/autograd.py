@@ -17,6 +17,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.kernels.ref import prefill_mask
+
 GELU_C = math.sqrt(2.0 / math.pi)
 
 
@@ -78,22 +80,12 @@ class ExpertFFN(torch.autograd.Function):
         return None, dx, dwi, dwg, dwo, None
 
 
-def _prefill_mask(S: int, window: int, causal: bool, device) -> torch.Tensor:
-    pos = torch.arange(S, device=device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
-    return mask
-
-
 def flash_prefill_backward(q, k, v, window: int, cap: float, causal: bool, do):
     """(dq, dk, dv) of `flash_prefill`, in fp32 then cast to each input's
     dtype: S = Q Kᵀ·scale (softcapped: cap·tanh(S / cap)), masked, P =
     softmax(S), dV = Pᵀ dO, dS = P ⊙ (dO Vᵀ − rowsum(P ⊙ dO Vᵀ)), through the
     cap's 1 − (s / cap)², dQ = dS K·scale, dK = dSᵀ Q·scale; dK and dV sum
-    over each GQA group."""
+    over each GQA group. k / v may hold S_kv != S keys (cross-attention)."""
     B, S, H, D = q.shape
     K = k.shape[2]
     scale = 1.0 / math.sqrt(D)
@@ -103,7 +95,7 @@ def flash_prefill_backward(q, k, v, window: int, cap: float, causal: bool, do):
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
     if cap:
         s = cap * torch.tanh(s / cap)
-    mask = _prefill_mask(S, window, causal, q.device)
+    mask = prefill_mask(S, k.shape[1], window, causal, q.device)
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
@@ -116,7 +108,7 @@ def flash_prefill_backward(q, k, v, window: int, cap: float, causal: bool, do):
 
 
 class FlashPrefill(torch.autograd.Function):
-    """q [B, S, H, D], k / v [B, S, K, D] -> [B, S, H, D]."""
+    """q [B, S, H, D], k / v [B, S_kv, K, D] -> [B, S, H, D]."""
 
     @staticmethod
     def forward(ctx, fwd: Callable, q, k, v, window: int, cap: float, causal: bool):

@@ -46,7 +46,7 @@ _SIGNATURES = {
     # z, out, rows, L, stream
     "rt_sparsemax": (_P, _P, _I, _I, _P),
     # q, k, v, o, B, S, H, KH, D, window, cap, causal, dtype, stream
-    "rt_flash_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "rt_flash_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, slot_pos, pos, o, B, S, H, KH, D, window, cap, splits, dtype, stream
     "rt_flash_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, kp, vp, table, pos, o, B, Mp, page, P1, H, KH, D, window, cap, splits, dtype, stream

@@ -17,6 +17,7 @@ off from the graph.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict, Optional
 
@@ -26,7 +27,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.autograd import ExpertFFN, FlashPrefill, Sparsemax
 from repro_torch.kernels.expert_gemm import expert_ffn_cuda, expert_ffn_q4_cuda, expert_ffn_q_cuda
 from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_paged_cuda
-from repro_torch.kernels.flash_prefill import flash_prefill_cuda
+from repro_torch.kernels.flash_prefill import check_key_length, flash_prefill_cuda
 from repro_torch.kernels.sparsemax import sparsemax_cuda
 
 KERNELS = ("expert_ffn", "sparsemax", "flash_prefill", "flash_decode", "expert_ffn_q",
@@ -51,16 +52,22 @@ def launches() -> Dict[str, int]:
 
 def launches_by_shape() -> Dict[tuple, int]:
     """The attention kernels' launches since the last reset, by (kernel,
-    query heads, kv heads, head_dim, window, softcap)."""
+    query heads, kv heads, head_dim, window, softcap); a launch in another
+    form than causal self-attention adds it as a seventh entry: "noncausal"
+    (flash_prefill over an encoder) or "cross" (cross-attention, either
+    kernel; the caller names it)."""
     with _count_lock:
         return dict(_BY_SHAPE)
 
 
-def _count(name: str, q=None, k=None, window: int = 0, cap: float = 0.0) -> None:
+def _count(name: str, q=None, k=None, window: int = 0, cap: float = 0.0,
+           form: Optional[str] = None) -> None:
     with _count_lock:
         _LAUNCHES[name] += 1
         if q is not None:
             key = (name, q.shape[-2], k.shape[-2], q.shape[-1], int(window), float(cap))
+            if form is not None:
+                key += (form,)
             _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + 1
 
 
@@ -141,28 +148,37 @@ def _sparsemax(z):
     return ref.sparsemax_ref(z)
 
 
-def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = True):
-    """q [B, S, H, D], k/v [B, S, K, D] -> [B, S, H, D] in q's dtype."""
+def flash_prefill(q, k, v, window: int = 0, cap: float = 0.0, causal: bool = True,
+                  cross: bool = False):
+    """q [B, S, H, D], k/v [B, S_kv, K, D] -> [B, S, H, D] in q's dtype;
+    S_kv != S only unmasked (causal=False, window=0: cross-attention, which
+    the caller names by `cross` for the launch count)."""
+    check_key_length(q.shape[1], k.shape[1], window, causal)
+    form = "cross" if cross else None if causal else "noncausal"
+    fwd = functools.partial(_flash_prefill, form=form)
     if _wants_grad(q, k, v):
-        return FlashPrefill.apply(_flash_prefill, q, k, v, window, cap, causal)
-    return _flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
+        return FlashPrefill.apply(fwd, q, k, v, window, cap, causal)
+    return fwd(q, k, v, window=window, cap=cap, causal=causal)
 
 
-def _flash_prefill(q, k, v, window, cap, causal):
+def _flash_prefill(q, k, v, window, cap, causal, form=None):
     if _on_card(q, "flash_prefill"):
         out = flash_prefill_cuda(q, k, v, window=window, cap=cap, causal=causal)
-        _count("flash_prefill", q, k, window, cap)
+        _count("flash_prefill", q, k, window, cap, form)
         return out
     return ref.flash_prefill_ref(q, k, v, window=window, cap=cap, causal=causal).to(q.dtype)
 
 
-def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0):
+def flash_decode(q, k, v, slot_pos, pos, window: int = 0, cap: float = 0.0,
+                 cross: bool = False):
     """q [B, H, D] over a ring cache k/v [B, S, K, D] whose slots hold the
-    global positions `slot_pos` [B, S] (-1 invalid) -> [B, H, D] in q's dtype."""
+    global positions `slot_pos` [B, S] (-1 invalid) -> [B, H, D] in q's dtype.
+    `cross` names cross-attention's read of an encoder cache for the launch
+    count."""
     _no_backward("flash_decode", q, k, v)
     if _on_card(q, "flash_decode"):
         out = flash_decode_cuda(q, k, v, slot_pos, pos, window=window, cap=cap)
-        _count("flash_decode", q, k, window, cap)
+        _count("flash_decode", q, k, window, cap, "cross" if cross else None)
         return out
     return ref.flash_decode_ref(q, k, v, slot_pos, pos, window=window, cap=cap).to(q.dtype)
 

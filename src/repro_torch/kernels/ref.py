@@ -116,15 +116,30 @@ def sparsemax_ref(z: torch.Tensor) -> torch.Tensor:
     return torch.clamp(z - tau, min=0.0)
 
 
+def prefill_mask(S: int, S_kv: int, window: int, causal: bool, device) -> torch.Tensor:
+    """[S, S_kv] visibility of key j to query i: j <= i when causal, j > i -
+    window with a window."""
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(S_kv, device=device)[None, :]
+    mask = torch.ones((S, S_kv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= kp > qp - window
+    return mask
+
+
 def flash_prefill_ref(
     q: torch.Tensor,   # [B, S, H, D]
-    k: torch.Tensor,   # [B, S, K, D]
-    v: torch.Tensor,   # [B, S, K, D]
+    k: torch.Tensor,   # [B, S_kv, K, D]
+    v: torch.Tensor,   # [B, S_kv, K, D]
     window: int = 0,
     cap: float = 0.0,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence GQA attention with windows/softcaps (exact softmax, fp32)."""
+    """Full-sequence GQA attention with windows/softcaps (exact softmax,
+    fp32); the keys may differ in number from the queries (cross-attention,
+    unmasked)."""
     B, S, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -132,12 +147,7 @@ def flash_prefill_ref(
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
     if cap:
         logits = cap * torch.tanh(logits / cap)
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
+    mask = prefill_mask(S, k.shape[1], window, causal, q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())

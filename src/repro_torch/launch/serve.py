@@ -203,6 +203,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    if not cfg.moe.enabled:
+        raise ValueError(f"serving engines target MoE architectures, not {cfg.name}")
     # weights are made on the host; the engine keeps the experts there and
     # moves the rest to `device`
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")

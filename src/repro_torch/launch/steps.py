@@ -15,12 +15,13 @@ from repro_torch.optim.adamw import adamw_update
 from repro_torch.tree import leaf_grads, requiring_grad
 
 
-def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = True):
+def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = True, enc_input=None):
     """The train step's objective, lm_loss + router_aux_coef·aux_loss +
-    router_z_coef·z_loss, and its gradient over every leaf of `params`.
-    -> (total, metrics, grads)."""
+    router_z_coef·z_loss, and its gradient over every leaf of `params`; the
+    forward runs the recurrences' "assoc" form, and an encoder-decoder
+    config's encoder over `enc_input`. -> (total, metrics, grads)."""
     p = requiring_grad(params)
-    out = forward(p, cfg, tokens, remat=remat)
+    out = forward(p, cfg, tokens, remat=remat, enc_input=enc_input, scan_mode="assoc")
     loss = lm_loss(out["logits"], labels)
     total = (loss + cfg.moe.router_aux_coef * out["aux_loss"]
              + cfg.moe.router_z_coef * out["z_loss"])
@@ -31,12 +32,13 @@ def loss_and_grads(cfg: ModelConfig, params, tokens, labels, remat: bool = True)
 
 
 def make_train_step(cfg: ModelConfig, lr: float = 1e-4, grad_clip: float = 1.0):
-    def train_step(params, opt_state, tokens, labels, lr_runtime=None):
+    def train_step(params, opt_state, tokens, labels, enc_input=None, lr_runtime=None):
         """-> (params, opt_state, metrics). `lr_runtime` overrides the
-        baked-in lr, so a schedule sets it each step. The reference's
+        baked-in lr, so a schedule sets it each step; `enc_input` feeds an
+        encoder-decoder config's encoder. The reference's
         sharding-constraint branch pins gradients to a mesh's parameter
         sharding; one device has no mesh, so it has no counterpart here."""
-        _, metrics, grads = loss_and_grads(cfg, params, tokens, labels)
+        _, metrics, grads = loss_and_grads(cfg, params, tokens, labels, enc_input=enc_input)
         params, opt_state = adamw_update(
             grads, params, opt_state, lr=lr if lr_runtime is None else lr_runtime,
             weight_decay=0.01, grad_clip=grad_clip,
@@ -47,9 +49,10 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4, grad_clip: float = 1.0):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, enc_input=None):
         with torch.no_grad():
-            return forward(params, cfg, tokens)["logits"][:, -1]
+            return forward(params, cfg, tokens, enc_input=enc_input,
+                           scan_mode="assoc")["logits"][:, -1]
 
     return prefill_step
 

@@ -6,7 +6,9 @@
 runs on the CUDA device; `--device cpu` with `--reduced` trains the
 laptop-sized variant on the CPU. Weights come from a seeded CPU generator
 (the same weights on any device), batches from `data.synthetic.SyntheticLM`,
-the learning rate from `linear_warmup_cosine`.
+the learning rate from `linear_warmup_cosine`. An encoder-decoder config's
+encoder reads stub frame embeddings [batch, 16, d_model], drawn for step i
+from `np.random.default_rng(i)` as the reference draws them.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
@@ -63,8 +66,12 @@ def train(
     t0 = time.perf_counter()
     for i, (toks, labels) in enumerate(data.batches(batch, steps)):
         cur_lr = sched(i)
+        enc = None
+        if cfg.enc_dec:
+            frames = np.random.default_rng(i).normal(size=(batch, 16, cfg.d_model))
+            enc = torch.from_numpy(frames).to(dtype=getattr(torch, cfg.dtype), device=dev)
         params, opt, m = step(params, opt, torch.from_numpy(toks).to(dev),
-                              torch.from_numpy(labels).to(dev), lr_runtime=cur_lr)
+                              torch.from_numpy(labels).to(dev), enc, lr_runtime=cur_lr)
         if i % log_every == 0 or i == steps - 1:
             loss = float(m["lm_loss"])
             elapsed = time.perf_counter() - t0

@@ -11,11 +11,13 @@ is the same token over a shared page pool read through a page table
 reference's gather and the plain path on the CPU. `attend_prefill_chunk`
 advances one paged lane by a prompt chunk; the reference computes it in
 plain `jnp` (no Pallas kernel), so on every device it is the plain
-`_attend_chunk` over the gathered pages. `ShardingCtx` carries the
-expert-parallel serving context through the model to the MoE layers;
-attention itself stays replicated under it. The decode K/V sharded over a
-mesh axis (`decode_seq_axis`, the dry run's) comes with the XLA tools, and
-cross-attention with the encoder-decoder families (ROADMAP A15).
+`_attend_chunk` over the gathered pages. Cross-attention (the
+encoder-decoder family's) is `attend_full(kv_from=)` and
+`attend_decode(cross=True)`, through the same kernels. `ShardingCtx`
+carries the expert-parallel serving context through the model to the MoE
+layers; attention itself stays replicated under it. The decode K/V sharded
+over a mesh axis (`decode_seq_axis`, the dry run's) comes with the XLA
+tools.
 """
 from __future__ import annotations
 
@@ -136,20 +138,28 @@ def attend_full(
     layer: int,
     causal: bool = True,
     return_kv: bool = False,
+    kv_from: Optional[torch.Tensor] = None,   # [B, S_kv, d] cross-attention source
 ):
+    """Full-sequence attention of x over itself or, with `kv_from` (the
+    encoder's output), over K/V projected from it: cross-attention, with no
+    rope on q or k and no mask. The CUDA path is `flash_prefill` in either
+    form (its key length may differ from the query's when unmasked)."""
     B, S, _ = x.shape
     window = cfg.layer_window(layer) if causal else 0
     q = _project_q(params, x, cfg)
-    k, v = _project_kv(params, x, cfg)
+    k, v = _project_kv(params, x if kv_from is None else kv_from, cfg)
     positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.attn.rope_theta)
-    k = apply_rope(k, positions, cfg.attn.rope_theta)
+    kv_pos = torch.arange(k.shape[1], device=x.device)
+    if kv_from is None:  # self-attention => rope
+        q = apply_rope(q, positions, cfg.attn.rope_theta)
+        k = apply_rope(k, kv_pos, cfg.attn.rope_theta)
 
     cap = cfg.attn.logit_softcap
     if x.device.type == "cuda":
-        out = ops.flash_prefill(q, k, v, window=window, cap=cap, causal=causal)
+        out = ops.flash_prefill(q, k, v, window=window, cap=cap, causal=causal,
+                                cross=kv_from is not None)
     elif S <= Q_CHUNK:
-        out = _attend_chunk(q, k, v, positions, positions, window, cap, causal)
+        out = _attend_chunk(q, k, v, positions, kv_pos, window, cap, causal)
     else:
         nchunk = math.ceil(S / Q_CHUNK)
         qp = F.pad(q, (0, 0, 0, 0, 0, nchunk * Q_CHUNK - S))
@@ -168,7 +178,7 @@ def attend_full(
                     pi, kp, window, cap, causal,
                 ))
             else:
-                outs.append(_attend_chunk(qi, k, v, pi, positions, window, cap, causal))
+                outs.append(_attend_chunk(qi, k, v, pi, kv_pos, window, cap, causal))
         out = torch.cat(outs, dim=1)[:, :S]
     y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]
     if return_kv:
@@ -209,11 +219,13 @@ def decode_attention_local(
     return o.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
 
 
-def decode_attention(q, k, v, slot_pos, pos, window: int, cap: float) -> torch.Tensor:
+def decode_attention(q, k, v, slot_pos, pos, window: int, cap: float,
+                     cross: bool = False) -> torch.Tensor:
     """[B, H, D] attention of one token over the cache, in q's dtype: the
-    `flash_decode` kernel on CUDA, the plain path elsewhere."""
+    `flash_decode` kernel on CUDA (`cross` names the form for its launch
+    count), the plain path elsewhere."""
     if q.device.type == "cuda":
-        return ops.flash_decode(q, k, v, slot_pos, pos, window=window, cap=cap)
+        return ops.flash_decode(q, k, v, slot_pos, pos, window=window, cap=cap, cross=cross)
     o, l, _ = decode_attention_local(q, k, v, slot_pos, pos, window, cap)
     return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
@@ -226,18 +238,33 @@ def attend_decode(
     pos: torch.Tensor,        # [B] int32 decode position
     cfg: ModelConfig,
     layer: int,
+    cross: bool = False,
+    cross_len: Optional[torch.Tensor] = None,   # [B] valid encoder slots (cross)
 ):
-    """One self-attention decode step. Returns (y [B, d], cache_k, cache_v).
+    """One decode step. Returns (y [B, d], cache_k, cache_v).
 
-    The new token's K/V go to ring slot `pos % Sc`. Unlike the reference,
-    which returns updated copies, the port writes them into `cache_k` /
-    `cache_v` in place (`index_put_`) and returns the same tensors: the
-    decode loop owns its cache, and a copy of every layer's K/V per token
-    would move the whole cache each step. `transformer.verify_step`, which
-    needs the pre-block entries for its rollback, snapshots the few it
-    overwrites."""
+    Self-attention writes the new token's K/V to ring slot `pos % Sc`.
+    Unlike the reference, which returns updated copies, the port writes
+    them into `cache_k` / `cache_v` in place (`index_put_`) and returns the
+    same tensors: the decode loop owns its cache, and a copy of every
+    layer's K/V per token would move the whole cache each step.
+    `transformer.verify_step`, which needs the pre-block entries for its
+    rollback, snapshots the few it overwrites.
+
+    Cross-attention (`cross=True`) reads a fixed [B, enc_len, K, D] cache of
+    the encoder's K/V and writes nothing: every slot below `cross_len` holds
+    position 0 and the rest -1, the query sits at position 0 with no window
+    and no rope."""
     B = x_tok.shape[0]
     Sc = cache_k.shape[1]
+    if cross:
+        q = _project_q(params, x_tok[:, None, :], cfg)[:, 0]           # [B, H, D]
+        s_idx = torch.arange(Sc, device=x_tok.device)[None, :]
+        slot_pos = torch.where(s_idx < cross_len[:, None], 0, -1).to(torch.int32)
+        zero = torch.zeros((B,), dtype=torch.int32, device=x_tok.device)
+        o = decode_attention(q, cache_k, cache_v, slot_pos, zero, 0, cfg.attn.logit_softcap,
+                             cross=True)
+        return o.reshape(B, cfg.n_heads * cfg.hd) @ params["wo"], cache_k, cache_v
     window = cfg.layer_window(layer)
     q = _project_q(params, x_tok[:, None, :], cfg)                  # [B, 1, H, D]
     q = apply_rope(q, pos[:, None], cfg.attn.rope_theta)[:, 0]

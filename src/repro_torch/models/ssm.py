@@ -1,0 +1,400 @@
+"""State-space / recurrent mixers: Mamba (hymba's parallel branch) and the
+xLSTM blocks (port of `repro/models/ssm.py`).
+
+Every recurrence is first-order linear (h_t = a_t ⊙ h_{t-1} + b_t), or its
+max-plus form for the exponential gates' stabiliser. The full-sequence
+paths are chunked, as the reference's: a loop carries the state across
+chunks while the inner chunk runs either
+
+  * mode="assoc": a log-depth scan within the chunk. `lax.associative_scan`
+    has no PyTorch counterpart, so the combine runs as a Hillis–Steele
+    doubling over the chunk axis, log2(ck) shifted combines (the reference
+    combines in another tree, so the two round differently in the last
+    bits), or
+  * mode="scan": the sequential oracle, gates computed a step at a time.
+
+Decode paths are one O(1)-state update. No Pallas kernel lies on this
+path: the JAX package runs it in plain `jnp`, and the port in plain
+PyTorch on every device. Casts sit where the reference's do: gates, states
+and the stabiliser `m` in fp32, the Mamba conv state in the model dtype.
+`F.softplus` is the identity above 20 where `jax.nn.softplus` is not; the
+two differ there by less than fp32 resolves.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm
+
+CHUNK = 256  # inner-chunk length of the associative path
+
+
+def _doubling(a: torch.Tensor, b: torch.Tensor, combine):
+    """Inclusive scan of (a, b) pairs over axis 1 by Hillis–Steele doubling:
+    at offset d every position t >= d takes combine(pair[t - d], pair[t])."""
+    n, d = a.shape[1], 1
+    while d < n:
+        na, nb = combine(a[:, :-d], b[:, :-d], a[:, d:], b[:, d:])
+        a = torch.cat([a[:, :d], na], dim=1)
+        b = torch.cat([b[:, :d], nb], dim=1)
+        d *= 2
+    return a, b
+
+
+def _linear_recurrence_chunk(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 within one chunk (assoc)."""
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    _, hs = _doubling(a, b, lambda a1, b1, a2, b2: (a1 * a2, a2 * b1 + b2))
+    return hs
+
+
+def _maxplus_chunk(logf: torch.Tensor, logi: torch.Tensor, m0: torch.Tensor) -> torch.Tensor:
+    """m_t = max(logf_t + m_{t-1}, logi_t) within one chunk (assoc)."""
+    acum = torch.cumsum(logf, dim=1)
+    _, b = _doubling(logf, logi,
+                     lambda a1, b1, a2, b2: (a1 + a2, torch.maximum(b1 + a2, b2)))
+    return torch.maximum(acum + m0[:, None], b)
+
+
+def _chunked(x_seq: torch.Tensor, carry0, chunk_fn, step_fn, mode: str, ck: int = CHUNK):
+    """Run a recurrence over [B, S, ...] sequences.
+
+    chunk_fn(carry, xs_chunk) -> (carry, ys_chunk)   (assoc inner)
+    step_fn(carry, xs_t) -> (carry, ys_t)            (sequential inner)
+    """
+    S = x_seq.shape[1]
+    c, ys = carry0, []
+    if mode == "scan":
+        for t in range(S):
+            c, y = step_fn(c, x_seq[:, t])
+            ys.append(y)
+        return torch.stack(ys, dim=1)
+    ck = min(ck, S)
+    if S % ck:
+        # fall back to a divisor (S is a power-of-2-ish in all our shapes)
+        for cand in range(min(ck, S), 0, -1):
+            if S % cand == 0:
+                ck = cand
+                break
+    for i in range(S // ck):
+        c, y = chunk_fn(c, x_seq[:, i * ck:(i + 1) * ck])
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+# ===========================================================================
+# Mamba (selective SSM), the parallel branch of hymba blocks
+# ===========================================================================
+
+
+def init_mamba(gen, cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    s = cfg.ssm
+    di = s.expand * d
+    N = s.state_dim
+    dt_rank = max(1, math.ceil(d / 16))
+    dtype = getattr(torch, cfg.dtype)
+    conv = torch.randn((s.conv_dim, di), generator=gen, dtype=torch.float32, device=gen.device)
+    return {
+        "in_proj": dense_init(gen, d, 2 * di, dtype, device),
+        "conv_w": (conv * 0.1).to(dtype=dtype, device=device),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+        "x_db": dense_init(gen, di, dt_rank + 2 * N, dtype, device),
+        "dt_proj": dense_init(gen, dt_rank, di, dtype, device),
+        "dt_bias": torch.full((di,), -2.0, dtype=dtype, device=device),  # small initial dt
+        "A_log": torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device)
+                           ).expand(di, N).contiguous(),
+        "D": torch.ones((di,), dtype=torch.float32, device=device),
+        "out_proj": dense_init(gen, di, d, dtype, device),
+    }
+
+
+def _mamba_gates(p: dict, xz: torch.Tensor, cfg: ModelConfig):
+    """xz: [..., di] conv-ed activations -> (a, b, C) for the recurrence."""
+    N = cfg.ssm.state_dim
+    dt_rank = p["dt_proj"].shape[0]
+    dbc = xz @ p["x_db"]
+    dt, Bm, Cm = torch.split(dbc, [dt_rank, N, N], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"]).float()
+    A = -torch.exp(p["A_log"])                                 # [di, N]
+    a = torch.exp(dt[..., None] * A)                           # [..., di, N]
+    b = (dt[..., None] * Bm[..., None, :].float()) * xz[..., None].float()
+    return a, b, Cm.float()
+
+
+def _mamba_conv_full(p: dict, xs: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over [B, S, di]."""
+    K = p["conv_w"].shape[0]
+    S = xs.shape[1]
+    xp = F.pad(xs, (0, 0, K - 1, 0))
+    out = sum(xp[:, i:i + S] * p["conv_w"][i] for i in range(K))
+    return F.silu(out + p["conv_b"])
+
+
+def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc") -> torch.Tensor:
+    """Full-sequence Mamba mixer. x: [B, S, d] -> [B, S, d]."""
+    B = x.shape[0]
+    di = cfg.ssm.expand * cfg.d_model
+    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)                # [B, S, di] each
+    xs = _mamba_conv_full(p, xs)
+    h0 = torch.zeros((B, di, cfg.ssm.state_dim), dtype=torch.float32, device=x.device)
+
+    def chunk_fn(h, xs_c):                                     # xs_c [B, ck, di]
+        a, b, Cm = _mamba_gates(p, xs_c, cfg)                  # [B, ck, di, N]
+        hs = _linear_recurrence_chunk(a, b, h)
+        return hs[:, -1], torch.einsum("bsdn,bsn->bsd", hs, Cm)
+
+    def step_fn(h, xs_t):                                      # xs_t [B, di]
+        a, b, Cm = _mamba_gates(p, xs_t, cfg)                  # [B, di, N]
+        h = a * h + b
+        return h, torch.einsum("bdn,bn->bd", h, Cm)
+
+    # chunk 64: the [B, ck, di, N] fp32 gate tensors are the live working set
+    y = _chunked(xs, h0, chunk_fn, step_fn, mode, ck=64)
+    y = y + p["D"] * xs.float()
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"]
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    di = cfg.ssm.expand * cfg.d_model
+    return {
+        "h": torch.zeros((batch, di, cfg.ssm.state_dim), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm.conv_dim - 1, di), dtype=dtype, device=device),
+    }
+
+
+def mamba_decode(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig):
+    """One-token Mamba step. x: [B, d] -> (y [B, d], state)."""
+    xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)               # [B, di]
+    conv = torch.cat([state["conv"], xs[:, None]], dim=1)      # [B, K, di]
+    xs = F.silu(torch.einsum("bkd,kd->bd", conv, p["conv_w"]) + p["conv_b"])
+    a, b, Cm = _mamba_gates(p, xs, cfg)                        # [B, di, N]
+    h = a * state["h"] + b
+    y = torch.einsum("bdn,bn->bd", h, Cm) + p["D"] * xs.float()
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], {"h": h, "conv": conv[:, 1:]}
+
+
+# ===========================================================================
+# xLSTM: mLSTM (matrix memory) and sLSTM (scalar memory) blocks
+# ===========================================================================
+
+
+def init_mlstm(gen, cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    H = cfg.ssm.xlstm_heads
+    di = 2 * d                                                 # proj factor 2
+    dtype = getattr(torch, cfg.dtype)
+    return {
+        "up": dense_init(gen, d, 2 * di, dtype, device),       # [x | gate]
+        "wq": dense_init(gen, di, di, dtype, device),
+        "wk": dense_init(gen, di, di, dtype, device),
+        "wv": dense_init(gen, di, di, dtype, device),
+        "w_if": dense_init(gen, di, 2 * H, dtype, device, scale=0.02),
+        "b_i": torch.zeros((H,), dtype=torch.float32, device=device),
+        "b_f": torch.full((H,), 3.0, dtype=torch.float32, device=device),  # forget-open init
+        "out_norm": init_rmsnorm(di, dtype, device),
+        "down": dense_init(gen, di, d, dtype, device),
+    }
+
+
+def _mlstm_qkv(p, xi, H):
+    q, k, v = xi @ p["wq"], xi @ p["wk"], xi @ p["wv"]
+    hd = q.shape[-1] // H
+    sh = (*q.shape[:-1], H, hd)
+    return q.reshape(sh).float() / math.sqrt(hd), k.reshape(sh).float(), v.reshape(sh).float()
+
+
+def _mlstm_gates(p, xi, H):
+    gates = (xi @ p["w_if"]).float()
+    logi = gates[..., :H] + p["b_i"]
+    logf = F.logsigmoid(gates[..., H:] + p["b_f"])
+    return logi, logf
+
+
+def _mlstm_out(C, n, m, q, p, zg, cfg):
+    num = torch.einsum("...hkv,...hk->...hv", C, q)
+    den = torch.clamp(torch.abs(torch.einsum("...hk,...hk->...h", n, q)), min=1.0)
+    y = (num / den[..., None]).reshape(*q.shape[:-2], -1).to(zg.dtype)
+    y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(zg)
+    return y @ p["down"]
+
+
+def _mlstm_step(carry, q, k, v, logi, logf):
+    """One stabilised mLSTM update -> ((C, n, m), the normalised readout)."""
+    C0, n0, m0 = carry
+    m = torch.maximum(logf + m0, logi)
+    i_st = torch.exp(logi - m)
+    f_st = torch.exp(logf + m0 - m)
+    C = f_st[..., None, None] * C0 + i_st[..., None, None] * torch.einsum("bhk,bhv->bhkv", k, v)
+    n = f_st[..., None] * n0 + i_st[..., None] * k
+    return C, n, m
+
+
+def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc") -> torch.Tensor:
+    """Full-sequence mLSTM. x: [B, S, d]."""
+    B, S, _ = x.shape
+    H = cfg.ssm.xlstm_heads
+    xi, zg = (x @ p["up"]).chunk(2, dim=-1)
+    hd = xi.shape[-1] // H
+    f32 = dict(dtype=torch.float32, device=x.device)
+    carry0 = (
+        torch.zeros((B, H, hd, hd), **f32),                    # C (stabilised)
+        torch.zeros((B, H, hd), **f32),                        # n
+        torch.full((B, H), -math.inf, **f32),                  # m
+    )
+
+    def chunk_fn(carry, xi_c):                                 # xi_c [B, ck, di]
+        """The chunkwise-parallel form: within the chunk an attention-like
+        [ck, ck] product over decay-weighted q·k scores, across chunks only
+        the O(hd²) state; the matrix memory is never stacked over time."""
+        C0, n0, m0 = carry
+        q, k, v = _mlstm_qkv(p, xi_c, H)                       # [B, ck, H, hd]
+        logi, logf = _mlstm_gates(p, xi_c, H)                  # [B, ck, H]
+        m = _maxplus_chunk(logf, logi, m0)                     # running stabiliser
+        Fc = torch.cumsum(logf, dim=1)                         # [B, ck, H]
+        # inter-chunk contribution scale: a_t = exp(F_t + m0 - m_t)
+        a = torch.exp(Fc + m0[:, None] - m)
+        # intra-chunk decay D[t, s] = exp(F_t - F_s + logi_s - m_t), s <= t
+        expo = Fc[:, :, None] - Fc[:, None, :] + logi[:, None, :] - m[:, :, None]
+        ck = xi_c.shape[1]
+        tri = torch.tril(torch.ones((ck, ck), dtype=torch.bool, device=x.device))
+        # mask BEFORE exp: s > t entries have positive exponents (F decreasing)
+        D = torch.exp(torch.where(tri[None, :, :, None], expo, torch.full_like(expo, -math.inf)))
+        w = D * torch.einsum("bthd,bshd->btsh", q, k)          # [B, ck, ck, H]
+        num = (a[..., None] * torch.einsum("bthk,bhkv->bthv", q, C0)
+               + torch.einsum("btsh,bshv->bthv", w, v))
+        den = a * torch.einsum("bthk,bhk->bth", q, n0) + w.sum(dim=2)
+        y = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+        # carry: the state at the chunk's end (b_W[s] = D[W-1, s])
+        bW = D[:, -1]                                          # [B, ck, H]
+        C1 = a[:, -1][..., None, None] * C0 + torch.einsum("bsh,bshk,bshv->bhkv", bW, k, v)
+        n1 = a[:, -1][..., None] * n0 + torch.einsum("bsh,bshk->bhk", bW, k)
+        return (C1, n1, m[:, -1]), y
+
+    def step_fn(carry, xi_t):                                  # xi_t [B, di]
+        q, k, v = _mlstm_qkv(p, xi_t, H)                       # [B, H, hd]
+        logi, logf = _mlstm_gates(p, xi_t, H)                  # [B, H]
+        C, n, m = _mlstm_step(carry, q, k, v, logi, logf)
+        num = torch.einsum("bhkv,bhk->bhv", C, q)
+        den = torch.clamp(torch.abs(torch.einsum("bhk,bhk->bh", n, q)), min=1.0)
+        return (C, n, m), num / den[..., None]
+
+    y = _chunked(xi, carry0, chunk_fn, step_fn, mode, ck=64)
+    y = y.reshape(B, S, -1).to(x.dtype)
+    y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(zg)
+    return y @ p["down"]
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
+    H = cfg.ssm.xlstm_heads
+    hd = 2 * cfg.d_model // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((batch, H, hd, hd), **f32),
+        "n": torch.zeros((batch, H, hd), **f32),
+        "m": torch.full((batch, H), -math.inf, **f32),
+    }
+
+
+def mlstm_decode(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig):
+    H = cfg.ssm.xlstm_heads
+    xi, zg = (x @ p["up"]).chunk(2, dim=-1)
+    q, k, v = _mlstm_qkv(p, xi, H)                             # [B, H, hd]
+    logi, logf = _mlstm_gates(p, xi, H)
+    C, n, m = _mlstm_step((state["C"], state["n"], state["m"]), q, k, v, logi, logf)
+    return _mlstm_out(C, n, m, q, p, zg, cfg), {"C": C, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen, cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    dtype = getattr(torch, cfg.dtype)
+    dff = max(1, int(4 * d // 3))
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_z": dense_init(gen, d, d, dtype, device),
+        "w_gates": dense_init(gen, d, 3 * d, dtype, device, scale=0.02),  # i, f, o
+        "b_i": torch.zeros((d,), **f32),
+        "b_f": torch.full((d,), 3.0, **f32),
+        "b_o": torch.zeros((d,), **f32),
+        "ffn_in": dense_init(gen, d, dff, dtype, device),
+        "ffn_gate": dense_init(gen, d, dff, dtype, device),
+        "ffn_out": dense_init(gen, dff, d, dtype, device),
+    }
+
+
+def _slstm_gates(p, x):
+    z = torch.tanh((x @ p["w_z"]).float())
+    g = (x @ p["w_gates"]).float()
+    d = z.shape[-1]
+    logi = g[..., :d] + p["b_i"]
+    logf = F.logsigmoid(g[..., d:2 * d] + p["b_f"])
+    o = torch.sigmoid(g[..., 2 * d:] + p["b_o"])
+    return z, logi, logf, o
+
+
+def _slstm_step(carry, z, logi, logf):
+    c0, n0, m0 = carry
+    m = torch.maximum(logf + m0, logi)
+    i_st = torch.exp(logi - m)
+    f_st = torch.exp(logf + m0 - m)
+    return f_st * c0 + i_st * z, f_st * n0 + i_st, m
+
+
+def _slstm_ffn(p, h):
+    """The post-FFN (pf = 4/3 GLU) of the xLSTM sLSTM block."""
+    return (F.silu(h @ p["ffn_gate"]) * (h @ p["ffn_in"])) @ p["ffn_out"]
+
+
+def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc") -> torch.Tensor:
+    B, _, d = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    carry0 = (torch.zeros((B, d), **f32), torch.zeros((B, d), **f32),
+              torch.full((B, d), -math.inf, **f32))            # c, n, m
+
+    def chunk_fn(carry, x_c):
+        c0, n0, m0 = carry
+        z, logi, logf, o = _slstm_gates(p, x_c)                # [B, ck, d]
+        m = _maxplus_chunk(logf, logi, m0)
+        m_prev = torch.cat([m0[:, None], m[:, :-1]], dim=1)
+        i_st = torch.exp(logi - m)
+        f_st = torch.exp(logf + m_prev - m)
+        cs = _linear_recurrence_chunk(f_st, i_st * z, c0)
+        ns = _linear_recurrence_chunk(f_st, i_st, n0)
+        h = o * cs / torch.clamp(ns, min=1e-6)
+        return (cs[:, -1], ns[:, -1], m[:, -1]), h
+
+    def step_fn(carry, x_t):
+        z, logi, logf, o = _slstm_gates(p, x_t)                # [B, d]
+        c, n, m = _slstm_step(carry, z, logi, logf)
+        return (c, n, m), o * c / torch.clamp(n, min=1e-6)
+
+    h = _chunked(x, carry0, chunk_fn, step_fn, mode).to(x.dtype)
+    return _slstm_ffn(p, h)
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, device) -> dict:
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "c": torch.zeros((batch, d), **f32),
+        "n": torch.zeros((batch, d), **f32),
+        "m": torch.full((batch, d), -math.inf, **f32),
+    }
+
+
+def slstm_decode(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig):
+    z, logi, logf, o = _slstm_gates(p, x)                      # [B, d]
+    c, n, m = _slstm_step((state["c"], state["n"], state["m"]), z, logi, logf)
+    h = (o * c / torch.clamp(n, min=1e-6)).to(x.dtype)
+    return _slstm_ffn(p, h), {"c": c, "n": n, "m": m}

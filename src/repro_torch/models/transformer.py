@@ -1,20 +1,23 @@
-"""Config-driven transformer, attention + MoE block kinds (port of
+"""Config-driven transformer for every block kind (port of
 `repro/models/transformer.py`: the full-sequence forward, with activation
-checkpointing for training (`remat`), `lm_loss`, the ring K/V cache and
-the one-token `decode_step`).
+checkpointing for training (`remat`), `lm_loss`, the ring K/V cache with
+recurrent states and cross-attention caches, and the one-token
+`decode_step`). Block kinds: attention (+ MoE), hymba's parallel attention
+and Mamba branches, xLSTM's mLSTM / sLSTM cells (`models/ssm.py`), and the
+encoder-decoder stack with cross-attention (seamless).
 
-Layers are grouped into repeating periods (Switch's dense/MoE pair) and each
-sublayer's params are stacked over the groups, as in the reference; its
-`lax.scan` over the stacked groups becomes a Python loop over the leading
-group axis of the params and of the cache. `init_paged_cache` and the paged
+Layers are grouped into repeating periods (Switch's dense/MoE pair, xLSTM's
+m/s pair) and each sublayer's params are stacked over the groups, as in the
+reference; its `lax.scan` over the stacked groups becomes a Python loop
+over the leading group axis of the params and of the cache. `init_paged_cache` and the paged
 branch of `decode_step` keep K/V in shared page pools read through a page
 table (`core/residency.py`). `verify_step` runs a speculative draft block
 and rolls the rejected positions back. `prefill_chunk_step` advances one
 paged lane through a prompt chunk (the request server's chunked prefill).
 Each of the four takes the reference's `ctx` (`attention.ShardingCtx`) and
 passes it to the MoE layers: under expert-parallel serving they dispatch a
-shard at a time (`models/moe.py`). Recurrent / hybrid blocks and encoder-decoder stacks are ported with the
-other families (ROADMAP A15).
+shard at a time (`models/moe.py`). The paged cache and the chunked prefill
+take attention-family decoder-only archs, as the reference's do.
 """
 from __future__ import annotations
 
@@ -35,17 +38,16 @@ from repro_torch.models.attention import (
     init_attention,
 )
 from repro_torch.models.layers import embed_init, ffn, init_ffn, init_rmsnorm, rmsnorm, softcap
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.moe import init_moe, moe_decode, moe_layer
 from repro_torch.tree import tree_leaves, tree_map, tree_stack, tree_unstack
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(
-            f"block_kind {cfg.block_kind!r} is ported with the other families (ROADMAP A15)"
-        )
-    if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder stacks are ported with the other families (ROADMAP A15)")
+def _check_unpaged(cfg: ModelConfig) -> None:
+    """The paged cache and the chunked prefill hold attention K/V only."""
+    if cfg.block_kind != "attn" or cfg.enc_dec:
+        raise ValueError("paged K/V supports attention-family decoder-only archs, "
+                         f"not {cfg.name} (block_kind {cfg.block_kind!r}, enc_dec {cfg.enc_dec})")
 
 
 def _lcm(a: int, b: int) -> int:
@@ -53,16 +55,29 @@ def _lcm(a: int, b: int) -> int:
 
 
 def period(cfg: ModelConfig) -> int:
-    p = _lcm(1, len(cfg.attn.layer_pattern))
-    if cfg.moe.enabled:
-        p = _lcm(p, cfg.moe.moe_every)
+    p = 1
+    if cfg.block_kind == "attn":
+        p = _lcm(p, len(cfg.attn.layer_pattern))
+        if cfg.moe.enabled:
+            p = _lcm(p, cfg.moe.moe_every)
+    elif cfg.block_kind == "xlstm":
+        p = _lcm(p, max(1, len(cfg.ssm.xlstm_pattern)))
     return p
 
 
 def sub_kind(cfg: ModelConfig, sub: int) -> Dict[str, Any]:
     """Static description of sublayer `sub` within a period group."""
+    if cfg.block_kind == "xlstm":
+        pat = cfg.ssm.xlstm_pattern or ("m",)
+        return {"kind": "xlstm", "cell": pat[sub % len(pat)]}
+    if cfg.block_kind == "hymba":
+        return {"kind": "hymba", "moe": False, "window": cfg.attn.window}
     is_moe = cfg.moe.enabled and (sub % cfg.moe.moe_every == cfg.moe.moe_every - 1)
     return {"kind": "attn", "moe": is_moe, "window": cfg.layer_window(sub)}
+
+
+def _moe_subs(cfg: ModelConfig):
+    return [s for s in range(period(cfg)) if sub_kind(cfg, s).get("moe")]
 
 
 def n_moe_layers(cfg: ModelConfig) -> int:
@@ -76,12 +91,25 @@ def n_moe_layers(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _init_sublayer(gen, cfg: ModelConfig, sub: int, device) -> dict:
+def _init_sublayer(gen, cfg: ModelConfig, sub: int, device, cross: bool = False) -> dict:
+    sk = sub_kind(cfg, sub)
     dtype = getattr(torch, cfg.dtype)
     d = cfg.d_model
-    p: dict = {"ln1": init_rmsnorm(d, dtype, device), "attn": init_attention(gen, cfg, device)}
+    p: dict = {"ln1": init_rmsnorm(d, dtype, device)}
+    if sk["kind"] == "xlstm":
+        init = ssm_lib.init_mlstm if sk["cell"] == "m" else ssm_lib.init_slstm
+        p["mixer"] = init(gen, cfg, device)
+        return p
+    p["attn"] = init_attention(gen, cfg, device)
+    if sk["kind"] == "hymba":
+        p["mamba"] = ssm_lib.init_mamba(gen, cfg, device)
+        p["attn_norm"] = init_rmsnorm(d, dtype, device)
+        p["mamba_norm"] = init_rmsnorm(d, dtype, device)
+    if cross:
+        p["lnx"] = init_rmsnorm(d, dtype, device)
+        p["xattn"] = init_attention(gen, cfg, device)
     p["ln2"] = init_rmsnorm(d, dtype, device)
-    if sub_kind(cfg, sub)["moe"]:
+    if sk.get("moe"):
         p["moe"] = init_moe(gen, cfg, device)
     elif cfg.d_ff:
         p["mlp"] = init_ffn(gen, d, cfg.d_ff, cfg.glu, dtype, device)
@@ -94,23 +122,31 @@ def _init_sublayer(gen, cfg: ModelConfig, sub: int, device) -> dict:
 def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = None) -> dict:
     """Random weights from `gen`, placed on `device` (CUDA unless asked
     otherwise). They are drawn on the generator's device, so a CPU generator
-    gives the same weights for any target device."""
-    _check_supported(cfg)
+    gives the same weights for any target device. An encoder-decoder config
+    adds the encoder's `enc_blocks` and `enc_norm`, and cross-attention
+    (`lnx`, `xattn`) to each decoder sublayer."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     per = period(cfg)
     assert cfg.n_layers % per == 0, (cfg.name, cfg.n_layers, per)
-    groups = [
-        {f"sub{s}": _init_sublayer(gen, cfg, s, device) for s in range(per)}
-        for _ in range(cfg.n_layers // per)
-    ]
+
+    def groups(n, cross):
+        return tree_stack([
+            {f"sub{s}": _init_sublayer(gen, cfg, s, device, cross) for s in range(per)}
+            for _ in range(n // per)
+        ])
+
+    blocks = groups(cfg.n_layers, cfg.enc_dec)
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device),
-        "blocks": tree_stack(groups),
+        "blocks": blocks,
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, device).T.contiguous()
+    if cfg.enc_dec:
+        params["enc_blocks"] = groups(cfg.n_enc_layers, False)
+        params["enc_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
     return params
 
 
@@ -119,27 +155,48 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device: DeviceLike = Non
 # ---------------------------------------------------------------------------
 
 
-def attention_half(bp, x, cfg, sub, aux: Optional[dict] = None):
-    """The attention half of a sublayer: attention, residual, then the
-    pre-FFN norm. Returns (x, h) with h the FFN / MoE input; with an `aux`
-    dict, the rope-applied K/V go into aux["kv"]. The layerwise baselines
-    call it too, so their router input is the full forward's, bit for bit."""
+def _hymba_fuse(bp, a, mmb, cfg):
+    """hymba's mean of its two branches, each normalised."""
+    return 0.5 * (rmsnorm(bp["attn_norm"], a, cfg.norm_eps)
+                  + rmsnorm(bp["mamba_norm"], mmb, cfg.norm_eps))
+
+
+def attention_half(bp, x, cfg, sub, aux: Optional[dict] = None, causal: bool = True,
+                   enc_out: Optional[torch.Tensor] = None, scan_mode: str = "assoc"):
+    """The attention half of a sublayer: attention (beside hymba's Mamba
+    branch), residual, cross-attention over `enc_out` where the sublayer has
+    it, then the pre-FFN norm. Returns (x, h) with h the FFN / MoE input;
+    with an `aux` dict, the rope-applied K/V go into aux["kv"]. The
+    layerwise baselines call it too, so their router input is the full
+    forward's, bit for bit."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if aux is not None:
         # rope-applied K/V, what a decode cache holds at positions 0..S-1
-        a, aux["kv"] = attend_full(bp["attn"], h, cfg, sub, return_kv=True)
+        a, aux["kv"] = attend_full(bp["attn"], h, cfg, sub, causal=causal, return_kv=True)
     else:
-        a = attend_full(bp["attn"], h, cfg, sub)
+        a = attend_full(bp["attn"], h, cfg, sub, causal=causal)
+    if "mamba" in bp:
+        a = _hymba_fuse(bp, a, ssm_lib.mamba_forward(bp["mamba"], h, cfg, scan_mode), cfg)
     if cfg.post_norm:
         a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
     x = x + a
+    if enc_out is not None and "xattn" in bp:
+        hx = rmsnorm(bp["lnx"], x, cfg.norm_eps)
+        x = x + attend_full(bp["xattn"], hx, cfg, sub, causal=False, kv_from=enc_out)
     return x, rmsnorm(bp["ln2"], x, cfg.norm_eps)
 
 
-def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv, ctx=None):
+def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv, ctx=None,
+                         causal: bool = True, enc_out=None, scan_mode: str = "assoc"):
     aux: dict = {}
-    x, h = attention_half(bp, x, cfg, sub, aux if collect_kv else None)
-    if sub_kind(cfg, sub)["moe"]:
+    sk = sub_kind(cfg, sub)
+    if sk["kind"] == "xlstm":
+        h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        fwd = ssm_lib.mlstm_forward if sk["cell"] == "m" else ssm_lib.slstm_forward
+        return x + fwd(bp["mixer"], h, cfg, scan_mode), aux
+    x, h = attention_half(bp, x, cfg, sub, aux if collect_kv else None, causal, enc_out,
+                          scan_mode)
+    if sk["moe"]:
         y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
         aux.update(moe_aux)
     elif "mlp" in bp:
@@ -170,13 +227,15 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool, ctx=None):
+def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool, ctx=None, causal: bool = True,
+                enc_out=None, scan_mode: str = "assoc"):
     """One period group of sublayers: (x, aux_loss, z_loss, router logits
     of its MoE sublayers, {sub: (k, v)})."""
     aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     router_logits, kv_g = [], {}
     for s in range(period(cfg)):
-        x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ros.get(s), collect_kv, ctx)
+        x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ros.get(s), collect_kv, ctx,
+                                      causal, enc_out, scan_mode)
         if "kv" in aux:
             kv_g[f"sub{s}"] = aux.pop("kv")
         if "aux_loss" in aux:
@@ -186,41 +245,70 @@ def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool, ctx=None):
     return x, aux_loss, z_loss, router_logits, kv_g
 
 
-def forward(
-    params: dict,
-    cfg: ModelConfig,
-    tokens: torch.Tensor,                 # [B, S] int
-    routing_override=None,                # (ids [L_moe,B,S,k], w [L_moe,B,S,k]) or None
-    collect_router_logits: bool = False,
-    collect_kv: bool = False,
-    remat: bool = False,
-    ctx=None,                             # attention.ShardingCtx (expert-parallel serving)
-) -> Dict[str, Any]:
-    """Full forward. Returns dict(logits, aux_loss, z_loss, router_logits?,
-    kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]. With `remat`, each
-    layer group runs under non-reentrant activation checkpointing and is
-    recomputed in the backward (the reference's `jax.checkpoint` of its scan
-    body); the values and gradients are those without it."""
-    _check_supported(cfg)
-    per = period(cfg)
-    moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
-    x = embed_tokens(params, cfg, tokens)
+def _run_stack(blocks, x, cfg: ModelConfig, causal: bool, enc_out=None, routing_override=None,
+               collect_kv: bool = False, remat: bool = False, ctx=None,
+               scan_mode: str = "assoc"):
+    """Every group of a stacked block tree over x: (x, aux_loss, z_loss,
+    router logits [L_moe, ...] as a list, [{sub: (k, v)} a group]). With
+    `remat`, each group runs under non-reentrant activation checkpointing
+    and is recomputed in the backward (the reference's `jax.checkpoint` of
+    its scan body)."""
+    moe_subs = _moe_subs(cfg)
     aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     router_logits, kvs = [], []
-    for g, gp in enumerate(tree_unstack(params["blocks"])):
+    for g, gp in enumerate(tree_unstack(blocks)):
         ros = {}
         if routing_override is not None:
             for j, s in enumerate(moe_subs):
                 li = g * len(moe_subs) + j
                 ros[s] = (routing_override[0][li], routing_override[1][li])
-        if remat:
-            out = checkpoint(_group_full, gp, x, cfg, ros, collect_kv, ctx, use_reentrant=False)
-        else:
-            out = _group_full(gp, x, cfg, ros, collect_kv, ctx)
+        args = (gp, x, cfg, ros, collect_kv, ctx, causal, enc_out, scan_mode)
+        out = checkpoint(_group_full, *args, use_reentrant=False) if remat else _group_full(*args)
         x, al, zl, rl, kv_g = out
         aux_loss, z_loss = aux_loss + al, z_loss + zl
         router_logits += rl
         kvs.append(kv_g)
+    return x, aux_loss, z_loss, router_logits, kvs
+
+
+def _encode(params, cfg: ModelConfig, enc_input: torch.Tensor, scan_mode: str = "assoc",
+            remat: bool = False) -> torch.Tensor:
+    """The encoder of an encoder-decoder config: its groups over the stub
+    frontend's frame embeddings [B, S_enc, d], unmasked, then `enc_norm`."""
+    e = enc_input.to(getattr(torch, cfg.dtype))
+    e = _run_stack(params["enc_blocks"], e, cfg, causal=False, remat=remat, scan_mode=scan_mode)[0]
+    return rmsnorm(params["enc_norm"], e, cfg.norm_eps)
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                 # [B, S] int (decoder tokens)
+    routing_override=None,                # (ids [L_moe,B,S,k], w [L_moe,B,S,k]) or None
+    collect_router_logits: bool = False,
+    collect_kv: bool = False,
+    remat: bool = False,
+    ctx=None,                             # attention.ShardingCtx (expert-parallel serving)
+    enc_input: Optional[torch.Tensor] = None,   # [B, S_enc, d] stub frontend embeddings
+    scan_mode: str = "assoc",             # the recurrences' inner form ("assoc" | "scan")
+) -> Dict[str, Any]:
+    """Full forward. Returns dict(logits, aux_loss, z_loss, router_logits?,
+    kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]. An encoder-decoder
+    config needs `enc_input`: the encoder runs first and the decoder's
+    cross-attention reads its output. With `remat`, each layer group runs
+    under non-reentrant activation checkpointing and is recomputed in the
+    backward (the reference's `jax.checkpoint` of its scan body); the values
+    and gradients are those without it."""
+    enc_out = None
+    if cfg.enc_dec:
+        if enc_input is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder arch: forward needs enc_input")
+        enc_out = _encode(params, cfg, enc_input, scan_mode, remat)
+    x = embed_tokens(params, cfg, tokens)
+    x, aux_loss, z_loss, router_logits, kvs = _run_stack(
+        params["blocks"], x, cfg, causal=True, enc_out=enc_out,
+        routing_override=routing_override, collect_kv=collect_kv, remat=remat, ctx=ctx,
+        scan_mode=scan_mode)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out: Dict[str, Any] = {
         "logits": unembed(params, cfg, x), "aux_loss": aux_loss, "z_loss": z_loss,
@@ -255,22 +343,45 @@ def cache_len(cfg: ModelConfig, sub: int, seq_budget: int) -> int:
     return min(seq_budget, w) if w else seq_budget
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike = None) -> dict:
-    """Zeros ring cache on `device` (CUDA unless asked otherwise). Layout:
-    {"pos": [B] int32, "sub{s}": {"k", "v": [G, B, Sc, K, D]}}."""
-    _check_supported(cfg)
+def _stacked(tree: dict, n_groups: int) -> dict:
+    return {k: t.expand(n_groups, *t.shape).clone() for k, t in tree.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike = None,
+               enc_len: int = 0) -> dict:
+    """Zeros cache on `device` (CUDA unless asked otherwise). Layout:
+    {"pos": [B] int32, "sub{s}": entry}, where an attention sublayer's entry
+    holds the ring {"k", "v": [G, B, Sc, K, D]}, a hymba sublayer's also its
+    Mamba state {"state": {"h", "conv"}}, an xLSTM cell's only its state
+    ({"C", "n", "m"} or {"c", "n", "m"}), each state leaf stacked over the
+    G groups; an encoder-decoder config adds {"cross_k", "cross_v": [G, B,
+    enc_len, K, D]} to each decoder sublayer (the encoder's K/V, filled by
+    the caller) and "cross_len": [B] int32 to the cache."""
     device = resolve_device(device)
     per = period(cfg)
     n_groups = cfg.n_layers // per
     dtype = getattr(torch, cfg.dtype)
     K, D = cfg.n_kv_heads, cfg.hd
+
+    def zeros(S):
+        return torch.zeros((n_groups, batch, S, K, D), dtype=dtype, device=device)
+
     cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     for s in range(per):
+        sk = sub_kind(cfg, s)
+        if sk["kind"] == "xlstm":
+            init = ssm_lib.mlstm_init_state if sk["cell"] == "m" else ssm_lib.slstm_init_state
+            cache[f"sub{s}"] = {"state": _stacked(init(cfg, batch, device), n_groups)}
+            continue
         Sc = cache_len(cfg, s, seq_budget)
-        cache[f"sub{s}"] = {
-            "k": torch.zeros((n_groups, batch, Sc, K, D), dtype=dtype, device=device),
-            "v": torch.zeros((n_groups, batch, Sc, K, D), dtype=dtype, device=device),
-        }
+        entry = {"k": zeros(Sc), "v": zeros(Sc)}
+        if sk["kind"] == "hymba":
+            entry["state"] = _stacked(ssm_lib.mamba_init_state(cfg, batch, dtype, device), n_groups)
+        if cfg.enc_dec:
+            entry["cross_k"], entry["cross_v"] = zeros(enc_len), zeros(enc_len)
+        cache[f"sub{s}"] = entry
+    if cfg.enc_dec:
+        cache["cross_len"] = torch.full((batch,), enc_len, dtype=torch.int32, device=device)
     return cache
 
 
@@ -280,8 +391,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, paged, device: DeviceLike = N
     "sub{s}": {"kp", "vp": [G, P+1, page, K, D]}}: the pools are shared by
     all lanes and the last page is the trash page. One table serves every
     layer, since all layers cache the same positions. `paged` is a
-    `residency.PagedKVConfig`; `KVPagePool` keeps the table."""
-    _check_supported(cfg)
+    `residency.PagedKVConfig`; `KVPagePool` keeps the table. Attention-family
+    decoder-only archs only, as the reference's (a ValueError otherwise)."""
+    _check_unpaged(cfg)
     device = resolve_device(device)
     per = period(cfg)
     n_groups = cfg.n_layers // per
@@ -301,22 +413,43 @@ def init_paged_cache(cfg: ModelConfig, batch: int, paged, device: DeviceLike = N
     return cache
 
 
-def _apply_sublayer_decode(bp, kv, x, pos, cfg, sub, routing_override,
-                           page_table=None, active=None, ctx=None):
-    """One sublayer for one token. `kv` is the group's (k, v) ring [B, Sc,
-    K, D] or, with `page_table`, its (kp, vp) page pools; either is written
-    in place."""
+def _write_state(dst: dict, src: dict) -> None:
+    for k, t in dst.items():
+        t.copy_(src[k])
+
+
+def _apply_sublayer_decode(bp, ent, x, pos, cfg, sub, routing_override, page_table=None,
+                           active=None, ctx=None, cross_len=None):
+    """One sublayer for one token. `ent` is the group's views of the
+    sublayer's cache entry: its (k, v) ring [B, Sc, K, D] or, with
+    `page_table`, its (kp, vp) page pools; its recurrent "state"; its
+    cross-attention caches. The K/V and the state are written in place."""
+    sk = sub_kind(cfg, sub)
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    if sk["kind"] == "xlstm":
+        dec = ssm_lib.mlstm_decode if sk["cell"] == "m" else ssm_lib.slstm_decode
+        y, st = dec(bp["mixer"], h, ent["state"], cfg)
+        _write_state(ent["state"], st)
+        return x + y
     if page_table is not None:
-        a, _, _ = attend_decode_paged(bp["attn"], h, kv[0], kv[1], page_table, pos, cfg, sub,
-                                      active=active)
+        a, _, _ = attend_decode_paged(bp["attn"], h, ent["kp"], ent["vp"], page_table, pos, cfg,
+                                      sub, active=active)
     else:
-        a, _, _ = attend_decode(bp["attn"], h, kv[0], kv[1], pos, cfg, sub)
+        a, _, _ = attend_decode(bp["attn"], h, ent["k"], ent["v"], pos, cfg, sub)
+    if "mamba" in bp:
+        mmb, st = ssm_lib.mamba_decode(bp["mamba"], h, ent["state"], cfg)
+        _write_state(ent["state"], st)
+        a = _hymba_fuse(bp, a, mmb, cfg)
     if cfg.post_norm:
         a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
     x = x + a
+    if "xattn" in bp and cross_len is not None:
+        hx = rmsnorm(bp["lnx"], x, cfg.norm_eps)
+        ya, _, _ = attend_decode(bp["xattn"], hx, ent["cross_k"], ent["cross_v"], pos, cfg, sub,
+                                 cross=True, cross_len=cross_len)
+        x = x + ya
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    if sub_kind(cfg, sub)["moe"]:
+    if sk["moe"]:
         y = moe_decode(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
     elif "mlp" in bp:
         y = ffn(bp["mlp"], h, cfg.act, cfg.glu)
@@ -325,6 +458,12 @@ def _apply_sublayer_decode(bp, kv, x, pos, cfg, sub, routing_override,
     if cfg.post_norm:
         y = rmsnorm(bp["ln2_post"], y, cfg.norm_eps)
     return x + y
+
+
+def _group_view(entry, g: int) -> dict:
+    """Group g's views of a cache entry's tensors (the state leaves too)."""
+    return {k: ({n: t[g] for n, t in v.items()} if isinstance(v, dict) else v[g])
+            for k, v in entry.items()}
 
 
 def decode_step(
@@ -337,15 +476,15 @@ def decode_step(
     ctx=None,
 ):
     """One serve step: next-token logits [B, V] and the cache. The K/V
-    tensors (ring or page pools) are updated in place (see
-    `attention.attend_decode`); the returned dict holds them and the
-    advanced `pos`."""
-    _check_supported(cfg)
+    tensors (ring or page pools) and the recurrent states are updated in
+    place (see `attention.attend_decode`); the returned dict holds them and
+    the advanced `pos`. Cross-attention reads the cache's `cross_k` /
+    `cross_v` over its first `cross_len` slots."""
     per = period(cfg)
-    moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
+    moe_subs = _moe_subs(cfg)
     pos = cache["pos"]
     page_table = cache.get("page_table")
-    names = ("kp", "vp") if page_table is not None else ("k", "v")
+    cross_len = cache.get("cross_len")
     x = embed_tokens(params, cfg, tokens)
     for g in range(cfg.n_layers // per):
         gp = tree_map(lambda t: t[g], params["blocks"])
@@ -354,10 +493,9 @@ def decode_step(
             if routing_override is not None and s in moe_subs:
                 li = g * len(moe_subs) + moe_subs.index(s)
                 ro = (routing_override[0][li], routing_override[1][li])
-            entry = cache[f"sub{s}"]
-            kv = (entry[names[0]][g], entry[names[1]][g])
-            x = _apply_sublayer_decode(gp[f"sub{s}"], kv, x, pos, cfg, s, ro,
-                                       page_table=page_table, active=active, ctx=ctx)
+            x = _apply_sublayer_decode(gp[f"sub{s}"], _group_view(cache[f"sub{s}"], g), x, pos,
+                                       cfg, s, ro, page_table=page_table, active=active, ctx=ctx,
+                                       cross_len=cross_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     new_cache = dict(cache)
@@ -416,16 +554,18 @@ def verify_step(
     this snapshots only what the block will overwrite, the kb entries a
     lane of each K/V tensor (ring slots (pos0 + i) % Sc, or the (page,
     offset) the installed table gives, trash for positions past it), and
-    writes the rejected ones back afterwards. `pos` advances by n_acc.
+    writes the rejected ones back afterwards. Recurrent states (hymba's
+    Mamba, the xLSTM cells) keep a copy of every block position's
+    post-update state; each lane takes position n_acc - 1's, and a lane
+    with n_acc == 0 its pre-block state. `pos` advances by n_acc.
 
     Returns (out tokens [B, kb] int32, n_acc [B] int32, logits [kb, B, V],
     the cache); the cache's K/V tensors are the ones passed in, updated in
     place."""
     B, kb = tokens.shape
-    subs = [k for k in cache if k.startswith("sub")]
-    if any("state" in cache[k] for k in subs):
-        raise NotImplementedError("recurrent-state rollback comes with ROADMAP A15")
     names = ("kp", "vp") if cache.get("page_table") is not None else ("k", "v")
+    subs = [k for k in cache if k.startswith("sub") and names[0] in cache[k]]
+    state_subs = [k for k in cache if k.startswith("sub") and "state" in cache[k]]
     if names[0] == "k":
         for skey in subs:
             if cache[skey]["k"].shape[2] < kb:
@@ -436,7 +576,10 @@ def verify_step(
     snap = {(skey, n): cache[skey][n][:, idx[skey][0], idx[skey][1]]    # [G, B, kb, K, D]
             for skey in subs for n in names}
 
-    c, outs, logits = cache, [], []
+    def states(c):
+        return {skey: {n: t.clone() for n, t in c[skey]["state"].items()} for skey in state_subs}
+
+    c, outs, logits, state_snaps = cache, [], [], [states(cache)]
     for i in range(kb):
         ro = None if routing_override is None else (routing_override[0][i],
                                                     routing_override[1][i])
@@ -444,6 +587,8 @@ def verify_step(
                             ctx=ctx)
         logits.append(lg)
         outs.append(torch.argmax(lg, dim=-1).to(torch.int32))
+        if state_subs:
+            state_snaps.append(states(c))
     out = torch.stack(outs, dim=1)                           # [B, kb]
 
     # longest accepted prefix: 1 (position 0 is real) + leading draft matches
@@ -455,6 +600,13 @@ def verify_step(
     for (skey, n), sn in snap.items():
         t, (i0, i1) = c[skey][n], idx[skey]
         t[:, i0, i1] = torch.where(rejected[None, :, :, None, None], sn, t[:, i0, i1])
+    # each lane's state after its n_acc accepted positions (snapshot 0 is
+    # the pre-block state, so n_acc == 0 keeps it)
+    lanes = torch.arange(B, device=tokens.device)
+    for skey in state_subs:
+        for n, t in c[skey]["state"].items():
+            stk = torch.stack([sn[skey][n] for sn in state_snaps])   # [kb + 1, G, B, ...]
+            t.copy_(stk[n_acc.long(), :, lanes].movedim(0, 1))
     new_cache = dict(c)
     new_cache["pos"] = pos0 + n_acc
     return out, n_acc, torch.stack(logits), new_cache
@@ -500,10 +652,11 @@ def prefill_chunk_step(
     `pos` [1] and `page_table` [1, Mp] rows and the shared pools. Returns
     (logits [1, T, V], the cache with pos advanced by T). The caller
     interleaves these steps with decode ticks and makes the chunk's
-    attention span resident first (`KVPagePool.ensure`)."""
-    _check_supported(cfg)
+    attention span resident first (`KVPagePool.ensure`). Attention-family
+    decoder-only archs only, as the reference's (a ValueError otherwise)."""
+    _check_unpaged(cfg)
     per = period(cfg)
-    moe_subs = [s for s in range(per) if sub_kind(cfg, s)["moe"]]
+    moe_subs = _moe_subs(cfg)
     pos0 = cache["pos"]
     page_table = cache["page_table"]
     x = embed_tokens(params, cfg, tokens)

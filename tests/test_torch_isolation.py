@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as jget_config
+from repro.configs.base import list_configs as jlist_configs
 from repro_torch.configs.base import get_config, list_configs
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -107,18 +108,18 @@ def test_default_device_is_cuda_and_never_falls_back_to_cpu(monkeypatch):
 
 ATTENTION_FAMILY = ["chameleon-34b", "deepseek-moe-16b", "gemma2-9b", "qwen2-1.5b",
                     "qwen3-moe-235b-a22b", "smollm-135m", "stablelm-12b"]
+OTHER_FAMILIES = ["hymba-1.5b", "xlstm-125m", "seamless-m4t-medium"]
+SWITCH = [f"switch-base-{e}" for e in (8, 64, 128, 256)]
 
 
 def test_the_port_registers_the_attention_family_and_switch():
-    assert list(list_configs()) == sorted(
-        ATTENTION_FAMILY + [f"switch-base-{e}" for e in (8, 64, 128, 256)])
-    # hybrid, recurrent and encoder-decoder archs wait for their block kinds
-    for name in ("hymba-1.5b", "xlstm-125m", "seamless-m4t-medium"):
-        with pytest.raises(KeyError):
-            get_config(name)
+    """All 14 of the reference's configs: the attention family, the Switch
+    family, and the hybrid, recurrent and encoder-decoder archs."""
+    assert list(list_configs()) == sorted(ATTENTION_FAMILY + OTHER_FAMILIES + SWITCH)
+    assert list(list_configs()) == list(jlist_configs())
 
 
-@pytest.mark.parametrize("name", ATTENTION_FAMILY + [f"switch-base-{e}" for e in (8, 64, 128, 256)])
+@pytest.mark.parametrize("name", ATTENTION_FAMILY + OTHER_FAMILIES + SWITCH)
 def test_configs_match_jax_field_by_field(name):
     assert name in list_configs()
     t, j = get_config(name), jget_config(name)

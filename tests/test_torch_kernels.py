@@ -49,6 +49,21 @@ def _close(got, want, tol):
     )
 
 
+def _close_attention(got, want, mag, dtype):
+    """An attention kernel against its fp32 plain version `want`: fp32
+    within F32_TOL; bf16 within 2^-7·(P|V| + |want|) of each element, twice
+    the rounding of P and of the output to bf16 (`mag` is the plain version
+    over |v|), and never above _close's 2e-2·(1 + |want|). Over hundreds of
+    keys that bound is ~6e-3, where 2e-2 is as large as a typical output."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if dtype == "float32":
+        _close(got, want, F32_TOL)
+        return
+    bound = torch.minimum(2.0 ** -7 * (mag.float().cpu() + want.abs()), 2e-2 * (1 + want.abs()))
+    over = ((got - want).abs() / bound).max().item()
+    assert over <= 1, over
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -441,6 +456,7 @@ def test_expert_ffn_cuda_refusals(case, match):
 @pytest.mark.parametrize("case,match", [
     ("head_dim 48", "head_dim 48"), ("groups", "do not group"), ("k dtype", "k is"),
     ("misaligned", "16-byte aligned"), ("window", "must be >= 0"), ("cpu", "needs CUDA"),
+    ("cross causal", "causal=False"), ("cross window", "window=0"),
 ])
 def test_flash_prefill_cuda_refusals(case, match):
     B, S, H, K, D = 1, 8, 4, 2, 32
@@ -457,8 +473,42 @@ def test_flash_prefill_cuda_refusals(case, match):
         v = _misaligned(B, S, K, D)
     elif case == "window":
         kw["window"] = -1
+    elif case.startswith("cross"):
+        # 12 keys for 8 queries: only cross-attention's unmasked form
+        k, v = (torch.zeros(B, 12, K, D, dtype=torch.bfloat16) for _ in range(2))
+        kw = {"causal": True} if case == "cross causal" else {"causal": False, "window": 4}
     with pytest.raises(ValueError, match=match):
         flash_prefill_cuda(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 4), (True, 4)])
+def test_flash_prefill_refuses_a_masked_key_length_of_its_own(causal, window):
+    """ops.flash_prefill refuses S_kv != S with a mask on either device,
+    before the plain version or the kernel sees it."""
+    q = torch.zeros(1, 8, 2, 32)
+    kv = torch.zeros(1, 12, 2, 32)
+    with pytest.raises(ValueError, match="cross-attention"):
+        ops.flash_prefill(q, kv, kv, window=window, causal=causal)
+
+
+@pytest.mark.parametrize("S,S_kv,H,K,cap", [(17, 64, 4, 4, 0.0), (64, 9, 10, 2, 0.0),
+                                            (5, 130, 25, 5, 30.0)])
+def test_flash_prefill_plain_cross_attention_matches_jax(jx, S, S_kv, H, K, cap):
+    """The plain version at a key length of its own against the reference's
+    cross-attention (`repro.models.attention._attend_chunk`, unmasked), and
+    its backward (`kernels.autograd`) against autograd over it."""
+    jnp, _, _ = jx
+    from repro.models.attention import _attend_chunk
+
+    q, k, v = _np((2, S, H, 32), 11), _np((2, S_kv, K, 32), 12), _np((2, S_kv, K, 32), 13)
+    got = ops.flash_prefill(*map(torch.from_numpy, (q, k, v)), cap=cap, causal=False)
+    want = _attend_chunk(*map(jnp.asarray, (q, k, v)), jnp.arange(S), jnp.arange(S_kv), 0, cap,
+                         False)
+    _close(got, want, F32_TOL)
+    _card_vs_plain_grads(
+        lambda q, k, v: ops.flash_prefill(q, k, v, cap=cap, causal=False),
+        lambda q, k, v: ref.flash_prefill_ref(q, k, v, cap=cap, causal=False),
+        [torch.from_numpy(a) for a in (q, k, v)], "float32")
 
 
 # ---------------------------------------------------------------------------
@@ -1135,6 +1185,87 @@ def test_flash_prefill_backward_on_the_card_matches_plain(cuda, B, S, H, K, wind
         lambda q, k, v: ops.flash_prefill(q, k, v, window=window, cap=cap),
         lambda q, k, v: ref.flash_prefill_ref(q, k, v, window=window, cap=cap).to(q.dtype),
         [q, k, v], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,S_kv,H,K", [
+    (2, 64, 512, 16, 16),        # seamless's cross-attention at phase 13's shape
+    (2, 17, 1, 4, 4), (1, 65, 63, 10, 2), (2, 300, 65, 25, 5), (1, 1, 200, 8, 8),
+    (2, 130, 129, 4, 1),
+])
+def test_flash_prefill_cross_attention_matches_plain(cuda, B, S, S_kv, H, K, dtype):
+    """A key length of its own (unmasked): S_kv below, at and across the
+    64-key tile edge and not a whole number of tiles, forward and backward."""
+    q, k, v = (_t(_np(s, 90 + i), dtype).to(cuda)
+               for i, s in enumerate([(B, S, H, 64), (B, S_kv, K, 64), (B, S_kv, K, 64)]))
+    got = ops.flash_prefill(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and tuple(got.shape) == (B, S, H, 64)
+    want = ref.flash_prefill_ref(q, k, v, causal=False)
+    _close_attention(got, want, ref.flash_prefill_ref(q, k, v.abs(), causal=False), dtype)
+    _card_vs_plain_grads(
+        lambda q, k, v: ops.flash_prefill(q, k, v, causal=False),
+        lambda q, k, v: ref.flash_prefill_ref(q, k, v, causal=False).to(q.dtype),
+        [q, k, v], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,window,causal", [
+    (2, 300, 64, True), (1, 4096, 2048, True), (2, 129, 0, False), (2, 77, 0, True),
+])
+def test_flash_prefill_at_group_5_matches_plain(cuda, B, S, window, causal, dtype):
+    """hymba's 25 query heads over 5 kv heads of 64: the tensor-core body's
+    64-row blocks at a group of 5, windowed (its 2048 window over a 4096
+    prompt), unwindowed, non-causal; forward, and backward below 4096."""
+    q, k, v = (_t(_np(s, 100 + i), dtype).to(cuda)
+               for i, s in enumerate([(B, S, 25, 64), (B, S, 5, 64), (B, S, 5, 64)]))
+    got = ops.flash_prefill(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_prefill_ref(q, k, v, window, 0.0, causal)
+    _close_attention(got, want, ref.flash_prefill_ref(q, k, v.abs(), window, 0.0, causal), dtype)
+    if S < 4096:
+        _card_vs_plain_grads(
+            lambda q, k, v: ops.flash_prefill(q, k, v, window=window, causal=causal),
+            lambda q, k, v: ref.flash_prefill_ref(q, k, v, window, 0.0, causal).to(q.dtype),
+            [q, k, v], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,pos,wrap,window", [
+    (2, 2048, [4000, 100], True, 2048),      # hymba: its ring and window
+    (3, 64, [150, 37, 63], True, 64),        # phase 13(d)'s cut window, wrapped
+    (2, 77, [76, 10], False, 0),
+])
+def test_flash_decode_at_group_5_matches_plain(cuda, B, S, pos, wrap, window, dtype):
+    """G 5 over D 64: a block's 8 head rows, 3 idle."""
+    q, k, v, sp, p = _decode_inputs(B, S, 25, 5, 64, pos, wrap, dtype, cuda, seed=110)
+    got = ops.flash_decode(q, k, v, sp, p, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_decode_ref(q, k, v, sp, p, window, 0.0)
+    _close_attention(got, want, ref.flash_decode_ref(q, k, v.abs(), sp, p, window, 0.0), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,cross_len", [
+    (2, 512, 16, 16, [512, 512]),            # seamless at phase 13's encoder length
+    (3, 100, 16, 16, [100, 37, 1]),          # ragged encoder lengths
+    (2, 65, 25, 5, [65, 64]),
+])
+def test_flash_decode_cross_form_matches_plain(cuda, B, S, H, K, cross_len, dtype):
+    """Cross-attention's read of a fixed encoder cache: slot_pos 0 below
+    cross_len and -1 above, the query at position 0, no window."""
+    q, k, v, _, _ = _decode_inputs(B, S, H, K, 64, [0] * B, False, dtype, cuda, seed=120)
+    n = torch.tensor(cross_len, dtype=torch.int32)
+    sp = torch.where(torch.arange(S)[None, :] < n[:, None], 0, -1).to(torch.int32).to(cuda)
+    zero = torch.zeros(B, dtype=torch.int32, device=cuda)
+    got = ops.flash_decode(q, k, v, sp, zero)
+    torch.cuda.synchronize()
+    want = ref.flash_decode_ref(q, k, v, sp, zero)
+    _close_attention(got, want, ref.flash_decode_ref(q, k, v.abs(), sp, zero), dtype)
 
 
 @pytest.mark.gpu
