@@ -43,7 +43,11 @@
    autograd over the plain version on the same inputs (fp32 within 1e-4 *
    max(1, max|g|), expert_ffn also in bf16 within 5e-2 * max(1, max|g|)),
    timed beside autograd over the plain version and over the library call
-   (bmm+gelu+bmm, SDPA), with its bound. The expert-parallel shapes too
+   (bmm+gelu+bmm, SDPA), with its bound. sparsemax past 1024 rows (the
+   block-a-row kernel) at 11b's long step's [4, 1280, 1280], at TKD's
+   [8, 2048, 2048] and at [1, 2048, 8192] (fp32, 1e-5), and in bf16 at [8, 2048, 2048] (bit-equal to the fp32 kernel cast
+   to bf16, within one bf16 ulp of the plain version over z.float()), each
+   with its bound (a read and a write of z). The expert-parallel shapes too
    (phase 12's per-shard launches): expert_ffn, expert_ffn_q and
    expert_ffn_q4 over the last shard's slice of a slot pool (a view at an
    offset into the pool and its scale planes, never a copy), bit-identical
@@ -228,6 +232,19 @@
    `launch.train.train` 10 steps at full width on [4, 256], 4 layers
    (seamless 4 + 4), fp32: losses finite and falling, flash_prefill
    launched in hymba's and seamless's training (its cross form too).
+   Phase 11b also runs one TKD step at S = 1280 ([4, 1280] tokens through
+   11a's model; sparsemax rows of 1280) on the card and on the CPU: each
+   gradient leaf within 1e-3 * max|g_cpu|, the step's loss within 1e-4 *
+   max(1, |loss|).
+14. (a) `models/moe.py::apply_expert_stack` (the reference's unblocked
+   einsum FFN, plain PyTorch) at switch-base-8's [4, 640] bf16 against B1
+   within 5e-2 * max(1, max|y|). (b) C2 on the trained miniature: the
+   committed sys_E8 (experiments/cache/sys_E8) in bf16 with its trained
+   predictor, `SiDADecodeEngine` 8 lanes x 64 greedy steps, no fixed table,
+   at 8 and 3 slots: tokens and per-step loads identical on card and CPU.
+   (c) the port's dry run (`launch/dryrun.py`: fake tensors on the host
+   under FlopCounterMode, no JAX) of switch-base-8 x {train_4k, decode_32k}
+   on the (16, 16) pod mesh: FLOPs and GB a device; a failed trace fails.
 
 The second-to-last lines are the kernels' JSON record (the seven kernels,
 expert_ffn at the decode shape, at 5e's all-resident verify step
@@ -238,7 +255,9 @@ expert_ffn_q4 at the batch serves' shapes, and sparsemax at the ring's;
 kernel's launches on 5e's speculative runs, null for the batch rows;
 `server_launches` a kernel's launches on each of 9a-9d (null for the shape
 rows); the training rows (`expert_ffn/train`, `flash_prefill/train`,
-`sparsemax/tkd`) count 11a's / 11b's launches and carry their backward's
+`sparsemax/tkd`) count 11a's / 11b's launches (`sparsemax/tkd-1280` 11b's
+S = 1280 step's, at its [4, 1280, 1280] scores; `/tkd-2048`, `/tkd-8192`
+and `/bf16` are shape rows that no path launches, 0) and carry their backward's
 `backward_*` times, bound and error over its tolerance; the phase-10 rows (`expert_ffn/deepseek-batch`,
 `flash_decode/qwen3-G16`, ...) count their own phase-10 run's launches,
 each attention row its own form's (`ops.launches_by_shape()`; 0 fails),
@@ -4673,6 +4692,239 @@ def recurrent_training():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 2, sparsemax past 1024 and in bf16; 11b's TKD step at S = 1280;
+# phase 14: the unblocked expert stack, C2 on the trained miniature, the dry run
+# ---------------------------------------------------------------------------
+
+TKD_LONG = (4, 1280)        # 11b's long TKD step, [batch, seq]: sparsemax rows of 1280
+E8_DIR = os.path.join(ROOT, "experiments", "cache", "sys_E8")
+E8_LANES, E8_STEPS = 8, 64  # 14b's greedy decode
+
+
+def ulp_bound(want, dtype):
+    """One unit in the last place of each |want| in `dtype` (the smallest
+    normal's spacing below it): the elementwise bound of a half-precision
+    sparsemax row against the fp32 plain version cast to its dtype."""
+    import torch
+
+    fi = torch.finfo(dtype)
+    e = torch.floor(torch.log2(torch.clamp(want.float().abs(), min=fi.tiny)))
+    return torch.exp2(e) * fi.eps
+
+
+def check_long_sparsemax():
+    """Phase 2, sparsemax past 1024 (C18) and in bf16: the block-a-row kernel
+    at 11b's long step's scores [4, 1280, 1280], at TKD's batch
+    [8, 2048, 2048] and at [1, 2048, 8192] (fp32, 1e-5 of the
+    plain version, a rerun bit-identical), and bf16 at [8, 2048, 2048]: read
+    as fp32, written in bf16, bit-equal to the fp32 kernel's output cast to
+    bf16 and within one bf16 ulp of the plain version over z.float() cast
+    to bf16. Each row's bound is a read and a write of z at 3.35 TB/s.
+    Returns {row: record}."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sparsemax import sparsemax_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(654)
+
+    def rnd(shape, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * 3.0).to(dtype)
+
+    records, failed = {}, []
+    B, S = TKD_LONG
+    for row, shape in (("sparsemax/tkd-1280", (B, S, S)), ("sparsemax/tkd-2048", (8, 2048, 2048)),
+                       ("sparsemax/tkd-8192", (1, 2048, 8192))):
+        records[row] = check_sparsemax(failed, row, rnd(shape))
+    bf16 = torch.bfloat16
+    z = rnd((8, 2048, 2048), bf16)
+    got, again = sparsemax_cuda(z), sparsemax_cuda(z)
+    from_f32 = sparsemax_cuda(z.float()).to(bf16)
+    torch.cuda.synchronize()
+    same = torch.equal(got, from_f32)
+    if not torch.equal(got, again):
+        failed.append("sparsemax/bf16: a rerun differs")
+    if not same:
+        failed.append("sparsemax/bf16: differs from the fp32 kernel's output cast to bf16")
+    plain = lambda: ref.sparsemax_ref(z.float()).to(bf16)
+    want = plain()
+    kern = lambda: sparsemax_cuda(z)
+    records["sparsemax/bf16"] = report(
+        failed, "sparsemax/bf16", bf16, tuple(z.shape), got, want, ulp_bound(want, bf16),
+        time_ms(kern), time_ms(plain), None, bound_ms(nb(z, got), 4 * z.numel(), H100_F32_FLOPS),
+        graph=(kern, None))
+    print(f"    (sparsemax/bf16 bit-equal to the fp32 kernel cast to bf16: {same})")
+    del z, got, again, from_f32, want
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: sparsemax past 1024 / in bf16 disagrees: {failed}")
+    return records
+
+
+def tkd_long_card_vs_cpu(cfg, params):
+    """Phase 11b's long step: one TKD step at S = 1280 (sparsemax rows of
+    1280: the block kernel) from 11a's frozen model on `TKD_LONG`
+    SyntheticLM tokens, the predictor seeded as 11b's: the TKD loss's
+    gradients on the card against the CPU's on the same embeddings and
+    teacher logits, each leaf within 1e-3 * max|g_cpu| (`grads_close`, as
+    11c), and one `train_hash_fn` step's loss within 1e-4 * max(1, |loss|).
+    Returns the card's sparsemax launches."""
+    import torch
+
+    from repro_torch.core.hash_fn import hash_fn_apply, init_hash_fn
+    from repro_torch.core.tkd import tkd_loss, train_hash_fn
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward, n_moe_layers
+    from repro_torch.tree import flatten, leaf_grads, requiring_grad, tree_map
+
+    cfg_t = train_config(cfg)
+    E = cfg.moe.num_experts
+    B, S = TKD_LONG
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S, n_domains=8), seed=6)
+    toks = torch.from_numpy(data.sample(B)[0]).long().cuda()
+    with torch.no_grad():
+        teacher = forward(params, cfg_t, toks, collect_router_logits=True)["router_logits"]
+    emb = params["embed"][toks]
+    hp = init_hash_fn(torch.Generator().manual_seed(1), cfg.d_model, n_moe_layers(cfg), E,
+                      d_h=64, device="cpu")
+    runs = {}
+    threads = torch.get_num_threads()
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        # the CPU's 1280-step LSTM backward is thousands of small ops, which
+        # many threads only slow down
+        torch.set_num_threads(threads if dev == "cuda" else min(threads, 2))
+        e, t = emb.detach().to(dev), teacher.detach().to(dev)
+        ops.reset_launches()
+        p = requiring_grad(tree_map(lambda x: x.to(dev), hp))
+        loss, _ = tkd_loss(hash_fn_apply(p, e, E), t, T=min(30, E), lam=0.005)
+        grads = flatten(leaf_grads(loss, p))
+        _, hist = train_hash_fn(tree_map(lambda x: x.to(dev), hp), iter([(e, t)]), steps=1,
+                                lr=3e-3, T=min(30, E), lam=0.005, verbose=False)
+        runs[dev] = (grads, hist[0]["loss"], ops.launches()["sparsemax"])
+        print(f"  ({dev}) TKD at [{B}, {S}]: {time.perf_counter() - t0:.1f} s, loss "
+              f"{hist[0]['loss']:.6f}, sparsemax launches {runs[dev][2]}")
+    torch.set_num_threads(threads)
+    (g_card, l_card, n_card), (g_cpu, l_cpu, _) = runs["cuda"], runs["cpu"]
+    worst, bad, _ = grads_close(g_card, g_cpu)
+    if not abs(l_card - l_cpu) <= 1e-4 * max(1.0, abs(l_cpu)):
+        bad.append(f"loss {l_card} vs {l_cpu}")
+    print(f"  gate: TKD at S = {S}, {len(g_cpu)} leaves: worst error / bound = {worst:.4f} "
+          f"(need <= 1); loss card {l_card:.6f} cpu {l_cpu:.6f}")
+    if bad or n_card == 0:
+        raise SystemExit(f"chip_smoke: 11b's TKD step at S = {S}, card against CPU: {bad}, "
+                         f"sparsemax launches {n_card}")
+    return n_card
+
+
+def expert_stack_path(cfg):
+    """Phase 14a: `moe.apply_expert_stack` (the reference's unblocked einsum
+    FFN, plain PyTorch) at switch-base-8's batch shape [4, 640, 768 -> 3072],
+    bf16, against B1 (`ops.expert_ffn`) on the same inputs within
+    5e-2 * max(1, max|y|); both timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import apply_expert_stack
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    E, C, d, Fh = 4, 640, cfg.d_model, cfg.moe.d_expert
+    bf16 = torch.bfloat16
+    p = {"w_in": torch.randn((E, d, Fh), generator=gen, device="cuda") * d ** -0.5,
+         "w_gate": torch.randn((E, d, Fh), generator=gen, device="cuda") * d ** -0.5,
+         "w_out": torch.randn((E, Fh, d), generator=gen, device="cuda") * Fh ** -0.5}
+    p = {k: v.to(bf16) for k, v in p.items()}
+    xe = torch.randn((E, C, d), generator=gen, device="cuda").to(bf16)
+    with torch.no_grad():
+        ops.reset_launches()
+        want = ops.expert_ffn(xe, p["w_in"], None, p["w_out"], act=cfg.act)
+        if ops.launches()["expert_ffn"] != 1:
+            raise SystemExit("chip_smoke: 14a's B1 call did not launch its kernel")
+        got = apply_expert_stack(p, xe, cfg)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 5e-2 * max(1.0, want.float().abs().max().item())
+        s_ms = time_ms(lambda: apply_expert_stack(p, xe, cfg))
+        k_ms = time_ms(lambda: ops.expert_ffn(xe, p["w_in"], None, p["w_out"], act=cfg.act))
+    print(f"  apply_expert_stack bf16 {(E, C, d, Fh)}: max_abs_err vs B1 {err:.3e} tol {tol:.3e} "
+          f"{'ok' if err <= tol else 'FAIL'}; ms {s_ms:.4f} (B1 {k_ms:.4f})")
+    if not err <= tol or not torch.isfinite(got.float()).all():
+        raise SystemExit("chip_smoke: 14a, apply_expert_stack disagrees with B1")
+
+
+def e8_config():
+    """The committed trained miniature's config (benchmarks' bench_cfg(8)):
+    switch-base-8 reduced to 4 layers, d_model 128, 8 experts top-1 at
+    capacity factor 4, served in bf16."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("switch-base-8").reduced()
+    return dataclasses.replace(
+        cfg, n_layers=4, d_ff=128, dtype="bfloat16",
+        moe=dataclasses.replace(cfg.moe, num_experts=8, top_k=1, capacity_factor=4.0,
+                                d_expert=512))
+
+
+def e8_card_vs_cpu():
+    """Phase 14b (C2 on the trained miniature): sys_E8's model in bf16 with
+    its trained hash predictor, `SiDADecodeEngine` on the card and on the
+    CPU, E8_LANES lanes x E8_STEPS greedy steps, no fixed routing table, all
+    8 experts resident and 3 slots a layer: the greedy tokens and the loads
+    of every step identical (the gate the CPU test holds the port to against
+    JAX)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.decode_engine import SiDADecodeEngine
+    from repro_torch.sharding.policy import param_shapes
+    from repro_torch.tree import flatten, unflatten
+
+    cfg = e8_config()
+    model, _ = load_checkpoint(os.path.join(E8_DIR, "model"))
+    hp, _ = load_checkpoint(os.path.join(E8_DIR, "hash"))
+    like = flatten(param_shapes(cfg))
+    params = unflatten({k: t.to(like[k].dtype) for k, t in flatten(model).items()})
+    start = np.random.default_rng(11).integers(0, cfg.vocab_size, (E8_LANES,)).astype(np.int32)
+    for slots in (8, 3):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng = SiDADecodeEngine(cfg, params, hp, slots_per_layer=slots, device=dev)
+            toks, m = eng.generate(start, steps=E8_STEPS, cache_len=E8_STEPS + 8)
+            eng.close()
+            out[dev] = (np.asarray(toks), m.loads_per_step)
+        same = float((out["cuda"][0] == out["cpu"][0]).mean())
+        loads = out["cuda"][1] == out["cpu"][1]
+        print(f"  sys_E8 bf16, {slots} slots, {E8_LANES} lanes x {E8_STEPS} steps: greedy tokens "
+              f"identical card vs CPU {same:.6f} (need 1.0); per-step loads identical {loads}")
+        if same < 1.0 or not loads:
+            raise SystemExit("chip_smoke: 14b, the card's bf16 greedy tokens differ from the CPU's "
+                             "on the trained miniature")
+
+
+def dryrun_path():
+    """Phase 14c: the port's dry run (`launch/dryrun.py`, a fake-tensor
+    trace on the host, no JAX) of switch-base-8 x {train_4k, decode_32k} on
+    the pod mesh: FLOPs and GB a device. Fails if a trace fails."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import analyse
+
+    cfg = get_config("switch-base-8")
+    for shape in ("train_4k", "decode_32k"):
+        rec = analyse(cfg, shape, "pod", verbose=False)
+        if rec["status"] != "ok":
+            raise SystemExit(f"chip_smoke: 14c, the dry run of {cfg.name} x {shape} failed: "
+                             f"{rec['error']}")
+        gb = (rec["argument_size_in_bytes"] + rec["output_size_in_bytes"]
+              - rec["alias_size_in_bytes"]) / 1e9
+        print(f"  {cfg.name} x {shape} x pod ({rec['n_devices']} devices): trace "
+              f"{rec['trace_s']:.1f} s, flops_global {rec['flops_global']:.4e}, flops a device "
+              f"{rec['flops']:.4e}, arguments a device {rec['argument_size_in_bytes'] / 1e9:.4f} GB, "
+              f"arguments + outputs - aliases {gb:.4f} GB a device")
+
+
 def main() -> int:
     import torch
 
@@ -4724,6 +4976,8 @@ def main() -> int:
                                             warm, c_tier, warm, c_tb))
     print(f"  -- the training shapes (fp32 [8, 128] tokens; each Function's backward)")
     records.update(check_training_kernels(cfg))
+    print(f"  -- sparsemax past 1024 (the block-a-row kernel) and in bf16")
+    records.update(check_long_sparsemax())
     print(f"  -- the expert-parallel shapes (B1 / B5 / B6 over one shard's slice of a pool)")
     shapes = [(d, Fh), (d, Fh), (Fh, d)]
     ep_tier = TierConfig(int4_slots=True, tier_split=0.5, group_size=64)
@@ -4846,6 +5100,9 @@ def main() -> int:
     print(f"== phase 11b: TKD of the predictor and the draft head from 11a's model "
           f"[{time.perf_counter() - t_start:.1f} s]")
     hp_trained, hp_untrained, kcounts = tkd_path(cfg, trained)
+    print(f"== phase 11b, past 1024: one TKD step at S = {TKD_LONG[1]}, card vs CPU "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    long_tkd = tkd_long_card_vs_cpu(cfg, trained)
     print(f"== phase 11d: serving what was trained (bf16, SiDA at {slots} slots vs Standard) "
           f"[{time.perf_counter() - t_start:.1f} s]")
     serve_trained_path(cfg, trained, hp_trained, hp_untrained, slots)
@@ -4875,6 +5132,17 @@ def main() -> int:
           f"{TRAIN_FAMILY_DEPTH} layers) [{time.perf_counter() - t_start:.1f} s]")
     tfcounts = recurrent_training()
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    print(f"== phase 14a: the unblocked expert stack against B1 (switch-base-8 [4, 640], bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    expert_stack_path(cfg)
+    print(f"== phase 14b: C2, the trained sys_E8 in bf16, greedy tokens card vs CPU "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    e8_card_vs_cpu()
+    print(f"== phase 14c: the dry run (fake-tensor trace), switch-base-8 on the pod mesh "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    dryrun_path()
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     meta = {
@@ -4919,6 +5187,16 @@ def main() -> int:
                                 "src/repro/kernels/flash_prefill.py:82"),
         "sparsemax/tkd": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
                           "src/repro/kernels/sparsemax.py:43"),
+        # past 1024 (the block-a-row kernel: 11b's long step, TKD's batch at
+        # 2048 and 8192) and in bf16
+        "sparsemax/tkd-1280": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
+                               "src/repro/kernels/sparsemax.py:43"),
+        "sparsemax/tkd-2048": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
+                               "src/repro/kernels/sparsemax.py:43"),
+        "sparsemax/tkd-8192": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
+                               "src/repro/kernels/sparsemax.py:43"),
+        "sparsemax/bf16": ("cuda", "src/repro_torch/csrc/sparsemax.cu",
+                           "src/repro/kernels/sparsemax.py:43"),
     }
     # phase 10's shapes: the GLU expert FFN of the MoE family, every
     # attention form; each row's launches its own phase-10 run's
@@ -4977,6 +5255,12 @@ def main() -> int:
     launches["expert_ffn/train"] = tcounts["expert_ffn"]
     launches["flash_prefill/train"] = tcounts["flash_prefill"]
     launches["sparsemax/tkd"] = kcounts["sparsemax"]
+    # the long rows: 11b's step at S = 1280 launches the block kernel at
+    # [4, 1280, 1280]; no path gives rows of 2048 or 8192, or sparsemax in
+    # bf16 (the predictor computes in fp32)
+    launches["sparsemax/tkd-1280"] = long_tkd
+    launches["sparsemax/tkd-2048"] = launches["sparsemax/tkd-8192"] = 0
+    launches["sparsemax/bf16"] = 0
     launches.update(family_launches)
     # the expert-parallel rows: each its phase-12 run's launches of its kernel
     ep_rows = {"expert_ffn/ep2-decode": ecounts["12a-ep2"]["expert_ffn"],

@@ -39,18 +39,25 @@ def _act_and_grad(name: str, a: torch.Tensor):
     raise ValueError(f"expert_ffn: unknown activation {name!r}")
 
 
+def _pre_activations(xe, w_in, w_gate: Optional[torch.Tensor]):
+    """(x·W_in, x·W_gate or None) in fp32: the forward's products that the
+    backward recomputes, since the forward keeps only its inputs."""
+    a = torch.bmm(xe, w_in).float()                       # [E, C, F]
+    return a, None if w_gate is None else torch.bmm(xe, w_gate).float()
+
+
 def expert_ffn_backward(xe, w_in, w_gate: Optional[torch.Tensor], w_out, act: str, dy):
     """(dxe, dw_in, dw_gate or None, dw_out) of `expert_ffn`. The
     pre-activations are recomputed with `bmm` in the inputs' dtype; the
     activation and its derivative run in fp32."""
     dt = xe.dtype
-    a = torch.bmm(xe, w_in).float()                       # [E, C, F]
+    a, g = _pre_activations(xe, w_in, w_gate)
     dh = torch.bmm(dy.to(dt), w_out.transpose(1, 2)).float()
     if w_gate is None:
         h, dact = _act_and_grad(act, a)
         da, dg = (dh * dact).to(dt), None
     else:
-        fg, dact = _act_and_grad(act, torch.bmm(xe, w_gate).float())
+        fg, dact = _act_and_grad(act, g)
         h = fg * a
         da, dg = (dh * fg).to(dt), (dh * a * dact).to(dt)
     xt = xe.transpose(1, 2)

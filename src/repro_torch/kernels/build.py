@@ -43,8 +43,8 @@ _SIGNATURES = {
     # act, stream
     "rt_expert_gemm_q4": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _P),
-    # z, out, rows, L, stream
-    "rt_sparsemax": (_P, _P, _I, _I, _P),
+    # z, out, rows, L, dtype (sparsemax.DTYPES), stream
+    "rt_sparsemax": (_P, _P, _I, _I, _I, _P),
     # q, k, v, o, B, S, H, KH, D, window, cap, causal, dtype, stream
     "rt_flash_prefill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, slot_pos, pos, o, B, S, H, KH, D, window, cap, splits, dtype, stream

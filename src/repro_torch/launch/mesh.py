@@ -1,11 +1,17 @@
-"""The expert-parallel serving mesh (port of `repro/launch/mesh.py::make_ep_mesh`).
+"""The port's meshes (port of `repro/launch/mesh.py`).
 
-The reference builds a 1-D JAX mesh named "model" over the first
-`ep_shards` devices, and one process runs the expert FFN over it in
-`shard_map`. The port's mesh is the list of the shards' devices; one
-process drives every shard, one expert-FFN launch a shard. Every shard
-lives on one device: shards on distinct cards (peer copies of the
-partials) wait for a host with more than one GPU (ROADMAP A14(c)).
+The expert-parallel serving mesh (`make_ep_mesh`): the reference builds a
+1-D JAX mesh named "model" over the first `ep_shards` devices, and one
+process runs the expert FFN over it in `shard_map`. The port's mesh is the
+list of the shards' devices; one process drives every shard, one expert-FFN
+launch a shard. Every shard lives on one device: shards on distinct cards
+(peer copies of the partials) wait for a host with more than one GPU
+(ROADMAP A14(c)).
+
+The production meshes of the dry run (`make_production_mesh`, `make_mesh`)
+are shapes only: axis names and extents, with the same
+`.shape` and `.axis_names` as `EPMesh`, which is all the sharding policy and
+the fake-tensor dry run read. Nothing is placed on them.
 """
 from __future__ import annotations
 
@@ -40,6 +46,44 @@ class EPMesh:
     def device(self) -> torch.device:
         """The one device every shard lives on."""
         return self.devices[0]
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A shape-only mesh: `extents[i]` devices along `axis_names[i]`."""
+
+    extents: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.extents) != len(self.axis_names):
+            raise ValueError(f"{len(self.extents)} extents for axes {self.axis_names}")
+        if any(n < 1 for n in self.extents):
+            raise ValueError(f"mesh extents must be >= 1, got {self.extents}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.extents))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for e in self.extents:
+            n *= e
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """One pod, (16, 16) over ("data", "model"), or two, (2, 16, 16) over
+    ("pod", "data", "model"): the `pod` axis is pure data parallelism."""
+    if multi_pod:
+        return Mesh((2, 16, 16), ("pod", "data", "model"))
+    return Mesh((16, 16), ("data", "model"))
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
+    """Any mesh (the tests use small ones)."""
+    return Mesh(tuple(shape), tuple(axes))
 
 
 def make_ep_mesh(ep_shards: int, device: DeviceLike = None,

@@ -57,9 +57,13 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ctx=None):
+    """`ctx` as the reference's: a dry run's decode context splits the K/V
+    cache's sequence over its `decode_seq_axis` (`attention.decode_attention`);
+    the train and prefill steps' forward has nothing that reads a training
+    mesh's roles on one device."""
     def serve_step(params, cache, tokens):
         with torch.no_grad():
-            return decode_step(params, cache, tokens, cfg)
+            return decode_step(params, cache, tokens, cfg, ctx=ctx)
 
     return serve_step

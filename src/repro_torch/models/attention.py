@@ -15,18 +15,23 @@ plain `jnp` (no Pallas kernel), so on every device it is the plain
 encoder-decoder family's) is `attend_full(kv_from=)` and
 `attend_decode(cross=True)`, through the same kernels. `ShardingCtx`
 carries the expert-parallel serving context through the model to the MoE
-layers; attention itself stays replicated under it. The decode K/V sharded
-over a mesh axis (`decode_seq_axis`, the dry run's) comes with the XLA
-tools.
+layers; attention itself stays replicated under it. The dry run's context
+also names the axes a decode K/V cache shards its sequence over
+(`decode_seq_axis`): `decode_attention` then splits the keys into that many
+shards on the one device, attends each with the plain
+`decode_attention_local` and merges the partials (`_merge_partials`), as
+the reference's `shard_map` body does in plain `jnp`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -44,11 +49,16 @@ class ShardingCtx:
     expert FFN shard over in expert-parallel serving
     (`sharding/policy.py::serve_ctx`); attention, the residual stream and
     every other weight stay replicated, so the sharded forward equals the
-    one-device forward (the expert combine's partials are exact). `mesh`
-    is an `launch.mesh.EPMesh`. The reference's training and dry-run roles
-    (batch, model and decode-sequence axes) are not part of the port."""
+    one-device forward (the expert combine's partials are exact). The
+    training mesh's roles (`sharding/policy.py::make_ctx`) are the batch
+    axes, the model axis and, for decode, the axes the K/V cache's sequence
+    shards over (`decode_seq_axis`). `mesh` is an `launch.mesh.EPMesh` or a
+    shape-only `launch.mesh.Mesh`."""
 
     mesh: Optional[object] = None
+    batch_axes: Optional[Tuple[str, ...]] = None     # e.g. ("pod", "data")
+    model_axis: Optional[str] = None                 # e.g. "model"
+    decode_seq_axis: Optional[Tuple[str, ...]] = None
     expert_axis: Optional[str] = None
 
     @property
@@ -57,6 +67,26 @@ class ShardingCtx:
         if self.mesh is None or self.expert_axis is None:
             return 1
         return self.mesh.shape.get(self.expert_axis, 1)
+
+    def batch_spec(self, batch: int) -> Optional[Tuple[str, ...]]:
+        """The batch axes if the batch divides over their extent, else None."""
+        if self.mesh is None or not self.batch_axes:
+            return None
+        ext = 1
+        for a in self.batch_axes:
+            ext *= self.mesh.shape[a]
+        return self.batch_axes if batch % ext == 0 else None
+
+    def seq_shards(self, seq: int) -> int:
+        """How many shards a decode cache of `seq` slots splits into: the
+        extent of `decode_seq_axis` when it divides `seq` (the reference's
+        condition for its `shard_map`), else 0 (no split)."""
+        if self.mesh is None or self.decode_seq_axis is None:
+            return 0
+        ext = 1
+        for a in self.decode_seq_axis:
+            ext *= self.mesh.shape[a]
+        return ext if seq % ext == 0 else 0
 
 
 def init_attention(gen, cfg: ModelConfig, device) -> dict:
@@ -166,6 +196,12 @@ def attend_full(
         # windowed layers slice K/V to the band a chunk can reach
         span = window + Q_CHUNK
         banded = bool(window) and causal and S > span
+        # under grad each chunk is checkpointed, as the reference's scan body
+        # (`jax.checkpoint`): the backward recomputes a chunk's softmax
+        # rather than keep [nchunk, ..., S] fp32 scores
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        attend = (functools.partial(checkpoint, _attend_chunk, use_reentrant=False) if grad
+                  else _attend_chunk)
         outs = []
         for i in range(nchunk):
             qi = qp[:, i * Q_CHUNK:(i + 1) * Q_CHUNK]
@@ -173,12 +209,12 @@ def attend_full(
             if banded:
                 start = min(max(i * Q_CHUNK + Q_CHUNK - span, 0), S - span)
                 kp = start + torch.arange(span, device=x.device)
-                outs.append(_attend_chunk(
+                outs.append(attend(
                     qi, k[:, start:start + span], v[:, start:start + span],
                     pi, kp, window, cap, causal,
                 ))
             else:
-                outs.append(_attend_chunk(qi, k, v, pi, kv_pos, window, cap, causal))
+                outs.append(attend(qi, k, v, pi, kv_pos, window, cap, causal))
         out = torch.cat(outs, dim=1)[:, :S]
     y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]
     if return_kv:
@@ -219,11 +255,45 @@ def decode_attention_local(
     return o.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
 
 
+def _merge_partials(o, l, m) -> torch.Tensor:
+    """Merge flash-decode partials stacked on a leading shard axis, o [n, B,
+    H, D], l and m [n, B, H], into the attention output [B, H, D] (fp32):
+    the reference's pmax / psum merge over the sequence shards."""
+    m_g = m.max(dim=0).values
+    scale = torch.exp(m - m_g)
+    l_g = (l * scale).sum(dim=0)
+    o_g = (o * scale[..., None]).sum(dim=0)
+    return o_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
 def decode_attention(q, k, v, slot_pos, pos, window: int, cap: float,
-                     cross: bool = False) -> torch.Tensor:
+                     cross: bool = False, ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """[B, H, D] attention of one token over the cache, in q's dtype: the
     `flash_decode` kernel on CUDA (`cross` names the form for its launch
-    count), the plain path elsewhere."""
+    count), the plain path elsewhere. Under a `ctx` whose `decode_seq_axis`
+    divides the cache (the dry run's decode), the keys split into that many
+    shards, each attended by the plain `decode_attention_local`, and the
+    partials merge: the reference's `shard_map` body in plain PyTorch. The
+    split exists for the dry run's CPU fakes; one card has nothing to split
+    across, so CUDA tensors under a ctx that splits in two or more raise."""
+    n = ctx.seq_shards(k.shape[1]) if ctx is not None else 0
+    if n > 1:
+        if q.device.type == "cuda":
+            raise ValueError(
+                f"decode_attention: the ctx splits the cache {n} ways over {ctx.decode_seq_axis}, "
+                "a CPU dry-run layout; on the card decode with a ctx without decode_seq_axis")
+        # the shards side by side on the batch axis, shard-major: one call
+        # computes every shard's partials (a long_500k cache splits 256 ways)
+        B = q.shape[0]
+
+        def shards(t):
+            t = t.reshape(B, n, t.shape[1] // n, *t.shape[2:]).transpose(0, 1)
+            return t.reshape(n * B, *t.shape[2:])
+
+        o, l, m = decode_attention_local(q.repeat(n, 1, 1), shards(k), shards(v),
+                                         shards(slot_pos), pos.repeat(n), window, cap)
+        o, l, m = (t.reshape(n, B, *t.shape[1:]) for t in (o, l, m))
+        return _merge_partials(o, l, m).to(q.dtype)
     if q.device.type == "cuda":
         return ops.flash_decode(q, k, v, slot_pos, pos, window=window, cap=cap, cross=cross)
     o, l, _ = decode_attention_local(q, k, v, slot_pos, pos, window, cap)
@@ -240,6 +310,7 @@ def attend_decode(
     layer: int,
     cross: bool = False,
     cross_len: Optional[torch.Tensor] = None,   # [B] valid encoder slots (cross)
+    ctx: Optional[ShardingCtx] = None,
 ):
     """One decode step. Returns (y [B, d], cache_k, cache_v).
 
@@ -263,7 +334,7 @@ def attend_decode(
         slot_pos = torch.where(s_idx < cross_len[:, None], 0, -1).to(torch.int32)
         zero = torch.zeros((B,), dtype=torch.int32, device=x_tok.device)
         o = decode_attention(q, cache_k, cache_v, slot_pos, zero, 0, cfg.attn.logit_softcap,
-                             cross=True)
+                             cross=True, ctx=ctx)
         return o.reshape(B, cfg.n_heads * cfg.hd) @ params["wo"], cache_k, cache_v
     window = cfg.layer_window(layer)
     q = _project_q(params, x_tok[:, None, :], cfg)                  # [B, 1, H, D]
@@ -278,7 +349,8 @@ def attend_decode(
     s_idx = torch.arange(Sc, dtype=pos.dtype, device=pos.device)[None, :]
     slot_pos = pos[:, None] - ((pos[:, None] - s_idx) % Sc)
     slot_pos = torch.where(slot_pos >= 0, slot_pos, torch.full_like(slot_pos, -1))
-    o = decode_attention(q, cache_k, cache_v, slot_pos, pos, window, cfg.attn.logit_softcap)
+    o = decode_attention(q, cache_k, cache_v, slot_pos, pos, window, cfg.attn.logit_softcap,
+                         ctx=ctx)
     y = o.reshape(B, cfg.n_heads * cfg.hd).to(x_tok.dtype) @ params["wo"]
     return y, cache_k, cache_v
 

@@ -227,8 +227,13 @@ def _dispatch_combine(params, xt, ids, w, cfg, dispatch, ctx=None, served=False)
     xe = torch.einsum("nbd,nbec->necd", x_b, oh.sum(2))
     ye = apply_expert_stack_blocked(params, xe, cfg)
     comb = torch.einsum("nbkec,nbk->nbec", oh, w_b.to(xt.dtype))
-    y = torch.einsum("necd,nbec->nbd", ye, comb).float()
-    return y.reshape(T, d)
+    return _combine(ye, comb).reshape(T, d)
+
+
+def _combine(ye: torch.Tensor, comb: torch.Tensor) -> torch.Tensor:
+    """The einsum path's combine, ye [n, E, C, d] x comb [n, blk, E, C] ->
+    [n, blk, d] in fp32: each token's weighted sum of its slots' outputs."""
+    return torch.einsum("necd,nbec->nbd", ye, comb).float()
 
 
 def _dispatch_combine_ep(params, xt, ids, w, cfg, blk, n, C, shards):
@@ -311,6 +316,21 @@ def expert_params_tiered(p: dict) -> bool:
     publishes nibble-packed `w_*_q4` pools and `w_*_q4_scale` planes beside
     the int8 hot pools."""
     return "w_in_q4" in p
+
+
+def apply_expert_stack(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """xe: [E, C, d] -> [E, C, d] through each expert's (G)LU FFN, unblocked:
+    the reference's three einsums (`src/repro/models/moe.py:95-103`), which
+    it computes outside any Pallas kernel, so plain PyTorch on every device.
+    Nothing in either package calls it; the served and trained paths take
+    `apply_expert_stack_blocked`, whose kernel (B1) computes the same FFN."""
+    h = torch.einsum("ecd,edf->ecf", xe, p["w_in"])
+    if cfg.glu:
+        g = torch.einsum("ecd,edf->ecf", xe, p["w_gate"])
+        h = act_fn(cfg.act)(g) * h
+    else:
+        h = act_fn(cfg.act)(h)
+    return torch.einsum("ecf,efd->ecd", h, p["w_out"])
 
 
 def apply_expert_stack_blocked(p: dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -236,6 +236,15 @@ def _mlstm_step(carry, q, k, v, logi, logf):
     return C, n, m
 
 
+def _mlstm_carry(C0, n0, a_end, bW, k, v):
+    """The mLSTM state (C, n) at a chunk's end: the start state decayed by
+    a_end [B, H] plus the chunk's keys and values weighted by
+    bW [B, ck, H] (b_W[s] = D[W-1, s])."""
+    C1 = a_end[..., None, None] * C0 + torch.einsum("bsh,bshk,bshv->bhkv", bW, k, v)
+    n1 = a_end[..., None] * n0 + torch.einsum("bsh,bshk->bhk", bW, k)
+    return C1, n1
+
+
 def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc") -> torch.Tensor:
     """Full-sequence mLSTM. x: [B, S, d]."""
     B, S, _ = x.shape
@@ -271,10 +280,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc
                + torch.einsum("btsh,bshv->bthv", w, v))
         den = a * torch.einsum("bthk,bhk->bth", q, n0) + w.sum(dim=2)
         y = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
-        # carry: the state at the chunk's end (b_W[s] = D[W-1, s])
-        bW = D[:, -1]                                          # [B, ck, H]
-        C1 = a[:, -1][..., None, None] * C0 + torch.einsum("bsh,bshk,bshv->bhkv", bW, k, v)
-        n1 = a[:, -1][..., None] * n0 + torch.einsum("bsh,bshk->bhk", bW, k)
+        C1, n1 = _mlstm_carry(C0, n0, a[:, -1], D[:, -1], k, v)
         return (C1, n1, m[:, -1]), y
 
     def step_fn(carry, xi_t):                                  # xi_t [B, di]

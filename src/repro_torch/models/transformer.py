@@ -16,7 +16,8 @@ and rolls the rejected positions back. `prefill_chunk_step` advances one
 paged lane through a prompt chunk (the request server's chunked prefill).
 Each of the four takes the reference's `ctx` (`attention.ShardingCtx`) and
 passes it to the MoE layers: under expert-parallel serving they dispatch a
-shard at a time (`models/moe.py`). The paged cache and the chunked prefill
+shard at a time (`models/moe.py`). The decode attention reads it too: a dry
+run's decode context splits the cache's sequence (`decode_seq_axis`). The paged cache and the chunked prefill
 take attention-family decoder-only archs, as the reference's do.
 """
 from __future__ import annotations
@@ -435,7 +436,7 @@ def _apply_sublayer_decode(bp, ent, x, pos, cfg, sub, routing_override, page_tab
         a, _, _ = attend_decode_paged(bp["attn"], h, ent["kp"], ent["vp"], page_table, pos, cfg,
                                       sub, active=active)
     else:
-        a, _, _ = attend_decode(bp["attn"], h, ent["k"], ent["v"], pos, cfg, sub)
+        a, _, _ = attend_decode(bp["attn"], h, ent["k"], ent["v"], pos, cfg, sub, ctx=ctx)
     if "mamba" in bp:
         mmb, st = ssm_lib.mamba_decode(bp["mamba"], h, ent["state"], cfg)
         _write_state(ent["state"], st)
@@ -446,7 +447,7 @@ def _apply_sublayer_decode(bp, ent, x, pos, cfg, sub, routing_override, page_tab
     if "xattn" in bp and cross_len is not None:
         hx = rmsnorm(bp["lnx"], x, cfg.norm_eps)
         ya, _, _ = attend_decode(bp["xattn"], hx, ent["cross_k"], ent["cross_v"], pos, cfg, sub,
-                                 cross=True, cross_len=cross_len)
+                                 cross=True, cross_len=cross_len, ctx=ctx)
         x = x + ya
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
     if sk["moe"]:

@@ -613,6 +613,107 @@ def test_sparsemax_kernel_matches_plain(cuda, case, offset):
     np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
 
 
+# rows past 1024 take the block kernel: the row in shared memory up to
+# 57,856 values, re-read from global memory past that (65536)
+SPARSEMAX_LONG_CASES = {
+    **{f"L{L}": (lambda L=L: _np((8, L), L, 3.0)) for L in [1025, 2048, 4096, 65536]},
+    "L1027-odd": lambda: _np((5, 1027), 30, 3.0),
+    "slow-0.01-L2048": lambda: _np((16, 2048), 31, 0.01),
+    "slow-0.01-L65536": lambda: _np((2, 65536), 32, 0.01),
+    "ties-L2048": lambda: _tie_rows(2048),
+    # TKD's draft head at S = 1280: row i holds S - i - 1 masked values
+    "causal-2x1280x1280": lambda: _causal_rows(2, 1280, 33),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SPARSEMAX_LONG_CASES))
+def test_sparsemax_long_rows_match_plain(cuda, case):
+    """Past 1024 (C18): within the reference's 1e-5 of the plain version,
+    non-negative, summing to 1 within 1e-5, a rerun bit-identical."""
+    a = SPARSEMAX_LONG_CASES[case]()
+    z = torch.from_numpy(a).to(cuda)
+    got, again = ops.sparsemax(z), ops.sparsemax(z)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got = got.cpu()
+    _close(got, ref.sparsemax_ref(torch.from_numpy(a)), SPARSEMAX_TOL)
+    assert (got >= 0).all()
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+def _ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One unit in the last place of each |x| in `dtype` (fp32 values; the
+    smallest normal's spacing below it)."""
+    fi = torch.finfo(dtype)
+    e = torch.floor(torch.log2(torch.clamp(x.abs(), min=fi.tiny)))
+    return torch.exp2(e) * fi.eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("L", [33, 256, 1024, 2048, 65536])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_sparsemax_half_dtypes_match_plain(cuda, dtype, L, offset):
+    """bf16 / fp16 in, read as fp32, written in z's dtype (the Pallas body's
+    contract): bit-equal to the fp32 kernel on the same values cast to z's
+    dtype (the same lane layout: offset 1 puts both off their vector
+    alignment), and within one ulp of the plain version over z.float() cast
+    to z's dtype."""
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(_np((8, L), 40 + L, 3.0)).to(dt)
+    buf = torch.empty(a.numel() + offset, dtype=dt, device=cuda)
+    z = buf[offset:].view(a.shape)
+    z.copy_(a)
+    buf32 = torch.empty(a.numel() + offset, dtype=torch.float32, device=cuda)
+    z32 = buf32[offset:].view(a.shape)
+    z32.copy_(a.float())
+    got = ops.sparsemax(z)
+    want32 = ops.sparsemax(z32)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    assert torch.equal(got, want32.to(dt))
+    want = ref.sparsemax_ref(a.float()).to(dt).float()
+    err = (got.cpu().float() - want).abs()
+    assert (err <= _ulp(want, dt)).all(), err.max().item()
+
+
+@pytest.mark.gpu
+def test_sparsemax_backward_on_the_card_long_rows(cuda):
+    """The backward (`kernels/autograd.py`, plain PyTorch over the kernel's
+    output) at L = 2048, the TKD draft head's causal rows."""
+    z = torch.from_numpy(_causal_rows(2, 2048, 34)[:, ::8].copy())       # [2, 256, 2048]
+    _card_vs_plain_grads(ops.sparsemax, ref.sparsemax_ref, [z.to(cuda)], "float32")
+
+
+@pytest.mark.gpu
+def test_train_hash_fn_step_past_1024_card_vs_cpu(cuda):
+    """One TKD step at S = 1280 (sparsemax rows of 1280): the card's TKD-loss
+    gradients within 1e-3 * max|g_cpu| a leaf, and one `train_hash_fn` step's
+    loss within 1e-4 * max(1, |loss|), of the CPU's."""
+    from repro_torch.core.hash_fn import hash_fn_apply, init_hash_fn
+    from repro_torch.core.tkd import tkd_loss, train_hash_fn
+    from repro_torch.tree import flatten, leaf_grads, requiring_grad, tree_map
+
+    B, S, d, L, E = 2, 1280, 64, 2, 8
+    hp = init_hash_fn(torch.Generator().manual_seed(1), d, L, E, d_h=32, device="cpu")
+    emb = torch.from_numpy(_np((B, S, d), 35))
+    teacher = torch.from_numpy(_np((L, B, S, E), 36, 2.0))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = requiring_grad(tree_map(lambda t: t.to(dev), hp))
+        e, t = emb.to(dev), teacher.to(dev)
+        loss, _ = tkd_loss(hash_fn_apply(p, e, E), t, T=8, lam=0.005)
+        grads = flatten(leaf_grads(loss, p))
+        _, hist = train_hash_fn(tree_map(lambda t: t.to(dev), hp), iter([(e, t)]), steps=1,
+                                lr=3e-3, T=8, lam=0.005, verbose=False)
+        runs[dev.type] = (grads, hist[0]["loss"])
+    (g_card, l_card), (g_cpu, l_cpu) = runs["cuda"], runs["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-4 * max(1.0, abs(l_cpu))
+    for k, g in g_cpu.items():
+        assert (g_card[k].cpu() - g).abs().max() <= 1e-3 * g.abs().max(), k
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,K,D,window,cap,causal", [
