@@ -76,7 +76,7 @@
    positions), and (d) 5a again through the async prefetch pipeline
    (prefetch_depth 2); tok/s, ms/step, loads, tier moves, bytes, pages, the
    prefetch stall, each kernel's launches in the run (0 fails for the
-   kernels of that path), a per-step stage split, the profiled device idle
+   kernels of that path), the step time's p50 and p99, the profiled device idle
    share and the profile's largest rows (and the decode attention kernel's
    and the host-to-device copies' rows).
 5e. Speculative decode: `SiDADecodeEngine(spec_mode="draft", spec_k=4)` on
@@ -1291,7 +1291,10 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, t
         dev_bytes = sum(nbytes(x) for x in tree_leaves(eng.store.serve_params))
         print(f"  ({name}) slots={kw['slots_per_layer']} (S8={eng.store.S8} S4={eng.store.S4}) "
               f"lanes={lanes} steps={steps} cache_len={cache_len} setup_s={setup:.2f}")
+        step_ms = 1e3 * np.asarray(m.step_s)
         print(f"    tok_s={m.tok_s:.1f} ms_per_step={1e3 * m.wall_s / m.steps:.3f} "
+              f"step_ms_p50={np.percentile(step_ms, 50):.3f} "
+              f"step_ms_p99={np.percentile(step_ms, 99):.3f} "
               f"wall_s={m.wall_s:.4f} tokens={m.tokens} stall_s={m.stall_s:.4f}")
         if eng.prefetcher is not None:
             ps = eng.prefetcher.stats
@@ -1317,63 +1320,14 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, t
         idle = [k for k in DECODE_KERNELS[name] if counts[k] == 0]
         if idle:
             raise SystemExit(f"chip_smoke: kernels never launched on the {name} decode path: {idle}")
-        t0 = time.perf_counter()
-        decode_stages(eng, start, 16, cache_len, gen_kw.get("paged"))
         t1 = time.perf_counter()
         decode_profile(eng, start, 16, cache_len, gen_kw)
-        print(f"    (stage split {t1 - t0:.1f} s, profile {time.perf_counter() - t1:.1f} s)")
+        print(f"    (profile {time.perf_counter() - t1:.1f} s)")
         out_counts[name] = counts
         ms_per_step[name] = 1e3 * m.wall_s / m.steps
         eng.close()
         del eng
     return out_counts, ms_per_step
-
-
-def decode_stages(eng, start, steps: int, cache_len: int, paged=None):
-    """Phase 5, per-step split: the generate loop with a synchronize after
-    each stage, host clock around each."""
-    import numpy as np
-    import torch
-
-    from repro_torch.core.decode_engine import DecodeMetrics, TableBuffer, hash_state_init
-
-    B = len(start)
-    stages = {"page_tick": [], "predict_ids_d2h": [], "prepare": [], "translate": [],
-              "step_token_d2h": []}
-    with torch.inference_mode():
-        cache, pool = eng._make_cache(B, cache_len, paged)
-        hstate = hash_state_init(eng.hash_params, B)
-        tokens = torch.as_tensor(start, dtype=torch.int32, device=eng.device)
-        tbuf, m = TableBuffer(eng.L, B, 1, eng.k), DecodeMetrics()
-        torch.cuda.synchronize()
-        for i in range(steps):
-            tp = time.perf_counter()
-            if pool is not None:
-                cache = eng._page_tick(pool, cache, np.full((B,), i + 1, np.int64))
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ids, alpha, hstate = eng._predict_step(tokens, hstate)
-            table = tbuf.fill(i, ids, alpha)                 # ends in the ids' copy to host
-            t1 = time.perf_counter()
-            trans, ticket = eng._route_table(table, m)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            slot_ids, w = eng.store.translate_device(ids[:, :, None, :], alpha[:, :, None, :], trans)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            tokens, cache = eng._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :])
-            tokens.cpu()
-            t4 = time.perf_counter()
-            if pool is not None:
-                pool.unpin_all()
-            if ticket is not None:
-                ticket.release()
-            for k, v in zip(stages, (t0 - tp, t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                stages[k].append(v)
-    if pool is None:
-        del stages["page_tick"]
-    print(f"    per-step stage means over {steps} steps (synchronised): " + " ".join(
-        f"{k}_ms={1e3 * float(np.mean(v)):.3f}" for k, v in stages.items()))
 
 
 def decode_profile(eng, start, steps: int, cache_len: int, gen_kw):

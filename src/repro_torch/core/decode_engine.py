@@ -34,13 +34,20 @@ rolls the rejected ones back, and each lane keeps its accepted prefix.
 With `sharded` (`ShardedStoreConfig`, `ep_shards` > 1) the slot pools are
 expert-parallel and each step runs under the store's expert-parallel
 context (`sharding/policy.py::store_ctx`).
+
+Given a `serving.telemetry.Telemetry` (`telemetry=`), each step records
+spans of its host work with the step as `ident`: `decode.page_tick`
+(paged), `decode.predict` (launches), `decode.ids_d2h` (the prediction's
+copy to the host), `decode.route`, `decode.translate`, `decode.step`
+(launches) and `decode.token_d2h` (the token's copy, which waits for the
+step). `DecodeMetrics.step_s` holds each step's host-clock time.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hash_fn import draft_logits_from_state
 from repro_torch.core.hash_table import HashTable
-from repro_torch.core.offload import ExpertStore, PrefetchPipeline, ShardedStoreConfig
+from repro_torch.core.offload import ExpertStore, PrefetchPipeline, ShardedStoreConfig, span
 from repro_torch.core.residency import KVPagePool
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
@@ -57,6 +64,9 @@ from repro_torch.models.layers import top_k
 from repro_torch.models.transformer import decode_step, init_cache, n_moe_layers, verify_step
 from repro_torch.sharding.policy import store_ctx
 from repro_torch.tree import tree_map
+
+if TYPE_CHECKING:   # serving/ imports the engines: no import at run time
+    from repro_torch.serving.telemetry import Telemetry
 
 HISTORY = 128  # SparseMax attention ring length
 
@@ -247,8 +257,9 @@ class DecodeMetrics:
     emitted, `proposed` the positions verified (B·K a speculative block), so
     `acceptance_rate` is 1.0 without speculation. `loads_per_step` has one
     entry a block (its superset ticket loads once), `accepted_per_step` the
-    block's delivered tokens a lane, and `stall_s` is the time spent
-    clearing prefetch tickets (0 on the synchronous path)."""
+    block's delivered tokens a lane, `stall_s` is the time spent
+    clearing prefetch tickets (0 on the synchronous path), and `step_s`
+    each step's host-clock time, its token on the host included."""
 
     steps: int = 0
     tokens: int = 0
@@ -257,6 +268,7 @@ class DecodeMetrics:
     stall_s: float = 0.0
     loads_per_step: List[int] = field(default_factory=list)
     accepted_per_step: List[float] = field(default_factory=list)
+    step_s: List[float] = field(default_factory=list)
 
     @property
     def tok_s(self) -> float:
@@ -328,6 +340,7 @@ class SiDADecodeEngine:
         sharded: Optional[ShardedStoreConfig] = None,   # expert-parallel slot pools
         device: DeviceLike = None,
         ctx: Optional[ShardingCtx] = None,          # None: the store's own (`store_ctx`)
+        telemetry: Optional["Telemetry"] = None,    # spans and counters; None: none
     ):
         mode = spec_mode if spec_mode is not None else cfg.spec.mode
         if mode not in ("off", "draft"):
@@ -339,11 +352,12 @@ class SiDADecodeEngine:
                              "(init_hash_fn(draft=True) or init_draft_head)")
         self.cfg = cfg
         self.k = serve_top_k or cfg.moe.top_k
+        self.telemetry = telemetry
         self.store = ExpertStore(
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
             scale_granularity=scale_granularity, tier=tier, sharded=sharded,
-            mesh=ctx.mesh if ctx is not None else None,
+            mesh=ctx.mesh if ctx is not None else None, telemetry=telemetry,
         )
         self.ctx = store_ctx(self.store, ctx)
         self.device = self.store.device
@@ -354,7 +368,7 @@ class SiDADecodeEngine:
             self.prefetcher: Optional[PrefetchPipeline] = prefetcher
         else:
             self.prefetcher = PrefetchPipeline.maybe_create(
-                self.store, cfg, prefetch_depth, staging_buffers)
+                self.store, cfg, prefetch_depth, staging_buffers, telemetry=telemetry)
             self._owns_prefetcher = self.prefetcher is not None
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
         self.embed_table = self.store.serve_params["embed"]
@@ -364,50 +378,56 @@ class SiDADecodeEngine:
         self._draft_unroll = draft_unroll_fn(self.E, self.k, self.spec_k)
 
     # ------------------------------------------------------------------
-    def _predict_step(self, tokens: torch.Tensor, hstate: dict):
-        """(ids [L, B, k] int32, α [L, B, k] fp32, new state), on the device."""
-        emb = self.embed_table[tokens.long()]
-        logits, hstate = hash_fn_step(self.hash_params, emb, hstate, self.E)
-        vals, ids = top_k(logits, self.k)                  # [B, L, k]
-        alpha = torch.softmax(vals, dim=-1)
-        return (ids.movedim(1, 0).to(torch.int32).contiguous(),
-                alpha.movedim(1, 0).float().contiguous(), hstate)
+    def _predict_step(self, tokens: torch.Tensor, hstate: dict, step: Optional[int] = None):
+        """(ids [L, B, k] int32, α [L, B, k] fp32, new state), on the device.
+        `step` is the spans' ident, as in the other stages."""
+        with span(self.telemetry, "decode.predict", step):
+            emb = self.embed_table[tokens.long()]
+            logits, hstate = hash_fn_step(self.hash_params, emb, hstate, self.E)
+            vals, ids = top_k(logits, self.k)                  # [B, L, k]
+            alpha = torch.softmax(vals, dim=-1)
+            return (ids.movedim(1, 0).to(torch.int32).contiguous(),
+                    alpha.movedim(1, 0).float().contiguous(), hstate)
 
-    def _step(self, cache: dict, tokens: torch.Tensor, slot_ids, w):
-        logits, cache = decode_step(
-            self.store.serve_params, cache, tokens, self.cfg, routing_override=(slot_ids, w),
-            ctx=self.ctx,
-        )
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    def _step(self, cache: dict, tokens: torch.Tensor, slot_ids, w, step: Optional[int] = None):
+        with span(self.telemetry, "decode.step", step):
+            logits, cache = decode_step(
+                self.store.serve_params, cache, tokens, self.cfg,
+                routing_override=(slot_ids, w), ctx=self.ctx,
+            )
+            return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    def _verify(self, cache: dict, tokens_blk: torch.Tensor, slot_ids, w):
+    def _verify(self, cache: dict, tokens_blk: torch.Tensor, slot_ids, w,
+                step: Optional[int] = None):
         """One speculative block through `verify_step`: (out [B, K], n_acc
         [B], the next block's first token [B], cache). The next block starts
         from each lane's last accepted model token."""
-        out, n_acc, _, cache = verify_step(
-            self.store.serve_params, cache, tokens_blk, self.cfg, routing_override=(slot_ids, w),
-            ctx=self.ctx,
-        )
-        nxt = torch.gather(out, 1, (n_acc.long() - 1)[:, None])[:, 0]
-        return out, n_acc, nxt, cache
+        with span(self.telemetry, "decode.step", step):
+            out, n_acc, _, cache = verify_step(
+                self.store.serve_params, cache, tokens_blk, self.cfg,
+                routing_override=(slot_ids, w), ctx=self.ctx,
+            )
+            nxt = torch.gather(out, 1, (n_acc.long() - 1)[:, None])[:, 0]
+            return out, n_acc, nxt, cache
 
     def _route_table(self, table: HashTable, m: DecodeMetrics):
         """Residency for one decode table: an async ticket (fences only) or a
         synchronous prepare. Returns (trans, ticket); the loads and the stall
         are attributed to the current step in `m`, and the caller releases
         a non-None ticket after the step."""
-        loads_before = self.store.stats.loads
-        if self.prefetcher is not None:
-            stall0 = self.prefetcher.stats.stall_s
-            ticket = self.prefetcher.submit(table)
-            ticket.wait()
-            m.stall_s += self.prefetcher.stats.stall_s - stall0
-            trans = ticket.trans
-        else:
-            ticket = None
-            trans = self.store.prepare(table)
-        m.loads_per_step.append(self.store.stats.loads - loads_before)
-        return trans, ticket
+        with span(self.telemetry, "decode.route", table.batch_index):
+            loads_before = self.store.stats.loads
+            if self.prefetcher is not None:
+                stall0 = self.prefetcher.stats.stall_s
+                ticket = self.prefetcher.submit(table)
+                ticket.wait()
+                m.stall_s += self.prefetcher.stats.stall_s - stall0
+                trans = ticket.trans
+            else:
+                ticket = None
+                trans = self.store.prepare(table)
+            m.loads_per_step.append(self.store.stats.loads - loads_before)
+            return trans, ticket
 
     def _make_cache(self, B: int, cache_len: int, paged):
         """A ring cache, or with a `residency.PagedKVConfig` a paged cache and
@@ -463,19 +483,25 @@ class SiDADecodeEngine:
         out = np.zeros((B, steps), np.int32)
         m = DecodeMetrics()
         tbuf = TableBuffer(self.L, B, 1, self.k)
+        tel = self.telemetry
         t0 = time.perf_counter()
         for i in range(steps):
+            ts = time.perf_counter()
             if pool is not None:
-                cache = self._page_tick(pool, cache, np.full((B,), i + 1, np.int64))
-            ids, alpha, hstate = self._predict_step(tokens, hstate)
-            table = tbuf.fill(i, ids, alpha)
+                with span(tel, "decode.page_tick", i):
+                    cache = self._page_tick(pool, cache, np.full((B,), i + 1, np.int64))
+            # the step rides positionally: a caller may wrap these methods
+            ids, alpha, hstate = self._predict_step(tokens, hstate, i)
+            with span(tel, "decode.ids_d2h", i):
+                table = tbuf.fill(i, ids, alpha)
             trans, ticket = self._route_table(table, m)
             # translation runs on the device straight off the still-resident
             # prediction (no per-step host slot gather or override upload)
             slot_ids, w = self.store.translate_device(ids[:, :, None, :], alpha[:, :, None, :],
-                                                      trans)
-            tokens, cache = self._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :])
-            out[:, i] = tokens.cpu().numpy()   # forces the step; slots consumed
+                                                      trans, i)
+            tokens, cache = self._step(cache, tokens, slot_ids[:, :, 0, :], w[:, :, 0, :], i)
+            with span(tel, "decode.token_d2h", i):
+                out[:, i] = tokens.cpu().numpy()   # forces the step; slots consumed
             if pool is not None:
                 pool.unpin_all()               # pinned by _page_tick
             if ticket is not None:
@@ -484,6 +510,7 @@ class SiDADecodeEngine:
             m.tokens += B                      # every position emitted == accepted
             m.proposed += B
             m.accepted_per_step.append(1.0)
+            m.step_s.append(time.perf_counter() - ts)
         m.wall_s = time.perf_counter() - t0
         self.kv_pool = pool
         return out, m
@@ -511,25 +538,32 @@ class SiDADecodeEngine:
         pos_np = np.zeros((B,), np.int64)   # per-lane cache position (paged)
         m = DecodeMetrics()
         tbuf = TableBuffer(self.L, B, K, self.k)
+        tel = self.telemetry
         t0 = time.perf_counter()
         while filled.min() < steps:
+            ts, i = time.perf_counter(), m.steps
             if pool is not None:
                 # verify writes the whole block before acceptance is known,
                 # and the pinned pages keep eviction off the rollback. A lane
                 # near the edge drafts past the addressable range: its
                 # overflow writes go to the trash page and the loop stops
                 # before accepting them
-                cache = self._page_tick(pool, cache, np.minimum(pos_np + K, seq_len),
-                                        extra_span=K - 1)
-            inputs, ids, alpha, states = self._draft_unroll(
-                self.hash_params, self.embed_table, tokens, hstate)
-            table = tbuf.fill(m.steps, ids, alpha)
+                with span(tel, "decode.page_tick", i):
+                    cache = self._page_tick(pool, cache, np.minimum(pos_np + K, seq_len),
+                                            extra_span=K - 1)
+            with span(tel, "decode.predict", i):
+                inputs, ids, alpha, states = self._draft_unroll(
+                    self.hash_params, self.embed_table, tokens, hstate)
+            with span(tel, "decode.ids_d2h", i):
+                table = tbuf.fill(i, ids, alpha)
             trans, ticket = self._route_table(table, m)
-            slot_ids, w = self.store.translate_device(ids, alpha, trans)
+            slot_ids, w = self.store.translate_device(ids, alpha, trans, i)
             out_blk, n_acc, tokens, cache = self._verify(
-                cache, inputs, slot_ids.movedim(2, 0), w.movedim(2, 0))
-            hstate = select_accepted_state(states, n_acc)
-            both = torch.cat([out_blk, n_acc[:, None]], dim=1).cpu().numpy()
+                cache, inputs, slot_ids.movedim(2, 0), w.movedim(2, 0), i)
+            with span(tel, "decode.step", i):
+                hstate = select_accepted_state(states, n_acc)
+            with span(tel, "decode.token_d2h", i):
+                both = torch.cat([out_blk, n_acc[:, None]], dim=1).cpu().numpy()
             out_np, n_np = both[:, :K], both[:, K]   # forces the block; slots consumed
             if pool is not None:
                 pool.unpin_all()
@@ -548,6 +582,7 @@ class SiDADecodeEngine:
             m.accepted_per_step.append(delivered / B)
             m.proposed += B * K
             m.steps += 1
+            m.step_s.append(time.perf_counter() - ts)
         m.wall_s = time.perf_counter() - t0
         self.kv_pool = pool
         return out, m

@@ -23,13 +23,23 @@ With `sharded` (a `ShardedStoreConfig` with `ep_shards` > 1) the store's
 slot pools are expert-parallel and every forward runs under the store's
 expert-parallel context (`sharding/policy.py::store_ctx`): one expert-FFN
 launch a shard a MoE layer.
+
+Given a `serving.telemetry.Telemetry` (`telemetry=`, passed on to the
+store and pipeline the engine builds), `serve` records spans of each
+thread's host work, each with its batch as `ident`: on the hash thread
+`hash.batch` (`ServeMetrics.hash_time_s`'s interval) holding
+`hash.launch` (the predictor's launches), `hash.d2h` (the table's copy to
+the host), `hash.submit` and `hash.queue_put`; on the inference thread
+`infer.queue_get`, `infer.route`, `infer.translate`, `infer.forward`
+(launches), `infer.drain` (waits for the device) and `infer.results_copy`
+(counter `results_copy_bytes`). No span adds a synchronize.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +58,7 @@ from repro_torch.core.offload import (
     PrefetchTicket,
     ShardedStoreConfig,
     nbytes,
+    span,
 )
 from repro_torch.device import DeviceLike
 from repro_torch.models.attention import ShardingCtx
@@ -55,10 +66,19 @@ from repro_torch.models.transformer import forward
 from repro_torch.sharding.policy import store_ctx
 from repro_torch.tree import tree_leaves, tree_map
 
+if TYPE_CHECKING:   # serving/ imports this module: no import at run time
+    from repro_torch.serving.telemetry import Telemetry
+
 
 @dataclass
 class ServeMetrics:
     latency_s: List[float] = field(default_factory=list)
+    # the hash thread's time a batch, summed: building the table (the
+    # predictor's launches and the table's copy to the host, which waits
+    # for the work queued before it on the shared stream), the prefetch
+    # submit with its wait for queue room, and the wait for room in the
+    # table queue: a hash thread held back by the inference thread reads
+    # here like a slow predictor (the `hash.*` spans split it)
     hash_time_s: float = 0.0
     tokens: int = 0
     wall_s: float = 0.0
@@ -105,8 +125,10 @@ class SiDAEngine:
         store: Optional[ExpertStore] = None,        # share a caller's store as it is
         sharded: Optional[ShardedStoreConfig] = None,   # expert-parallel slot pools
         ctx: Optional[ShardingCtx] = None,          # None: the store's own (`store_ctx`)
+        telemetry: Optional["Telemetry"] = None,    # spans and counters; None: none
     ):
         self.cfg = cfg
+        self.telemetry = telemetry
         self.k = serve_top_k or cfg.moe.top_k
         # the request server shares one store between this engine's prefill
         # and its own decode ticks
@@ -114,7 +136,7 @@ class SiDAEngine:
             cfg, params, slots_per_layer, eviction=eviction, device=device,
             host_quant=host_quant, quantized_slots=quantized_slots,
             scale_granularity=scale_granularity, tier=tier, sharded=sharded,
-            mesh=ctx.mesh if ctx is not None else None,
+            mesh=ctx.mesh if ctx is not None else None, telemetry=telemetry,
         )
         self.ctx = store_ctx(self.store, ctx)
         self.device = self.store.device
@@ -125,7 +147,7 @@ class SiDAEngine:
             self.prefetcher: Optional[PrefetchPipeline] = prefetcher
         else:
             self.prefetcher = PrefetchPipeline.maybe_create(
-                self.store, cfg, prefetch_depth, staging_buffers)
+                self.store, cfg, prefetch_depth, staging_buffers, telemetry=telemetry)
             self._owns_prefetcher = self.prefetcher is not None
         self.hash_params = tree_map(lambda x: x.to(self.device), hash_params)
         self.embed_table = self.store.serve_params["embed"]
@@ -137,43 +159,52 @@ class SiDAEngine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def build_table(self, batch_index: int, tokens: np.ndarray) -> HashTable:
-        emb = self.embed_table[torch.as_tensor(tokens, device=self.device).long()]
-        if tokens.shape[1] > HASH_SEG_LEN:
-            # long prompts: exact LSTM threading, per-segment SparseMax
-            logits = hash_fn_apply_segmented(self.hash_params, emb, self.E)
-        else:
-            logits = hash_fn_apply(self.hash_params, emb, num_experts=self.E)
-        ids, w = predict_topk(logits, self.k)
-        return HashTable(batch_index, ids.cpu().numpy(), w.cpu().numpy())
+        tel = self.telemetry
+        with span(tel, "hash.launch", batch_index):
+            emb = self.embed_table[torch.as_tensor(tokens, device=self.device).long()]
+            if tokens.shape[1] > HASH_SEG_LEN:
+                # long prompts: exact LSTM threading, per-segment SparseMax
+                logits = hash_fn_apply_segmented(self.hash_params, emb, self.E)
+            else:
+                logits = hash_fn_apply(self.hash_params, emb, num_experts=self.E)
+            ids, w = predict_topk(logits, self.k)
+        with span(tel, "hash.d2h", batch_index):
+            ids, w = ids.cpu().numpy(), w.cpu().numpy()
+        return HashTable(batch_index, ids, w)
 
     def _route(self, table: HashTable, ticket: Optional[PrefetchTicket] = None):
         """(slot_ids, weights, ticket) for `table`, the first two on the
         device: through the pipeline (clear the ticket's fences, never
         upload inline) when one is attached, else a synchronous prepare.
         The caller releases a non-None ticket once the forward is done."""
-        if ticket is None and self.prefetcher is not None:
-            ticket = self.prefetcher.submit(table)
-        if ticket is not None:
-            ticket.wait()
-            trans = ticket.trans
-        else:
-            trans = self.store.prepare(table)
-        slot_ids, w = self.store.translate(table, trans)
-        return (torch.from_numpy(slot_ids).to(self.device),
-                torch.from_numpy(w).to(self.device), ticket)
+        tel = self.telemetry
+        with span(tel, "infer.route", table.batch_index):
+            if ticket is None and self.prefetcher is not None:
+                ticket = self.prefetcher.submit(table)
+            if ticket is not None:
+                ticket.wait()
+                trans = ticket.trans
+            else:
+                trans = self.store.prepare(table)
+        with span(tel, "infer.translate", table.batch_index):
+            slot_ids, w = self.store.translate(table, trans)
+            slot_ids, w = (torch.from_numpy(slot_ids).to(self.device),
+                           torch.from_numpy(w).to(self.device))
+        return slot_ids, w, ticket
 
     @torch.inference_mode()
     def _forward(self, tokens: np.ndarray, table: HashTable, collect_kv: bool,
                  ticket: Optional[PrefetchTicket] = None):
         slot_ids, w, ticket = self._route(table, ticket)
-        out = forward(
-            self.store.serve_params, self.cfg,
-            torch.as_tensor(tokens, device=self.device),
-            routing_override=(slot_ids, w), collect_kv=collect_kv, ctx=self.ctx,
-        )
+        with span(self.telemetry, "infer.forward", table.batch_index):
+            out = forward(
+                self.store.serve_params, self.cfg,
+                torch.as_tensor(tokens, device=self.device),
+                routing_override=(slot_ids, w), collect_kv=collect_kv, ctx=self.ctx,
+            )
         if ticket is not None:
             # the slots stay eviction-protected until the forward has read them
-            self._sync()
+            self._sync(table.batch_index)
             ticket.release()
         return out
 
@@ -197,11 +228,12 @@ class SiDAEngine:
             return self.prefetcher.cache_affinity(table)
         return self.store.cache_affinity(table)
 
-    def _sync(self) -> None:
+    def _sync(self, batch_index: Optional[int] = None) -> None:
         """Wait for the work queued on this thread's stream, not the
         transfer stream's copies of later batches."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with span(self.telemetry, "infer.drain", batch_index):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
 
     def serve(
         self, batches: Sequence[np.ndarray], threaded: bool = True,
@@ -223,15 +255,20 @@ class SiDAEngine:
         # orders the dict write before the read
         tickets: Dict[int, PrefetchTicket] = {}
 
+        tel = self.telemetry
+
         def hash_thread():
             try:
                 for j, toks in enumerate(batches):
-                    t0 = time.perf_counter()
-                    table = self.build_table(j, toks)
-                    if self.prefetcher is not None:
-                        tickets[j] = self.prefetcher.submit(table)
-                    q.put(table)
-                    metrics.hash_time_s += time.perf_counter() - t0
+                    with span(tel, "hash.batch", j):
+                        t0 = time.perf_counter()
+                        table = self.build_table(j, toks)
+                        if self.prefetcher is not None:
+                            with span(tel, "hash.submit"):
+                                tickets[j] = self.prefetcher.submit(table)
+                        with span(tel, "hash.queue_put"):
+                            q.put(table)
+                        metrics.hash_time_s += time.perf_counter() - t0
             except Exception as e:    # re-raised by serve() after the join
                 errors.append(e)
             finally:
@@ -241,9 +278,9 @@ class SiDAEngine:
             i = table.batch_index
             t0 = time.perf_counter()
             logits = self.infer(batches[i], table, ticket=tickets.pop(i, None))
-            self._sync()
+            self._sync(i)
             metrics.latency_s.append(time.perf_counter() - t0)
-            results[i] = logits.cpu()
+            results[i] = self._results_copy(logits, i)
             metrics.tokens += int(np.prod(batches[i].shape))
 
         def inference_thread():
@@ -252,7 +289,8 @@ class SiDAEngine:
                 closed = False
                 while True:
                     while not closed and len(pool) < lookahead:
-                        table = q.get()
+                        with span(tel, "infer.queue_get"):
+                            table = q.get()
                         if table is None:
                             closed = True
                             break
@@ -284,13 +322,21 @@ class SiDAEngine:
                 t0 = time.perf_counter()
                 table = self.build_table(j, toks)
                 logits = self.infer(toks, table)
-                self._sync()
+                self._sync(j)
                 metrics.latency_s.append(time.perf_counter() - t0)
-                results[j] = logits.cpu()
+                results[j] = self._results_copy(logits, j)
                 metrics.tokens += int(np.prod(toks.shape))
         metrics.wall_s = time.perf_counter() - t_start
         self.results = results
         return metrics
+
+    def _results_copy(self, logits: torch.Tensor, batch_index: int) -> torch.Tensor:
+        """A batch's logits on the host."""
+        with span(self.telemetry, "infer.results_copy", batch_index):
+            out = logits.cpu()
+        if self.telemetry is not None:
+            self.telemetry.counter("results_copy_bytes").inc(nbytes(out))
+        return out
 
     # ------------------------------------------------------------------
     def close(self) -> None:

@@ -57,6 +57,13 @@ consumers.
 The slot bookkeeping is the reference's, so the same table stream gives the
 same resident sets, replicas, homes, tier moves, evictions, hits,
 translations and byte counts.
+
+Given a `serving.telemetry.Telemetry` (`telemetry=`), the store records a
+`store.upload` span around each inline commit and counts its bytes
+(`upload_bytes_inline`); the pipeline a `transfer.job` span around each
+job on a transfer thread (`upload_bytes_transfer`), `transfer.staging_wait`
+around the double-buffer fence, and `prefetch.backpressure` around a
+submit's wait for queue room. Without one they record nothing.
 """
 from __future__ import annotations
 
@@ -66,7 +73,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +83,9 @@ from repro_torch.core.hash_table import HashTable
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import n_moe_layers, period, sub_kind
 from repro_torch.tree import tree_map
+
+if TYPE_CHECKING:   # serving/ imports the engines: no import at run time
+    from repro_torch.serving.telemetry import Telemetry
 
 EXPERT_TENSORS = ("w_in", "w_gate", "w_out")
 
@@ -262,6 +272,14 @@ def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(telemetry: Optional["Telemetry"], name: str, ident: Optional[int] = None):
+    """`telemetry.span(name, ident)`, or one shared no-op without a registry."""
+    return _NO_SPAN if telemetry is None else telemetry.span(name, ident)
+
+
 def _group_of(k: int, group: int) -> int:
     """Effective int4 scale group along a contraction axis of length `k`:
     `group` when it divides `k`, else the whole axis (one group)."""
@@ -402,6 +420,7 @@ class ExpertStore:
         tier: Optional[TierConfig] = None,         # None => cfg.quant.tier
         sharded: Optional[ShardedStoreConfig] = None,
         mesh=None,
+        telemetry: Optional["Telemetry"] = None,
     ):
         if not cfg.moe.enabled:
             raise ValueError("ExpertStore requires an MoE config")
@@ -456,6 +475,7 @@ class ExpertStore:
                                  f"{self.device}")
         self.eviction = eviction
         self.stats = TransferStats()
+        self.telemetry = telemetry
 
         # hot int8 / warm int4 tiers: `slots_per_layer` stays the budget in
         # int8-slot bytes (`tier_geometry`)
@@ -993,8 +1013,12 @@ class ExpertStore:
         each slot's last write on a transfer stream, and record their own
         (`PrefetchPipeline._ordered_write`)."""
         pf = self._prefetcher
-        with (pf._ordered_write(s, items) if pf is not None else contextlib.nullcontext()):
+        b0 = self.stats.bytes_h2d
+        with span(self.telemetry, "store.upload"), \
+                (pf._ordered_write(s, items) if pf is not None else contextlib.nullcontext()):
             self._commit_loads(s, items)
+        if self.telemetry is not None:
+            self.telemetry.counter("upload_bytes_inline").inc(self.stats.bytes_h2d - b0)
 
     def _commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
         if self.S4:
@@ -1222,24 +1246,29 @@ class ExpertStore:
         w = w * scale
         return np.maximum(slots, 0).astype(np.int32), w.astype(np.float32)
 
-    def translate_device(self, ids: torch.Tensor, w: torch.Tensor, trans: np.ndarray):
+    def translate_device(self, ids: torch.Tensor, w: torch.Tensor, trans: np.ndarray,
+                         step: Optional[int] = None):
         """`translate` on the device, for the decode loop: the predictor's
         still-resident ids / α [L, B, S, k] plus the host-planned table
         [L, E] -> (slot_ids int32, weights fp32) on ids' device, with the
-        same replica pick, miss zeroing and renormalisation."""
-        L = ids.shape[0]
-        cand = torch.from_numpy(self.replica_cand(trans)).to(ids.device)   # [L, E, R]
-        R = cand.shape[2]
-        flat = ids.reshape(L, -1).long()
-        s_all = torch.gather(cand, 1, flat[:, :, None].expand(-1, -1, R))  # [L, T, R]
-        rr = (torch.arange(flat.shape[1], device=ids.device) % R)[None, :, None].expand(L, -1, 1)
-        slots = torch.gather(s_all, 2, rr)[..., 0].reshape(ids.shape)
-        wz = w.float()
-        masked = wz * (slots >= 0)
-        orig = wz.sum(dim=-1, keepdim=True)
-        surv = masked.sum(dim=-1, keepdim=True)
-        scale = torch.where(surv > 0, orig / torch.clamp(surv, min=1e-12), torch.ones_like(surv))
-        return torch.clamp(slots, min=0).to(torch.int32), masked * scale
+        same replica pick, miss zeroing and renormalisation. `step` is the
+        `decode.translate` span's ident."""
+        with span(self.telemetry, "decode.translate", step):
+            L = ids.shape[0]
+            cand = torch.from_numpy(self.replica_cand(trans)).to(ids.device)   # [L, E, R]
+            R = cand.shape[2]
+            flat = ids.reshape(L, -1).long()
+            s_all = torch.gather(cand, 1, flat[:, :, None].expand(-1, -1, R))  # [L, T, R]
+            rr = (torch.arange(flat.shape[1], device=ids.device) % R)[None, :, None].expand(
+                L, -1, 1)
+            slots = torch.gather(s_all, 2, rr)[..., 0].reshape(ids.shape)
+            wz = w.float()
+            masked = wz * (slots >= 0)
+            orig = wz.sum(dim=-1, keepdim=True)
+            surv = masked.sum(dim=-1, keepdim=True)
+            scale = torch.where(surv > 0, orig / torch.clamp(surv, min=1e-12),
+                                torch.ones_like(surv))
+            return torch.clamp(slots, min=0).to(torch.int32), masked * scale
 
     # ------------------------------------------------------------------
     def rebalance_homes(self) -> int:
@@ -1582,7 +1611,8 @@ class PrefetchPipeline:
     @classmethod
     def maybe_create(cls, store: ExpertStore, cfg, prefetch_depth: Optional[int] = None,
                      staging_buffers: Optional[int] = None,
-                     faults=None) -> Optional["PrefetchPipeline"]:
+                     faults=None, telemetry: Optional["Telemetry"] = None
+                     ) -> Optional["PrefetchPipeline"]:
         """Resolve the prefetch knobs (explicit args > cfg.prefetch > off) and
         build a pipeline, or return None for the synchronous path: the one
         precedence rule every engine shares. `faults` is a `FaultPlan`; the
@@ -1594,11 +1624,12 @@ class PrefetchPipeline:
             return None
         pc = cfg.prefetch
         return cls(store, depth, nbuf, faults=faults, max_retries=pc.max_retries,
-                   backoff_s=pc.backoff_s, degrade_after=pc.degrade_after)
+                   backoff_s=pc.backoff_s, degrade_after=pc.degrade_after, telemetry=telemetry)
 
     def __init__(self, store: ExpertStore, depth: int = 2, staging_buffers: int = 2,
                  faults=None, max_retries: int = 3, backoff_s: float = 0.002,
-                 degrade_after: int = 3, max_thread_restarts: int = 3):
+                 degrade_after: int = 3, max_thread_restarts: int = 3,
+                 telemetry: Optional["Telemetry"] = None):
         if store._prefetcher is not None:
             raise ValueError("the store already has a prefetch pipeline")
         self.store = store
@@ -1611,6 +1642,7 @@ class PrefetchPipeline:
         self.degrade_after = max(1, degrade_after)
         self.max_thread_restarts = max(0, max_thread_restarts)
         self.stats = PrefetchStats(shards=self.shards)
+        self.telemetry = telemetry
         self._lock = store._lock
         self.device = store.device
         self._cuda = self.device.type == "cuda"
@@ -1824,10 +1856,11 @@ class PrefetchPipeline:
             with self._jobs_cv:
                 for sh, job in jobs.items():
                     # a dead shard's queue never drains: the wait breaks on it
-                    while (protect and len(self._jobs[sh][prio]) >= self.depth
-                           and not self._dead[sh] and not self._closed
-                           and self._error is None):
-                        self._jobs_cv.wait()
+                    with span(self.telemetry, "prefetch.backpressure"):
+                        while (protect and len(self._jobs[sh][prio]) >= self.depth
+                               and not self._dead[sh] and not self._closed
+                               and self._error is None):
+                            self._jobs_cv.wait()
                     self._raise_if_fatal()    # no thread would ever run the job
                     if self._dead[sh]:
                         inline.append((sh, job))
@@ -2070,10 +2103,11 @@ class PrefetchPipeline:
             if self.faults is not None:
                 self.faults.inject("thread")   # outside the per-job guards
             t0 = time.perf_counter()
-            if isinstance(job, _CallableJob):
-                self._run_callable(job)
-            else:
-                self._run_upload_job(shard, job)
+            with span(self.telemetry, "transfer.job"):
+                if isinstance(job, _CallableJob):
+                    self._run_callable(job)
+                else:
+                    self._run_upload_job(shard, job)
             self._current_job[shard] = None
             with self._jobs_cv:
                 self.stats.transfer_s += time.perf_counter() - t0
@@ -2277,7 +2311,8 @@ class PrefetchPipeline:
             if not ev.query():
                 with self._jobs_cv:
                     self.stats.staging_waits += 1
-            ev.synchronize()
+            with span(self.telemetry, "transfer.staging_wait"):
+                ev.synchronize()
         staging = self._staging[shard][i]
         hot = [r for r in rows if r[1] < store.S8]
         warm = [r for r in rows if r[1] >= store.S8]
@@ -2331,6 +2366,8 @@ class PrefetchPipeline:
                         else:
                             write(t, put[(t, "")], dst, keep)
             store.stats.bytes_h2d += nbytes_up
+            if self.telemetry is not None:
+                self.telemetry.counter("upload_bytes_transfer").inc(nbytes_up)
             # every tensor of every expert in the batch is written and its
             # CUDA event recorded: the fences may fire (no half-written slot
             # is observable)

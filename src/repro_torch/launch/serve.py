@@ -155,6 +155,10 @@ def run_request_server(cfg, params, args, serving_cfg=None, device=None) -> None
           f"tenants={args.tenants or 'none'}")
     for k, v in srv.summary().items():
         print(f"  {k:20s} {v:.4f}")
+    tick = srv.telemetry.histogram("decode_tick_s")
+    if tick.count:   # beside decode_tok_s: the host time a decode step takes
+        print(f"  decode_step_ms       p50 {1e3 * tick.percentile(50):.4f} "
+              f"p99 {1e3 * tick.percentile(99):.4f}")
     for name, block in srv.tenant_summary().items():
         print(f"  tenant {name}:")
         for k, v in block.items():

@@ -156,11 +156,15 @@ class RequestServer:
             raise ValueError("spec_mode='draft' needs a hash function with a draft head "
                              "(init_hash_fn(draft=True) or init_draft_head)")
         q = config.quant
+        # one registry for the server's metrics and its store's, pipeline's
+        # and engine's spans (recorded while `telemetry.record_spans` is on)
+        self.telemetry = telemetry or Telemetry()
         self.store = ExpertStore(
             cfg, params, config.slots_per_layer, eviction=config.eviction, device=device,
             host_quant=q.host_quant, quantized_slots=q.quantized_slots,
             scale_granularity=q.scale_granularity, tier=q.tier,
             sharded=config.parallel.sharded, mesh=ctx.mesh if ctx is not None else None,
+            telemetry=self.telemetry,
         )
         self.ctx = store_ctx(self.store, ctx)
         self.device = self.store.device
@@ -172,12 +176,13 @@ class RequestServer:
         self._last_watchdog = 0.0
         self.prefetch: Optional[PrefetchPipeline] = PrefetchPipeline.maybe_create(
             self.store, cfg, config.prefetch.depth, config.prefetch.staging_buffers,
-            faults=self.faults)
+            faults=self.faults, telemetry=self.telemetry)
         # prefetch_depth=0: the engine must not build a second pipeline off
         # cfg.prefetch when the server decided to run synchronously
         self.engine = SiDAEngine(
             cfg, params, hash_params, config.slots_per_layer, serve_top_k=config.serve_top_k,
             store=self.store, prefetcher=self.prefetch, prefetch_depth=0, ctx=self.ctx,
+            telemetry=self.telemetry,
         )
         self.hash_params = self.engine.hash_params
         self.embed_table = self.store.serve_params["embed"]
@@ -235,7 +240,6 @@ class RequestServer:
         else:
             self.scheduler = Scheduler(buckets=self.buckets)
         self.lanes = LaneTable(self.max_lanes)
-        self.telemetry = telemetry or Telemetry()
         self._lock = threading.Lock()
 
         # mutable decode-batch state (one lane = one batch row)

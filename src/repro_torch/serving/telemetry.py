@@ -5,6 +5,12 @@ Replaces the ad-hoc print-a-few-floats reporting of the batch engines with
 a structured registry the server, the launcher, and the benchmarks all
 share: `Telemetry.snapshot()` is a plain dict (JSON-serializable) carrying
 p50/p95/p99 latency, TTFT, queue depth, H2D bytes, cache hit rate, …
+
+Spans (`Telemetry.span`) time the host work inside the serving threads and
+the decode loop on `time.time_ns`, the wall clock a device trace
+(`torch.profiler`) stamps its events with, so a device idle gap can be
+named by what the host was doing. They are kept only while
+`record_spans` is true.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ import json
 import math
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 # metrics are written from several threads at once (the hash-ahead thread
 # rejects/admits while the serve loop ticks and the transfer threads flush
@@ -87,10 +93,53 @@ class Histogram:
         }
 
 
+class Span(NamedTuple):
+    """One timed block: `parent` is the enclosing span's name on the same
+    thread (None at the top), `ident` the batch (batch serving) or step
+    (decode) the work belongs to, inherited from the parent when not given."""
+
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    ident: Optional[int]
+
+
+# what `span()` returns while spans are off: no clock read, no allocation
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _OpenSpan:
+    __slots__ = ("tel", "name", "ident", "parent", "t0")
+
+    def __init__(self, tel: "Telemetry", name: str, ident: Optional[int]) -> None:
+        self.tel, self.name, self.ident = tel, name, ident
+
+    def __enter__(self) -> "_OpenSpan":
+        stack = self.tel._open_stack()
+        self.parent = None
+        if stack:
+            top = stack[-1]
+            self.parent = top.name
+            if self.ident is None:
+                self.ident = top.ident
+        stack.append(self)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.time_ns()
+        self.tel._open_stack().pop()
+        # list.append is atomic: threads record without a lock
+        self.tel.spans.append(Span(self.name, threading.get_ident(), self.t0, t1,
+                                   self.parent, self.ident))
+
+
 class Telemetry:
     """Named-metric registry with get-or-create accessors and JSON export."""
 
-    def __init__(self) -> None:
+    def __init__(self, record_spans: bool = False) -> None:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
@@ -100,6 +149,9 @@ class Telemetry:
         # the pre-tenant schema (no empty "tenants" key).
         self._tenants: Dict[str, "Telemetry"] = {}
         self._t0 = time.perf_counter()
+        self.record_spans = record_spans
+        self.spans: List[Span] = []
+        self._local = threading.local()
 
     def counter(self, name: str) -> Counter:
         return self._counters.setdefault(name, Counter())
@@ -143,6 +195,28 @@ class Telemetry:
             self.histogram(name).observe(dt)
             self.counter(name + "_total").inc(dt)
 
+    def span(self, name: str, ident: Optional[int] = None):
+        """Context manager that records a `Span` of the block while
+        `record_spans` is true; otherwise one shared no-op."""
+        if not self.record_spans:
+            return _NO_SPAN
+        return _OpenSpan(self, name, ident)
+
+    def _open_stack(self) -> List[_OpenSpan]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span_totals(self) -> Dict[str, Dict[str, float]]:
+        """{name: {"count", "total_s"}} over the recorded spans."""
+        out: Dict[str, Dict[str, float]] = {}
+        for sp in self.spans:
+            t = out.setdefault(sp.name, {"count": 0, "total_s": 0.0})
+            t["count"] += 1
+            t["total_s"] += (sp.end_ns - sp.start_ns) / 1e9
+        return out
+
     def snapshot(self) -> dict:
         snap = {
             "wall_s": self.wall_s(),
@@ -152,6 +226,8 @@ class Telemetry:
             },
             "histograms": {k: h.summary() for k, h in self._histograms.items()},
         }
+        if self.spans:
+            snap["spans"] = self.span_totals()
         if self._tenants:
             snap["tenants"] = {
                 name: t.snapshot() for name, t in sorted(self._tenants.items())
