@@ -10,7 +10,11 @@ Port of `repro/core/engine.py` (Algorithm 1):
 
 Both threads launch on PyTorch's default stream, so the device runs their
 work in enqueue order; the hash thread's copy of the table to the host waits
-for what is queued before it. Tables hold numpy, as in the reference.
+for what is queued before it. Tables hold numpy, as in the reference. On
+CUDA a batch's logits reach the host on a copy stream of the engine's own,
+by DMA into page-locked host memory that PyTorch's caching host allocator
+hands back for reuse (`_results_copy`), so the predictor's launches and the
+table's copy do not queue behind them.
 
 With an async prefetch pipeline (`prefetch_depth`, `core/offload.py`) the
 hash thread also submits each table's uploads as it builds it, so batch
@@ -32,7 +36,10 @@ thread's host work, each with its batch as `ident`: on the hash thread
 the host), `hash.submit` and `hash.queue_put`; on the inference thread
 `infer.queue_get`, `infer.route`, `infer.translate`, `infer.forward`
 (launches), `infer.drain` (waits for the device) and `infer.results_copy`
-(counter `results_copy_bytes`). No span adds a synchronize.
+(the copy with the wait on its event; counters `results_copy_bytes` and, on
+CUDA, `results_pinned_new` / `results_pinned_reused`: copies into a host
+block the engine had not written before, and the rest). No span adds a
+synchronize.
 """
 from __future__ import annotations
 
@@ -75,7 +82,8 @@ class ServeMetrics:
     latency_s: List[float] = field(default_factory=list)
     # the hash thread's time a batch, summed: building the table (the
     # predictor's launches and the table's copy to the host, which waits
-    # for the work queued before it on the shared stream), the prefetch
+    # for the work queued before it on the shared stream, but not for the
+    # results copy on the engine's copy stream), the prefetch
     # submit with its wait for queue room, and the wait for room in the
     # table queue: a hash thread held back by the inference thread reads
     # here like a slow predictor (the `hash.*` spans split it)
@@ -155,6 +163,11 @@ class SiDAEngine:
         # each served batch's logits on the host, in the model dtype (the
         # reference keeps numpy arrays; numpy has no bf16)
         self.results: List[Optional[torch.Tensor]] = []
+        # the results copy's stream (None off CUDA) and the pinned host
+        # blocks it has written, by address
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._pinned_seen: set = set()
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -331,11 +344,34 @@ class SiDAEngine:
         return metrics
 
     def _results_copy(self, logits: torch.Tensor, batch_index: int) -> torch.Tensor:
-        """A batch's logits on the host."""
-        with span(self.telemetry, "infer.results_copy", batch_index):
-            out = logits.cpu()
-        if self.telemetry is not None:
-            self.telemetry.counter("results_copy_bytes").inc(nbytes(out))
+        """A batch's logits on the host, in the model dtype.
+
+        On CUDA: a DMA on the engine's copy stream, after the work queued
+        so far on this thread's stream, into page-locked memory of PyTorch's
+        caching host allocator, which hands a block back only once every
+        tensor on it is gone, so a result the caller keeps is never
+        overwritten. The thread then waits on this copy's event alone. The
+        caller drops `logits` on return, before the next forward, so no
+        second batch's logits is alive on the device while a copy runs."""
+        tel, stream = self.telemetry, self._copy_stream
+        with span(tel, "infer.results_copy", batch_index):
+            if stream is None:
+                out = logits.cpu()
+            else:
+                out = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(stream):
+                    out.copy_(logits, non_blocking=True)
+                logits.record_stream(stream)
+                stream.record_event().synchronize()
+        if tel is not None:
+            tel.counter("results_copy_bytes").inc(nbytes(out))
+        if stream is not None:
+            ptr = out.data_ptr()
+            if tel is not None:
+                seen = ptr in self._pinned_seen
+                tel.counter("results_pinned_reused" if seen else "results_pinned_new").inc()
+            self._pinned_seen.add(ptr)
         return out
 
     # ------------------------------------------------------------------

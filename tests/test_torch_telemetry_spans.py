@@ -1,8 +1,13 @@
 """Spans of `serving/telemetry.py::Telemetry` inside the port's serving
 threads and decode loop: off by default and free of effects on what is
 served, nested per thread, each stamped with its batch or step, and adding
-up to the engines' own host-clock accounting."""
+up to the engines' own host-clock accounting. Also the batch engine's
+results copy: results kept from one call survive the next, and on the card
+(`python -m pytest --noconftest -m gpu tests/test_torch_telemetry_spans.py`)
+each is pinned, equals the forward's logits, reuses the host blocks of the
+call before and holds no second logits on the device."""
 import bisect
+import dataclasses
 import sys
 import threading
 
@@ -212,3 +217,88 @@ def test_request_server_shares_its_telemetry(tiny):
         assert srv.prefetch.telemetry is tel
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("threaded", [True, False], ids=["threaded", "sequential"])
+def test_kept_results_survive_the_next_call(tiny, threaded):
+    cfg, params, hp, batches = tiny
+    tel = Telemetry()
+    eng = SiDAEngine(cfg, params, hp, slots_per_layer=2, device="cpu", telemetry=tel)
+    other = [np.random.default_rng(9).integers(0, cfg.vocab_size, b.shape).astype(np.int32)
+             for b in batches]
+    try:
+        eng.serve(batches, threaded=threaded)
+        kept = eng.results
+        want = [r.clone() for r in kept]
+        eng.serve(other, threaded=threaded)
+    finally:
+        eng.close()
+    assert all(torch.equal(a, b) for a, b in zip(kept, want))
+    assert not all(torch.equal(a, b) for a, b in zip(kept, eng.results))
+    assert tel.counter("results_copy_bytes").value == sum(
+        r.numel() * r.element_size() for r in kept + eng.results)
+    assert tel.counter("results_pinned_new").value == 0
+    assert tel.counter("results_pinned_reused").value == 0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_results_copy_pinned_and_reused_on_the_card(tiny, cuda):
+    # switch-base-8's vocabulary, so that a batch's logits (263 MB) dwarf
+    # the predictor's tensors in the device peak
+    cfg = dataclasses.replace(tiny[0], vocab_size=32128)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    hp = tiny[2]
+    rng = np.random.default_rng(3)
+    tel = Telemetry()
+    eng = SiDAEngine(cfg, params, hp, slots_per_layer=2, device=cuda, telemetry=tel)
+    forward_logits = {}
+    infer = eng.infer
+
+    def recording_infer(tokens, table, ticket=None):
+        out = infer(tokens, table, ticket=ticket)
+        forward_logits[table.batch_index] = out.cpu()
+        return out
+
+    eng.infer = recording_infer
+    counts = lambda: tuple(tel.counter(f"results_pinned_{k}").value for k in ("new", "reused"))
+
+    def call(n):
+        """Serve `n` fresh [8, 256] batches; the device peak over the call
+        and the pinned counters' moves."""
+        forward_logits.clear()
+        before = counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.serve([rng.integers(0, cfg.vocab_size, (8, 256)).astype(np.int32)
+                   for _ in range(n)])
+        peak = torch.cuda.max_memory_allocated()
+        for i, r in enumerate(eng.results):
+            assert r.is_pinned() and r.device.type == "cpu"
+            assert torch.equal(r, forward_logits[i])
+        return peak, tuple(b - a for a, b in zip(before, counts()))
+
+    try:
+        n = 4
+        _, first = call(n)          # also sets up the threads' cuBLAS workspaces
+        assert first == (n, 0)
+        eng.results = []
+        peak_one, _ = call(1)
+        eng.results = []
+        peak_four, second = call(n)
+        assert second == (0, n)                     # every block of the first call
+        kept, want = eng.results[0], forward_logits[0]    # `want` is pageable
+        eng.results = []
+        _, third = call(n)                          # one block still held by `kept`
+        assert third == (1, n - 1)
+        assert torch.equal(kept, want)
+        # no second batch's logits is alive on the device while a copy runs
+        assert peak_four == pytest.approx(peak_one, rel=0.01)
+    finally:
+        eng.close()
