@@ -43,9 +43,10 @@ class AttnConfig:
     qk_norm: bool = False             # chameleon-style per-head q/k RMSNorm
     logit_softcap: float = 0.0        # gemma2 attention softcap (0 = off)
     window: int = 0                   # sliding-window size (0 = full)
-    # per-layer pattern cycled over depth, entries: "local" | "global"
+    # per-layer pattern cycled over depth, entries: "local" | "global", and
+    # in a jamba stack "mamba" (that sublayer's mixer is Mamba, not attention)
     layer_pattern: Tuple[str, ...] = ("global",)
-    rope_theta: float = 10000.0
+    rope_theta: float = 10000.0       # 0 = no positional encoding (jamba)
 
 
 @dataclass(frozen=True)
@@ -191,7 +192,8 @@ class ModelConfig:
     spec: SpecConfig = field(default_factory=SpecConfig)
 
     # block layout: "attn" (transformer), "hymba" (parallel attn+ssm),
-    # "xlstm" (recurrent-only stack)
+    # "xlstm" (recurrent-only stack), "jamba" (each sublayer's mixer is
+    # attention or Mamba as `attn.layer_pattern` says, then a dense or MoE FFN)
     block_kind: str = "attn"
 
     # encoder-decoder (audio)
@@ -237,7 +239,8 @@ class ModelConfig:
         return p[layer % len(p)]
 
     def layer_window(self, layer: int) -> int:
-        """Effective attention window for a layer (0 = full)."""
+        """Effective attention window for a layer (0 = full; 0 too for a
+        jamba "mamba" sublayer, which holds no K/V)."""
         if self.block_kind == "hymba":
             return self.attn.window
         if self.pattern_at(layer) == "local":
@@ -256,6 +259,8 @@ class ModelConfig:
         expert = ffn_mult * d * self.moe.d_expert if self.moe.enabled else 0
         shared = ffn_mult * d * self.moe.d_shared * self.moe.num_shared_experts
         router = d * self.moe.num_experts if self.moe.enabled else 0
+        if self.block_kind == "jamba":
+            return self._jamba_param_counts(attn, dense_ffn, expert, router)
         if self.block_kind == "xlstm":
             per_layer = 8 * d * d  # coarse: proj + gates
             moe_total = 0
@@ -277,6 +282,29 @@ class ModelConfig:
             + (self.n_layers * expert * (self.moe.top_k) if self.moe.enabled else 0),
             "embed": embed,
         }
+
+    def _jamba_param_counts(self, attn: int, dense_ffn: int, expert: int, router: int) -> dict:
+        """Layer by layer: the mixer `layer_pattern` names (attention, or a
+        Mamba with its projections, conv, Δ / B / C norms, A and D), then the
+        MoE FFN on every `moe_every`-th layer and the dense one elsewhere."""
+        d, s = self.d_model, self.ssm
+        di, N = s.expand * d, s.state_dim
+        R = -(-d // 16)
+        mamba = (d * 2 * di + s.conv_dim * di + di + di * (R + 2 * N) + R * di + di
+                 + R + 2 * N + di * N + di + di * d)
+        every = self.moe.moe_every
+        total = moe_total = 0
+        for layer in range(self.n_layers):
+            total += 2 * d + (attn if self.pattern_at(layer) == "global" else mamba)
+            if self.moe.enabled and layer % every == every - 1:
+                total += router + expert * self.moe.num_experts
+                moe_total += expert * self.moe.num_experts
+            else:
+                total += dense_ffn
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total += embed + d
+        active = total - moe_total + moe_total // max(1, self.moe.num_experts) * self.moe.top_k
+        return {"total": total, "moe": moe_total, "active": active, "embed": embed}
 
     def bytes_per_param(self) -> int:
         return {"bfloat16": 2, "float32": 4, "float16": 2}[self.dtype]

@@ -39,7 +39,10 @@ the host), `hash.submit` and `hash.queue_put`; on the inference thread
 (the copy with the wait on its event; counters `results_copy_bytes` and, on
 CUDA, `results_pinned_new` / `results_pinned_reused`: copies into a host
 block the engine had not written before, and the rest). No span adds a
-synchronize.
+synchronize. The forward gets the telemetry too: a jamba model's Mamba
+mixers record `model.mamba` / `model.mamba_scan` and queue the reads of
+their CUDA events, which `_sync` runs after its drain (counters
+`mamba_device_s`, `mamba_scan_device_s`, `mamba_calls`).
 """
 from __future__ import annotations
 
@@ -214,6 +217,7 @@ class SiDAEngine:
                 self.store.serve_params, self.cfg,
                 torch.as_tensor(tokens, device=self.device),
                 routing_override=(slot_ids, w), collect_kv=collect_kv, ctx=self.ctx,
+                telemetry=self.telemetry,
             )
         if ticket is not None:
             # the slots stay eviction-protected until the forward has read them
@@ -243,10 +247,14 @@ class SiDAEngine:
 
     def _sync(self, batch_index: Optional[int] = None) -> None:
         """Wait for the work queued on this thread's stream, not the
-        transfer stream's copies of later batches."""
-        with span(self.telemetry, "infer.drain", batch_index):
+        transfer stream's copies of later batches; then read what the
+        forward's device spans queued."""
+        tel = self.telemetry
+        with span(tel, "infer.drain", batch_index):
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
+        if tel is not None:
+            tel.run_deferred()
 
     def serve(
         self, batches: Sequence[np.ndarray], threaded: bool = True,

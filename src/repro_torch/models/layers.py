@@ -104,7 +104,10 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]. theta 0 is no
+    positional encoding (jamba's attention): x as it is."""
+    if not theta:
+        return x
     freqs = rope_frequencies(x.shape[-1], theta, x.device)
     angles = positions[..., :, None].float() * freqs            # [..., seq, hd/2]
     sin = torch.sin(angles)[..., :, None, :]

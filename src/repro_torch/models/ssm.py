@@ -15,14 +15,21 @@ chunks while the inner chunk runs either
 
 Decode paths are one O(1)-state update. No Pallas kernel lies on this
 path: the JAX package runs it in plain `jnp`, and the port in plain
-PyTorch on every device. Casts sit where the reference's do: gates, states
-and the stabiliser `m` in fp32, the Mamba conv state in the model dtype.
+PyTorch on every device. Jamba's Mamba (`block_kind` "jamba") adds RMSNorms
+on Δ, B and C (leaves `dt_norm`, `b_norm`, `c_norm`) after the x projection;
+hymba's has none and is computed as before. Given a `Telemetry` that
+records spans, `mamba_forward` times its scan (`device_span`). Casts sit
+where the reference's do: gates, states and the stabiliser `m` in fp32, the
+Mamba conv state in the model dtype.
 `F.softplus` is the identity above 20 where `jax.nn.softplus` is not; the
 two differ there by less than fp32 resolves.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
+from typing import TYPE_CHECKING, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +37,44 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm
 
+if TYPE_CHECKING:   # serving/ imports the engines, which import this module
+    from repro_torch.serving.telemetry import Telemetry
+
 CHUNK = 256  # inner-chunk length of the associative path
+
+_OFF = contextlib.nullcontext()
+
+
+def device_span(tel: Optional["Telemetry"], name: str, counter: str, x: torch.Tensor,
+                calls: Optional[str] = None):
+    """Around a block of device work on `x`'s device: the host span `name`
+    of `tel`, and the block's device seconds added to counter `counter`. On
+    CUDA they are a pair of events on the current stream, read when
+    `tel.run_deferred()` runs after the stream has drained; on the CPU,
+    whose operations have finished when they return, the host clock.
+    Counter `calls`, where given, counts the blocks. One shared no-op unless
+    `tel` records spans."""
+    if tel is None or not tel.record_spans:
+        return _OFF
+    return _device_span(tel, name, counter, x.is_cuda, calls)
+
+
+@contextlib.contextmanager
+def _device_span(tel: "Telemetry", name: str, counter: str, cuda: bool, calls: Optional[str]):
+    if calls is not None:
+        tel.counter(calls).inc()
+    with tel.span(name):
+        if cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            yield
+            t1.record()
+            tel.defer(lambda: tel.counter(counter).inc(t0.elapsed_time(t1) / 1e3))
+        else:
+            c0 = time.perf_counter()
+            yield
+            tel.counter(counter).inc(time.perf_counter() - c0)
 
 
 def _doubling(a: torch.Tensor, b: torch.Tensor, combine):
@@ -87,7 +131,7 @@ def _chunked(x_seq: torch.Tensor, carry0, chunk_fn, step_fn, mode: str, ck: int 
 
 
 # ===========================================================================
-# Mamba (selective SSM), the parallel branch of hymba blocks
+# Mamba (selective SSM): hymba's parallel branch, a jamba sublayer's mixer
 # ===========================================================================
 
 
@@ -99,7 +143,7 @@ def init_mamba(gen, cfg: ModelConfig, device) -> dict:
     dt_rank = max(1, math.ceil(d / 16))
     dtype = getattr(torch, cfg.dtype)
     conv = torch.randn((s.conv_dim, di), generator=gen, dtype=torch.float32, device=gen.device)
-    return {
+    p = {
         "in_proj": dense_init(gen, d, 2 * di, dtype, device),
         "conv_w": (conv * 0.1).to(dtype=dtype, device=device),
         "conv_b": torch.zeros((di,), dtype=dtype, device=device),
@@ -111,6 +155,10 @@ def init_mamba(gen, cfg: ModelConfig, device) -> dict:
         "D": torch.ones((di,), dtype=torch.float32, device=device),
         "out_proj": dense_init(gen, di, d, dtype, device),
     }
+    if cfg.block_kind == "jamba":
+        p.update(dt_norm=init_rmsnorm(dt_rank, dtype, device),
+                 b_norm=init_rmsnorm(N, dtype, device), c_norm=init_rmsnorm(N, dtype, device))
+    return p
 
 
 def _mamba_gates(p: dict, xz: torch.Tensor, cfg: ModelConfig):
@@ -119,6 +167,10 @@ def _mamba_gates(p: dict, xz: torch.Tensor, cfg: ModelConfig):
     dt_rank = p["dt_proj"].shape[0]
     dbc = xz @ p["x_db"]
     dt, Bm, Cm = torch.split(dbc, [dt_rank, N, N], dim=-1)
+    if "dt_norm" in p:   # jamba
+        dt = rmsnorm(p["dt_norm"], dt, cfg.norm_eps)
+        Bm = rmsnorm(p["b_norm"], Bm, cfg.norm_eps)
+        Cm = rmsnorm(p["c_norm"], Cm, cfg.norm_eps)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"]).float()
     A = -torch.exp(p["A_log"])                                 # [di, N]
     a = torch.exp(dt[..., None] * A)                           # [..., di, N]
@@ -135,13 +187,25 @@ def _mamba_conv_full(p: dict, xs: torch.Tensor) -> torch.Tensor:
     return F.silu(out + p["conv_b"])
 
 
-def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc") -> torch.Tensor:
-    """Full-sequence Mamba mixer. x: [B, S, d] -> [B, S, d]."""
-    B = x.shape[0]
-    di = cfg.ssm.expand * cfg.d_model
+def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc",
+                  tel: Optional["Telemetry"] = None) -> torch.Tensor:
+    """Full-sequence Mamba mixer. x: [B, S, d] -> [B, S, d]. With a `tel`
+    that records spans, the scan (from the conv's output and z to the gated
+    y: Δ / B / C, the recurrence, the read-out, D and silu(z)) is the span
+    `model.mamba_scan`, its device seconds counter `mamba_scan_device_s`."""
     xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)                # [B, S, di] each
     xs = _mamba_conv_full(p, xs)
-    h0 = torch.zeros((B, di, cfg.ssm.state_dim), dtype=torch.float32, device=x.device)
+    with device_span(tel, "model.mamba_scan", "mamba_scan_device_s", x):
+        y = _mamba_scan(p, xs, z, cfg, mode)
+    return y @ p["out_proj"]
+
+
+def _mamba_scan(p: dict, xs: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+                mode: str) -> torch.Tensor:
+    """The selective scan over the conv'd xs [B, S, di], gated by z."""
+    B = xs.shape[0]
+    di = cfg.ssm.expand * cfg.d_model
+    h0 = torch.zeros((B, di, cfg.ssm.state_dim), dtype=torch.float32, device=xs.device)
 
     def chunk_fn(h, xs_c):                                     # xs_c [B, ck, di]
         a, b, Cm = _mamba_gates(p, xs_c, cfg)                  # [B, ck, di, N]
@@ -156,8 +220,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "assoc
     # chunk 64: the [B, ck, di, N] fp32 gate tensors are the live working set
     y = _chunked(xs, h0, chunk_fn, step_fn, mode, ck=64)
     y = y + p["D"] * xs.float()
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"]
+    return y.to(z.dtype) * F.silu(z)
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:

@@ -3,8 +3,11 @@
 checkpointing for training (`remat`), `lm_loss`, the ring K/V cache with
 recurrent states and cross-attention caches, and the one-token
 `decode_step`). Block kinds: attention (+ MoE), hymba's parallel attention
-and Mamba branches, xLSTM's mLSTM / sLSTM cells (`models/ssm.py`), and the
-encoder-decoder stack with cross-attention (seamless).
+and Mamba branches, xLSTM's mLSTM / sLSTM cells (`models/ssm.py`), jamba's
+sublayers whose mixer is attention or Mamba by `attn.layer_pattern` (each
+then a dense or MoE FFN; its cache a K/V ring on the attention sublayers
+and a Mamba state on the others), and the encoder-decoder stack with
+cross-attention (seamless).
 
 Layers are grouped into repeating periods (Switch's dense/MoE pair, xLSTM's
 m/s pair) and each sublayer's params are stacked over the groups, as in the
@@ -18,7 +21,9 @@ Each of the four takes the reference's `ctx` (`attention.ShardingCtx`) and
 passes it to the MoE layers: under expert-parallel serving they dispatch a
 shard at a time (`models/moe.py`). The decode attention reads it too: a dry
 run's decode context splits the cache's sequence (`decode_seq_axis`). The paged cache and the chunked prefill
-take attention-family decoder-only archs, as the reference's do.
+take attention-family decoder-only archs, as the reference's do. `forward`
+takes a `Telemetry` (`telemetry=`): with spans on, each jamba Mamba mixer is
+the span `model.mamba`, timed on the device too (`ssm.device_span`).
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ def _lcm(a: int, b: int) -> int:
 
 def period(cfg: ModelConfig) -> int:
     p = 1
-    if cfg.block_kind == "attn":
+    if cfg.block_kind in ("attn", "jamba"):
         p = _lcm(p, len(cfg.attn.layer_pattern))
         if cfg.moe.enabled:
             p = _lcm(p, cfg.moe.moe_every)
@@ -74,6 +79,8 @@ def sub_kind(cfg: ModelConfig, sub: int) -> Dict[str, Any]:
     if cfg.block_kind == "hymba":
         return {"kind": "hymba", "moe": False, "window": cfg.attn.window}
     is_moe = cfg.moe.enabled and (sub % cfg.moe.moe_every == cfg.moe.moe_every - 1)
+    if cfg.block_kind == "jamba":
+        return {"kind": "jamba", "mixer": cfg.pattern_at(sub), "moe": is_moe, "window": 0}
     return {"kind": "attn", "moe": is_moe, "window": cfg.layer_window(sub)}
 
 
@@ -101,7 +108,10 @@ def _init_sublayer(gen, cfg: ModelConfig, sub: int, device, cross: bool = False)
         init = ssm_lib.init_mlstm if sk["cell"] == "m" else ssm_lib.init_slstm
         p["mixer"] = init(gen, cfg, device)
         return p
-    p["attn"] = init_attention(gen, cfg, device)
+    if sk.get("mixer") == "mamba":
+        p["mamba"] = ssm_lib.init_mamba(gen, cfg, device)
+    else:
+        p["attn"] = init_attention(gen, cfg, device)
     if sk["kind"] == "hymba":
         p["mamba"] = ssm_lib.init_mamba(gen, cfg, device)
         p["attn_norm"] = init_rmsnorm(d, dtype, device)
@@ -162,21 +172,32 @@ def _hymba_fuse(bp, a, mmb, cfg):
                   + rmsnorm(bp["mamba_norm"], mmb, cfg.norm_eps))
 
 
+def _mamba_mixer(p, h, cfg, scan_mode: str, telemetry=None):
+    """A jamba Mamba sublayer's mixer: the span `model.mamba`, its device
+    seconds counter `mamba_device_s`, its calls `mamba_calls`."""
+    with ssm_lib.device_span(telemetry, "model.mamba", "mamba_device_s", h, calls="mamba_calls"):
+        return ssm_lib.mamba_forward(p, h, cfg, scan_mode, telemetry)
+
+
 def attention_half(bp, x, cfg, sub, aux: Optional[dict] = None, causal: bool = True,
-                   enc_out: Optional[torch.Tensor] = None, scan_mode: str = "assoc"):
-    """The attention half of a sublayer: attention (beside hymba's Mamba
-    branch), residual, cross-attention over `enc_out` where the sublayer has
-    it, then the pre-FFN norm. Returns (x, h) with h the FFN / MoE input;
-    with an `aux` dict, the rope-applied K/V go into aux["kv"]. The
+                   enc_out: Optional[torch.Tensor] = None, scan_mode: str = "assoc",
+                   telemetry=None):
+    """The attention half of a sublayer: the mixer (attention, beside
+    hymba's Mamba branch, or a jamba sublayer's Mamba alone), residual,
+    cross-attention over `enc_out` where the sublayer has it, then the
+    pre-FFN norm. Returns (x, h) with h the FFN / MoE input; with an `aux`
+    dict, an attention sublayer's rope-applied K/V go into aux["kv"]. The
     layerwise baselines call it too, so their router input is the full
     forward's, bit for bit."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    if aux is not None:
+    if "attn" not in bp:
+        a = _mamba_mixer(bp["mamba"], h, cfg, scan_mode, telemetry)
+    elif aux is not None:
         # rope-applied K/V, what a decode cache holds at positions 0..S-1
         a, aux["kv"] = attend_full(bp["attn"], h, cfg, sub, causal=causal, return_kv=True)
     else:
         a = attend_full(bp["attn"], h, cfg, sub, causal=causal)
-    if "mamba" in bp:
+    if "mamba" in bp and "attn" in bp:
         a = _hymba_fuse(bp, a, ssm_lib.mamba_forward(bp["mamba"], h, cfg, scan_mode), cfg)
     if cfg.post_norm:
         a = rmsnorm(bp["ln1_post"], a, cfg.norm_eps)
@@ -188,7 +209,8 @@ def attention_half(bp, x, cfg, sub, aux: Optional[dict] = None, causal: bool = T
 
 
 def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv, ctx=None,
-                         causal: bool = True, enc_out=None, scan_mode: str = "assoc"):
+                         causal: bool = True, enc_out=None, scan_mode: str = "assoc",
+                         telemetry=None):
     aux: dict = {}
     sk = sub_kind(cfg, sub)
     if sk["kind"] == "xlstm":
@@ -196,7 +218,7 @@ def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv, ctx=None
         fwd = ssm_lib.mlstm_forward if sk["cell"] == "m" else ssm_lib.slstm_forward
         return x + fwd(bp["mixer"], h, cfg, scan_mode), aux
     x, h = attention_half(bp, x, cfg, sub, aux if collect_kv else None, causal, enc_out,
-                          scan_mode)
+                          scan_mode, telemetry)
     if sk["moe"]:
         y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
         aux.update(moe_aux)
@@ -229,14 +251,14 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool, ctx=None, causal: bool = True,
-                enc_out=None, scan_mode: str = "assoc"):
+                enc_out=None, scan_mode: str = "assoc", telemetry=None):
     """One period group of sublayers: (x, aux_loss, z_loss, router logits
     of its MoE sublayers, {sub: (k, v)})."""
     aux_loss = z_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     router_logits, kv_g = [], {}
     for s in range(period(cfg)):
         x, aux = _apply_sublayer_full(gp[f"sub{s}"], x, cfg, s, ros.get(s), collect_kv, ctx,
-                                      causal, enc_out, scan_mode)
+                                      causal, enc_out, scan_mode, telemetry)
         if "kv" in aux:
             kv_g[f"sub{s}"] = aux.pop("kv")
         if "aux_loss" in aux:
@@ -248,7 +270,7 @@ def _group_full(gp, x, cfg: ModelConfig, ros, collect_kv: bool, ctx=None, causal
 
 def _run_stack(blocks, x, cfg: ModelConfig, causal: bool, enc_out=None, routing_override=None,
                collect_kv: bool = False, remat: bool = False, ctx=None,
-               scan_mode: str = "assoc"):
+               scan_mode: str = "assoc", telemetry=None):
     """Every group of a stacked block tree over x: (x, aux_loss, z_loss,
     router logits [L_moe, ...] as a list, [{sub: (k, v)} a group]). With
     `remat`, each group runs under non-reentrant activation checkpointing
@@ -263,7 +285,7 @@ def _run_stack(blocks, x, cfg: ModelConfig, causal: bool, enc_out=None, routing_
             for j, s in enumerate(moe_subs):
                 li = g * len(moe_subs) + j
                 ros[s] = (routing_override[0][li], routing_override[1][li])
-        args = (gp, x, cfg, ros, collect_kv, ctx, causal, enc_out, scan_mode)
+        args = (gp, x, cfg, ros, collect_kv, ctx, causal, enc_out, scan_mode, telemetry)
         out = checkpoint(_group_full, *args, use_reentrant=False) if remat else _group_full(*args)
         x, al, zl, rl, kv_g = out
         aux_loss, z_loss = aux_loss + al, z_loss + zl
@@ -292,6 +314,7 @@ def forward(
     ctx=None,                             # attention.ShardingCtx (expert-parallel serving)
     enc_input: Optional[torch.Tensor] = None,   # [B, S_enc, d] stub frontend embeddings
     scan_mode: str = "assoc",             # the recurrences' inner form ("assoc" | "scan")
+    telemetry=None,                       # serving.telemetry.Telemetry: jamba's Mamba spans
 ) -> Dict[str, Any]:
     """Full forward. Returns dict(logits, aux_loss, z_loss, router_logits?,
     kv?); kv is {sub: (k, v)} with each [G, B, S, K, D]. An encoder-decoder
@@ -309,7 +332,7 @@ def forward(
     x, aux_loss, z_loss, router_logits, kvs = _run_stack(
         params["blocks"], x, cfg, causal=True, enc_out=enc_out,
         routing_override=routing_override, collect_kv=collect_kv, remat=remat, ctx=ctx,
-        scan_mode=scan_mode)
+        scan_mode=scan_mode, telemetry=telemetry)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     out: Dict[str, Any] = {
         "logits": unembed(params, cfg, x), "aux_loss": aux_loss, "z_loss": z_loss,
@@ -353,7 +376,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
     """Zeros cache on `device` (CUDA unless asked otherwise). Layout:
     {"pos": [B] int32, "sub{s}": entry}, where an attention sublayer's entry
     holds the ring {"k", "v": [G, B, Sc, K, D]}, a hymba sublayer's also its
-    Mamba state {"state": {"h", "conv"}}, an xLSTM cell's only its state
+    Mamba state {"state": {"h", "conv"}}, a jamba Mamba sublayer's only that
+    state, an xLSTM cell's only its state
     ({"C", "n", "m"} or {"c", "n", "m"}), each state leaf stacked over the
     G groups; an encoder-decoder config adds {"cross_k", "cross_v": [G, B,
     enc_len, K, D]} to each decoder sublayer (the encoder's K/V, filled by
@@ -373,6 +397,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
         if sk["kind"] == "xlstm":
             init = ssm_lib.mlstm_init_state if sk["cell"] == "m" else ssm_lib.slstm_init_state
             cache[f"sub{s}"] = {"state": _stacked(init(cfg, batch, device), n_groups)}
+            continue
+        if sk.get("mixer") == "mamba":
+            state = ssm_lib.mamba_init_state(cfg, batch, dtype, device)
+            cache[f"sub{s}"] = {"state": _stacked(state, n_groups)}
             continue
         Sc = cache_len(cfg, s, seq_budget)
         entry = {"k": zeros(Sc), "v": zeros(Sc)}
@@ -432,12 +460,15 @@ def _apply_sublayer_decode(bp, ent, x, pos, cfg, sub, routing_override, page_tab
         y, st = dec(bp["mixer"], h, ent["state"], cfg)
         _write_state(ent["state"], st)
         return x + y
-    if page_table is not None:
+    if "attn" not in bp:   # a jamba Mamba sublayer
+        a, st = ssm_lib.mamba_decode(bp["mamba"], h, ent["state"], cfg)
+        _write_state(ent["state"], st)
+    elif page_table is not None:
         a, _, _ = attend_decode_paged(bp["attn"], h, ent["kp"], ent["vp"], page_table, pos, cfg,
                                       sub, active=active)
     else:
         a, _, _ = attend_decode(bp["attn"], h, ent["k"], ent["v"], pos, cfg, sub, ctx=ctx)
-    if "mamba" in bp:
+    if "mamba" in bp and "attn" in bp:
         mmb, st = ssm_lib.mamba_decode(bp["mamba"], h, ent["state"], cfg)
         _write_state(ent["state"], st)
         a = _hymba_fuse(bp, a, mmb, cfg)

@@ -10,7 +10,9 @@ Spans (`Telemetry.span`) time the host work inside the serving threads and
 the decode loop on `time.time_ns`, the wall clock a device trace
 (`torch.profiler`) stamps its events with, so a device idle gap can be
 named by what the host was doing. They are kept only while
-`record_spans` is true.
+`record_spans` is true. Work that can be read only once the device has
+finished, such as the elapsed time of a pair of CUDA events, is queued with
+`defer` and run by `run_deferred`, which the caller calls after its drain.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import json
 import math
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 # metrics are written from several threads at once (the hash-ahead thread
 # rejects/admits while the serve loop ticks and the transfer threads flush
@@ -152,6 +154,7 @@ class Telemetry:
         self.record_spans = record_spans
         self.spans: List[Span] = []
         self._local = threading.local()
+        self._deferred: List[Callable[[], None]] = []
 
     def counter(self, name: str) -> Counter:
         return self._counters.setdefault(name, Counter())
@@ -201,6 +204,16 @@ class Telemetry:
         if not self.record_spans:
             return _NO_SPAN
         return _OpenSpan(self, name, ident)
+
+    def defer(self, fn: Callable[[], None]) -> None:
+        """Queue `fn` for the next `run_deferred`."""
+        self._deferred.append(fn)
+
+    def run_deferred(self) -> None:
+        """Run what `defer` queued, in order, and forget it."""
+        fns, self._deferred = self._deferred, []
+        for fn in fns:
+            fn()
 
     def _open_stack(self) -> List[_OpenSpan]:
         stack = getattr(self._local, "stack", None)
