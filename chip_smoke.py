@@ -1295,7 +1295,8 @@ def decode_path(cfg, params, hp, lanes: int, steps: int, cache_len: int, runs, t
         print(f"    tok_s={m.tok_s:.1f} ms_per_step={1e3 * m.wall_s / m.steps:.3f} "
               f"step_ms_p50={np.percentile(step_ms, 50):.3f} "
               f"step_ms_p99={np.percentile(step_ms, 99):.3f} "
-              f"wall_s={m.wall_s:.4f} tokens={m.tokens} stall_s={m.stall_s:.4f}")
+              f"wall_s={m.wall_s:.4f} tokens={m.tokens} stall_s={m.stall_s:.4f} "
+              f"graph_steps={m.graph_steps}")
         if eng.prefetcher is not None:
             ps = eng.prefetcher.stats
             print(f"    prefetch uploads={ps.uploads} stolen={ps.stolen} stall_s={ps.stall_s:.4f} "
@@ -2394,13 +2395,19 @@ def check_ep_kernels(cfg, cases):
 
 class DispatchCounter:
     """Counts `models.moe`'s dispatches while installed: `ep` the
-    expert-parallel ones (one a MoE layer a forward), `all` every one."""
+    expert-parallel ones (one a MoE layer a forward), `all` every one. A
+    decode step captured as a CUDA graph dispatches at each replay and not
+    at its capture, so the capture's dispatches count once a replay."""
 
     def __init__(self):
+        from repro_torch.core.decode_engine import RingStep, SiDADecodeEngine
         from repro_torch.models import moe
 
         self.moe, self.ep, self.all = moe, 0, 0
         self._ep, self._all = moe._dispatch_combine_ep, moe._dispatch_combine
+        self._engine, self._ring = SiDADecodeEngine, RingStep
+        self._capture, self._replay = SiDADecodeEngine._capture, RingStep.replay
+        self._a_replay = {}   # id(ring) -> (ep, all) dispatches of its graph
 
     def __enter__(self):
         def ep(*a, **k):
@@ -2411,11 +2418,24 @@ class DispatchCounter:
             self.all += 1
             return self._all(*a, **k)
 
+        def capture(eng, ring, *a):
+            before = self.ep, self.all
+            self._capture(eng, ring, *a)
+            self._a_replay[id(ring)] = (self.ep - before[0], self.all - before[1])
+            self.ep, self.all = before
+
+        def replay(ring, *a):
+            n_ep, n_all = self._a_replay.get(id(ring), (0, 0))
+            self.ep, self.all = self.ep + n_ep, self.all + n_all
+            return self._replay(ring, *a)
+
         self.moe._dispatch_combine_ep, self.moe._dispatch_combine = ep, every
+        self._engine._capture, self._ring.replay = capture, replay
         return self
 
     def __exit__(self, *exc):
         self.moe._dispatch_combine_ep, self.moe._dispatch_combine = self._ep, self._all
+        self._engine._capture, self._ring.replay = self._capture, self._replay
 
 
 def check_per_shard_launches(name: str, counts, disp, kernels, shards: int) -> None:

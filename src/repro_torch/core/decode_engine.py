@@ -35,12 +35,27 @@ With `sharded` (`ShardedStoreConfig`, `ep_shards` > 1) the slot pools are
 expert-parallel and each step runs under the store's expert-parallel
 context (`sharding/policy.py::store_ctx`).
 
+The ring cache outlives a call: the engine keeps the last (lanes, ring
+length)'s cache and resets it in place at the start of each `generate` at
+that geometry (`RingStep`). On a CUDA device, without speculation, the step
+over it (`decode_step` and the argmax) is captured as one CUDA graph after
+`GRAPH_WARM_STEPS` eager steps and replayed from then on, keyed on the
+addresses of the weights and slot pools it reads, so that a reallocated
+pool captures anew; a call at another geometry drops the old cache and
+graph first. All of such a call's device work runs on one stream the
+engine owns, the one the graph is captured on, so the capture opens no
+second cuBLAS workspace. Paged and speculative decode, and the CPU, run
+every step eagerly (`graph_engages`).
+
 Given a `serving.telemetry.Telemetry` (`telemetry=`), each step records
 spans of its host work with the step as `ident`: `decode.page_tick`
 (paged), `decode.predict` (launches), `decode.ids_d2h` (the prediction's
 copy to the host), `decode.route`, `decode.translate`, `decode.step`
-(launches) and `decode.token_d2h` (the token's copy, which waits for the
-step). `DecodeMetrics.step_s` holds each step's host-clock time.
+(launches, or the graph's input copies and replay) and `decode.token_d2h`
+(the token's copy, which waits for the step), and counts
+`decode_graph_captures`, `decode_graph_replays` and
+`decode_graph_eager_steps`. `DecodeMetrics.step_s` holds each step's
+host-clock time, `DecodeMetrics.graph_steps` the steps that replayed.
 """
 from __future__ import annotations
 
@@ -61,14 +76,16 @@ from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
 from repro_torch.models.attention import ShardingCtx
 from repro_torch.models.layers import top_k
-from repro_torch.models.transformer import decode_step, init_cache, n_moe_layers, verify_step
+from repro_torch.models.transformer import (decode_step, init_cache, n_moe_layers, reset_cache,
+                                            verify_step)
 from repro_torch.sharding.policy import store_ctx
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 if TYPE_CHECKING:   # serving/ imports the engines: no import at run time
     from repro_torch.serving.telemetry import Telemetry
 
 HISTORY = 128  # SparseMax attention ring length
+GRAPH_WARM_STEPS = 2   # eager steps at a new geometry before the step is captured
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +275,9 @@ class DecodeMetrics:
     `acceptance_rate` is 1.0 without speculation. `loads_per_step` has one
     entry a block (its superset ticket loads once), `accepted_per_step` the
     block's delivered tokens a lane, `stall_s` is the time spent
-    clearing prefetch tickets (0 on the synchronous path), and `step_s`
-    each step's host-clock time, its token on the host included."""
+    clearing prefetch tickets (0 on the synchronous path), `step_s`
+    each step's host-clock time, its token on the host included, and
+    `graph_steps` the steps that replayed a captured CUDA graph."""
 
     steps: int = 0
     tokens: int = 0
@@ -269,6 +287,7 @@ class DecodeMetrics:
     loads_per_step: List[int] = field(default_factory=list)
     accepted_per_step: List[float] = field(default_factory=list)
     step_s: List[float] = field(default_factory=list)
+    graph_steps: int = 0
 
     @property
     def tok_s(self) -> float:
@@ -312,6 +331,46 @@ class TableBuffer:
         np.copyto(self.ids, ids)
         np.copyto(self.weights, alpha)
         return self.table
+
+
+def graph_engages(device: torch.device, paged, spec: bool) -> bool:
+    """Whether `generate`'s steps replay a captured CUDA graph: on a CUDA
+    device over a ring cache without speculation. A paged cache's table is
+    rebuilt every step and a speculative block rolls back, so those steps
+    run eagerly, as everything does on the CPU."""
+    return torch.device(device).type == "cuda" and paged is None and not spec
+
+
+class RingStep:
+    """The ring cache the engine keeps for one (lanes, ring length) and,
+    once captured, the decode step over it as one CUDA graph: static inputs
+    (tokens [B], slot ids and weights [L, B, k]) that each replay copies
+    into, the next tokens it writes, and the kernel launches one replay
+    makes (`ops.held_launches` of the capture, added back each replay).
+    `pos` advances in place, so the cache's tensors never move."""
+
+    def __init__(self, cache: dict, geometry: Tuple[int, int]):
+        self.cache = cache
+        self.geometry = geometry
+        self.graph = None             # a torch.cuda.CUDAGraph once captured
+        self.key: Optional[tuple] = None   # the addresses the graph reads
+        self.eager = 0                # eager steps since the last capture or drop
+        self.replays = 0
+        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Tuple[dict, dict] = ({}, {})
+
+    def drop_graph(self) -> None:
+        self.graph, self.key, self.inputs, self.out = None, None, (), None
+        self.eager = 0
+
+    def replay(self, *inputs: torch.Tensor) -> torch.Tensor:
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        ops.add_launches(*self.launches)
+        self.replays += 1
+        return self.out
 
 
 class SiDADecodeEngine:
@@ -376,6 +435,8 @@ class SiDADecodeEngine:
         self.E = cfg.moe.num_experts
         self.kv_pool: Optional[KVPagePool] = None   # the last paged generate's pool
         self._draft_unroll = draft_unroll_fn(self.E, self.k, self.spec_k)
+        self.ring: Optional[RingStep] = None        # the last ring geometry's cache and graph
+        self._stream: Optional[torch.cuda.Stream] = None
 
     # ------------------------------------------------------------------
     def _predict_step(self, tokens: torch.Tensor, hstate: dict, step: Optional[int] = None):
@@ -391,11 +452,63 @@ class SiDADecodeEngine:
 
     def _step(self, cache: dict, tokens: torch.Tensor, slot_ids, w, step: Optional[int] = None):
         with span(self.telemetry, "decode.step", step):
+            ring = self.ring
+            if ring is not None and cache is ring.cache:
+                return self._ring_step(ring, tokens, slot_ids, w), cache
             logits, cache = decode_step(
                 self.store.serve_params, cache, tokens, self.cfg,
                 routing_override=(slot_ids, w), ctx=self.ctx,
             )
             return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    def _ring_body(self, cache: dict, tokens: torch.Tensor, slot_ids, w) -> torch.Tensor:
+        """The step over the kept ring, eager or under capture: the next
+        tokens, the cache advanced in place."""
+        logits, new = decode_step(self.store.serve_params, cache, tokens, self.cfg,
+                                  routing_override=(slot_ids, w), ctx=self.ctx)
+        cache["pos"].copy_(new["pos"])
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _ring_step(self, ring: RingStep, tokens: torch.Tensor, slot_ids, w) -> torch.Tensor:
+        """A step over the kept ring: replay its graph while the weights and
+        pools sit where the capture found them; otherwise run eagerly and,
+        after `GRAPH_WARM_STEPS` such steps on CUDA, capture and replay."""
+        key = None
+        if graph_engages(self.device, None, self.spec):
+            key = tuple(t.data_ptr() for t in tree_leaves(self.store.serve_params))
+        if ring.graph is not None and ring.key != key:
+            ring.drop_graph()
+        if ring.graph is None and key is not None and ring.eager >= GRAPH_WARM_STEPS:
+            self._capture(ring, key, tokens, slot_ids, w)
+        if ring.graph is not None:
+            return ring.replay(tokens, slot_ids, w)
+        ring.eager += 1
+        return self._ring_body(ring.cache, tokens, slot_ids, w)
+
+    def _capture(self, ring: RingStep, key: tuple, *inputs: torch.Tensor) -> None:
+        """Capture the step over `ring` on the engine's stream, whose cuBLAS
+        workspace the eager steps before it opened; the capture runs
+        nothing, and its launches count once a replay runs them."""
+        ring.inputs = tuple(t.clone() for t in inputs)
+        graph = torch.cuda.CUDAGraph()
+        with ops.held_launches() as launches, torch.cuda.graph(
+                graph, stream=self._stream, capture_error_mode="thread_local"):
+            ring.out = self._ring_body(ring.cache, *ring.inputs)
+        ring.graph, ring.key, ring.launches = graph, key, launches
+        if self.telemetry is not None:
+            self.telemetry.counter("decode_graph_captures").inc()
+
+    def _kept_ring(self, B: int, cache_len: int) -> RingStep:
+        """The kept ring at (B, cache_len), its cache reset in place; at
+        another geometry the old ring and its graph go before the new ring
+        is made."""
+        if self.ring is not None and self.ring.geometry == (B, cache_len):
+            reset_cache(self.cfg, self.ring.cache)
+            return self.ring
+        self.ring = None
+        self.ring = RingStep(init_cache(self.cfg, B, cache_len, device=self.device),
+                             (B, cache_len))
+        return self.ring
 
     def _verify(self, cache: dict, tokens_blk: torch.Tensor, slot_ids, w,
                 step: Optional[int] = None):
@@ -430,7 +543,8 @@ class SiDADecodeEngine:
             return trans, ticket
 
     def _make_cache(self, B: int, cache_len: int, paged):
-        """A ring cache, or with a `residency.PagedKVConfig` a paged cache and
+        """A fresh ring cache (speculative decode's), or with a
+        `residency.PagedKVConfig` a paged cache and
         the `KVPagePool` that keeps its table (α-mass page eviction). The
         pool shares the engine's prefetch pipeline, so page-ins ride the
         same transfer queue as expert uploads."""
@@ -463,8 +577,9 @@ class SiDADecodeEngine:
         paged=None,   # residency.PagedKVConfig => K/V in a shared page pool
     ) -> Tuple[np.ndarray, DecodeMetrics]:
         """Greedy-decode `steps` tokens for a batch, starting from the given
-        current tokens with a fresh ring cache of `cache_len` slots, or a
-        fresh paged cache. Each step: make the pages resident (paged),
+        current tokens with a zeroed ring cache of `cache_len` slots (the
+        engine's own, reset in place: `RingStep`), or a fresh paged cache.
+        Each step: make the pages resident (paged),
         predict, copy ids/α to the host (the one D2H of the prediction),
         prepare the slots, translate on the device, run the step, copy the
         token to the host.
@@ -475,8 +590,25 @@ class SiDADecodeEngine:
         loop emits."""
         if self.spec:
             return self._generate_spec(prompt_last_tokens, steps, cache_len, paged)
+        if not graph_engages(self.device, paged, self.spec):
+            return self._generate(prompt_last_tokens, steps, cache_len, paged)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)     # the weights and slots were written there
+        with torch.cuda.stream(self._stream):
+            out = self._generate(prompt_last_tokens, steps, cache_len, paged)
+        caller.wait_stream(self._stream)
+        return out
+
+    def _generate(self, prompt_last_tokens: np.ndarray, steps: int, cache_len: int, paged
+                  ) -> Tuple[np.ndarray, DecodeMetrics]:
         B = prompt_last_tokens.shape[0]
-        cache, pool = self._make_cache(B, cache_len, paged)
+        ring = self._kept_ring(B, cache_len) if paged is None else None
+        if ring is not None:
+            cache, pool, replays0 = ring.cache, None, ring.replays
+        else:
+            cache, pool = self._make_cache(B, cache_len, paged)
         hstate = hash_state_init(self.hash_params, B)
         tokens = torch.as_tensor(np.asarray(prompt_last_tokens), dtype=torch.int32,
                                  device=self.device)
@@ -512,8 +644,16 @@ class SiDADecodeEngine:
             m.accepted_per_step.append(1.0)
             m.step_s.append(time.perf_counter() - ts)
         m.wall_s = time.perf_counter() - t0
+        if ring is not None:
+            m.graph_steps = ring.replays - replays0
         self.kv_pool = pool
+        self._count_graph_steps(m)
         return out, m
+
+    def _count_graph_steps(self, m: DecodeMetrics) -> None:
+        if self.telemetry is not None:
+            self.telemetry.counter("decode_graph_replays").inc(m.graph_steps)
+            self.telemetry.counter("decode_graph_eager_steps").inc(m.steps - m.graph_steps)
 
     @torch.inference_mode()
     def _generate_spec(self, prompt_last_tokens: np.ndarray, steps: int, cache_len: int,
@@ -585,10 +725,13 @@ class SiDADecodeEngine:
             m.step_s.append(time.perf_counter() - ts)
         m.wall_s = time.perf_counter() - t0
         self.kv_pool = pool
+        self._count_graph_steps(m)
         return out, m
 
     def close(self) -> None:
-        """Join the prefetch transfer thread (nothing to do when synchronous,
-        or when the pipeline belongs to the caller)."""
+        """Release the kept ring and its graph, and join the prefetch
+        transfer thread (unless synchronous, or the pipeline belongs to the
+        caller)."""
+        self.ring = None
         if self.prefetcher is not None and self._owns_prefetcher:
             self.prefetcher.close()

@@ -6,7 +6,11 @@ from the card to a library call or to the plain version. Each wrapper counts
 its kernel launches (`launches()`, `reset_launches()`), so a run can show
 that its path went through the kernels; the attention wrappers also count
 them by head shape, window and softcap (`launches_by_shape()`), so a model
-whose layers differ (a local and a global layer) shows each form's.
+whose layers differ (a local and a global layer) shows each form's. A CUDA
+graph captures the wrappers' launches once and replays them without
+passing through the wrappers: its capture runs under `held_launches()`,
+which keeps the capture's counts out of the totals, and each replay adds
+them back with `add_launches`.
 
 Under grad mode, with an input that requires grad, `expert_ffn`,
 `flash_prefill` and `sparsemax` go through their `kernels.autograd`
@@ -17,9 +21,10 @@ off from the graph.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -58,6 +63,45 @@ def launches_by_shape() -> Dict[tuple, int]:
     kernel; the caller names it)."""
     with _count_lock:
         return dict(_BY_SHAPE)
+
+
+def add_launches(counts: Dict[str, int], by_shape: Dict[tuple, int]) -> None:
+    """Add launches made without the wrappers (a CUDA graph's replay): by
+    kernel, and by the shape keys of `launches_by_shape()`."""
+    with _count_lock:
+        for name, n in counts.items():
+            _LAUNCHES[name] += n
+        for key, n in by_shape.items():
+            _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def held_launches() -> Iterator[Tuple[Dict[str, int], Dict[tuple, int]]]:
+    """Count the wrappers' calls inside the block apart, for a CUDA graph's
+    capture, which launches nothing: the totals are left as they were, and
+    the block's counts fill the yielded (by kernel, by shape) pair, nonzero
+    entries only. Another thread's calls meanwhile are counted with the
+    block's."""
+    before, before_shape = launches(), launches_by_shape()
+    counts: Dict[str, int] = {}
+    by_shape: Dict[tuple, int] = {}
+    try:
+        yield counts, by_shape
+    finally:
+        with _count_lock:
+            for name in KERNELS:
+                n = _LAUNCHES[name] - before[name]
+                if n:
+                    counts[name] = n
+                    _LAUNCHES[name] = before[name]
+            for key in list(_BY_SHAPE):
+                n = _BY_SHAPE[key] - before_shape.get(key, 0)
+                if n:
+                    by_shape[key] = n
+                    if key in before_shape:
+                        _BY_SHAPE[key] = before_shape[key]
+                    else:
+                        del _BY_SHAPE[key]
 
 
 def _count(name: str, q=None, k=None, window: int = 0, cap: float = 0.0,

@@ -394,23 +394,52 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
     cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     for s in range(per):
         sk = sub_kind(cfg, s)
-        if sk["kind"] == "xlstm":
-            init = ssm_lib.mlstm_init_state if sk["cell"] == "m" else ssm_lib.slstm_init_state
-            cache[f"sub{s}"] = {"state": _stacked(init(cfg, batch, device), n_groups)}
-            continue
-        if sk.get("mixer") == "mamba":
-            state = ssm_lib.mamba_init_state(cfg, batch, dtype, device)
+        state = _init_state(cfg, s, batch, device)
+        if sk["kind"] == "xlstm" or sk.get("mixer") == "mamba":   # a state and no ring
             cache[f"sub{s}"] = {"state": _stacked(state, n_groups)}
             continue
         Sc = cache_len(cfg, s, seq_budget)
         entry = {"k": zeros(Sc), "v": zeros(Sc)}
-        if sk["kind"] == "hymba":
-            entry["state"] = _stacked(ssm_lib.mamba_init_state(cfg, batch, dtype, device), n_groups)
+        if state is not None:   # hymba: its Mamba state beside the ring
+            entry["state"] = _stacked(state, n_groups)
         if cfg.enc_dec:
             entry["cross_k"], entry["cross_v"] = zeros(enc_len), zeros(enc_len)
         cache[f"sub{s}"] = entry
     if cfg.enc_dec:
         cache["cross_len"] = torch.full((batch,), enc_len, dtype=torch.int32, device=device)
+    return cache
+
+
+def _init_state(cfg: ModelConfig, sub: int, batch: int, device) -> Optional[dict]:
+    """Sublayer `sub`'s initial recurrent state for one group (an xLSTM
+    cell's, or the Mamba mixer's of jamba and hymba), None without one."""
+    sk = sub_kind(cfg, sub)
+    if sk["kind"] == "xlstm":
+        init = ssm_lib.mlstm_init_state if sk["cell"] == "m" else ssm_lib.slstm_init_state
+        return init(cfg, batch, device)
+    if sk.get("mixer") == "mamba" or sk["kind"] == "hymba":
+        return ssm_lib.mamba_init_state(cfg, batch, getattr(torch, cfg.dtype), device)
+    return None
+
+
+def reset_cache(cfg: ModelConfig, cache: dict) -> dict:
+    """Return a cache from `init_cache` to the values `init_cache` gave it,
+    in place: K/V zero, each recurrent state at its initial value, `pos`
+    0, `cross_len` the encoder's slots. The decode loop reuses one cache
+    across calls this way, and its tensors keep their addresses."""
+    pos = cache["pos"]
+    pos.zero_()
+    for s in range(period(cfg)):
+        entry = cache[f"sub{s}"]
+        for k, t in entry.items():
+            if k != "state":
+                t.zero_()
+        if "state" in entry:
+            init = _init_state(cfg, s, pos.shape[0], pos.device)
+            for k, t in entry["state"].items():
+                t.copy_(init[k])           # broadcast over the groups
+    if "cross_len" in cache:
+        cache["cross_len"].fill_(cache["sub0"]["cross_k"].shape[2])
     return cache
 
 
