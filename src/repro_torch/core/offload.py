@@ -42,8 +42,9 @@ greedy LPT over the α EMA, the old primary slot kept as a replica.
 the slots at once and a transfer thread a shard gathers the rows into its
 pinned staging slabs and copies them on its own side CUDA stream, behind
 per-upload ready fences (see the class). The pools are written in place on
-any stream, so every write waits on the CUDA event of the slot's previous
-write, and every reader on the events of the slots it reads.
+either stream, by the store's one slot writer (`ExpertStore.write_slots`),
+so every write waits on the CUDA event of the slot's previous write, and
+every reader on the events of the slots it reads.
 
 The pipeline is supervised as the reference's is: an upload batch that
 fails is retried with bounded backoff, then abandoned (its slots rolled back
@@ -591,6 +592,9 @@ class ExpertStore:
         self._shard_alpha = np.zeros((self.shards,), np.float64)
         self._lock = threading.RLock()
         self._prefetcher: Optional["PrefetchPipeline"] = None
+        # (g, s, global slot) -> CUDA event of the slot's last write, kept
+        # while a pipeline is attached (`write_slots`)
+        self._slot_event: Dict[Tuple[int, int, int], torch.cuda.Event] = {}
         self._epoch = 0   # residency version (`affinity_epoch`)
 
     @property
@@ -997,77 +1001,144 @@ class ExpertStore:
                 load = load + 0.5 * ups / utot
         return load
 
+    # -- slot writes: every write into a slot pool goes through `write_slots`
+    def slot_sources(self, s: int, warm: bool) -> List[Tuple[str, torch.Tensor]]:
+        """The (key, host master [G, E, ...]) pairs that a write into the
+        warm or the hot tier of sub `s` gathers. Warm slots take the
+        nibble-packed int4 masters and their group scales (`w_*_q4`,
+        `w_*_q4_scale`). Hot slots take the fp or int8 masters (`w_*`) and,
+        for int8 ones, their scale planes (`w_*_scale`): int8 slots keep both
+        as they are, fp slots (`host_quant="int8"`, half the H2D bytes of
+        bf16) are written dequantised and have no scale pool."""
+        sub = f"sub{s}"
+        if warm:
+            return [(t + sfx, host[sub][t]) for t in EXPERT_TENSORS
+                    for sfx, host in (("_q4", self.host4), ("_q4_scale", self.host4_scale))]
+        out = [(t, self.host[sub][t]) for t in EXPERT_TENSORS]
+        if self.quant == "int8":
+            out += [(t + "_scale", self.host_scale[sub][t]) for t in EXPERT_TENSORS]
+        return out
+
+    def slot_tiers(self, items: List[tuple]) -> List[Tuple[bool, List[tuple]]]:
+        """`items` [(g, slot, e, ...)] split at S8 into [(warm, rows)], the
+        hot rows first, an empty tier left out: the split that every gather
+        and `write_slots` share."""
+        if not self.S4:
+            return [(False, items)] if items else []
+        tiers = ((False, [r for r in items if r[1] < self.S8]),
+                 (True, [r for r in items if r[1] >= self.S8]))
+        return [(warm, rows) for warm, rows in tiers if rows]
+
+    def write_slots(self, s: int,
+                    parts: List[Tuple[bool, List[tuple], Dict[str, torch.Tensor]]]) -> None:
+        """Write gathered expert rows into the slot pools of sub `s`, in
+        place on the current stream: the one write path of every upload.
+        `parts` is [(warm, rows, vals)] as `slot_tiers` split the rows, with
+        `vals` holding each `slot_sources` key's rows already on the device,
+        in row order. A source with a pool of its own lands as it is; int8
+        rows into fp slots are dequantised with their scale planes (the
+        reference's `_pool_set_q`). Slot ids are global, so a shard's range
+        and a replica take the same write.
+
+        The last upload into each (group, slot) is the one that lands; every
+        row was gathered and counted. Only the warm tier can meet a slot
+        twice in one write. A commit or an upload job carries one plan's rows
+        of a (group, sub), and `plan_layer` fills a hot slot only for an
+        expert it needs, or a replica of one, which stays protected from
+        eviction for the rest of the plan (`rebalance_homes` moves each
+        primary once), so no hot slot is refilled. A warm slot is, when a
+        demotion evicts the expert an earlier demotion of the plan put there.
+
+        Ordering, while a prefetch pipeline is attached (a transfer stream
+        then writes slots too): each write first makes the current stream
+        wait on the CUDA event of its slots' last writes (no two writes to a
+        slot race), then leaves its own event as theirs in `_slot_event`, also
+        when it raised part-way. For an upload that event is the device half
+        of its ready fence: the pipeline sets the host fence only after this
+        returns, so no half-written slot is observable, and a reader's
+        stream waits on it (`wait_slots`). Callers hold the store lock, so
+        the writes to a slot enqueue in lock order. Without a pipeline every
+        write runs on the caller's stream, ahead of every later forward on
+        it, and no event is recorded."""
+        if not parts:
+            return
+        moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
+        dev = self.device
+        ordered = self._prefetcher is not None and dev.type == "cuda"
+        if ordered:
+            keys = {(r[0], s, r[1]) for _, rows, _ in parts for r in rows}
+            cur = torch.cuda.current_stream(dev)
+            last = (self._slot_event.get(k) for k in keys)
+            for ev in {id(e): e for e in last if e is not None}.values():
+                cur.wait_event(ev)
+        try:
+            for warm, rows, vals in parts:
+                S_pool, base = (self.S4, self.S8) if warm else (self.S8, 0)
+                # (group, slot) -> its last row, in first-seen order
+                last_of = {r[:2]: k for k, r in enumerate(rows)}
+                dst = torch.tensor([g * S_pool + slot - base for g, slot in last_of],
+                                   dtype=torch.long).to(dev, non_blocking=True)
+                keep = None
+                if len(last_of) < len(rows):
+                    keep = torch.tensor(list(last_of.values()),
+                                        dtype=torch.long).to(dev, non_blocking=True)
+                for key, v in vals.items():
+                    pool = moe_p.get(key)
+                    if pool is None:
+                        continue             # a scale plane, folded into its fp slot
+                    if v.dtype != pool.dtype:    # int8 rows into fp slots
+                        v = (v.float() * vals[key + "_scale"]).to(pool.dtype)
+                    if keep is not None:
+                        v = v.index_select(0, keep)
+                    pool.view(-1, *pool.shape[2:]).index_copy_(0, dst, v)
+        finally:
+            if ordered:
+                done = torch.cuda.Event()
+                done.record(cur)
+                for k in keys:
+                    self._slot_event[k] = done
+
+    def wait_slots(self, needed: Dict[int, np.ndarray]) -> None:
+        """Make the current stream wait on the last write of every slot that
+        holds an expert of `needed` (layer -> ids), its replicas included:
+        the device half of each ready fence, and of uploads already retired
+        whose copies may still be in flight on a side stream. Nothing to wait
+        on without a pipeline (`write_slots`)."""
+        if self._prefetcher is None or self.device.type != "cuda":
+            return
+        evs = {}
+        with self._lock:
+            for l, ids in needed.items():
+                g, s = self.layer_to_gs(l)
+                for e in ids:
+                    for slot in self.copies_of(g, s, int(e)):
+                        ev = self._slot_event.get((g, s, slot))
+                        if ev is not None:
+                            evs[id(ev)] = ev
+        cur = torch.cuda.current_stream(self.device)
+        for ev in evs.values():
+            cur.wait_event(ev)
+
     def commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
-        """Batched host -> device writes for sub-slot `s` (one per tensor).
-
-        Three formats, as the reference: int8 rows and scale planes landing
-        as they are (quantized slots); int8 rows + scales uploaded and
-        dequantised on the device into fp slots (`host_quant="int8"`, half
-        the H2D bytes of bf16); fp rows. Loads into warm slots land the
-        int4 masters (`_commit_warm`). Slot ids are global, so a shard's
-        range and a replica take the same write.
-
-        The pools are written in place (`index_copy_`) on the caller's
-        stream, which is ordered before every later forward on it. With a
-        prefetch pipeline attached, the writes also wait on the CUDA event of
-        each slot's last write on a transfer stream, and record their own
-        (`PrefetchPipeline._ordered_write`)."""
-        pf = self._prefetcher
+        """Inline host -> device writes of sub `s`'s planned loads: each
+        tier's rows of every `slot_sources` master are gathered from the
+        pageable host masters, copied to the device on the caller's stream
+        and written by `write_slots`. Every write that is not a transfer
+        thread's upload comes through here."""
         b0 = self.stats.bytes_h2d
-        with span(self.telemetry, "store.upload"), \
-                (pf._ordered_write(s, items) if pf is not None else contextlib.nullcontext()):
-            self._commit_loads(s, items)
+        with span(self.telemetry, "store.upload"):
+            parts = []
+            for warm, rows in self.slot_tiers(items):
+                gs, _, es = (torch.tensor(col, dtype=torch.long) for col in zip(*rows))
+                vals = {}
+                for key, host in self.slot_sources(s, warm):
+                    v = host[gs, es]                         # [n, ...]
+                    self.stats.bytes_h2d += nbytes(v)
+                    vals[key] = v.to(self.device)
+                parts.append((warm, rows, vals))
+            self.write_slots(s, parts)
         if self.telemetry is not None:
             self.telemetry.counter("upload_bytes_inline").inc(self.stats.bytes_h2d - b0)
-
-    def _commit_loads(self, s: int, items: List[Tuple[int, int, int]]) -> None:
-        if self.S4:
-            self._commit_warm(s, [i for i in items if i[1] >= self.S8])
-            items = [i for i in items if i[1] < self.S8]
-        if not items:
-            return
-        gs, sl, es = (torch.tensor(col, dtype=torch.long) for col in zip(*items))
-        rows = (gs * self.S8 + sl).to(self.device)
-        moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
-
-        def write(key: str, vals: torch.Tensor) -> None:
-            pool = moe_p[key]
-            pool.view(-1, *pool.shape[2:]).index_copy_(0, rows, vals)
-
-        for t in EXPERT_TENSORS:
-            w_host = self.host[f"sub{s}"][t][gs, es]              # [n, d, f]
-            if self.quant == "int8":
-                scale = self.host_scale[f"sub{s}"][t][gs, es]     # [n, 1, f]
-                self.stats.bytes_h2d += nbytes(w_host) + nbytes(scale)
-                q, sc = w_host.to(self.device), scale.to(self.device)
-                if self.quantized_slots:
-                    write(t, q)
-                    write(t + "_scale", sc)
-                else:   # the reference's _pool_set_q: dequantise at slot write
-                    write(t, (q.float() * sc).to(moe_p[t].dtype))
-            else:
-                self.stats.bytes_h2d += nbytes(w_host)
-                write(t, w_host.to(self.device))
-
-    def _commit_warm(self, s: int, items: List[Tuple[int, int, int]]) -> None:
-        """Writes into the warm pools: the nibble-packed int4 masters and
-        their group scale planes land as they are. One plan can fill a warm
-        slot twice (a demoted expert evicted again by a later demotion):
-        every upload is counted, and the last one is what lands."""
-        if not items:
-            return
-        moe_p = self.serve_params["blocks"][f"sub{s}"]["moe"]
-        for t in EXPERT_TENSORS:
-            for host in (self.host4, self.host4_scale):
-                self.stats.bytes_h2d += len(items) * nbytes(host[f"sub{s}"][t][0, 0])
-        last = list({(g, slot): (g, slot, e) for g, slot, e in items}.values())
-        gs, sl, es = (torch.tensor(col, dtype=torch.long) for col in zip(*last))
-        rows = (gs * self.S4 + sl - self.S8).to(self.device)
-        for t in EXPERT_TENSORS:
-            for key, host in ((t + "_q4", self.host4), (t + "_q4_scale", self.host4_scale)):
-                vals = host[f"sub{s}"][t][gs, es]
-                pool = moe_p[key]
-                pool.view(-1, *pool.shape[2:]).index_copy_(0, rows, vals.to(self.device))
 
     def rollback_upload(self, g: int, s: int, slot: int, e: int) -> bool:
         """Withdraw the residency published at plan time for one abandoned
@@ -1182,7 +1253,7 @@ class ExpertStore:
                 break
         if pf is not None:
             pf._raise_if_fatal()
-            pf._device_wait(needed)
+        self.wait_slots(needed)
         self.stats.prepare_time += time.perf_counter() - t0
         return trans
 
@@ -1517,7 +1588,7 @@ class PrefetchTicket:
             return
         pf._raise_if_fatal()
         t0 = time.perf_counter()
-        pf._device_wait({l: np.fromiter(want, np.int64)})
+        pf.store.wait_slots({l: np.fromiter(want, np.int64)})
         pf.stats.stall_s += time.perf_counter() - t0
 
     def release(self) -> None:
@@ -1551,11 +1622,11 @@ class PrefetchPipeline:
 
     On the card the slabs are pinned (`pin_memory=True`), grown on demand
     and reused round-robin; each thread owns one side `torch.cuda.Stream`
-    and issues every copy (`non_blocking=True`) and every pool write (the
-    int8 slots, the dequant-at-write of int8 host masters into fp slots,
-    the warm int4 slots) on it, then records one CUDA event per upload
-    batch. On the CPU there is no stream and no pinning: the copies are
-    synchronous and the bookkeeping the same.
+    and issues every copy (`non_blocking=True`) on it, and the store's
+    slot writer (`ExpertStore.write_slots`, which holds the slot formats
+    and the per-slot write order) writes the pools on it too. On the CPU
+    there is no stream and no pinning: the copies are synchronous and the
+    bookkeeping the same.
 
     Invariants:
       * an expert referenced by an unreleased ticket, or with an upload in
@@ -1563,14 +1634,10 @@ class PrefetchPipeline:
       * a ready fence is a pair: the host `threading.Event`, set only after
         every tensor (w_in, w_gate, w_out, scale planes) of its upload is
         written and the CUDA event after those writes is recorded, and that
-        event, kept as the slot's last write in `_slot_event` (a host set
-        alone orders nothing on the device). A fence set with `poisoned`
-        says the bytes never landed: its waiter replans and never reads
-        that slot's CUDA event as a ready mark;
-      * each slot's last write (on any stream, failed attempts too) leaves
-        its CUDA event in `_slot_event`: the next write to the slot waits on
-        it (no two writes race), and a consumer's stream waits on the
-        events of the slots it is about to read, replicas included;
+        event, kept by the store as the slot's last write (a host set alone
+        orders nothing on the device). A fence set with `poisoned` says the
+        bytes never landed: its waiter replans and never reads that slot's
+        CUDA event as a ready mark;
       * a staging slab is reused only after the CUDA event of the copies
         out of it, recorded on every exit from an upload attempt, has
         completed (the double-buffer fence, `staging_waits`).
@@ -1659,8 +1726,6 @@ class PrefetchPipeline:
         # (g, s) -> expert -> refcount from unreleased tickets
         self._refs: Dict[Tuple[int, int], collections.Counter] = (
             collections.defaultdict(collections.Counter))
-        # (g, s, global slot) -> CUDA event of the slot's last write
-        self._slot_event: Dict[Tuple[int, int, int], torch.cuda.Event] = {}
         # per shard and staging buffer: key -> host slab, and the event of
         # the copies out of it (the slab is reused once that event has
         # completed); each shard's thread owns its ring
@@ -1705,49 +1770,6 @@ class PrefetchPipeline:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         return ev
-
-    @contextlib.contextmanager
-    def _ordered_write(self, s: int, items):
-        """Around an in-place write of the slots of `items` [(g, slot, ...)]
-        at sub `s` on the current stream: wait first on each slot's last
-        write, then leave this write's event as theirs (for an upload, the
-        device half of its ready fence, recorded before the host event is
-        set), also when the write raised part-way. Caller holds the store
-        lock, so the slots' writes enqueue in lock order."""
-        if not self._cuda or not items:
-            yield None
-            return
-        keys = {(it[0], s, it[1]) for it in items}
-        cur = torch.cuda.current_stream(self.device)
-        last = (self._slot_event.get(k) for k in keys)
-        for ev in {id(e): e for e in last if e is not None}.values():
-            cur.wait_event(ev)
-        try:
-            yield None
-        finally:
-            done = self.record_event()
-            for k in keys:
-                self._slot_event[k] = done
-
-    def _device_wait(self, needed: Dict[int, np.ndarray]) -> None:
-        """Make the current stream wait on the last write of every slot that
-        holds an expert of `needed` (layer -> ids), its replicas included:
-        the device half of each ready fence, and of uploads already retired
-        whose copies may still be in flight on a side stream."""
-        if not self._cuda:
-            return
-        evs = {}
-        with self._lock:
-            for l, ids in needed.items():
-                g, s = self.store.layer_to_gs(l)
-                for e in ids:
-                    for slot in self.store.copies_of(g, s, int(e)):
-                        ev = self._slot_event.get((g, s, slot))
-                        if ev is not None:
-                            evs[id(ev)] = ev
-        cur = torch.cuda.current_stream(self.device)
-        for ev in evs.values():
-            cur.wait_event(ev)
 
     def _raise_if_fatal(self) -> None:
         if self._error is not None:
@@ -1867,8 +1889,8 @@ class PrefetchPipeline:
                     else:
                         self._jobs[sh][prio].append(job)
                 self._jobs_cv.notify_all()
-            for sh, job in inline:
-                self._commit_sync(sh, job)
+            if inline:
+                self._commit_sync(inline)
         return ticket
 
     def submit_job(self, fn: Callable[[], None], shard: int = 0,
@@ -1909,8 +1931,8 @@ class PrefetchPipeline:
                 else:
                     self._jobs[sh][priority].append(job)
             self._jobs_cv.notify_all()
-        for sh, job in inline:
-            self._commit_sync(sh, job)   # nests under the caller's (reentrant) lock
+        if inline:
+            self._commit_sync(inline)    # nests under the caller's (reentrant) lock
 
     def _upload_done(self, g: int, s: int, slot: int, e: int, ev: threading.Event) -> None:
         """Retire one written upload's pending entry (caller holds the lock;
@@ -1942,20 +1964,8 @@ class PrefetchPipeline:
                         break
             if stolen:
                 self._jobs_cv.notify_all()   # a producer may wait for these queue slots
-        if not stolen:
-            return
-        with self._lock:
-            for sh, job in stolen:
-                for s, rows in job.items():
-                    self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
-                    for g, sl, e, ev in rows:
-                        self._upload_done(g, s, sl, e, ev)
-                self.stats.count_uploads(sh, sum(len(r) for r in job.values()))
-            self.stats.stolen += 1
-        for _, job in stolen:
-            for rows in job.values():
-                for *_, ev in rows:
-                    ev.set()
+        if stolen:
+            self._commit_sync(stolen, steal=True)
 
     def _refresh(self, ticket: PrefetchTicket, timeout: Optional[float] = None) -> bool:
         """Consume-time reconciliation for one ticket (see `wait`): loop until
@@ -2015,7 +2025,7 @@ class PrefetchPipeline:
         if not ticket.failed and any(getattr(ev, "poisoned", False) for _, ev in ticket._fences):
             ticket.failed = True
         if ok:
-            self._device_wait(ticket.needed)
+            store.wait_slots(ticket.needed)
         self.stats.stall_s += time.perf_counter() - t0
         return ok
 
@@ -2130,7 +2140,7 @@ class PrefetchPipeline:
         exponential backoff; exhausted retries abandon the batch
         (`_fail_rows`). A degraded shard commits synchronously."""
         if self._degraded[shard]:
-            self._commit_sync(shard, job)
+            self._commit_sync([(shard, job)])
             return
         for s, rows in job.items():
             attempt = 0
@@ -2210,21 +2220,27 @@ class PrefetchPipeline:
                         ev.set()
                 pend.clear()
 
-    def _commit_sync(self, shard: int, job: Dict[int, List[tuple]]) -> None:
-        """The degraded path: commit one job through the store's synchronous
-        `commit_loads` (host gather and device write inline on the calling
-        thread's stream, ordered by `_ordered_write`; no staging ring, no
-        injected upload faults): the bytes the async path would land."""
+    def _commit_sync(self, jobs: List[Tuple[int, Dict[int, List[tuple]]]],
+                     steal: bool = False) -> None:
+        """Commit upload jobs [(shard, {sub: rows})] inline on the calling
+        thread through the store's `commit_loads` (no staging ring, no
+        injected upload faults): retire their pending entries and count
+        their uploads under the lock, then set their fences. A steal counts
+        once in `stolen`; a degraded or dead shard's commit, or a close-time
+        drain, counts each upload in `sync_fallbacks`."""
         evs: List[threading.Event] = []
         with self._lock:
-            for s, rows in job.items():
-                self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
-                for g, sl, e, ev in rows:
-                    self._upload_done(g, s, sl, e, ev)
-                    evs.append(ev)
-            n = sum(len(r) for r in job.values())
-            self.stats.count_uploads(shard, n)
-            self.stats.sync_fallbacks += n
+            for sh, job in jobs:
+                for s, rows in job.items():
+                    self.store.commit_loads(s, [(g, sl, e) for g, sl, e, _ in rows])
+                    for g, sl, e, ev in rows:
+                        self._upload_done(g, s, sl, e, ev)
+                        evs.append(ev)
+                self.stats.count_uploads(sh, sum(len(r) for r in job.values()))
+            if steal:
+                self.stats.stolen += 1
+            else:
+                self.stats.sync_fallbacks += len(evs)
         for ev in evs:
             ev.set()
 
@@ -2242,7 +2258,7 @@ class PrefetchPipeline:
             if isinstance(job, _CallableJob):
                 self._run_callable(job)
             else:
-                self._commit_sync(shard, job)
+                self._commit_sync([(shard, job)])
 
     # -- watchdog (the request server calls it on an interval) ----------
     def watchdog(self, max_job_age_s: Optional[float] = None) -> Tuple[int, int]:
@@ -2294,13 +2310,11 @@ class PrefetchPipeline:
         return view
 
     def _upload(self, shard: int, s: int, rows: List[tuple]) -> None:
-        """Stage, copy and write one sub's upload batch on `shard`'s ring
-        and stream, then fire its fences. Hot rows land the int8 / fp
-        masters, warm rows the int4 masters; every copied byte is counted,
-        and where one batch fills a warm slot twice the last upload is what
-        lands. An attempt that raises leaves the slab's event recorded (its
-        earlier keys' copies may be in flight) and, past the first write,
-        the slots' events."""
+        """Stage and copy one sub's upload batch on `shard`'s ring and
+        stream, have the store write it (`ExpertStore.write_slots`), then
+        fire its fences. Every copied byte is counted. An attempt that
+        raises leaves the slab's event recorded (its earlier keys' copies
+        may be in flight) and, once the write began, the slots' events."""
         if self.faults is not None:
             self.faults.inject("upload")
         store = self.store
@@ -2314,57 +2328,20 @@ class PrefetchPipeline:
             with span(self.telemetry, "transfer.staging_wait"):
                 ev.synchronize()
         staging = self._staging[shard][i]
-        hot = [r for r in rows if r[1] < store.S8]
-        warm = [r for r in rows if r[1] >= store.S8]
-        E, dev = store.E, self.device
-        staged, nbytes_up = [], 0
+        parts, nbytes_up = [], 0
         try:
-            for part, tier in ((hot, "hot"), (warm, "warm")):
-                if not part:
-                    continue
-                idx = torch.tensor([g * E + e for g, _, e, _ in part], dtype=torch.long)
-                if tier == "hot":
-                    srcs = [(t, store.host, "") for t in EXPERT_TENSORS]
-                    if store.quant == "int8":
-                        srcs += [(t, store.host_scale, "_scale") for t in EXPERT_TENSORS]
-                else:
-                    srcs = [(t, store.host4, "_q4") for t in EXPERT_TENSORS]
-                    srcs += [(t, store.host4_scale, "_q4_scale") for t in EXPERT_TENSORS]
-                put = {}
-                for t, host, suffix in srcs:
-                    view = self._stage(staging, (s, t, suffix), host[f"sub{s}"][t], idx)
-                    put[(t, suffix)] = _staged_put(view, dev)
+            for warm, part in store.slot_tiers(rows):
+                idx = torch.tensor([g * store.E + e for g, _, e, _ in part], dtype=torch.long)
+                vals = {}
+                for key, host in store.slot_sources(s, warm):
+                    view = self._stage(staging, (s, key), host, idx)
+                    vals[key] = _staged_put(view, self.device)
                     nbytes_up += nbytes(view)
-                # the last upload into each (group, slot) lands
-                last = list({r[:2]: k for k, r in enumerate(part)}.values())
-                S_pool, base = (store.S8, 0) if tier == "hot" else (store.S4, store.S8)
-                dst = torch.tensor([part[k][0] * S_pool + part[k][1] - base for k in last],
-                                   dtype=torch.long).to(dev, non_blocking=True)
-                keep = torch.tensor(last, dtype=torch.long).to(dev, non_blocking=True)
-                staged.append((tier, put, dst, keep))
+                parts.append((warm, part, vals))
         finally:
             self._staging_event[shard][i] = self.record_event()
         with self._lock:
-            moe_p = store.serve_params["blocks"][f"sub{s}"]["moe"]
-
-            def write(key: str, vals: torch.Tensor, dst, keep) -> None:
-                pool = moe_p[key]
-                pool.view(-1, *pool.shape[2:]).index_copy_(0, dst, vals.index_select(0, keep))
-
-            with self._ordered_write(s, rows):
-                for tier, put, dst, keep in staged:
-                    for t in EXPERT_TENSORS:
-                        if tier == "warm":
-                            write(t + "_q4", put[(t, "_q4")], dst, keep)
-                            write(t + "_q4_scale", put[(t, "_q4_scale")], dst, keep)
-                        elif store.quantized_slots:
-                            write(t, put[(t, "")], dst, keep)
-                            write(t + "_scale", put[(t, "_scale")], dst, keep)
-                        elif store.quant == "int8":   # dequantise at slot write
-                            q, sc = put[(t, "")], put[(t, "_scale")]
-                            write(t, (q.float() * sc).to(moe_p[t].dtype), dst, keep)
-                        else:
-                            write(t, put[(t, "")], dst, keep)
+            store.write_slots(s, parts)
             store.stats.bytes_h2d += nbytes_up
             if self.telemetry is not None:
                 self.telemetry.counter("upload_bytes_transfer").inc(nbytes_up)
@@ -2406,7 +2383,9 @@ class PrefetchPipeline:
                 stream.synchronize()
         self._staging = []
         self._staging_event = []
-        self.store._prefetcher = None
+        with self._lock:
+            self.store._slot_event.clear()
+            self.store._prefetcher = None
         self._release_switch_interval()
 
     def __enter__(self) -> "PrefetchPipeline":

@@ -2,14 +2,16 @@
 the protocol cases of `tests/test_prefetch.py` on the CPU — fences that
 block only on needed experts, no half-written slot, clean shutdown,
 protection by outstanding tickets, refresh after eviction, pinned experts,
-staging counts, warm submits, work stealing, int8 and tiered async uploads,
+staging counts, warm submits, work stealing, async uploads bit-equal to
+inline ones in every slot format, the last of two uploads into a warm slot,
 in-flight affinity — plus three differentials against the JAX package on
 the committed `experiments/cache/sys_E8`: the async batch engine's logits
 (1e-4 relative, against the JAX async engine and the port's synchronous
 one), the async decode engine's greedy tokens and per-step loads, and a
 paged pool that spills and pages in through the pipeline (traffic, tables
-and spilled K/V). The `gpu` cases run the slow-link and staging checks on
-the card (`python -m pytest --noconftest -m gpu tests/test_torch_prefetch.py`);
+and spilled K/V). The `gpu` cases run the slow-link and staging checks, and
+each slot format's side-stream writes against the inline ones, on the card
+(`python -m pytest --noconftest -m gpu tests/test_torch_prefetch.py`);
 nothing here imports JAX at module level, so they run where JAX is absent."""
 import dataclasses
 import os
@@ -425,17 +427,28 @@ def test_switch_interval_restored_after_close():
     assert sys.getswitchinterval() == before
 
 
-@pytest.mark.parametrize("kw", [dict(host_quant="int8"), dict(quantized_slots=True),
-                                dict(quantized_slots=True,
-                                     tier=TierConfig(int4_slots=True, warm_slots=1))],
-                         ids=["host-int8", "int8-slots", "tiered"])
-def test_quantized_async_uploads(kw):
-    """int8 masters dequantised at write, int8-resident slots with their
-    scale planes, and hot int8 / warm int4 tiers: every resident slot holds
-    its master, and the counters equal a synchronous store's on the same
-    table stream."""
-    cfg, store = _store(2, **kw)
-    _, ref = _store(2, **kw)
+def _assert_pools_equal(store, ref):
+    """Both stores hold the same residents, and every resident slot's pool
+    rows (w_in / w_gate / w_out, their `_scale` planes, the `_q4` /
+    `_q4_scale` planes) are bit-equal between them."""
+    assert store.resident == ref.resident and any(store.resident.values())
+    for (g, s), res in store.resident.items():
+        for e, slot in res.items():
+            got, want = _slot_rows(store, s, g, slot, e), _slot_rows(ref, s, g, slot, e)
+            assert len(got) == len(want)
+            for (a, _), (b, _) in zip(got, want):
+                assert torch.equal(a.cpu(), b.cpu()), (g, s, e, slot)
+
+
+SLOT_FORMATS = pytest.mark.parametrize(
+    "kw", [dict(), dict(host_quant="int8"), dict(quantized_slots=True),
+           dict(quantized_slots=True, tier=TierConfig(int4_slots=True, warm_slots=1))],
+    ids=["fp", "host-int8", "int8-slots", "tiered"])
+
+
+def _async_uploads(kw, device):
+    cfg, store = _store(2, device=device, **kw)
+    _, ref = _store(2, device=device, **kw)
     pipe = PrefetchPipeline(store, depth=2)
     rng = np.random.default_rng(3)
     try:
@@ -450,9 +463,60 @@ def test_quantized_async_uploads(kw):
         pipe.close()
     for f in ("loads", "evictions", "hits", "dropped", "bytes_h2d", "promotions", "demotions"):
         assert getattr(store.stats, f) == getattr(ref.stats, f), f
-    assert store.resident == ref.resident
+    _assert_pools_equal(store, ref)
     if "tier" in kw:
         assert store.S4 == 1 and store.stats.demotions > 0
+
+
+@SLOT_FORMATS
+def test_quantized_async_uploads(kw):
+    """fp slots, int8 masters dequantised at write, int8-resident slots with
+    their scale planes, and hot int8 / warm int4 tiers: every resident slot
+    holds its master, the counters equal a synchronous store's on the same
+    table stream, and the transfer thread's writes are bit-equal to the
+    inline ones in every pool."""
+    _async_uploads(kw, "cpu")
+
+
+def _warm_slot_twice(path, device):
+    tier = dict(quantized_slots=True, tier=TierConfig(int4_slots=True, warm_slots=1))
+    _, store = _store(2, device=device, **tier)
+    _, ref = _store(2, device=device, **tier)
+    assert (store.S8, store.S4) == (2, 1)
+    first, second = _table(store.L, [0, 1], 0), _table(store.L, [2, 3], 1)
+    for t in (first, second):
+        ref.prepare(t)
+    if path == "inline":
+        for t in (first, second):
+            store.prepare(t)
+    else:
+        pipe = PrefetchPipeline(store, depth=2)
+        try:
+            for t in (first, second):
+                tk = pipe.submit(t)
+                tk._job = None                    # no stealing: the thread writes it
+                assert tk.wait(timeout=20)
+                tk.release()
+        finally:
+            pipe.close()
+        assert pipe.stats.stolen == pipe.stats.sync_fallbacks == 0
+    warm = store.S8
+    for res in store.resident.values():
+        # 0 and then 1 were demoted into the one warm slot: 1 holds it
+        assert sorted(res) == [1, 2, 3] and res[1] == warm and max(res[2], res[3]) < warm
+    assert store.stats.demotions == ref.stats.demotions == 2 * store.L
+    assert store.stats.evictions == ref.stats.evictions == store.L
+    assert store.stats.bytes_h2d == ref.stats.bytes_h2d
+    _assert_resident_matches_host(store)
+    _assert_pools_equal(store, ref)
+
+
+@pytest.mark.parametrize("path", ["transfer", "inline"])
+def test_one_plan_fills_a_warm_slot_twice(path):
+    """Two demotions into the one warm slot in one plan (the second evicts
+    the first's expert): both uploads are counted and the last one lands,
+    on the transfer thread and inline."""
+    _warm_slot_twice(path, "cpu")
 
 
 def test_inflight_cache_affinity_credits_uploads(slow_link):
@@ -665,3 +729,18 @@ def test_staging_reuse_on_the_card(cuda, n_staging):
     """One (or two) pinned slabs reused across back-to-back uploads: a slab
     is refilled only after the copies out of it have completed."""
     _staging_counts(n_staging, cuda)
+
+
+@pytest.mark.gpu
+@SLOT_FORMATS
+def test_async_uploads_on_the_card(cuda, kw):
+    """Each slot format written on the transfer thread's side stream is
+    bit-equal to the inline write on the consumer's stream."""
+    _async_uploads(kw, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["transfer", "inline"])
+def test_warm_slot_twice_on_the_card(cuda, path):
+    """The last of two uploads into one warm slot lands on the card too."""
+    _warm_slot_twice(path, cuda)
