@@ -8,13 +8,20 @@ Port of `repro/core/engine.py` (Algorithm 1):
   slots (evicting under the slot budget), forward X_i with the hash table as
   the routing override — routers never run.
 
-Both threads launch on PyTorch's default stream, so the device runs their
-work in enqueue order; the hash thread's copy of the table to the host waits
-for what is queued before it. Tables hold numpy, as in the reference. On
-CUDA a batch's logits reach the host on a copy stream of the engine's own,
-by DMA into page-locked host memory that PyTorch's caching host allocator
-hands back for reuse (`_results_copy`), so the predictor's launches and the
-table's copy do not queue behind them.
+Tables hold numpy, as in the reference. On CUDA the predictor runs on a
+stream of the engine's own (`build_table`): the token ids' copy in, the
+build, and the table's copy to the host, which so waits for the predictor
+alone and not for the forwards the inference thread queues on its stream.
+A build of S <= `HASH_SEG_LEN` positions is captured as one CUDA graph
+after `GRAPH_WARM_STEPS` eager builds in a row at one (B, S) and replayed
+from then on (`HashGraph`), keyed on (B, S) and the addresses of the
+predictor's weights and the embedding table: a build at another key runs
+eagerly and drops the kept graph. The replay launches the kernels the eager
+build does, in its order, so the tables are the eager ones bit for bit.
+Longer prompts' segmented builds, and everything on the CPU, run eagerly
+(`hash_graph_engages`). A batch's logits reach the host on a copy stream of
+the engine's own too, by DMA into page-locked host memory that PyTorch's
+caching host allocator hands back for reuse (`_results_copy`).
 
 With an async prefetch pipeline (`prefetch_depth`, `core/offload.py`) the
 hash thread also submits each table's uploads as it builds it, so batch
@@ -32,8 +39,10 @@ Given a `serving.telemetry.Telemetry` (`telemetry=`, passed on to the
 store and pipeline the engine builds), `serve` records spans of each
 thread's host work, each with its batch as `ident`: on the hash thread
 `hash.batch` (`ServeMetrics.hash_time_s`'s interval) holding
-`hash.launch` (the predictor's launches), `hash.d2h` (the table's copy to
-the host), `hash.submit` and `hash.queue_put`; on the inference thread
+`hash.launch` (the predictor's launches, or the token ids' copy and the
+graph's replay), `hash.d2h` (the table's copy to the host), `hash.submit`
+and `hash.queue_put`, and counts `hash_graph_captures`,
+`hash_graph_replays` and `hash_graph_eager_builds`; on the inference thread
 `infer.queue_get`, `infer.route`, `infer.translate`, `infer.forward`
 (launches), `infer.drain` (waits for the device) and `infer.results_copy`
 (the copy with the wait on its event; counters `results_copy_bytes` and, on
@@ -49,12 +58,13 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TierConfig
+from repro_torch.core.decode_engine import GRAPH_WARM_STEPS
 from repro_torch.core.hash_fn import (
     HASH_SEG_LEN,
     hash_fn_apply,
@@ -71,6 +81,7 @@ from repro_torch.core.offload import (
     span,
 )
 from repro_torch.device import DeviceLike
+from repro_torch.kernels import ops
 from repro_torch.models.attention import ShardingCtx
 from repro_torch.models.transformer import forward
 from repro_torch.sharding.policy import store_ctx
@@ -84,9 +95,8 @@ if TYPE_CHECKING:   # serving/ imports this module: no import at run time
 class ServeMetrics:
     latency_s: List[float] = field(default_factory=list)
     # the hash thread's time a batch, summed: building the table (the
-    # predictor's launches and the table's copy to the host, which waits
-    # for the work queued before it on the shared stream, but not for the
-    # results copy on the engine's copy stream), the prefetch
+    # predictor's launches or its graph's replay, and the table's copy to
+    # the host, which waits for the predictor's stream alone), the prefetch
     # submit with its wait for queue room, and the wait for room in the
     # table queue: a hash thread held back by the inference thread reads
     # here like a slow predictor (the `hash.*` spans split it)
@@ -109,6 +119,33 @@ class ServeMetrics:
             "hash_time_s": self.hash_time_s,
             "wall_s": self.wall_s,
         }
+
+
+def hash_graph_engages(device: torch.device, seq_len: int) -> bool:
+    """Whether a table build of `seq_len` positions may replay a captured
+    CUDA graph: on a CUDA device, at the one-shot build's lengths. The
+    segmented long-prompt build, and everything on the CPU, runs eagerly."""
+    return torch.device(device).type == "cuda" and seq_len <= HASH_SEG_LEN
+
+
+class HashGraph:
+    """A table build captured as one CUDA graph for one key ((B, S) and the
+    addresses of the weights it reads): the static token ids [B, S] each
+    replay copies into, the ids / α [L, B, S, k] it writes, and the kernel
+    launches one replay makes (`ops.held_launches` of the capture, added
+    back each replay)."""
+
+    def __init__(self, graph, key: tuple, tokens: torch.Tensor, ids: torch.Tensor,
+                 alpha: torch.Tensor, launches: Tuple[dict, dict]):
+        self.graph, self.key = graph, key
+        self.tokens, self.ids, self.alpha = tokens, ids, alpha
+        self.launches = launches
+
+    def replay(self, tokens: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.tokens.copy_(torch.as_tensor(tokens))
+        self.graph.replay()
+        ops.add_launches(*self.launches)
+        return self.ids, self.alpha
 
 
 class SiDAEngine:
@@ -171,22 +208,86 @@ class SiDAEngine:
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._pinned_seen: set = set()
+        # the predictor's stream (None off CUDA), the kept graph, and the key
+        # and count of the last eager builds in a row; one build at a time
+        self._hash_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._hash_graph: Optional[HashGraph] = None
+        self._hash_run: Tuple[Optional[tuple], int] = (None, 0)
+        self._hash_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def build_table(self, batch_index: int, tokens: np.ndarray) -> HashTable:
-        tel = self.telemetry
-        with span(tel, "hash.launch", batch_index):
-            emb = self.embed_table[torch.as_tensor(tokens, device=self.device).long()]
-            if tokens.shape[1] > HASH_SEG_LEN:
-                # long prompts: exact LSTM threading, per-segment SparseMax
-                logits = hash_fn_apply_segmented(self.hash_params, emb, self.E)
-            else:
-                logits = hash_fn_apply(self.hash_params, emb, num_experts=self.E)
-            ids, w = predict_topk(logits, self.k)
-        with span(tel, "hash.d2h", batch_index):
-            ids, w = ids.cpu().numpy(), w.cpu().numpy()
+        """The hash table of `tokens` [B, S]: expert ids and α per MoE layer,
+        token and choice, on the host.
+
+        On CUDA every step runs on the engine's predictor stream: an eager
+        build first waits for the work queued on the caller's stream (where
+        the weights were written), a replay waits for nothing, and the
+        table's copy to the host waits for the predictor alone. A build
+        replays the kept graph while its key holds; otherwise it runs
+        eagerly (counter `hash_graph_eager_builds`), and the build after
+        `GRAPH_WARM_STEPS` eager ones in a row at one key captures the
+        graph (`hash_graph_captures`) and replays it (`hash_graph_replays`),
+        where `hash_graph_engages`. A build at another key drops the kept
+        graph. Builds of one engine run one at a time."""
+        tel, stream = self.telemetry, self._hash_stream
+        caller = torch.cuda.current_stream(self.device) if stream is not None else None
+        with self._hash_lock, torch.cuda.stream(stream):   # None: no stream to enter
+            with span(tel, "hash.launch", batch_index):
+                ids, w = self._predict(tokens, caller)
+            with span(tel, "hash.d2h", batch_index):
+                ids, w = ids.cpu().numpy(), w.cpu().numpy()
         return HashTable(batch_index, ids, w)
+
+    def _predict(self, tokens: np.ndarray, caller) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids, α) of `tokens` on the device, replayed or built eagerly."""
+        tel = self.telemetry
+        key = None
+        if hash_graph_engages(self.device, tokens.shape[1]):
+            key = (tuple(tokens.shape), self.embed_table.data_ptr(),
+                   *(t.data_ptr() for t in tree_leaves(self.hash_params)))
+        graph = self._hash_graph
+        if graph is not None and graph.key != key:
+            self._hash_graph = graph = None
+        run_key, run = self._hash_run
+        if graph is None and key is not None and run_key == key and run >= GRAPH_WARM_STEPS:
+            graph = self._hash_graph = self._capture_build(key, tokens)
+            if tel is not None:
+                tel.counter("hash_graph_captures").inc()
+        if graph is not None:
+            if tel is not None:
+                tel.counter("hash_graph_replays").inc()
+            return graph.replay(tokens)
+        self._hash_run = (key, run + 1 if run_key == key else 1)
+        if tel is not None:
+            tel.counter("hash_graph_eager_builds").inc()
+        if caller is not None:
+            self._hash_stream.wait_stream(caller)
+        return self._predict_body(torch.as_tensor(tokens, device=self.device))
+
+    def _predict_body(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The build over token ids on the device, eager or under capture."""
+        emb = self.embed_table[tokens.long()]
+        if tokens.shape[1] > HASH_SEG_LEN:
+            # long prompts: exact LSTM threading, per-segment SparseMax
+            logits = hash_fn_apply_segmented(self.hash_params, emb, self.E)
+        else:
+            logits = hash_fn_apply(self.hash_params, emb, num_experts=self.E)
+        return predict_topk(logits, self.k)
+
+    def _capture_build(self, key: tuple, tokens: np.ndarray) -> HashGraph:
+        """Capture the build at `tokens`' shape on the predictor stream,
+        whose cuBLAS workspace the eager builds before it opened, while the
+        other threads go on launching on theirs; the capture runs nothing,
+        and its launches count once a replay runs them."""
+        static = torch.as_tensor(tokens, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        with ops.held_launches() as launches, torch.cuda.graph(
+                graph, stream=self._hash_stream, capture_error_mode="thread_local"):
+            ids, alpha = self._predict_body(static)
+        return HashGraph(graph, key, static, ids, alpha, launches)
 
     def _route(self, table: HashTable, ticket: Optional[PrefetchTicket] = None):
         """(slot_ids, weights, ticket) for `table`, the first two on the

@@ -9,8 +9,8 @@ them by head shape, window and softcap (`launches_by_shape()`), so a model
 whose layers differ (a local and a global layer) shows each form's. A CUDA
 graph captures the wrappers' launches once and replays them without
 passing through the wrappers: its capture runs under `held_launches()`,
-which keeps the capture's counts out of the totals, and each replay adds
-them back with `add_launches`.
+which keeps the capturing thread's counts out of the totals, and each replay
+adds them back with `add_launches`.
 
 Under grad mode, with an input that requires grad, `expert_ffn`,
 `flash_prefill` and `sparsemax` go through their `kernels.autograd`
@@ -41,6 +41,8 @@ _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # (kernel, query heads, kv heads, head_dim, window, softcap) -> launches
 _BY_SHAPE: Dict[tuple, int] = {}
 _count_lock = threading.Lock()   # the hash and inference threads both launch
+# a thread's (by kernel, by shape) counts while it holds them (`held_launches`)
+_held = threading.local()
 
 
 def reset_launches() -> None:
@@ -77,42 +79,31 @@ def add_launches(counts: Dict[str, int], by_shape: Dict[tuple, int]) -> None:
 
 @contextlib.contextmanager
 def held_launches() -> Iterator[Tuple[Dict[str, int], Dict[tuple, int]]]:
-    """Count the wrappers' calls inside the block apart, for a CUDA graph's
-    capture, which launches nothing: the totals are left as they were, and
-    the block's counts fill the yielded (by kernel, by shape) pair, nonzero
-    entries only. Another thread's calls meanwhile are counted with the
-    block's."""
-    before, before_shape = launches(), launches_by_shape()
-    counts: Dict[str, int] = {}
-    by_shape: Dict[tuple, int] = {}
+    """Count this thread's wrapper calls inside the block apart, for a CUDA
+    graph's capture, which launches nothing: the totals are left as they
+    were, and the block's counts fill the yielded (by kernel, by shape)
+    pair, nonzero entries only. Other threads' calls meanwhile count in the
+    totals as ever, so a capture on the hash thread leaves the inference
+    thread's forwards counted once."""
+    held: Tuple[Dict[str, int], Dict[tuple, int]] = ({}, {})
+    outer = getattr(_held, "counts", None)
+    _held.counts = held
     try:
-        yield counts, by_shape
+        yield held
     finally:
-        with _count_lock:
-            for name in KERNELS:
-                n = _LAUNCHES[name] - before[name]
-                if n:
-                    counts[name] = n
-                    _LAUNCHES[name] = before[name]
-            for key in list(_BY_SHAPE):
-                n = _BY_SHAPE[key] - before_shape.get(key, 0)
-                if n:
-                    by_shape[key] = n
-                    if key in before_shape:
-                        _BY_SHAPE[key] = before_shape[key]
-                    else:
-                        del _BY_SHAPE[key]
+        _held.counts = outer
 
 
 def _count(name: str, q=None, k=None, window: int = 0, cap: float = 0.0,
            form: Optional[str] = None) -> None:
+    counts, by_shape = getattr(_held, "counts", None) or (_LAUNCHES, _BY_SHAPE)
     with _count_lock:
-        _LAUNCHES[name] += 1
+        counts[name] = counts.get(name, 0) + 1
         if q is not None:
             key = (name, q.shape[-2], k.shape[-2], q.shape[-1], int(window), float(cap))
             if form is not None:
                 key += (form,)
-            _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + 1
+            by_shape[key] = by_shape.get(key, 0) + 1
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
