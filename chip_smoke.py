@@ -60,7 +60,13 @@
    and in its cross-attention (64 queries over 512 encoder keys, a key
    length of its own, with that form's backward), flash_decode at hymba's
    group 5 over its 2048-slot ring and in seamless's cross form (512
-   encoder slots at position 0); SDPA with enable_gqa the library.
+   encoder slots at position 0); SDPA with enable_gqa the library. Phase
+   10e's shapes too: nemotron-3-nano's relu² experts (not gated, d 2688 ->
+   F 1856) at the [8, 1024] batch's 480 rows a slot, on 128 bf16 and 128
+   int8 slots and on the tiered run's 64 hot int8 and 64 warm int4 slots,
+   in bf16 (5e-2 * max(1, |y|) an element: relu²'s outputs pass 8, where a
+   bf16 ulp is 6.25e-2) and fp32 (1e-4) against the plain version, the
+   library bmm, relu², bmm.
 3. Batch path: `SiDAEngine` on switch-base-8 at full width and depth (bf16,
    seeded random weights), 4 expert slots per MoE layer, 8 batches of
    8 x 256 tokens through the threaded serve; throughput, latency, memory,
@@ -162,7 +168,14 @@
    smollm-135m and stablelm-12b at 2 layers, bf16: forward over [2, 512]
    (gemma2 [1, 5120]), 16 greedy decode steps from its K/V over a ring and
    over pages that a KVPagePool seeds; the card against the CPU path
-   (fp32, the same weights) within 5e-2 * max(1, max|logit|).
+   (fp32, the same weights) within 5e-2 * max(1, max|logit|). (e)
+   nemotron-3-nano (unregistered, `configs/nemotron3_nano.py`) at full
+   width, its first 6 blocks MEMEM* (Mamba-2, relu² MoE of 128 experts
+   top-6, attention), bf16: 2 batches of [8, 1024] through SiDAEngine,
+   threaded after a warm-up batch, at 128 slots a MoE block on bf16 slots,
+   on int8 slots and on hot int8 / warm int4 tiers (64 / 64); throughput,
+   launches; gates: finite logits, the tiers phase 2 held, each run's
+   kernels launched.
 11. The offline phase on switch-base-8 at full width and depth, fp32,
    seeded weights, SyntheticLM [8, 128] batches: (a) 30 steps of
    `repro_torch.launch.train.train` (lr 3e-4, warmup-cosine, remat):
@@ -264,7 +277,10 @@ each attention row its own form's (`ops.launches_by_shape()`; 0 fails),
 `library_max_abs_err` is the library call's own distance from the plain
 version, the phase-13 rows (`flash_prefill/hymba-G5`, `/seamless-enc`,
 `/seamless-cross`, `flash_decode/hymba-G5`, `/seamless-cross`) count their
-own form's launches in their phase-13 run, the expert-parallel rows (`expert_ffn/ep2-decode`, ...) count their
+own form's launches in their phase-13 run, the nemotron rows
+(`expert_ffn/nemotron-batch`, `expert_ffn_q/nemotron-batch`,
+`expert_ffn_q/nemotron-tiered-hot`, `expert_ffn_q4/nemotron-tiered-warm`)
+count their own phase-10e run's launches of their kernel, the expert-parallel rows (`expert_ffn/ep2-decode`, ...) count their
 phase-12 run's launches of their kernel, and `sdpa_nocap_*` time SDPA without the softcap the kernel applies;
 flash_decode_paged's
 `gathered_*` times are its comparators on the keys gathered into a ring) and
@@ -3104,6 +3120,192 @@ def check_family_kernels(lanes: int, cache_len: int):
     return records
 
 
+# nemotron-3-nano (NVIDIA-Nemotron-3-Nano-30B-A3B, block kind nemotron_h) at
+# full width: its pattern's first NEMOTRON_DEPTH blocks (MEMEM*: 3 Mamba-2,
+# 2 MoE, 1 attention; the published depth is 52), every MoE block's 128
+# relu² experts on 128 slots, as the benchmark's nemotron3nano.batch holds
+# them, batches of NEMOTRON_BATCH; the tiered run splits the same 128-slot
+# budget into 64 hot int8 and 64 warm int4 slots (FAMILY_TIER), whose
+# capacity is the same
+NEMOTRON_DEPTH, NEMOTRON_SLOTS, NEMOTRON_BATCH = 6, 128, (8, 1024)
+NEMOTRON_KERNELS = {"sida-bf16": ("expert_ffn", "sparsemax", "flash_prefill"),
+                    "sida-int8": ("expert_ffn_q", "sparsemax", "flash_prefill"),
+                    "sida-tiered": ("expert_ffn_q", "expert_ffn_q4", "sparsemax",
+                                    "flash_prefill")}
+
+
+def nemotron_config(depth: int = 0, dtype: str = "bfloat16"):
+    """The published nemotron-3-nano (`configs/nemotron3_nano.py`, not in the
+    registry) at `dtype`, cut to its pattern's first `depth` blocks."""
+    from repro_torch.configs.nemotron3_nano import CONFIG
+
+    cfg = dataclasses.replace(CONFIG, dtype=dtype)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth, attn=dataclasses.replace(
+            cfg.attn, layer_pattern=cfg.attn.layer_pattern[:depth]))
+    return cfg
+
+
+def nemotron_cases():
+    """Phase 2's nemotron rows: (row, format, slots, rows a slot) at the
+    batch capacity of NEMOTRON_BATCH over NEMOTRON_SLOTS slots, the launch
+    shapes of phase 10e's runs: bf16 and int8 slots over all 128, the
+    tiered run's hot int8 and warm int4 blocks of 64 each."""
+    cfg = nemotron_config()
+    C = batch_capacity(cfg, *NEMOTRON_BATCH, NEMOTRON_SLOTS)
+    hot, warm = family_tiers(cfg, NEMOTRON_SLOTS)
+    return (("expert_ffn/nemotron-batch", "bf16", NEMOTRON_SLOTS, C),
+            ("expert_ffn_q/nemotron-batch", "int8", NEMOTRON_SLOTS, C),
+            ("expert_ffn_q/nemotron-tiered-hot", "int8", hot, C),
+            ("expert_ffn_q4/nemotron-tiered-warm", "int4", warm, C))
+
+
+def check_nemotron_kernels():
+    """Phase 2, nemotron's relu² experts (d 2688 -> F 1856, not gated: the
+    epilogue's relu(h)² in place of GELU or the GLU product) at
+    `nemotron_cases`' shapes, bf16 slots and the int8 / int4 slot formats,
+    each in fp32 within 1e-4 and in bf16 within 5e-2 * max(1, |y|) of each
+    element of its plain version on the same inputs; the library is bmm,
+    relu², bmm (over weights dequantised ahead of time for int8 / int4).
+    The bf16 bound is phase 2's 5e-2 where |y| <= 1, scaled where relu²
+    gives larger outputs: over [128, 480] rows y reaches 8 and more, where
+    one bf16 ulp is 6.25e-2 and the kernel and the plain version, each
+    rounding y to bf16 after summing in another order, differ by one.
+    Returns {row: bf16 record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.offload import quantize_stack_int4, quantize_stack_int8
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_gemm import (expert_ffn_cuda, expert_ffn_q4_cuda,
+                                                 expert_ffn_q_cuda)
+
+    cfg = nemotron_config()
+    d, Fh, act = cfg.d_model, cfg.moe.d_expert, cfg.act
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(655)
+
+    def rnd(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    records, failed = {}, []
+    peak = {torch.bfloat16: H100_BF16_FLOPS, torch.float32: H100_F32_FLOPS}
+    for row, fmt, E, C in nemotron_cases():
+        ws = [rnd(sh, sh[1] ** -0.5, torch.float32) for sh in ((E, d, Fh), (E, Fh, d))]
+        if fmt == "int8":
+            wq = [(q[0].to(dev), sc[0].to(dev))
+                  for q, sc in (quantize_stack_int8(w[None], dev, "channel") for w in ws)]
+            deq = [ref.dequantize_ref(q, sc) for q, sc in wq]
+        elif fmt == "int4":
+            wq = [(q[0].to(dev), sc[0].to(dev))
+                  for q, sc in (quantize_stack_int4(w[None], dev, 64) for w in ws)]
+            deq = [ref.dequantize_q4_ref(q, sc, k) for (q, sc), k in zip(wq, (d, Fh))]
+        for dtype in (torch.bfloat16, torch.float32):
+            xe = rnd((E, C, d), 1.0, dtype)
+            if fmt == "bf16":
+                wi, wo = (w.to(dtype) for w in ws)
+                args, fn, plain = (xe, wi, None, wo), expert_ffn_cuda, ref.expert_ffn_ref
+                wbytes, wi_f, wo_f = nb(wi, wo), wi, wo
+            else:
+                (wi_q, wi_s), (wo_q, wo_s) = wq
+                args = (xe, wi_q, wi_s, None, None, wo_q, wo_s)
+                fn, plain = ((expert_ffn_q_cuda, ref.expert_ffn_q_ref) if fmt == "int8"
+                             else (expert_ffn_q4_cuda, ref.expert_ffn_q4_ref))
+                wbytes = nb(wi_q, wi_s, wo_q, wo_s)
+                wi_f, wo_f = (w.to(dtype) for w in deq)
+            got = fn(*args, act=act)
+            torch.cuda.synchronize()
+            want = plain(*args, act=act)
+            tol = 5e-2 * want.float().abs().clamp(min=1.0) if dtype == torch.bfloat16 else 1e-4
+
+            def lib(xe=xe, wi_f=wi_f, wo_f=wo_f):
+                return torch.bmm(F.relu(torch.bmm(xe, wi_f)).square(), wo_f)
+
+            kern = lambda fn=fn, args=args: fn(*args, act=act)
+            bnd = bound_ms(nb(xe, got) + wbytes, 2 * 2 * E * C * d * Fh, peak[dtype])
+            rec = report(failed, row, dtype, (E, C, d, Fh), got, want, tol, time_ms(kern),
+                         time_ms(lambda plain=plain, args=args: plain(*args, act=act)),
+                         time_ms(lib), bnd,
+                         " (bmm+relu²+bmm" + (", pre-dequantised)" if fmt != "bf16" else ")"),
+                         graph=(kern, lib))
+            if dtype == torch.bfloat16:
+                records[row] = rec
+            del xe, got, want
+        torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
+    return records
+
+
+def nemotron_path(n_batches: int = 2):
+    """Phase 10e: nemotron-3-nano at full width, its first NEMOTRON_DEPTH
+    blocks, bf16, seeded weights drawn on the card and kept on the host;
+    `n_batches` of NEMOTRON_BATCH through `SiDAEngine` (threaded, after one
+    warm-up batch) at NEMOTRON_SLOTS slots a MoE block on bf16 slots, on
+    int8 slots and on hot int8 / warm int4 tiers. Gates: finite logits of
+    the right shape, the tiered store's (S8, S4) those phase 2 held, each
+    run's kernels launched. Returns {run: launch counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import TierConfig
+    from repro_torch.core.engine import SiDAEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import n_moe_layers
+
+    cfg = nemotron_config(NEMOTRON_DEPTH)
+    m, slots = cfg.moe, NEMOTRON_SLOTS
+    routed = n_moe_layers(cfg) * m.num_experts * 3 * cfg.d_model * m.d_expert * 2
+    print(f"  blocks {''.join({'mamba2': 'M', 'moe': 'E', 'global': '*'}[k] for k in cfg.attn.layer_pattern)} "
+          f"of 52, width as published: d_model {cfg.d_model}, Mamba-2 {cfg.ssm.mamba2_heads} heads "
+          f"of {cfg.ssm.mamba2_head_dim} (state {cfg.ssm.state_dim}, {cfg.ssm.n_groups} groups), "
+          f"{m.num_experts} experts top-{m.top_k} of d_expert {m.d_expert} ({cfg.act}, "
+          f"GLU={cfg.glu}), vocab {cfg.vocab_size}; {slots} slots a MoE block; the store's "
+          f"routed stacks on the host {routed} bytes beside MemTotal {host_mem_total()} bytes")
+    t0 = time.perf_counter()
+    params, hp = card_seeded_model(cfg)
+    print(f"    seeded init (drawn on the card, kept on the host): {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(14)
+    batch, seq = NEMOTRON_BATCH
+    batches = [rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+               for _ in range(n_batches + 1)]
+    V, Vp = cfg.vocab_size, cfg.padded_vocab
+    tier = TierConfig(int4_slots=True, **FAMILY_TIER)
+    counts = {}
+    for run, kw in (("sida-bf16", {}), ("sida-int8", dict(quantized_slots=True)),
+                    ("sida-tiered", dict(quantized_slots=True, tier=tier))):
+        t0 = time.perf_counter()
+        eng = SiDAEngine(cfg, params, hp, slots_per_layer=slots, device="cuda", **kw)
+        setup = time.perf_counter() - t0
+        eng.serve(batches[:1], threaded=False)        # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        met = eng.serve(batches[1:], threaded=True)
+        got = ops.launches()
+        for i, r in enumerate(eng.results):
+            if r is None or tuple(r.shape) != (batch, seq, Vp) or not torch.isfinite(
+                    r[..., :V]).all():
+                raise SystemExit(f"chip_smoke: nemotron {run} batch {i}: logits "
+                                 f"{None if r is None else tuple(r.shape)} not finite / shape")
+        geom = (eng.store.S8, eng.store.S4)
+        print(f"    ({run}) slots={slots} (S8={geom[0]} S4={geom[1]}) setup_s={setup:.2f} "
+              f"{n_batches} x [{batch}, {seq}] throughput_tok_s={met.throughput:.1f} "
+              f"mean_latency_s={met.mean_latency:.5f} wall_s={met.wall_s:.4f}")
+        print(f"      launches {json.dumps(got)}")
+        if "tier" in kw and geom != family_tiers(cfg, slots):
+            raise SystemExit(f"chip_smoke: nemotron's tiered store has (S8, S4) = {geom}, "
+                             f"phase 2 checked {family_tiers(cfg, slots)}")
+        idle = [k for k in NEMOTRON_KERNELS[run] if got[k] == 0]
+        if idle:
+            raise SystemExit(f"chip_smoke: kernels never launched on nemotron's {run} run: {idle}")
+        counts[run] = got
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    return counts
+
+
 def host_mem_total() -> int:
     """MemTotal of /proc/meminfo, in bytes."""
     with open("/proc/meminfo") as fh:
@@ -4969,6 +5171,11 @@ def main() -> int:
           f"cross-attention)")
     records.update(check_recurrent_family_kernels())
     print(f"  (phase 13's forms took {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    print(f"  -- nemotron-3-nano's relu² experts (phase 10e's shapes: 128 slots, "
+          f"[{NEMOTRON_BATCH[0]}, {NEMOTRON_BATCH[1]}] batches)")
+    records.update(check_nemotron_kernels())
+    print(f"  (nemotron's shapes took {time.perf_counter() - t0:.1f} s)")
 
     print(f"== phase 3: batch path (SiDAEngine, switch-base-8 full width and depth, bf16) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -5067,6 +5274,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_counts = {name: dense_family_path(name, shape) for name, shape in DENSE_FAMILY}
     print(f"  phase 10d took {time.perf_counter() - t0:.1f} s")
+    print(f"== phase 10e: nemotron-3-nano at full width ({NEMOTRON_DEPTH} blocks, bf16) "
+          f"[{time.perf_counter() - t_start:.1f} s]")
+    t0 = time.perf_counter()
+    ncounts = nemotron_path()
+    print(f"  phase 10e took {time.perf_counter() - t0:.1f} s")
     t11 = time.perf_counter()
     print(f"== phase 11a: LM training (launch.train, switch-base-8 full width and depth, fp32) "
           f"[{time.perf_counter() - t_start:.1f} s]")
@@ -5249,6 +5461,15 @@ def main() -> int:
     for row, n in ep_rows.items():
         meta[row] = ("cuda", *sources[row.split("/")[0]])
         launches[row] = n
+    # phase 10e's rows: each its own nemotron run's launches of its kernel
+    nemotron_runs = {"expert_ffn/nemotron-batch": "sida-bf16",
+                     "expert_ffn_q/nemotron-batch": "sida-int8",
+                     "expert_ffn_q/nemotron-tiered-hot": "sida-tiered",
+                     "expert_ffn_q4/nemotron-tiered-warm": "sida-tiered"}
+    for row, *_ in nemotron_cases():
+        kernel = row.split("/")[0]
+        meta[row] = ("cuda", *sources[kernel])
+        launches[row] = ncounts[nemotron_runs[row]][kernel]
     # phase 13's forms: each row's launches of its own form in its run
     for row, rcfg, kernel, *_, window, _, form, run in recurrent_rows():
         key = (kernel, rcfg.n_heads, rcfg.n_kv_heads, rcfg.hd, window, 0.0) + ((form,) if form else ())

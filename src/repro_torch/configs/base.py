@@ -29,6 +29,11 @@ class MoEConfig:
     router_aux_coef: float = 0.01     # load-balance loss weight
     router_z_coef: float = 1e-3       # router z-loss weight
     moe_every: int = 1                # MoE layer stride (1 => every layer)
+    # the router's scores: "softmax" over all experts, or "sigmoid" a
+    # score (nemotron_h: top-k on score + a per-expert correction bias,
+    # leaf `router_bias`, the chosen scores renormalised)
+    score_func: str = "softmax"
+    routed_scaling_factor: float = 1.0  # the routed experts' weights times this
 
     @property
     def enabled(self) -> bool:
@@ -43,10 +48,11 @@ class AttnConfig:
     qk_norm: bool = False             # chameleon-style per-head q/k RMSNorm
     logit_softcap: float = 0.0        # gemma2 attention softcap (0 = off)
     window: int = 0                   # sliding-window size (0 = full)
-    # per-layer pattern cycled over depth, entries: "local" | "global", and
-    # in a jamba stack "mamba" (that sublayer's mixer is Mamba, not attention)
+    # per-layer pattern cycled over depth, entries: "local" | "global", in
+    # a jamba stack "mamba" (that sublayer's mixer is Mamba, not attention),
+    # and in a nemotron_h stack one a block: "mamba2" | "moe" | "global"
     layer_pattern: Tuple[str, ...] = ("global",)
-    rope_theta: float = 10000.0       # 0 = no positional encoding (jamba)
+    rope_theta: float = 10000.0       # 0 = no positional encoding (jamba, nemotron_h)
 
 
 @dataclass(frozen=True)
@@ -147,9 +153,16 @@ class QuantConfig:
 class SSMConfig:
     """State-space / recurrent block settings (mamba + xLSTM)."""
 
-    state_dim: int = 16               # mamba N (per-channel state)
+    state_dim: int = 16               # mamba N (per-channel state; Mamba-2's per group)
     conv_dim: int = 4                 # mamba depthwise conv width
     expand: int = 2                   # mamba inner expansion
+    # Mamba-2 (nemotron_h): d_inner = mamba2_heads * mamba2_head_dim; B and
+    # C in `n_groups` groups of state_dim, shared by heads / n_groups heads;
+    # the SSD's chunk length
+    mamba2_heads: int = 0
+    mamba2_head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 128
     # xLSTM: pattern over depth, entries: "m" (mLSTM) | "s" (sLSTM)
     xlstm_pattern: Tuple[str, ...] = ()
     xlstm_heads: int = 4
@@ -176,7 +189,7 @@ class ModelConfig:
     d_ff: int = 256                   # dense FFN hidden (ignored if pure-MoE)
     vocab_size: int = 1024
 
-    act: str = "silu"                 # "silu" | "gelu"
+    act: str = "silu"                 # "silu" | "gelu" | "relu" | "relu2" (relu squared)
     glu: bool = True                  # gated FFN (SwiGLU/GeGLU)
     norm_eps: float = 1e-6
     post_norm: bool = False           # gemma2 extra post-sublayer norms
@@ -193,7 +206,9 @@ class ModelConfig:
 
     # block layout: "attn" (transformer), "hymba" (parallel attn+ssm),
     # "xlstm" (recurrent-only stack), "jamba" (each sublayer's mixer is
-    # attention or Mamba as `attn.layer_pattern` says, then a dense or MoE FFN)
+    # attention or Mamba as `attn.layer_pattern` says, then a dense or MoE
+    # FFN), "nemotron_h" (each block one mixer, `x += mixer(norm(x))`: Mamba-2,
+    # MoE or attention as `attn.layer_pattern` says, no FFN after it)
     block_kind: str = "attn"
 
     # encoder-decoder (audio)
@@ -261,6 +276,8 @@ class ModelConfig:
         router = d * self.moe.num_experts if self.moe.enabled else 0
         if self.block_kind == "jamba":
             return self._jamba_param_counts(attn, dense_ffn, expert, router)
+        if self.block_kind == "nemotron_h":
+            return self._nemotron_param_counts(attn, expert, router)
         if self.block_kind == "xlstm":
             per_layer = 8 * d * d  # coarse: proj + gates
             moe_total = 0
@@ -304,6 +321,29 @@ class ModelConfig:
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         total += embed + d
         active = total - moe_total + moe_total // max(1, self.moe.num_experts) * self.moe.top_k
+        return {"total": total, "moe": moe_total, "active": active, "embed": embed}
+
+    def _nemotron_param_counts(self, attn: int, expert: int, router: int) -> dict:
+        """Block by block, each one norm and the mixer `layer_pattern` names:
+        attention; Mamba-2 (its in projection to z, xBC and dt, the conv
+        over xBC with its bias, dt_bias / A_log / D a head, the grouped
+        norm, the out projection); or the MoE (routed experts, shared
+        expert, router and its correction bias)."""
+        d, s, m = self.d_model, self.ssm, self.moe
+        di = s.mamba2_heads * s.mamba2_head_dim
+        conv = di + 2 * s.n_groups * s.state_dim
+        mamba2 = (d * (di + conv + s.mamba2_heads) + (s.conv_dim + 1) * conv
+                  + 3 * s.mamba2_heads + di + di * d)
+        shared = (3 if self.glu else 2) * d * m.d_shared * m.num_shared_experts
+        moe = expert * m.num_experts + shared + router + m.num_experts   # + the correction bias
+        total = moe_total = 0
+        for layer in range(self.n_layers):
+            kind = self.pattern_at(layer)
+            total += d + {"global": attn, "mamba2": mamba2, "moe": moe}[kind]
+            moe_total += expert * m.num_experts if kind == "moe" else 0
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total += embed + d
+        active = total - moe_total + moe_total // max(1, m.num_experts) * m.top_k
         return {"total": total, "moe": moe_total, "active": active, "embed": embed}
 
     def bytes_per_param(self) -> int:

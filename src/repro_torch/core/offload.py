@@ -553,6 +553,7 @@ class ExpertStore:
                         dtype=torch.float32, device=self.device,
                     )
             moe_p.pop("router", None)  # routers never participate in the forward
+            moe_p.pop("router_bias", None)
         self.serve_params = tree_map(lambda x: x.to(self.device), serve_params)
 
         # per (group, sub): expert -> global slot (`resident`, primaries),

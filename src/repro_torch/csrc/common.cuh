@@ -19,7 +19,7 @@ namespace rt {
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 // activation codes shared with repro_torch/kernels/expert_gemm.py
-enum Act : int { kSilu = 0, kGelu = 1, kRelu = 2 };
+enum Act : int { kSilu = 0, kGelu = 1, kRelu = 2, kRelu2 = 3 };
 
 // GEMM epilogue codes shared with repro_torch/kernels/expert_gemm.py: store
 // the product, activate it, or multiply it by the activated second product
@@ -47,7 +47,8 @@ __device__ __forceinline__ float activate(float h, int act) {
     const float c = 0.7978845608028654f;  // sqrt(2/pi)
     return 0.5f * h * (1.0f + tanhf(c * (h + 0.044715f * h * h * h)));
   }
-  return fmaxf(h, 0.0f);
+  const float r = fmaxf(h, 0.0f);
+  return act == kRelu2 ? r * r : r;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -213,7 +213,8 @@ __device__ __forceinline__ float activate_bf16(float h, int act) {
     const float c = 0.7978845608028654f;  // sqrt(2/pi), as rt::activate
     return 0.5f * h * (1.0f + tanh_approx(c * (h + 0.044715f * h * h * h)));
   }
-  return fmaxf(h, 0.0f);
+  const float r = fmaxf(h, 0.0f);
+  return act == rt::kRelu2 ? r * r : r;
 }
 
 // pins the accumulators at this point of the program, so the compiler moves

@@ -24,7 +24,7 @@ GELU_C = math.sqrt(2.0 / math.pi)
 
 def _act_and_grad(name: str, a: torch.Tensor):
     """(act(a), act'(a)) in fp32: tanh-approximate GELU (`jax.nn.gelu`'s
-    default), SiLU and ReLU (derivative 0 at 0, as JAX's)."""
+    default), SiLU, ReLU (derivative 0 at 0, as JAX's) and ReLU squared."""
     if name == "gelu":
         u = GELU_C * (a + 0.044715 * a ** 3)
         t = torch.tanh(u)
@@ -36,6 +36,9 @@ def _act_and_grad(name: str, a: torch.Tensor):
     if name == "relu":
         pos = (a > 0).to(a.dtype)
         return a * pos, pos
+    if name == "relu2":
+        r = torch.clamp(a, min=0)
+        return r * r, 2 * r
     raise ValueError(f"expert_ffn: unknown activation {name!r}")
 
 

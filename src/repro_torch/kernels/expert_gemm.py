@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import build
 
-ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
+ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2, "relu2": 3}
 _STORE, _ACT, _GLU = 0, 1, 2   # epilogue codes of rt_expert_gemm
 TILE = 64                      # d and F must be multiples of the kernel's N/K tiles
 SMS = 132                      # streaming multiprocessors of an H100 SXM

@@ -54,11 +54,18 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # Activation / FFN
 # ---------------------------------------------------------------------------
 
+
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """relu(x)², nemotron_h's expert activation (`mlp_hidden_act` "relu2")."""
+    return F.relu(x).square()
+
+
 # jax.nn.gelu defaults to the tanh approximation; torch's default is exact
 _ACTS = {
     "silu": F.silu,
     "gelu": functools.partial(F.gelu, approximate="tanh"),
     "relu": F.relu,
+    "relu2": relu2,
 }
 
 

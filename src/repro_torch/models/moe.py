@@ -13,7 +13,12 @@ The expert compute always goes through `kernels.ops`: `expert_ffn` over fp
 slot stacks, `expert_ffn_q` over int8-resident ones and `expert_ffn_q4` over
 the warm tier's int4 slots (the hand-written kernels for CUDA tensors, the
 plain versions for CPU tensors). `moe_decode` is the one-token-per-lane form
-the decode step calls. Shared experts are added once, after the combine.
+the decode step calls. Shared experts are added once, after the combine;
+they are gated (GLU) where the configuration's `glu` is. The router is a
+softmax top-k, or with `moe.score_func` "sigmoid" (nemotron_h) the top-k of
+sigmoid scores plus a correction bias, renormalised over the chosen; a
+`moe.routed_scaling_factor` other than 1 scales the routed weights, the
+router's or the table's α alike.
 
 Expert-parallel serving (`ctx` with an expert axis of M > 1 shards, and a
 routing override, the reference's `served`): `_dispatch_combine_ep` runs
@@ -51,11 +56,15 @@ def init_moe(gen, cfg: ModelConfig, device) -> dict:
         "w_gate": _stack_init(gen, m.num_experts, d, m.d_expert, dtype, device),
         "w_out": _stack_init(gen, m.num_experts, m.d_expert, d, dtype, device),
     }
+    if m.score_func == "sigmoid":
+        # the sigmoid router's score-correction bias: it moves the choice only
+        p["router_bias"] = normal(gen, (m.num_experts,), 0.01, torch.float32, device)
     if m.num_shared_experts:
         # the shared experts side by side: [d, n_shared * d_shared] and back
         ds = m.d_shared * m.num_shared_experts
         p["shared_w_in"] = dense_init(gen, d, ds, dtype, device)
-        p["shared_w_gate"] = dense_init(gen, d, ds, dtype, device)
+        if cfg.glu:
+            p["shared_w_gate"] = dense_init(gen, d, ds, dtype, device)
         p["shared_w_out"] = dense_init(gen, ds, d, dtype, device)
     return p
 
@@ -75,6 +84,18 @@ def router_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     w, ids = top_k(gates, k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     return ids, w
+
+
+def router_sigmoid_topk(logits: torch.Tensor, bias: Optional[torch.Tensor], k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[T, E] -> (ids [T, k], weights [T, k]): the k best sigmoid scores s
+    after the correction bias is added to them (`bias` [E], the choice
+    only), weighted s_i / Σ s over the k chosen. The routed scaling factor
+    is `moe_layer`'s."""
+    s = torch.sigmoid(logits.float())
+    _, ids = top_k(s if bias is None else s + bias.float(), k)
+    w = torch.gather(s, -1, ids)
+    return ids, w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
 
 
 def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -136,9 +157,14 @@ def moe_layer(
         router_logits, aux_loss, z_loss = None, zero, zero
     else:
         router_logits = xt.float() @ params["router"]
-        ids, w = router_topk(router_logits, m.top_k)
+        if m.score_func == "sigmoid":
+            ids, w = router_sigmoid_topk(router_logits, params.get("router_bias"), m.top_k)
+        else:
+            ids, w = router_topk(router_logits, m.top_k)
         aux_loss = load_balance_loss(router_logits, ids, m.num_experts)
         z_loss = router_z_loss(router_logits)
+    if m.routed_scaling_factor != 1.0:
+        w = w * m.routed_scaling_factor
 
     y = _dispatch_combine(params, xt, ids, w, cfg, dispatch, ctx,
                           served=routing_override is not None)
@@ -157,10 +183,14 @@ def moe_layer(
 
 def shared_experts(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The shared experts side by side, act(x Wg) * (x Wi) Wo, in x's dtype
-    (`src/repro/models/moe.py:164-167`)."""
+    (`src/repro/models/moe.py:164-167`); act(x Wi) Wo where they are not
+    gated (a configuration whose `glu` is false)."""
     h = x @ params["shared_w_in"]
-    g = act_fn(cfg.act)(x @ params["shared_w_gate"])
-    return (g * h) @ params["shared_w_out"]
+    if "shared_w_gate" in params:
+        h = act_fn(cfg.act)(x @ params["shared_w_gate"]) * h
+    else:
+        h = act_fn(cfg.act)(h)
+    return h @ params["shared_w_out"]
 
 
 def _dispatch_combine(params, xt, ids, w, cfg, dispatch, ctx=None, served=False):

@@ -1,5 +1,6 @@
-"""State-space / recurrent mixers: Mamba (hymba's parallel branch) and the
-xLSTM blocks (port of `repro/models/ssm.py`).
+"""State-space / recurrent mixers: Mamba (hymba's parallel branch), the
+xLSTM blocks (port of `repro/models/ssm.py`) and Mamba-2, which the JAX
+package does not have (a nemotron_h block's mixer, `mamba2_forward`).
 
 Every recurrence is first-order linear (h_t = a_t ⊙ h_{t-1} + b_t), or its
 max-plus form for the exponential gates' stabiliser. The full-sequence
@@ -13,7 +14,9 @@ chunks while the inner chunk runs either
     bits), or
   * mode="scan": the sequential oracle, gates computed a step at a time.
 
-Decode paths are one O(1)-state update. No Pallas kernel lies on this
+Mamba-2's full-sequence path is the SSD's chunked form on batched matrix
+products (`ssd_chunked`), not a scan. Decode paths are one O(1)-state
+update. No Pallas kernel lies on this
 path: the JAX package runs it in plain `jnp`, and the port in plain
 PyTorch on every device. Jamba's Mamba (`block_kind` "jamba") adds RMSNorms
 on Δ, B and C (leaves `dt_norm`, `b_norm`, `c_norm`) after the x projection;
@@ -240,6 +243,167 @@ def mamba_decode(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig):
     h = a * state["h"] + b
     y = torch.einsum("bdn,bn->bd", h, Cm) + p["D"] * xs.float()
     y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], {"h": h, "conv": conv[:, 1:]}
+
+
+# ===========================================================================
+# Mamba-2 (the SSD, arXiv:2405.21060): a nemotron_h block's mixer
+# ===========================================================================
+
+
+def _mamba2_sizes(cfg: ModelConfig):
+    """(heads H, head dim P, groups G, state N, d_inner H·P, conv channels
+    H·P + 2·G·N)."""
+    s = cfg.ssm
+    H, P, G, N = s.mamba2_heads, s.mamba2_head_dim, s.n_groups, s.state_dim
+    return H, P, G, N, H * P, H * P + 2 * G * N
+
+
+def init_mamba2(gen, cfg: ModelConfig, device) -> dict:
+    """Mamba-2's leaves: `in_proj` d -> [z (di), xBC (di + 2·G·N), dt (H)],
+    the depthwise conv over xBC (`conv_w` [K, channels], `conv_b`), a head's
+    `dt_bias`, `A_log` and `D` (float32), the grouped norm's gain `norm` and
+    `out_proj` di -> d. Δ's initial value is log-uniform in [1e-3, 0.1],
+    floored at 1e-4, and `dt_bias` its softplus inverse; A = -U[1, 16]."""
+    H, _, G, N, di, ch = _mamba2_sizes(cfg)
+    d, K = cfg.d_model, cfg.ssm.conv_dim
+    dtype = getattr(torch, cfg.dtype)
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    conv = torch.randn((K, ch), generator=gen, **f32) * K ** -0.5
+    u = torch.rand((H,), generator=gen, **f32)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3))).clamp(min=1e-4)
+    A = 1.0 + 15.0 * torch.rand((H,), generator=gen, **f32)
+    return {
+        "in_proj": dense_init(gen, d, di + ch + H, dtype, device),
+        "conv_w": conv.to(dtype=dtype, device=device),
+        "conv_b": torch.zeros((ch,), dtype=dtype, device=device),
+        "dt_bias": (dt + torch.log(-torch.expm1(-dt))).to(device),
+        "A_log": torch.log(A).to(device),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "norm": init_rmsnorm(di, dtype, device),
+        "out_proj": dense_init(gen, di, d, dtype, device),
+    }
+
+
+def _gated_norm(p: dict, y: torch.Tensor, z: torch.Tensor, groups: int, eps: float,
+                dtype) -> torch.Tensor:
+    """RMSNorm over each of the `groups` groups of y ⊙ silu(z) [..., di], in
+    float32, then the (1 + gain) of the port's norms; returned in `dtype`."""
+    g = (y.float() * F.silu(z.float())).unflatten(-1, (groups, -1))
+    g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
+    return (g.flatten(-2) * (1.0 + p["scale"].float())).to(dtype)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The SSD's chunked form of h_t = exp(Δ_t A) h_{t-1} + Δ_t x_t ⊗ B_t,
+    y_t = h_t C_t, from h_0 = 0, on batched matrix products in float32.
+    x [b, S, H, P], dt (Δ) [b, S, H], A [H], Bm / Cm [b, S, G, N] with head
+    h in group h // (H / G) -> y [b, S, H, P]. A sequence that is not a
+    whole number of chunks is padded with Δ = 0 (no decay, no input) at its
+    end. With a_t = Δ_t A and its running sum A_t inside a chunk:
+
+    1. inside a chunk, y_l = Σ_{s<=l} (C_l · B_s) exp(A_l - A_s) Δ_s x_s;
+    2. a chunk's own state, Σ_s exp(A_end - A_s) B_s ⊗ Δ_s x_s;
+    3. the state passed into chunk z, Σ_{c<z} exp(A over chunks c+1 .. z-1)
+       times chunk c's own state;
+    4. its read-out, y_l += exp(A_l) C_l · (the state passed in)."""
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R = H // G
+    pad = -S % chunk
+    if pad:
+        x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
+    c, L = (S + pad) // chunk, chunk
+    xd = (x * dt[..., None]).view(b, c, L, G, R, P)                  # Δ x
+    acum = (dt * A).view(b, c, L, H).cumsum(2)                       # A_l inside a chunk
+    Bc, Cc = Bm.view(b, c, L, G, N), Cm.view(b, c, L, G, N)
+    # 1. [b, c, H, l, s]: exp(A_l - A_s) on and below the diagonal, 0 above
+    seg = acum.transpose(2, 3)[..., :, None] - acum.transpose(2, 3)[..., None, :]
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(causal, seg, torch.full_like(seg, -math.inf)))
+    cb = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)                   # shared by a group's heads
+    m = cb[:, :, :, None] * decay.view(b, c, G, R, L, L)
+    y = m @ xd.permute(0, 1, 3, 4, 2, 5)                              # [b, c, G, R, l, P]
+    # 2. each chunk's own state [b, c, G, N, R, P]
+    w = torch.exp(acum[:, :, -1:] - acum).view(b, c, L, G, R, 1)
+    own = torch.einsum("bcsgn,bcsgrp->bcgnrp", Bc, xd * w)
+    # 3. the state passed into each chunk: [b, z, c, H] over c < z
+    tot = acum[:, :, -1].cumsum(1)                                   # through chunk c
+    gap = (tot - acum[:, :, -1])[:, :, None] - tot[:, None]          # over c+1 .. z-1
+    before = torch.ones((c, c), dtype=torch.bool, device=x.device).tril(-1)[..., None]
+    carry = torch.exp(torch.where(before, gap, torch.full_like(gap, -math.inf)))
+    h_in = torch.einsum("bzcgr,bcgnrp->bzgnrp", carry.view(b, c, c, G, R), own)
+    # 4. its read-out
+    y_off = torch.einsum("bclgn,bcgnrp->bclgrp", Cc, h_in)
+    y = y.permute(0, 1, 4, 2, 3, 5) + y_off * torch.exp(acum).view(b, c, L, G, R, 1)
+    return y.reshape(b, c * L, H, P)[:, :S]
+
+
+def _ssd(p: dict, xbc: torch.Tensor, dt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """From the conv's output xBC [b, S, ch] and dt [b, S, H] to y [b, S,
+    di] before the gated norm: Δ = softplus(dt + dt_bias), the chunked SSD
+    over x with the group's B and C, and the skip D x, in float32."""
+    H, P, G, N, di, _ = _mamba2_sizes(cfg)
+    b, S, _ = xbc.shape
+    xs, Bm, Cm = xbc.float().split([di, G * N, G * N], dim=-1)
+    delta = F.softplus(dt.float() + p["dt_bias"])
+    x = xs.view(b, S, H, P)
+    y = ssd_chunked(x, delta, -torch.exp(p["A_log"]), Bm.view(b, S, G, N), Cm.view(b, S, G, N),
+                    cfg.ssm.chunk_size)
+    return (y + p["D"][:, None] * x).reshape(b, S, di)
+
+
+def mamba2_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   tel: Optional["Telemetry"] = None) -> torch.Tensor:
+    """Full-sequence Mamba-2 mixer, x [B, S, d] -> [B, S, d]:
+
+        [z, xBC, dt] = x W_in;  xBC = silu(causal depthwise conv(xBC) + b)
+        [x, B, C] = xBC  (x in H heads of P, B and C in G groups of N;
+                          H / G heads share a group)
+        Δ = softplus(dt + dt_bias);  A = -exp(A_log)  (one scalar a head)
+        h_t = exp(Δ_t A) h_{t-1} + Δ_t x_t ⊗ B_t;  y_t = h_t C_t + D x_t
+        out = RMSNorm_grouped(y ⊙ silu(z)) W_out  (G groups of di / G)
+
+    the recurrence in `ssd_chunked`'s form at the configuration's chunk.
+    With a `tel` that records spans, the span `model.ssd` (its device
+    seconds counter `ssd_device_s`) runs from the conv's output and dt to y
+    before the gated norm."""
+    H, _, G, _, di, ch = _mamba2_sizes(cfg)
+    z, xbc, dt = (x @ p["in_proj"]).split([di, ch, H], dim=-1)
+    xbc = _mamba_conv_full(p, xbc)
+    with device_span(tel, "model.ssd", "ssd_device_s", x):
+        y = _ssd(p, xbc, dt, cfg)
+    return _gated_norm(p["norm"], y, z, G, cfg.norm_eps, x.dtype) @ p["out_proj"]
+
+
+def mamba2_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    """The SSM state h [B, H, P, N] in float32 and the conv's window of the
+    last K - 1 xBC inputs [B, K - 1, ch] in the model dtype."""
+    H, P, _, N, _, ch = _mamba2_sizes(cfg)
+    return {
+        "h": torch.zeros((batch, H, P, N), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm.conv_dim - 1, ch), dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig):
+    """One-token Mamba-2 step, the recurrence at one position. x: [B, d] ->
+    (y [B, d], state)."""
+    H, P, G, N, di, ch = _mamba2_sizes(cfg)
+    B = x.shape[0]
+    z, xbc, dt = (x @ p["in_proj"]).split([di, ch, H], dim=-1)
+    conv = torch.cat([state["conv"], xbc[:, None]], dim=1)            # [B, K, ch]
+    xbc = F.silu(torch.einsum("bkc,kc->bc", conv, p["conv_w"]) + p["conv_b"])
+    xs, Bm, Cm = xbc.float().split([di, G * N, G * N], dim=-1)
+    delta = F.softplus(dt.float() + p["dt_bias"])                     # [B, H]
+    xh = xs.view(B, H, P)
+    Bh = Bm.view(B, G, 1, N).expand(B, G, H // G, N).reshape(B, H, N)
+    Ch = Cm.view(B, G, 1, N).expand(B, G, H // G, N).reshape(B, H, N)
+    a = torch.exp(delta * -torch.exp(p["A_log"]))
+    h = a[..., None, None] * state["h"] + (delta[..., None] * xh)[..., None] * Bh[:, :, None]
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch) + p["D"][:, None] * xh
+    y = _gated_norm(p["norm"], y.reshape(B, di), z, G, cfg.norm_eps, x.dtype)
     return y @ p["out_proj"], {"h": h, "conv": conv[:, 1:]}
 
 

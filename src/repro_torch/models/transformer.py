@@ -6,8 +6,11 @@ recurrent states and cross-attention caches, and the one-token
 and Mamba branches, xLSTM's mLSTM / sLSTM cells (`models/ssm.py`), jamba's
 sublayers whose mixer is attention or Mamba by `attn.layer_pattern` (each
 then a dense or MoE FFN; its cache a K/V ring on the attention sublayers
-and a Mamba state on the others), and the encoder-decoder stack with
-cross-attention (seamless).
+and a Mamba state on the others), nemotron_h's blocks of one mixer each
+(Mamba-2, MoE or attention by `attn.layer_pattern`, `x += mixer(norm(x))`;
+its cache a Mamba-2 state on the Mamba-2 blocks, a K/V ring on the
+attention ones and nothing on the MoE ones), and the encoder-decoder stack
+with cross-attention (seamless).
 
 Layers are grouped into repeating periods (Switch's dense/MoE pair, xLSTM's
 m/s pair) and each sublayer's params are stacked over the groups, as in the
@@ -23,7 +26,8 @@ shard at a time (`models/moe.py`). The decode attention reads it too: a dry
 run's decode context splits the cache's sequence (`decode_seq_axis`). The paged cache and the chunked prefill
 take attention-family decoder-only archs, as the reference's do. `forward`
 takes a `Telemetry` (`telemetry=`): with spans on, each jamba Mamba mixer is
-the span `model.mamba`, timed on the device too (`ssm.device_span`).
+the span `model.mamba` and each nemotron_h Mamba-2 mixer `model.mamba2`,
+timed on the device too (`ssm.device_span`).
 """
 from __future__ import annotations
 
@@ -68,6 +72,8 @@ def period(cfg: ModelConfig) -> int:
             p = _lcm(p, cfg.moe.moe_every)
     elif cfg.block_kind == "xlstm":
         p = _lcm(p, max(1, len(cfg.ssm.xlstm_pattern)))
+    elif cfg.block_kind == "nemotron_h":
+        p = len(cfg.attn.layer_pattern)
     return p
 
 
@@ -78,6 +84,9 @@ def sub_kind(cfg: ModelConfig, sub: int) -> Dict[str, Any]:
         return {"kind": "xlstm", "cell": pat[sub % len(pat)]}
     if cfg.block_kind == "hymba":
         return {"kind": "hymba", "moe": False, "window": cfg.attn.window}
+    if cfg.block_kind == "nemotron_h":
+        mixer = cfg.pattern_at(sub)
+        return {"kind": "nemotron_h", "mixer": mixer, "moe": mixer == "moe", "window": 0}
     is_moe = cfg.moe.enabled and (sub % cfg.moe.moe_every == cfg.moe.moe_every - 1)
     if cfg.block_kind == "jamba":
         return {"kind": "jamba", "mixer": cfg.pattern_at(sub), "moe": is_moe, "window": 0}
@@ -89,8 +98,12 @@ def _moe_subs(cfg: ModelConfig):
 
 
 def n_moe_layers(cfg: ModelConfig) -> int:
+    """MoE layers over the whole depth: every `moe_every`-th, or in a
+    nemotron_h stack the blocks the pattern names "moe"."""
     if not cfg.moe.enabled:
         return 0
+    if cfg.block_kind == "nemotron_h":
+        return sum(cfg.pattern_at(layer) == "moe" for layer in range(cfg.n_layers))
     return cfg.n_layers // cfg.moe.moe_every
 
 
@@ -107,6 +120,14 @@ def _init_sublayer(gen, cfg: ModelConfig, sub: int, device, cross: bool = False)
     if sk["kind"] == "xlstm":
         init = ssm_lib.init_mlstm if sk["cell"] == "m" else ssm_lib.init_slstm
         p["mixer"] = init(gen, cfg, device)
+        return p
+    if sk["kind"] == "nemotron_h":   # the one mixer, no second norm and no FFN
+        if sk["mixer"] == "mamba2":
+            p["mamba2"] = ssm_lib.init_mamba2(gen, cfg, device)
+        elif sk["moe"]:
+            p["moe"] = init_moe(gen, cfg, device)
+        else:
+            p["attn"] = init_attention(gen, cfg, device)
         return p
     if sk.get("mixer") == "mamba":
         p["mamba"] = ssm_lib.init_mamba(gen, cfg, device)
@@ -172,6 +193,32 @@ def _hymba_fuse(bp, a, mmb, cfg):
                   + rmsnorm(bp["mamba_norm"], mmb, cfg.norm_eps))
 
 
+def _mamba2_mixer(p, h, cfg, telemetry=None):
+    """A nemotron_h Mamba-2 block's mixer: the span `model.mamba2`, its
+    device seconds counter `mamba2_device_s`, its calls `mamba2_calls`."""
+    with ssm_lib.device_span(telemetry, "model.mamba2", "mamba2_device_s", h,
+                             calls="mamba2_calls"):
+        return ssm_lib.mamba2_forward(p, h, cfg, telemetry)
+
+
+def _nemotron_full(bp, x, cfg, sub, routing_override, collect_kv, ctx, telemetry):
+    """A nemotron_h block over the sequence, x + mixer(RMSNorm(x)): (x, aux)
+    with the MoE's router outputs, or an attention block's K/V under
+    `collect_kv`."""
+    aux: dict = {}
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    if "mamba2" in bp:
+        y = _mamba2_mixer(bp["mamba2"], h, cfg, telemetry)
+    elif "moe" in bp:
+        y, moe_aux = moe_layer(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
+        aux.update(moe_aux)
+    elif collect_kv:
+        y, aux["kv"] = attend_full(bp["attn"], h, cfg, sub, return_kv=True)
+    else:
+        y = attend_full(bp["attn"], h, cfg, sub)
+    return x + y, aux
+
+
 def _mamba_mixer(p, h, cfg, scan_mode: str, telemetry=None):
     """A jamba Mamba sublayer's mixer: the span `model.mamba`, its device
     seconds counter `mamba_device_s`, its calls `mamba_calls`."""
@@ -217,6 +264,8 @@ def _apply_sublayer_full(bp, x, cfg, sub, routing_override, collect_kv, ctx=None
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         fwd = ssm_lib.mlstm_forward if sk["cell"] == "m" else ssm_lib.slstm_forward
         return x + fwd(bp["mixer"], h, cfg, scan_mode), aux
+    if sk["kind"] == "nemotron_h":
+        return _nemotron_full(bp, x, cfg, sub, routing_override, collect_kv, ctx, telemetry)
     x, h = attention_half(bp, x, cfg, sub, aux if collect_kv else None, causal, enc_out,
                           scan_mode, telemetry)
     if sk["moe"]:
@@ -377,7 +426,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
     {"pos": [B] int32, "sub{s}": entry}, where an attention sublayer's entry
     holds the ring {"k", "v": [G, B, Sc, K, D]}, a hymba sublayer's also its
     Mamba state {"state": {"h", "conv"}}, a jamba Mamba sublayer's only that
-    state, an xLSTM cell's only its state
+    state, a nemotron_h Mamba-2 block's only its state {"h", "conv"} and a
+    nemotron_h MoE block's nothing ({}), an xLSTM cell's only its state
     ({"C", "n", "m"} or {"c", "n", "m"}), each state leaf stacked over the
     G groups; an encoder-decoder config adds {"cross_k", "cross_v": [G, B,
     enc_len, K, D]} to each decoder sublayer (the encoder's K/V, filled by
@@ -395,8 +445,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
     for s in range(per):
         sk = sub_kind(cfg, s)
         state = _init_state(cfg, s, batch, device)
-        if sk["kind"] == "xlstm" or sk.get("mixer") == "mamba":   # a state and no ring
+        if sk["kind"] == "xlstm" or sk.get("mixer") in ("mamba", "mamba2"):   # no ring
             cache[f"sub{s}"] = {"state": _stacked(state, n_groups)}
+            continue
+        if sk["kind"] == "nemotron_h" and sk["moe"]:   # a MoE block caches nothing
+            cache[f"sub{s}"] = {}
             continue
         Sc = cache_len(cfg, s, seq_budget)
         entry = {"k": zeros(Sc), "v": zeros(Sc)}
@@ -412,13 +465,16 @@ def init_cache(cfg: ModelConfig, batch: int, seq_budget: int, device: DeviceLike
 
 def _init_state(cfg: ModelConfig, sub: int, batch: int, device) -> Optional[dict]:
     """Sublayer `sub`'s initial recurrent state for one group (an xLSTM
-    cell's, or the Mamba mixer's of jamba and hymba), None without one."""
+    cell's, the Mamba mixer's of jamba and hymba, or nemotron_h's Mamba-2
+    mixer's), None without one."""
     sk = sub_kind(cfg, sub)
     if sk["kind"] == "xlstm":
         init = ssm_lib.mlstm_init_state if sk["cell"] == "m" else ssm_lib.slstm_init_state
         return init(cfg, batch, device)
     if sk.get("mixer") == "mamba" or sk["kind"] == "hymba":
         return ssm_lib.mamba_init_state(cfg, batch, getattr(torch, cfg.dtype), device)
+    if sk.get("mixer") == "mamba2":
+        return ssm_lib.mamba2_init_state(cfg, batch, getattr(torch, cfg.dtype), device)
     return None
 
 
@@ -488,6 +544,15 @@ def _apply_sublayer_decode(bp, ent, x, pos, cfg, sub, routing_override, page_tab
         dec = ssm_lib.mlstm_decode if sk["cell"] == "m" else ssm_lib.slstm_decode
         y, st = dec(bp["mixer"], h, ent["state"], cfg)
         _write_state(ent["state"], st)
+        return x + y
+    if sk["kind"] == "nemotron_h":
+        if "mamba2" in bp:
+            y, st = ssm_lib.mamba2_decode(bp["mamba2"], h, ent["state"], cfg)
+            _write_state(ent["state"], st)
+        elif "moe" in bp:
+            y = moe_decode(bp["moe"], h, cfg, routing_override=routing_override, ctx=ctx)
+        else:
+            y, _, _ = attend_decode(bp["attn"], h, ent["k"], ent["v"], pos, cfg, sub, ctx=ctx)
         return x + y
     if "attn" not in bp:   # a jamba Mamba sublayer
         a, st = ssm_lib.mamba_decode(bp["mamba"], h, ent["state"], cfg)

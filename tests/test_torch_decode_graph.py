@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.configs.jamba2_mini import CONFIG as JAMBA
+from repro_torch.configs.nemotron3_nano import CONFIG as NEMOTRON
 from repro_torch.core import decode_engine
 from repro_torch.core.decode_engine import GRAPH_WARM_STEPS, RingStep, SiDADecodeEngine
 from repro_torch.core.hash_fn import init_hash_fn
@@ -38,6 +39,21 @@ def _jamba_tiny():
         JAMBA, n_layers=8, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=128,
         vocab_size=300, moe=dataclasses.replace(JAMBA.moe, num_experts=4, d_expert=128),
         dtype="float32")
+
+
+def _nemotron_tiny():
+    """nemotron_h's first 13 blocks (Mamba-2, MoE and attention, one mixer
+    a block) at tiny widths."""
+    return dataclasses.replace(
+        NEMOTRON, n_layers=13, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32, vocab_size=300,
+        moe=dataclasses.replace(NEMOTRON.moe, num_experts=4, top_k=2, d_expert=64, d_shared=64),
+        attn=dataclasses.replace(NEMOTRON.attn, layer_pattern=NEMOTRON.attn.layer_pattern[:13]),
+        ssm=dataclasses.replace(NEMOTRON.ssm, state_dim=16, mamba2_heads=4, mamba2_head_dim=16,
+                                n_groups=2, chunk_size=16),
+        dtype="float32")
+
+
+TINY = {"jamba": _jamba_tiny, "nemotron": _nemotron_tiny}
 
 
 def _model(cfg, device="cpu", d_h=16, seed=0):
@@ -61,9 +77,9 @@ def test_graph_engages_only_on_cuda_rings_without_speculation(device, paged, spe
 
 
 @pytest.mark.parametrize("name", ["switch-base-8", "hymba-1.5b", "xlstm-125m",
-                                  "seamless-m4t-medium", "jamba"])
+                                  "seamless-m4t-medium", "jamba", "nemotron"])
 def test_reset_cache_gives_init_cache_back_in_place(name):
-    cfg = _jamba_tiny() if name == "jamba" else get_config(name).reduced()
+    cfg = TINY[name]() if name in TINY else get_config(name).reduced()
     kw = {"enc_len": 5} if cfg.enc_dec else {}
     cache = init_cache(cfg, 3, 8, device="cpu", **kw)
     want = init_cache(cfg, 3, 8, device="cpu", **kw)
@@ -78,12 +94,12 @@ def test_reset_cache_gives_init_cache_back_in_place(name):
         assert got.dtype == ref.dtype and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("arch", ["switch", "jamba"])
+@pytest.mark.parametrize("arch", ["switch", "jamba", "nemotron"])
 def test_back_to_back_calls_equal_fresh_engines(arch):
     """One engine's second call starts from its kept ring, reset in place:
     its tokens are a fresh engine's. Every expert is resident, so the slot
     placement the first call leaves cannot move a token."""
-    cfg = _jamba_tiny() if arch == "jamba" else get_config("switch-base-8").reduced()
+    cfg = TINY[arch]() if arch in TINY else get_config("switch-base-8").reduced()
     params, hp = _model(cfg)
     E = cfg.moe.num_experts
     starts = [np.array([3, 1, 4], np.int32), np.array([2, 7, 1], np.int32)]

@@ -25,6 +25,7 @@ from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs.base import get_config
 from repro_torch.models import moe as tmoe
 from repro_torch.models.transformer import decode_step, forward, init_cache, init_params
+from test_torch_isolation import PORT_ONLY, split_port_only
 
 torch.set_num_threads(2)
 TOL = 1e-4
@@ -96,7 +97,8 @@ def test_narrow_configs_keep_what_reduced_cuts():
     assert q3.n_heads // q3.n_kv_heads == 16 and q3.attn.qk_norm and q3.moe.top_k == 8
     for name in NARROW:
         j, t = config_pair(name)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        shared, extra = split_port_only(dataclasses.asdict(t), dataclasses.asdict(j))
+        assert shared == dataclasses.asdict(j) and extra == PORT_ONLY
 
 
 @pytest.mark.parametrize("name", ATTN_ARCHS + NARROW)
